@@ -74,3 +74,25 @@ def perspective_projection(znear, zfar, fov_x, fov_y) -> torch.Tensor:
     P[..., 2, 3] = -(zf * zn) / (zf - zn)
     P[..., 3, 2] = 1.0
     return P.transpose(-1, -2).contiguous()
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] scalar-first quaternions (normalized here, differentiably,
+    as reference `general_utils.py:78-99`) → [..., 3, 3] rotations."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        (1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y - w * z), 2.0 * (x * z + w * y)),
+        (2.0 * (x * y + w * z), 1.0 - 2.0 * (x * x + z * z), 2.0 * (y * z - w * x)),
+        (2.0 * (x * z - w * y), 2.0 * (y * z + w * x), 1.0 - 2.0 * (x * x + y * y)),
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def inverse_sigmoid(x):
+    """log(x / (1-x)), the inverse of the opacity activation
+    (`general_utils.py:18`); tensors stay tensors, numbers become numpy."""
+    if isinstance(x, torch.Tensor):
+        return torch.log(x / (1.0 - x))
+    x = np.asarray(x, np.float32)
+    return np.log(x / (np.float32(1.0) - x))

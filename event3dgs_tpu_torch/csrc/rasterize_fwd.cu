@@ -18,6 +18,11 @@
 // Early stop is per pixel: a pixel is done once logT < ln(1e-6)
 // (LOG_T_SKIP); the block stops when all its pixels are done.  The TPU
 // kernel skipped whole chunks instead; what either drops weighs < 1e-6.
+// Each pixel's stop index (one past the last instance of the tile's list it
+// evaluated; the tile's count if it never stopped) is written to `stop_out`,
+// the reference CUDA rasterizer's n_contrib: the backward kernel (K2,
+// rasterize_bwd.cu) starts each pixel there, so both passes see the same
+// (pixel, instance) pairs.
 //
 // Numerics: expf and log1pf (no fast-math intrinsics), built with
 // -fmad=false, so the result rounds like the plain PyTorch version.
@@ -43,7 +48,8 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
                          const int* __restrict__ tile_counts,
                          const float* __restrict__ feat, int tiles_x,
                          int width, int height, float* __restrict__ rgb_out,
-                         float* __restrict__ logt_out) {
+                         float* __restrict__ logt_out,
+                         int* __restrict__ stop_out) {
   __shared__ float s_mx[THREADS], s_my[THREADS], s_ca[THREADS], s_cb[THREADS],
       s_cc[THREADS], s_op[THREADS], s_r[THREADS], s_g[THREADS], s_b[THREADS];
 
@@ -54,7 +60,11 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
   const int ly0 = threadIdx.x / TILE;
   const float px = (float)lx;
 
+  const int start = tile_offsets[tile];
+  const int count = tile_counts[tile];
+
   float logt[ROWS], cr[ROWS], cg[ROWS], cb[ROWS];
+  int stop[ROWS];
   bool done[ROWS];
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
@@ -62,10 +72,8 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
     cr[k] = cg[k] = cb[k] = 0.0f;
     // pixels of the padded tile grid outside the image are never written
     done[k] = ox + lx >= width || oy + ly0 + 8 * k >= height;
+    stop[k] = count;
   }
-
-  const int start = tile_offsets[tile];
-  const int count = tile_counts[tile];
   for (int batch = 0; batch < count; batch += THREADS) {
     bool all_done = true;
 #pragma unroll
@@ -106,7 +114,10 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
         cg[k] = cg[k] + w * s_g[j];
         cb[k] = cb[k] + w * s_b[j];
         logt[k] = logt[k] + log1pf(-alpha);
-        done[k] = logt[k] < LOG_T_SKIP;
+        if (logt[k] < LOG_T_SKIP) {
+          done[k] = true;
+          stop[k] = batch + j + 1;
+        }
       }
     }
   }
@@ -120,6 +131,7 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
       rgb_out[3 * p + 1] = cg[k];
       rgb_out[3 * p + 2] = cb[k];
       logt_out[p] = logt[k];
+      stop_out[p] = stop[k];
     }
   }
 }
@@ -131,10 +143,11 @@ extern "C" int e3d_composite_forward(const int* inst_gauss,
                                      const int* tile_counts, const float* feat,
                                      int num_tiles, int tiles_x, int width,
                                      int height, float* rgb_out,
-                                     float* logt_out, cudaStream_t stream) {
+                                     float* logt_out, int* stop_out,
+                                     cudaStream_t stream) {
   if (num_tiles <= 0) return 0;
   composite_forward_kernel<<<num_tiles, THREADS, 0, stream>>>(
       inst_gauss, tile_offsets, tile_counts, feat, tiles_x, width, height,
-      rgb_out, logt_out);
+      rgb_out, logt_out, stop_out);
   return (int)cudaGetLastError();
 }

@@ -277,3 +277,21 @@ def load_images_array(
         ))
     return np.stack(imgs)
 
+
+def camera_to_json(idx: int, ci: CameraInfo) -> dict:
+    """cameras.json entry (reference `camera_utils.py:62-82`)."""
+    rt = np.zeros((4, 4))
+    rt[:3, :3] = ci.R.T
+    rt[:3, 3] = ci.T
+    rt[3, 3] = 1.0
+    c2w = np.linalg.inv(rt)
+    return {
+        "id": idx,
+        "img_name": ci.image_name,
+        "width": ci.width,
+        "height": ci.height,
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in c2w[:3, :3]],
+        "fy": fov2focal(ci.fov_y, ci.height),
+        "fx": fov2focal(ci.fov_x, ci.width),
+    }

@@ -1,9 +1,11 @@
-"""Gaussian splatting ops (forward).
+"""Gaussian splatting ops, differentiable.
 
 - ``projection``: frustum cull + EWA 3D→2D covariance projection
 - ``binning``: per-tile depth-ordered instance lists (kernels K4, K5, K6
   in ``expand`` and ``sort_tiles``)
-- ``rasterize_tiled``: forward compositing (kernel K1)
+- ``rasterize_tiled``: forward compositing (kernel K1), backward
+  compositing (K2) and the autograd Function around them
+- ``segscan``: per-Gaussian gradient sums (kernel K3)
 - ``rasterize_reference``: slow compositing oracle
 - ``render``: camera + model → image
 - ``kernels``: build and bind the CUDA sources of ``csrc/``

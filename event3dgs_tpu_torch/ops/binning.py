@@ -18,7 +18,11 @@ port's own layout: per-tile contiguous ranges (``tile_offsets``,
    stable rank (K6) — keeps each tile's instances in depth order.
 
 Tiles are 32×32 pixels.  Binning produces index data only; no gradient
-flows through it.
+flows through it.  Besides the per-tile lists, :class:`Binning` keeps what
+the backward reduction (kernel K3, ``ops/segscan.py``) needs to map
+per-slot gradient rows back to Gaussians: each expansion instance's slot
+(``dest``), the depth-rank instance ranges (``offsets``) and the Gaussian
+of each rank (``order``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,11 @@ class Binning:
     overflow: torch.Tensor  # [] instances dropped past the cap
     num_tiles_x: int
     num_tiles_y: int
+    # [cap] int32 slot of each expansion instance (K6's output); cap for
+    # instances the ellipse cull dropped or that lie past the live count
+    dest: torch.Tensor
+    offsets: torch.Tensor  # [N+1] int32 instance-range starts per depth rank
+    order: torch.Tensor  # [N] int32 gaussian id per depth rank
 
 
 class DepthTables(NamedTuple):
@@ -123,6 +132,11 @@ def count_instances(mean2d, radius, valid, width: int, height: int,
     )
     counts = torch.clamp(x1 - x0, min=0) * torch.clamp(y1 - y0, min=0)
     return torch.where(valid, counts, 0).sum()
+
+
+def suggest_instance_cap(total: int, margin: float = 1.3) -> int:
+    """Round an observed instance count up by ``margin`` to a 1024 multiple."""
+    return max(-(-int(int(total) * margin) // 1024) * 1024, 1024)
 
 
 def depth_tables(mean2d, depth, radius, valid, width: int, height: int,
@@ -215,4 +229,7 @@ def bin_gaussians(
         overflow=overflow,
         num_tiles_x=tiles_x,
         num_tiles_y=tiles_y,
+        dest=dest,
+        offsets=tables.offsets,
+        order=tables.order,
     )

@@ -9,8 +9,9 @@ the source and the flags, so a changed source is rebuilt.  Importing this
 module never runs ``nvcc``.
 
 ``-fmad=false`` is part of the build: the expansion kernel's ellipse cull
-and the compositing kernel's alpha must round like their plain PyTorch
-versions, which run one rounding per operation.
+and the compositing kernels' alpha must round like their plain PyTorch
+versions, which run one rounding per operation, and the backward kernel
+must skip exactly the (pixel, instance) pairs the forward kernel skipped.
 """
 
 from __future__ import annotations
@@ -50,8 +51,20 @@ SIGNATURES = {
     },
     "rasterize_fwd": {
         # inst_gauss, tile_offsets, tile_counts, feat, num_tiles, tiles_x,
-        # width, height, rgb_out, logt_out, stream
-        "e3d_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        # width, height, rgb_out, logt_out, stop_out, stream
+        "e3d_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                  _P],
+    },
+    "rasterize_bwd": {
+        # inst_gauss, tile_offsets, tile_counts, feat, num_tiles, tiles_x,
+        # width, height, g_rgb, g_logt, logt_final, stop, rows_out, stream
+        "e3d_composite_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                   _P, _P, _P],
+    },
+    "segsum": {
+        # rows, n_rows, width, dest, starts, ends, n_seg, limit, order, out,
+        # stream
+        "e3d_segment_sums": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
     },
 }
 

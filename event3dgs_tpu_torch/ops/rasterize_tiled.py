@@ -1,19 +1,29 @@
-"""Tiled rasterizer, forward: binning + kernel K1 (front-to-back compositing).
+"""Tiled rasterizer: binning + kernels K1 (forward) and K2/K3 (backward).
 
-Counterpart of ``event3dgs_tpu/ops/rasterize_tiled.py`` (forward only; the
-backward pass comes with the training slice).  Numerics match the oracle
-(``rasterize_reference``): α = min(0.99, o·exp(p)), contributions with
-power > 0 or α < 1/255 are skipped, and a Gaussian's support is its tile
-rect.  Transmittance is carried as log T.  Early stop is per pixel at
-log T < ln(1e-6) (``LOG_T_SKIP``); the JAX kernel stops per chunk instead,
-so ``logt`` saturates earlier here, while what either drops from the image
-weighs < 1e-6.
+Counterpart of ``event3dgs_tpu/ops/rasterize_tiled.py``.  Numerics match
+the oracle (``rasterize_reference``): α = min(0.99, o·exp(p)),
+contributions with power > 0 or α < 1/255 are skipped, and a Gaussian's
+support is its tile rect.  Transmittance is carried as log T.  Early stop
+is per pixel at log T < ln(1e-6) (``LOG_T_SKIP``); the JAX kernel stops per
+chunk instead, so ``logt`` saturates earlier here, while what either drops
+from the image weighs < 1e-6.
 
-K1 is ``csrc/rasterize_fwd.cu``: one block per 32×32 tile reading the
-tile's depth-ordered range of ``inst_gauss`` and gathering each Gaussian's
-packed features (:func:`pack_features`).  :func:`composite_forward`
-launches it for CUDA tensors and runs :func:`composite_forward_plain` for
-CPU tensors.
+- K1 is ``csrc/rasterize_fwd.cu``: one block per 32×32 tile reading the
+  tile's depth-ordered range of ``inst_gauss`` and gathering each
+  Gaussian's packed features (:func:`pack_features`).  Besides the rgb and
+  log T partials it writes each pixel's stop index (one past the last
+  instance it evaluated).
+- K2 is ``csrc/rasterize_bwd.cu``: the same tiles walked back to front from
+  each pixel's stop index, rebuilding log T by subtraction; it writes nine
+  gradient floats per instance slot (mean2d x/y, conic a/b/c, opacity,
+  r/g/b), summed over the tile's pixels in a fixed order.
+- K3 (``ops/segscan.py``) sums each Gaussian's slot rows.
+
+:class:`TiledRasterize` is the ``torch.autograd.Function`` tying them
+together, the counterpart of ``_build_rasterizer``'s custom VJP: gradients
+flow to ``mean2d``, ``conic``, ``colors`` and ``opacities``; ``depth``,
+``radius`` and ``valid`` get none.  Each kernel's wrapper launches it for
+CUDA tensors; CPU tensors take its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -28,12 +38,14 @@ from event3dgs_tpu_torch.ops.binning import (
     bin_gaussians,
 )
 from event3dgs_tpu_torch.ops.projection import ProjectedGaussians
+from event3dgs_tpu_torch.ops.segscan import segment_sums, segment_sums_plain
 
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
 LOG_T_SKIP = -13.8  # ln(1e-6): per-pixel early stop
 FEAT = 12  # packed floats per Gaussian (see pack_features)
-DEPTH_CHUNK = 16  # instances per step of the plain version's alpha pass
+NGRAD = 9  # gradient floats per instance slot (K2's rows)
+DEPTH_CHUNK = 16  # instances per step of the plain versions' alpha pass
 _Q = TILE_H * TILE_W
 
 
@@ -44,8 +56,8 @@ def default_instance_cap(n: int) -> int:
 
 
 def pack_features(mean2d, conic, colors, opacities) -> torch.Tensor:
-    """[N, 12] float32 per-Gaussian rows for K1: mean x, y; the conic
-    pre-scaled for the power form (−a/2, −b, −c/2); opacity; r, g, b;
+    """[N, 12] float32 per-Gaussian rows for K1 and K2: mean x, y; the
+    conic pre-scaled for the power form (−a/2, −b, −c/2); opacity; r, g, b;
     three pad floats (48-byte rows for aligned vector loads)."""
     n = mean2d.shape[0]
     scale = torch.tensor([-0.5, -1.0, -0.5], dtype=conic.dtype, device=conic.device)
@@ -63,65 +75,103 @@ def _untile(x, tiles_x, tiles_y, width, height):
     return x.reshape((tiles_y * TILE_H, tiles_x * TILE_W) + rest)[:height, :width]
 
 
+def _retile(x, tiles_x, tiles_y):
+    """[H, W, ...] image → [T, Q, ...] tile-major (padding zero)."""
+    h, w = x.shape[:2]
+    rest = x.shape[2:]
+    pad = x.new_zeros((tiles_y * TILE_H, tiles_x * TILE_W) + rest)
+    pad[:h, :w] = x
+    pad = pad.reshape((tiles_y, TILE_H, tiles_x, TILE_W) + rest).transpose(1, 2)
+    return pad.reshape((tiles_y * tiles_x, _Q) + rest)
+
+
+class _TileGeometry:
+    """Tile-local pixel coordinates and tile origins, as K1 and K2 use them."""
+
+    def __init__(self, num_tiles, tiles_x, width, height, device):
+        q = torch.arange(_Q, device=device)
+        self.lx = (q % TILE_W).to(torch.float32)
+        self.ly = (q // TILE_W).to(torch.float32)
+        t = torch.arange(num_tiles, device=device)
+        self.ox = ((t % tiles_x) * TILE_W).to(torch.float32)
+        self.oy = ((t // tiles_x) * TILE_H).to(torch.float32)
+        self.inside = ((t[:, None] % tiles_x) * TILE_W + q % TILE_W < width) & (
+            (t[:, None] // tiles_x) * TILE_H + q // TILE_W < height
+        )
+
+    def chunk(self, inst_gauss, tile_offsets, tile_counts, feat_pad, d0):
+        """Instances d0 .. d0+DEPTH_CHUNK of every tile with K1's
+        arithmetic: depth index j [D]; has, slot [T, D]; features
+        [T, D, 12]; dx, dy, exp(power), power, raw opacity·exp(power) and
+        alpha (0 where skipped) [T, D, Q]."""
+        dev = feat_pad.device
+        n = feat_pad.shape[0] - 1
+        j = d0 + torch.arange(DEPTH_CHUNK, device=dev)
+        has = j[None, :] < tile_counts[:, None]
+        slot = torch.clamp(tile_offsets[:, None] + j[None, :],
+                           max=max(inst_gauss.shape[0] - 1, 0))
+        g = torch.where(has, inst_gauss[slot].long(), n)
+        f = feat_pad[g]
+        mx = f[..., 0] - self.ox[:, None]
+        my = f[..., 1] - self.oy[:, None]
+        dx = mx[..., None] - self.lx
+        dy = my[..., None] - self.ly
+        power = (f[..., 2, None] * (dx * dx) + f[..., 3, None] * (dx * dy)
+                 + f[..., 4, None] * (dy * dy))
+        e = torch.exp(power)
+        raw = f[..., 5, None] * e
+        alpha = torch.clamp(raw, max=ALPHA_MAX)
+        skip = (power > 0.0) | (raw < ALPHA_MIN) | ~has[..., None]
+        alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
+        return j, has, slot, f, dx, dy, e, power, raw, alpha
+
+
 def _composite_plain(inst_gauss, tile_offsets, tile_counts, feat, tiles_x,
                      width, height):
     """K1's arithmetic on padded per-tile lists: alphas of ``DEPTH_CHUNK``
     instances at a time, vectorised over tiles and pixels, then the
-    compositing in depth order.  Returns (rgb, logt, pairs), ``pairs`` being
-    the (pixel, instance) pairs evaluated before each pixel's early stop."""
+    compositing in depth order.  Returns (rgb, logt, stop, pairs), ``pairs``
+    counting the (pixel, instance) pairs evaluated before each pixel's early
+    stop by what K1 (and K2, which visits the same pairs) does with them:
+    int64 [3] (skipped at power > 0, skipped at raw < 1/255, composited)."""
     dev = feat.device
     num_tiles = tile_counts.shape[0]
     tiles_y = num_tiles // tiles_x
-    q = torch.arange(_Q, device=dev)
-    lx = (q % TILE_W).to(torch.float32)
-    ly = (q // TILE_W).to(torch.float32)
-    t = torch.arange(num_tiles, device=dev)
-    ox = ((t % tiles_x) * TILE_W).to(torch.float32)
-    oy = ((t // tiles_x) * TILE_H).to(torch.float32)
-    inside = ((t[:, None] % tiles_x) * TILE_W + q % TILE_W < width) & (
-        (t[:, None] // tiles_x) * TILE_H + q // TILE_W < height
-    )
+    geo = _TileGeometry(num_tiles, tiles_x, width, height, dev)
     rgb = torch.zeros(num_tiles, _Q, 3, device=dev)
     logt = torch.zeros(num_tiles, _Q, device=dev)
-    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    stop = torch.zeros(num_tiles, _Q, dtype=torch.int32, device=dev)
     feat_pad = torch.cat([feat, feat.new_zeros(1, FEAT)])
+    power_skipped = composited = torch.zeros((), dtype=torch.int64, device=dev)
     max_count = int(tile_counts.max()) if num_tiles else 0
     for d0 in range(0, max_count, DEPTH_CHUNK):
-        j = d0 + torch.arange(DEPTH_CHUNK, device=dev)
-        has = j[None, :] < tile_counts[:, None]  # [T, D]
-        slot = torch.clamp(tile_offsets[:, None] + j[None, :], max=inst_gauss.shape[0] - 1)
-        g = torch.where(has, inst_gauss[slot].long(), feat.shape[0])
-        f = feat_pad[g]  # [T, D, 12]
-        mx = f[..., 0] - ox[:, None]
-        my = f[..., 1] - oy[:, None]
-        dx = mx[..., None] - lx  # [T, D, Q]
-        dy = my[..., None] - ly
-        power = (f[..., 2, None] * (dx * dx) + f[..., 3, None] * (dx * dy)
-                 + f[..., 4, None] * (dy * dy))
-        raw = f[..., 5, None] * torch.exp(power)
-        alpha = torch.clamp(raw, max=ALPHA_MAX)
-        skip = (power > 0.0) | (raw < ALPHA_MIN) | ~has[..., None]
-        alpha = torch.where(skip, torch.zeros_like(alpha), alpha)
+        j, has, _, f, _, _, _, power, _, alpha = geo.chunk(
+            inst_gauss, tile_offsets, tile_counts, feat_pad, d0)
         for d in range(min(DEPTH_CHUNK, max_count - d0)):
-            active = inside & (logt >= LOG_T_SKIP)
-            pairs += (active & has[:, d, None]).sum()
+            active = geo.inside & (logt >= LOG_T_SKIP)
+            stop += (active & has[:, d, None]).to(torch.int32)
             a = torch.where(active, alpha[:, d], torch.zeros_like(logt))
             w = a * torch.exp(logt)
             rgb = rgb + w[..., None] * f[:, d, None, 6:9]
             logt = logt + torch.log1p(-a)
-    return (
-        _untile(rgb, tiles_x, tiles_y, width, height),
-        _untile(logt, tiles_x, tiles_y, width, height),
-        pairs,
-    )
+        # a pixel's visits are its first `stop` instances
+        visited = j[None, :, None] < stop[:, None, :]
+        power_skipped = power_skipped + (visited & (power > 0.0)).sum()
+        composited = composited + (visited & (alpha > 0.0)).sum()
+    pairs = torch.stack([power_skipped,
+                         stop.sum() - power_skipped - composited, composited])
+    untile = lambda x: _untile(x, tiles_x, tiles_y, width, height)
+    return untile(rgb), untile(logt), untile(stop), pairs
 
 
 def composite_forward_plain(inst_gauss, tile_offsets, tile_counts, feat,
                             tiles_x: int, width: int, height: int):
-    """Plain PyTorch version of K1: ([H, W, 3] rgb, [H, W] log T)."""
-    rgb, logt, _ = _composite_plain(inst_gauss, tile_offsets, tile_counts,
-                                    feat, tiles_x, width, height)
-    return rgb, logt
+    """Plain PyTorch version of K1: ([H, W, 3] rgb, [H, W] log T,
+    [H, W] int32 stop index)."""
+    rgb, logt, stop, _ = _composite_plain(inst_gauss, tile_offsets,
+                                          tile_counts, feat, tiles_x, width,
+                                          height)
+    return rgb, logt, stop.contiguous()
 
 
 def composite_forward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
@@ -137,14 +187,15 @@ def composite_forward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
     dev = feat.device
     rgb = torch.empty(height, width, 3, dtype=torch.float32, device=dev)
     logt = torch.empty(height, width, dtype=torch.float32, device=dev)
+    stop = torch.empty(height, width, dtype=torch.int32, device=dev)
     kernels.launch(
         "rasterize_fwd", "e3d_composite_forward",
         inst_gauss.data_ptr(), tile_offsets.data_ptr(), tile_counts.data_ptr(),
         feat.data_ptr(), num_tiles, tiles_x, width, height, rgb.data_ptr(),
-        logt.data_ptr(),
+        logt.data_ptr(), stop.data_ptr(),
     )
     composite_forward_kernel.launches += 1
-    return rgb, logt
+    return rgb, logt, stop
 
 
 composite_forward_kernel.launches = 0
@@ -153,11 +204,168 @@ composite_forward_kernel.launches = 0
 def composite_forward(inst_gauss, tile_offsets, tile_counts, feat,
                       tiles_x: int, width: int, height: int):
     """Composite every tile's depth-ordered instances: ([H, W, 3] rgb,
-    [H, W] log T).  K1 for CUDA tensors, its plain version for CPU ones."""
+    [H, W] log T, [H, W] int32 stop index).  K1 for CUDA tensors, its plain
+    version for CPU ones."""
     fn = composite_forward_plain if feat.device.type == "cpu" else \
         composite_forward_kernel
     return fn(inst_gauss, tile_offsets, tile_counts, feat, tiles_x, width,
               height)
+
+
+def composite_backward_plain(inst_gauss, tile_offsets, tile_counts, feat,
+                             tiles_x: int, width: int, height: int, g_rgb,
+                             g_logt, logt, stop, n_slots: int):
+    """Plain PyTorch version of K2: [n_slots, 9] gradient rows per instance
+    slot (slots outside every tile's range are zero).
+
+    Walks ``DEPTH_CHUNK`` instances at a time from the deepest chunk up,
+    vectorised over tiles and pixels, with K2's per-pixel carries; the
+    per-instance sums over a tile's pixels are ``torch.sum`` (another order
+    than K2's shuffle tree, so the two agree to rounding)."""
+    dev = feat.device
+    num_tiles = tile_counts.shape[0]
+    tiles_y = num_tiles // tiles_x
+    geo = _TileGeometry(num_tiles, tiles_x, width, height, dev)
+    retile = lambda x: _retile(x, tiles_x, tiles_y)
+    lt = retile(logt)
+    carry = retile(g_logt)
+    grad = retile(g_rgb)  # [T, Q, 3]
+    stp = torch.where(geo.inside, torch.minimum(retile(stop),
+                                                tile_counts[:, None]), 0)
+    rows = torch.zeros(n_slots, NGRAD, device=dev)
+    feat_pad = torch.cat([feat, feat.new_zeros(1, FEAT)])
+    max_stop = int(stp.max()) if num_tiles else 0
+    for d0 in reversed(range(0, max_stop, DEPTH_CHUNK)):
+        j, has, slot, f, dx, dy, e, _, raw, alpha = geo.chunk(
+            inst_gauss, tile_offsets, tile_counts, feat_pad, d0)
+        comp = (alpha > 0.0) & (j[None, :, None] < stp[:, None, :])
+        # g·c per (pixel, instance), in K2's order
+        gc = (grad[:, None, :, 0] * f[..., 6, None]
+              + grad[:, None, :, 1] * f[..., 7, None]
+              + grad[:, None, :, 2] * f[..., 8, None])
+        dalpha = torch.zeros_like(alpha)
+        w = torch.zeros_like(alpha)
+        for d in reversed(range(DEPTH_CHUNK)):
+            cd, ad = comp[:, d], alpha[:, d]
+            lt_in = lt - torch.log1p(-ad)
+            t = torch.exp(lt_in)
+            wd = ad * t
+            da = gc[:, d] * t - carry / (1.0 - ad)
+            carry = torch.where(cd, carry + wd * gc[:, d], carry)
+            lt = torch.where(cd, lt_in, lt)
+            w[:, d] = torch.where(cd, wd, torch.zeros_like(wd))
+            dalpha[:, d] = torch.where(cd, da, torch.zeros_like(da))
+        zero = torch.zeros_like(alpha)
+        pas = comp & (raw < ALPHA_MAX)
+        dpw = torch.where(pas, dalpha * alpha, zero)
+        ca, cb, cc = f[..., 2, None], f[..., 3, None], f[..., 4, None]
+        terms = [
+            dpw * (2.0 * ca * dx + cb * dy),
+            dpw * (2.0 * cc * dy + cb * dx),
+            dpw * (-0.5 * (dx * dx)),
+            dpw * (-(dx * dy)),
+            dpw * (-0.5 * (dy * dy)),
+            torch.where(pas, dalpha * e, zero),
+            grad[:, None, :, 0] * w,
+            grad[:, None, :, 1] * w,
+            grad[:, None, :, 2] * w,
+        ]
+        chunk_rows = torch.stack([x.sum(-1) for x in terms], dim=-1)  # [T, D, 9]
+        rows[slot[has]] = chunk_rows[has]
+    return rows
+
+
+def composite_backward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
+                              tiles_x: int, width: int, height: int, g_rgb,
+                              g_logt, logt, stop, n_slots: int):
+    """Launch K2 (``csrc/rasterize_bwd.cu``) on CUDA tensors."""
+    num_tiles = tile_counts.shape[0]
+    kernels.check(inst_gauss, torch.int32, "inst_gauss")
+    kernels.check(tile_offsets, torch.int32, "tile_offsets", (num_tiles,))
+    kernels.check(tile_counts, torch.int32, "tile_counts", (num_tiles,))
+    kernels.check(feat, torch.float32, "feat", (feat.shape[0], FEAT))
+    kernels.check(g_rgb, torch.float32, "g_rgb", (height, width, 3))
+    kernels.check(g_logt, torch.float32, "g_logt", (height, width))
+    kernels.check(logt, torch.float32, "logt", (height, width))
+    kernels.check(stop, torch.int32, "stop", (height, width))
+    if feat.data_ptr() % 16:
+        raise ValueError("feat: expected a 16-byte aligned tensor")
+    if n_slots < inst_gauss.shape[0]:
+        raise ValueError(f"n_slots {n_slots} < {inst_gauss.shape[0]} slots")
+    rows = torch.empty(n_slots, NGRAD, dtype=torch.float32, device=feat.device)
+    kernels.launch(
+        "rasterize_bwd", "e3d_composite_backward",
+        inst_gauss.data_ptr(), tile_offsets.data_ptr(), tile_counts.data_ptr(),
+        feat.data_ptr(), num_tiles, tiles_x, width, height, g_rgb.data_ptr(),
+        g_logt.data_ptr(), logt.data_ptr(), stop.data_ptr(), rows.data_ptr(),
+    )
+    composite_backward_kernel.launches += 1
+    return rows
+
+
+composite_backward_kernel.launches = 0
+
+
+def composite_backward(inst_gauss, tile_offsets, tile_counts, feat,
+                       tiles_x: int, width: int, height: int, g_rgb, g_logt,
+                       logt, stop, n_slots: int):
+    """[n_slots, 9] per-slot gradient rows of the compositing: K2 for CUDA
+    tensors, its plain version for CPU ones."""
+    fn = composite_backward_plain if feat.device.type == "cpu" else \
+        composite_backward_kernel
+    return fn(inst_gauss, tile_offsets, tile_counts, feat, tiles_x, width,
+              height, g_rgb, g_logt, logt, stop, n_slots)
+
+
+def gaussian_grads(binning: Binning, rows, plain: bool = False):
+    """K3: per-slot rows → [N, 9] per-Gaussian gradient sums."""
+    seg = segment_sums_plain if plain else segment_sums
+    offsets = binning.offsets
+    return seg(rows, offsets[:-1], offsets[1:], binning.dest.shape[0],
+               dest=binning.dest, order=binning.order)
+
+
+class TiledRasterize(torch.autograd.Function):
+    """Binning + K1 forward; K2 then K3 backward.
+
+    ``forward(mean2d, conic, colors, opacities, depth, radius, valid,
+    width, height, cap, plain)`` → ([H, W, 3] rgb, [H, W] log T).
+    """
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, colors, opacities, depth, radius, valid,
+                width, height, cap, plain):
+        binning = bin_gaussians(
+            mean2d, depth, radius, valid, width, height, cap,
+            opacities=opacities, conic=conic, plain=plain,
+        )
+        feat = pack_features(mean2d, conic, colors, opacities)
+        composite = composite_forward_plain if plain else composite_forward
+        rgb, logt, stop = composite(binning.inst_gauss, binning.tile_offsets,
+                                    binning.tile_counts, feat,
+                                    binning.num_tiles_x, width, height)
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(logt)  # an output: saved the checked way
+            ctx.binning, ctx.feat, ctx.stop = binning, feat, stop
+            ctx.size, ctx.plain = (width, height), plain
+        return rgb, logt
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_logt):
+        (logt,) = ctx.saved_tensors
+        b, feat, (width, height) = ctx.binning, ctx.feat, ctx.size
+        if g_rgb is None:
+            g_rgb = torch.zeros(height, width, 3, device=feat.device)
+        if g_logt is None:
+            g_logt = torch.zeros(height, width, device=feat.device)
+        backward = composite_backward_plain if ctx.plain else composite_backward
+        rows = backward(b.inst_gauss, b.tile_offsets, b.tile_counts, feat,
+                        b.num_tiles_x, width, height, g_rgb.contiguous(),
+                        g_logt.contiguous(), logt, ctx.stop,
+                        b.inst_gauss.shape[0])
+        gsum = gaussian_grads(b, rows, plain=ctx.plain)
+        return (gsum[:, 0:2], gsum[:, 2:5], gsum[:, 6:9], gsum[:, 5],
+                None, None, None, None, None, None, None)
 
 
 def rasterize_tiled_partials(
@@ -169,29 +377,19 @@ def rasterize_tiled_partials(
     instance_cap: int | None = None,
     plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pre-background partials: ([H, W, 3] rgb, [H, W] log-transmittance).
+    """Pre-background partials: ([H, W, 3] rgb, [H, W] log-transmittance),
+    differentiable in ``proj.mean2d``, ``proj.conic``, ``colors`` and
+    ``opacities``.
 
-    ``plain`` runs the plain versions of K1 and K4-K6 on CUDA tensors too
-    (for holding the kernels against them); CPU tensors always do.
+    ``plain`` runs the plain versions of K1-K6 on CUDA tensors too (for
+    holding the kernels against them); CPU tensors always do.
     """
-    inputs = (proj.mean2d, proj.conic, colors, opacities)
-    if any(t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "the tiled rasterizer's backward pass is not ported yet (it comes "
-            "with the training slice); call it under torch.no_grad()"
-        )
     n = proj.mean2d.shape[0]
     cap = default_instance_cap(n) if instance_cap is None else \
         -(-int(instance_cap) // 1024) * 1024
-    binning: Binning = bin_gaussians(
-        proj.mean2d, proj.depth, proj.radius, proj.valid, width, height, cap,
-        opacities=opacities, conic=proj.conic, plain=plain,
-    )
-    feat = pack_features(proj.mean2d, proj.conic, colors, opacities)
-    composite = composite_forward_plain if plain else composite_forward
-    return composite(binning.inst_gauss, binning.tile_offsets,
-                     binning.tile_counts, feat, binning.num_tiles_x, width,
-                     height)
+    return TiledRasterize.apply(
+        proj.mean2d, proj.conic, colors, opacities, proj.depth.detach(),
+        proj.radius.detach(), proj.valid, width, height, cap, plain)
 
 
 def rasterize_tiled(

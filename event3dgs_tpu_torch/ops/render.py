@@ -1,9 +1,13 @@
 """High-level render entry points: model + camera → image.
 
-Counterpart of ``event3dgs_tpu/ops/render.py`` (forward only), mirroring
-the reference renderer (`gaussian_renderer/__init__.py:20-104`): SH→RGB is
-evaluated outside the rasterizer, colors are ``clamp_min(eval_sh + 0.5,
-0)``, and images are [H, W, 3] channel-last like the JAX package's.
+Counterpart of ``event3dgs_tpu/ops/render.py``, mirroring the reference
+renderer (`gaussian_renderer/__init__.py:20-104`): SH→RGB is evaluated
+outside the rasterizer, colors are ``clamp_min(eval_sh + 0.5, 0)``, and
+images are [H, W, 3] channel-last like the JAX package's.  Everything is
+differentiable in the Gaussian parameters; a zero ``mean2d_tap`` with
+``requires_grad`` added to the projected means collects the screen-space
+mean gradient that densification reads (the reference's
+``screenspace_points.grad``).
 """
 
 from __future__ import annotations
@@ -48,11 +52,13 @@ def gaussian_colors(sh_degree: int, features, means3d, camera_center):
 
 
 def _partials(means3d, features, opacities, scales, rotations, camera,
-              sh_degree, scaling_modifier, override_colors, rasterizer,
-              instance_cap):
+              sh_degree, scaling_modifier, mean2d_tap, override_colors,
+              rasterizer, instance_cap, plain=False):
     proj = project_gaussians(means3d, scales, rotations, camera,
                              scaling_modifier=scaling_modifier,
                              opacities=opacities)
+    if mean2d_tap is not None:
+        proj = proj._replace(mean2d=proj.mean2d + mean2d_tap)
     if override_colors is None:
         colors = gaussian_colors(sh_degree, features, means3d,
                                  camera.camera_center)
@@ -61,7 +67,7 @@ def _partials(means3d, features, opacities, scales, rotations, camera,
     if rasterizer == "tiled":
         rgb, logt = rasterize_tiled_partials(
             proj, colors, opacities, camera.width, camera.height,
-            instance_cap=instance_cap,
+            instance_cap=instance_cap, plain=plain,
         )
     elif rasterizer == "reference":
         rgb, logt = rasterize_reference_partials(
@@ -82,9 +88,11 @@ def render(
     background: torch.Tensor,
     sh_degree: int = 0,
     scaling_modifier: float = 1.0,
+    mean2d_tap: torch.Tensor | None = None,
     override_colors: torch.Tensor | None = None,
     rasterizer: str = "reference",
     instance_cap: int | None = None,
+    plain: bool = False,
 ) -> RenderOutput:
     """Render one view.
 
@@ -92,12 +100,17 @@ def render(
         means3d: [N, 3]; features: [N, K, 3] SH coefficients; opacities: [N]
             activated; scales: [N, 3] activated; rotations: [N, 4].
         camera: a single camera; background: [3].
+        mean2d_tap: optional [N, 2] zeros; its gradient is the screen-space
+            mean gradient densification reads.
         rasterizer: "reference" (slow oracle) or "tiled" (the kernels).
         instance_cap: tiled rasterizer's instance budget (None: default).
+        plain: run the plain versions of the tiled rasterizer's kernels on
+            CUDA tensors too (for holding the kernels against them).
     """
     rgb, logt, proj = _partials(
         means3d, features, opacities, scales, rotations, camera, sh_degree,
-        scaling_modifier, override_colors, rasterizer, instance_cap,
+        scaling_modifier, mean2d_tap, override_colors, rasterizer,
+        instance_cap, plain,
     )
     image = rgb + torch.exp(logt)[:, :, None] * background[None, None, :]
     return RenderOutput(image=image, radii=proj.radius, visibility=proj.valid)
@@ -105,13 +118,15 @@ def render(
 
 def render_partials(
     means3d, features, opacities, scales, rotations, camera: Camera,
-    sh_degree: int = 0, scaling_modifier: float = 1.0, override_colors=None,
-    rasterizer: str = "tiled", instance_cap: int | None = None,
+    sh_degree: int = 0, scaling_modifier: float = 1.0, mean2d_tap=None,
+    override_colors=None, rasterizer: str = "tiled",
+    instance_cap: int | None = None,
 ) -> RenderPartials:
     """Render one view into pre-background (rgb, log T) partials."""
     rgb, logt, proj = _partials(
         means3d, features, opacities, scales, rotations, camera, sh_degree,
-        scaling_modifier, override_colors, rasterizer, instance_cap,
+        scaling_modifier, mean2d_tap, override_colors, rasterizer,
+        instance_cap,
     )
     return RenderPartials(rgb=rgb, logt=logt, radii=proj.radius,
                           visibility=proj.valid, depth=proj.depth)

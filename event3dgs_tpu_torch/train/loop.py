@@ -1,0 +1,249 @@
+"""Training loop: view sampling, densification cadence, checkpoints.
+
+Counterpart of ``event3dgs_tpu/train/loop.py``, replaying the reference's
+control flow (`train.py:75-336`): random view pick with the manual
+test-view holdout, SH degree warm-up (inside the step), densify every
+`densification_interval` after `densify_from_iter` until
+`densify_until_iter` (capacity grows when candidates outnumber free
+slots), opacity reset every `opacity_reset_interval` (10k in event mode),
+and the tiled rasterizer's instance budget measured at the start and
+re-measured after each densify and every 1000 iterations after the
+densify window.
+
+Randomness follows the JAX loop where it can: view picks from
+``random.Random(seed)`` and random backgrounds from
+``np.random.default_rng(seed)`` in the same order, so both packages see the
+same views.  The split samples of densification come from a
+``torch.Generator`` seeded with ``seed`` (``jax.random`` has no torch
+counterpart), drawn on the CPU so every device gets the same samples.
+
+``pipeline.fused_steps`` is a TPU dispatch device (several steps in one
+``lax.scan``); it is accepted and the steps run one at a time, in the same
+sequence, which gives the same results.
+"""
+
+from __future__ import annotations
+
+import random as pyrandom
+import time
+import warnings
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from event3dgs_tpu_torch.models.gaussians import activated
+from event3dgs_tpu_torch.ops.binning import count_instances, suggest_instance_cap
+from event3dgs_tpu_torch.ops.projection import project_gaussians
+from event3dgs_tpu_torch.train.state import SceneData, TrainState, grow_state
+from event3dgs_tpu_torch.train.step import (
+    make_densify_step,
+    make_train_step,
+    opacity_reset_step,
+)
+from event3dgs_tpu_torch.utils.config import TrainConfig
+
+# Views held out for evaluation in gray/event modes (`train.py:126-131`).
+TEST_VIEW_INDICES = (5, 25, 45, 65, 85)
+
+# Cadence of the instance-cap re-measurement after the densify window.
+INSTANCE_RECHECK_INTERVAL = 1000
+
+
+@dataclass
+class TrainCallbacks:
+    """Hooks invoked from the loop (logging, saving)."""
+
+    on_metrics: Optional[Callable] = None  # (iteration, metrics dict)
+    on_save: Optional[Callable] = None  # (iteration, state)
+    on_checkpoint: Optional[Callable] = None  # (iteration, state)
+    on_tick: Optional[Callable] = None  # (iteration, live state), log_every
+    log_every: int = 10
+
+
+@dataclass
+class TrainResult:
+    state: TrainState
+    history: list = field(default_factory=list)
+    wall_time: float = 0.0
+
+
+@torch.no_grad()
+def probe_instance_count(params, camera) -> int:
+    """(tile, gaussian) instances of one view: the counting half of the
+    binning, used to size the tiled rasterizer's instance budget."""
+    act = activated(params)
+    proj = project_gaussians(act.means3d, act.scales, act.rotations, camera,
+                             opacities=act.opacities)
+    return int(count_instances(proj.mean2d, proj.radius, proj.valid,
+                               camera.width, camera.height, conic=proj.conic,
+                               opacities=act.opacities))
+
+
+def measure_instance_cap(params, cameras, probe_views=8,
+                         margin: float = 1.5) -> int:
+    """Suggested instance cap: the max count over a camera probe set, with
+    headroom for densification growth between re-measurements."""
+    n_views = cameras.camera_center.shape[0]
+    step = max(1, n_views // probe_views)
+    worst = max(probe_instance_count(params, cameras[v])
+                for v in range(0, n_views, step))
+    return suggest_instance_cap(worst, margin)
+
+
+def densify_with_growth(state: TrainState, densify_fn, normals_fn,
+                        use_size_prune: bool, growth: float = 1.5):
+    """Run a densify step, growing capacity until nothing is dropped (the
+    reference never drops candidates, `scene/gaussian_model.py:349-403`).
+
+    ``normals_fn(capacity)`` returns the [2, C, 3] split samples; a dropped
+    attempt is discarded and re-run at the larger capacity, as the JAX loop
+    re-runs with the same key.  Returns (state, grew).
+    """
+    normals = normals_fn(state.params.capacity)
+    new_state, overflow = densify_fn(state, normals, use_size_prune)
+    grew = False
+    while int(overflow) > 0:
+        new_cap = int(state.params.capacity * growth) + int(overflow)
+        new_cap = -(-new_cap // 256) * 256
+        state = grow_state(state, new_cap)
+        grew = True
+        normals = normals_fn(new_cap)
+        new_state, overflow = densify_fn(state, normals, use_size_prune)
+    return new_state, grew
+
+
+def pick_view_index(rng: pyrandom.Random, n_views: int, mode: str,
+                    holdout: bool) -> int:
+    """Random view selection with the reference's quirks (`train.py:116-131`):
+    event mode samples [2, n-4]; others [2, n-3]; gray/event skip the manual
+    test views by decrementing."""
+    if mode.startswith("event"):
+        idx = rng.randint(2, n_views - 4)
+    else:
+        idx = rng.randint(2, n_views - 3)
+    if holdout and idx in TEST_VIEW_INDICES:
+        idx -= 1
+    return idx
+
+
+def train_loop(
+    state: TrainState,
+    data: SceneData,
+    cfg: TrainConfig,
+    mode: str,
+    extent: float,
+    iterations: Optional[int] = None,
+    callbacks: Optional[TrainCallbacks] = None,
+) -> TrainResult:
+    """Run the optimization.
+
+    Args:
+        state: initial train state (on the training device).
+        data: scene data on the same device.
+        cfg: full config; optimization/event subsections drive the schedule.
+        mode: "rgb" | "gray" | "event" | "event_deblur".
+        extent: nerf++ scene radius (densification scale reference).
+        iterations: override cfg.optimization.iterations.
+    """
+    opt = cfg.optimization
+    ev = cfg.event
+    iters = iterations or opt.iterations
+    callbacks = callbacks or TrainCallbacks()
+    dev = state.params.device
+
+    opacity_reset_interval = (ev.opacity_reset_interval
+                              if mode.startswith("event")
+                              else opt.opacity_reset_interval)
+    holdout = mode != "rgb"  # gray/event hold out the manual test views
+
+    use_tiled = cfg.pipeline.rasterizer == "tiled"
+    instance_cap = (measure_instance_cap(state.params, data.cameras)
+                    if use_tiled else None)
+
+    def build_step():
+        return make_train_step(
+            mode, opt, ev, max_sh_degree=state.max_sh_degree,
+            spatial_lr_scale=state.spatial_lr_scale,
+            rasterizer=cfg.pipeline.rasterizer, instance_cap=instance_cap,
+        )
+
+    def remeasure(it):
+        nonlocal instance_cap, step_fn
+        needed = measure_instance_cap(state.params, data.cameras)
+        if needed > instance_cap:
+            instance_cap = needed
+            step_fn = build_step()
+            if callbacks.on_metrics:
+                callbacks.on_metrics(it, {"instance_cap": instance_cap})
+
+    step_fn = build_step()
+    densify_fn = make_densify_step(opt, extent)
+    bg = (torch.ones if cfg.model.white_background else torch.zeros)(
+        3, device=dev)
+
+    view_rng = pyrandom.Random(cfg.seed)
+    np_rng = np.random.default_rng(cfg.seed)
+    split_rng = torch.Generator().manual_seed(cfg.seed)
+
+    def split_normals(capacity):
+        return torch.randn((2, capacity, 3), generator=split_rng).to(dev)
+
+    history = []
+    t0 = time.perf_counter()
+    for it in range(1, iters + 1):
+        idx = pick_view_index(view_rng, data.num_views, mode, holdout)
+        iter_bg = (torch.tensor(np_rng.uniform(size=3), dtype=torch.float32,
+                                device=dev)
+                   if opt.random_background else bg)
+        state, metrics = step_fn(state, data, idx, idx, idx + 1, iter_bg)
+        history.append(float(metrics["loss"]))
+
+        if it % callbacks.log_every == 0:
+            if callbacks.on_metrics:
+                callbacks.on_metrics(
+                    it, {k: float(v) for k, v in metrics.items()})
+            if callbacks.on_tick:
+                callbacks.on_tick(it, state)
+
+        # densification (`train.py:316-327`), growing capacity as needed
+        if it < opt.densify_until_iter:
+            if it > opt.densify_from_iter and it % opt.densification_interval == 0:
+                state, grew = densify_with_growth(
+                    state, densify_fn, split_normals,
+                    use_size_prune=it > opacity_reset_interval)
+                n_alive = int(state.params.alive.sum())
+                if callbacks.on_metrics:
+                    callbacks.on_metrics(it, {"num_alive": n_alive})
+                    if grew:
+                        callbacks.on_metrics(
+                            it, {"capacity": state.params.capacity})
+                if n_alive < 16:
+                    warnings.warn(
+                        f"model nearly dead after densify at iter {it}: "
+                        f"{n_alive} alive gaussians. Common causes: the "
+                        "reference's hardcoded 20px screen-size prune vs "
+                        "large splats, or an opacity collapse.",
+                        stacklevel=2,
+                    )
+                if use_tiled:
+                    remeasure(it)
+            if it % opacity_reset_interval == 0 or (
+                cfg.model.white_background and it == opt.densify_from_iter
+            ):
+                state = opacity_reset_step(state)
+        elif use_tiled and it % INSTANCE_RECHECK_INTERVAL == 0:
+            # scales keep training after the densify window, so per-view
+            # instance counts can outgrow the budget: re-measure
+            remeasure(it)
+
+        if callbacks.on_save and it in cfg.save_iterations:
+            callbacks.on_save(it, state)
+        if callbacks.on_checkpoint and it in cfg.checkpoint_iterations:
+            callbacks.on_checkpoint(it, state)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return TrainResult(state=state, history=history,
+                       wall_time=time.perf_counter() - t0)

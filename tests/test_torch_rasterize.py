@@ -126,9 +126,17 @@ def test_default_instance_cap_rule():
 
 
 def test_backward_is_not_ported_yet():
+    """The backward is ported: the tiled partials differentiate (the
+    gradients are held against JAX in test_torch_rasterize_grad.py) and
+    equal the partials taken without gradients."""
     s = scene(n=10)
     _, tp = projections(s)
     colors = torch.tensor(s["colors"], requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        trt.rasterize_tiled_partials(tp, colors, torch.tensor(s["opac"]),
-                                     s["w"], s["h"])
+    opac = torch.tensor(s["opac"])
+    rgb, logt = trt.rasterize_tiled_partials(tp, colors, opac, s["w"], s["h"])
+    assert rgb.requires_grad and not opac.requires_grad
+    (g,) = torch.autograd.grad(rgb.sum() + logt.sum(), [colors])
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    with torch.no_grad():
+        rgb0, logt0 = trt.rasterize_tiled_partials(tp, colors, opac, s["w"], s["h"])
+    assert torch.equal(rgb.detach(), rgb0) and torch.equal(logt.detach(), logt0)
