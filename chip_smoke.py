@@ -31,16 +31,22 @@ Phases (any failed check exits non-zero; nothing is caught):
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
    cap): K1's stop index, K2's rows (1e-5 of the max) and K3 (bit-equal)
-   against their plain versions on the main view; one step's gradients,
-   kernel path against the all-plain path (2e-4 of each field's max); the
-   same step twice under ``torch.use_deterministic_algorithms`` giving
-   bit-identical parameters.
+   against their plain versions on the main view, and K2 run twice giving
+   bit-identical rows; one step's gradients, kernel path against the
+   all-plain path (2e-4 of each field's max); the same step twice under
+   ``torch.use_deterministic_algorithms`` giving bit-identical parameters.
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
-   profile one step, and time K2 and K3 with CUDA events; the bounds count
-   the (pixel, instance) pairs by what the kernels do with them.  Then
-   densify the timed state with capacity growth and run one more step at a
+   profile one step, and time K2 and K3 with CUDA events.  Then densify
+   the timed state with capacity growth and run one more step at a
    re-measured instance cap (3 launches of each kernel, finite loss).
+
+For K1 and K2 the script prints their time beside the earlier design's
+(before the warp cull, from PERF.md), their bound over the composited
+(pixel, instance) pairs (the work the function needs) and the earlier
+bound over the visited pairs, the pairs they evaluate after the warp cull
+(counted by the plain versions' mirror of it), and their registers and
+resident blocks per SM.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line of per-kernel numbers, and the result line
@@ -83,9 +89,20 @@ PEAK_SFU_PER_S = PEAK_FP32_PER_S / 8
 # visits, by what it does with the pair: skipped at power > 0, skipped at
 # raw < 1/255, composited.  Counted from the sources' arithmetic
 # (rasterize_fwd.cu, rasterize_bwd.cu), an expf, log1pf or division as one
-# SFU operation and nothing more, so the bound stays a lower bound.
+# SFU operation and nothing more, and an explicit FMA as one FP32
+# instruction, so the bound stays a lower bound.  The bound charges the
+# composited pairs only (the work the function needs); the earlier bound
+# charged every visited pair at the counts of the sources before the warp
+# cull and is printed beside it.
 K1_PAIR_OPS = ((10, 0), (12, 1), (23, 3))
-K2_PAIR_OPS = ((10, 0), (12, 1), (53, 4))
+K2_PAIR_OPS = ((10, 0), (12, 1), (38, 4))
+VISITED_PAIR_OPS = {"K1 composite_forward": K1_PAIR_OPS,
+                    "K2 composite_backward": ((10, 0), (12, 1), (53, 4))}
+COMPOSITED = 2  # index of the composited pairs in the tables and counts
+# the card times of the design before the warp cull (PERF.md's kernel
+# table, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+EARLIER_MS = {"K1 composite_forward": "0.596-0.603",
+              "K2 composite_backward": "1.242-1.253"}
 CUDA_BASELINE_PIX_S = 30e6  # bench.py's yardstick for vs_baseline
 # bench.py times 5 steps; a 50-step window separates a noisy host from
 # stalls, and its median and spread are printed beside bench.py's mean
@@ -204,16 +221,52 @@ def generate_colmap(root: str) -> str:
     return src
 
 
-def pair_ops(pairs, table):
-    """(FP32, SFU) operations of the visited pairs ``pairs`` (counts by
-    kind, as ``_composite_plain`` returns them)."""
-    return (sum(n * fp for n, (fp, _) in zip(pairs, table)),
-            sum(n * sfu for n, (_, sfu) in zip(pairs, table)))
+def pair_ops(pairs, table, kinds=(COMPOSITED,)):
+    """(FP32, SFU) operations of the pairs of ``kinds`` (counts by kind, as
+    ``_composite_plain`` returns them)."""
+    return (sum(pairs[k] * table[k][0] for k in kinds),
+            sum(pairs[k] * table[k][1] for k in kinds))
+
+
+def bound_ms(nbytes, ops):
+    """The least time for ``nbytes`` moved and (FP32, SFU) ``ops``, and
+    which of the two bounds it."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    # the FP32 lanes and the SFUs work side by side
+    t_ops = max(ops[0] / PEAK_FP32_PER_S, ops[1] / PEAK_SFU_PER_S) * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
+
+
+def evaluated(pairs) -> int:
+    """The visited pairs the kernels evaluate: less those the warp cull
+    removes."""
+    return sum(pairs[:3]) - pairs[3]
 
 
 def pairs_text(pairs) -> str:
-    return (f"{sum(pairs)} (pixel, instance) pairs visited: {pairs[0]} skipped "
-            f"at power > 0, {pairs[1]} at raw < 1/255, {pairs[2]} composited")
+    visited = sum(pairs[:3])
+    return (f"{visited} (pixel, instance) pairs visited: {pairs[0]} skipped "
+            f"at power > 0, {pairs[1]} at raw < 1/255, {pairs[2]} composited; "
+            f"{evaluated(pairs)} evaluated after the warp cull "
+            f"({100 * evaluated(pairs) / max(visited, 1):.1f} %)")
+
+
+def composite_report(name, row, pairs, nbytes, lib, fn):
+    """K1's or K2's time against the earlier design's, its bound over the
+    composited pairs and the earlier bound over the visited pairs, the
+    pairs it evaluates, its registers and resident blocks per SM."""
+    from event3dgs_tpu_torch.ops import kernels
+
+    old, _ = bound_ms(nbytes, pair_ops(pairs, VISITED_PAIR_OPS[name],
+                                       kinds=(0, 1, COMPOSITED)))
+    regs, blocks = kernels.occupancy(lib, fn)
+    print(f"{name}: kernel {row['ms']:.4f} ms (before the warp cull "
+          f"{EARLIER_MS[name]} ms, PERF.md); bound {row['bound_ms']:.4f} ms "
+          f"over the {pairs[2]} composited pairs "
+          f"({row['ms'] / row['bound_ms']:.2f}x), the "
+          f"earlier visited-pairs bound {old:.4f} ms ({row['ms'] / old:.2f}x); "
+          f"{evaluated(pairs)} pairs evaluated after the warp cull of "
+          f"{sum(pairs[:3])} visited; {regs} registers, {blocks} blocks per SM")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -463,15 +516,14 @@ def render_path(root: str, dev):
             None, 20),
     }
     capped = min(n_inst, cap)
+    k1_bytes = live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 20
     bounds = {  # (bytes, (FP32, SFU) operations) this run's inputs need
         "K4 expand_instances": (
             (N_GAUSSIANS + 1) * 4 + N_GAUSSIANS * (4 + 12 + 32) + cap * 8,
             (0, 0)),
         "K5 tile_histogram": (capped * 4 + nt * 4, (0, 0)),
         "K6 stable_tile_rank": (capped * 4 + nt * 4 + cap * 4, (0, 0)),
-        "K1 composite_forward": (
-            live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 20,
-            pair_ops(pairs, K1_PAIR_OPS)),
+        "K1 composite_forward": (k1_bytes, pair_ops(pairs, K1_PAIR_OPS)),
     }
     meta = {
         "K1 composite_forward": ("rasterize_fwd.cu", "event3dgs_tpu/ops/rasterize_tiled.py:296"),
@@ -479,7 +531,11 @@ def render_path(root: str, dev):
         "K5 tile_histogram": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:62"),
         "K6 stable_tile_rank": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:88"),
     }
-    return launches, errs, kernel_rows(timings, bounds, meta, errs)
+    rows = kernel_rows(timings, bounds, meta, errs)
+    composite_report("K1 composite_forward", rows["K1 composite_forward"],
+                     pairs, k1_bytes, "rasterize_fwd",
+                     "e3d_composite_forward_occupancy")
+    return launches, errs, rows
 
 
 def kernel_rows(timings, bounds, meta, errs):
@@ -490,10 +546,7 @@ def kernel_rows(timings, bounds, meta, errs):
         ms = cuda_ms(kern, iters)
         plain_ms = cuda_ms(plain, max(iters // 10, 2), warmup=1)
         lib_ms = cuda_ms(lib, iters) if lib is not None else None
-        nbytes, (fp32, sfu) = bounds[name]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        # the FP32 lanes and the SFUs work side by side
-        t_ops = max(fp32 / PEAK_FP32_PER_S, sfu / PEAK_SFU_PER_S) * 1e3
+        bound, bound_by = bound_ms(*bounds[name])
         src_file, replaces = meta[name]
         rows[name] = {
             "name": name,
@@ -504,14 +557,13 @@ def kernel_rows(timings, bounds, meta, errs):
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_ms": bound,
+            "bound_by": bound_by,
             "library_ms": lib_ms,
         }
         lib_txt = "-" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_txt} ms, bound {max(t_bytes, t_ops):.4f} ms "
-              f"({rows[name]['bound_by']})")
+              f"library {lib_txt} ms, bound {bound:.4f} ms ({bound_by})")
     return rows
 
 
@@ -667,13 +719,17 @@ def train_kernels(dev):
     check(errs["K2 composite_backward"] <= 1e-5 * scale,
           f"K2 rows differ by {errs['K2 composite_backward']:.3g} "
           f"(max {scale:.3g})")
+    check(torch.equal(rows_k[:live],
+                      rt.composite_backward_kernel(*k2_args)[:live]),
+          "K2 run twice: rows differ")
     gk = rt.gaussian_grads(b, rows_k)
     gp = rt.gaussian_grads(b, rows_k, plain=True)
     errs["K3 segment_sums"] = (gk - gp).abs().max().item()
     check(torch.equal(gk, gp), "K3 differs from its plain version")
     print(f"main view: {live} live instances, {pairs_text(pairs)}; K2 vs "
           f"plain max |diff| {errs['K2 composite_backward']:.3g} of max "
-          f"{scale:.3g}; K3 vs plain bit-equal; K1 stop index equal")
+          f"{scale:.3g}; K2 run twice bit-identical; K3 vs plain bit-equal; "
+          f"K1 stop index equal")
 
     # one step's gradients: kernel path against the all-plain path
     grads = {}
@@ -767,10 +823,10 @@ def train_kernels(dev):
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
     }
     nt = b.tile_counts.shape[0]
+    k2_bytes = (live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 24
+                + live * rt.NGRAD * 4)
     bounds = {
-        "K2 composite_backward": (
-            live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 24
-            + live * rt.NGRAD * 4, pair_ops(pairs, K2_PAIR_OPS)),
+        "K2 composite_backward": (k2_bytes, pair_ops(pairs, K2_PAIR_OPS)),
         "K3 segment_sums": (
             live * rt.NGRAD * 4 + n_exp * 4 + (N_GAUSSIANS + 1) * 4
             + N_GAUSSIANS * 4 + N_GAUSSIANS * rt.NGRAD * 4,
@@ -782,6 +838,9 @@ def train_kernels(dev):
         "K3 segment_sums": ("segsum.cu", "event3dgs_tpu/ops/segscan.py:46"),
     }
     rows = kernel_rows(timings, bounds, meta, errs)
+    composite_report("K2 composite_backward", rows["K2 composite_backward"],
+                     pairs, k2_bytes, "rasterize_bwd",
+                     "e3d_composite_backward_occupancy")
     densify_growth(st, data, idx, bg)
     return errs, rows, per_step
 

@@ -3,46 +3,61 @@
 // Replaces the TPU kernel `_make_fwd_kernel` of
 // event3dgs_tpu/ops/rasterize_tiled.py (launched by `run_forward` there).
 //
-// One block per 32x32 tile, 256 threads, 4 pixels per thread (pixel column
-// threadIdx.x % 32, rows threadIdx.x / 32 + 8k).  The tile's instances,
-// depth-ordered by the binning, are staged through shared memory 256 at a
-// time (each thread gathers one instance's attributes).  Per (pixel,
-// instance), as the TPU kernel and the oracle:
+// One block per 32x32 tile, 256 threads, 4 pixels per thread; each warp owns
+// a 16x8 sub-block of the tile (layout, cull and staging: composite.cuh).
+// The tile's instances, depth-ordered by the binning, are staged through a
+// double buffer in shared memory 256 at a time.  The thread that stages an
+// instance tests which of the 8 sub-blocks its alpha >= 1/255 region can
+// reach and stores an 8-bit mask beside the row; each warp then ballots its
+// bit over the batch and walks only the instances of its own compacted
+// list.  Per (pixel, instance), as the TPU kernel and the oracle:
 //   power = ca'·dx² + cb'·dx·dy + cc'·dy²   (conic pre-scaled: -ca/2, -cb, -cc/2)
 //   skip if power > 0 or opacity·e^power < 1/255
 //   alpha = min(0.99, opacity·e^power),  w = alpha·exp(logT)
 //   rgb += w·color,  logT += log1p(-alpha)
 // with means taken relative to the tile origin like the TPU kernel.  Log T
-// is carried (not T) as on the TPU; the backward pass will need it.
+// is carried (not T) as on the TPU; the backward pass will need it.  A
+// culled instance is one every pixel of the warp would skip, so each pixel
+// composites the same instances in the same order as without the cull.
 //
 // Early stop is per pixel: a pixel is done once logT < ln(1e-6)
-// (LOG_T_SKIP); the block stops when all its pixels are done.  The TPU
-// kernel skipped whole chunks instead; what either drops weighs < 1e-6.
-// Each pixel's stop index (one past the last instance of the tile's list it
-// evaluated; the tile's count if it never stopped) is written to `stop_out`,
-// the reference CUDA rasterizer's n_contrib: the backward kernel (K2,
-// rasterize_bwd.cu) starts each pixel there, so both passes see the same
-// (pixel, instance) pairs.
+// (LOG_T_SKIP).  A warp whose pixels are all done stops evaluating; the
+// block leaves the batch loop when all its pixels are done.  The TPU kernel
+// skipped whole chunks instead; what either drops weighs < 1e-6.  Each
+// pixel's stop index (one past the last instance of the tile's list it
+// evaluated; the tile's count if it never stopped) is written to
+// `stop_out`, the reference CUDA rasterizer's n_contrib: the backward
+// kernel (K2, rasterize_bwd.cu) starts each pixel there, so both passes see
+// the same (pixel, instance) pairs.
 //
 // Numerics: expf and log1pf (no fast-math intrinsics), built with
 // -fmad=false, so the result rounds like the plain PyTorch version.
-// Bound: operations, ~20 FP32 operations and the exponentials per
-// (pixel, instance) pair; each tile reads its instance list once and writes
-// its pixels once.
+// Bound: operations, ~23 FP32 operations and three exponentials or
+// logarithms per composited (pixel, instance) pair; each tile reads its
+// instance list once and writes its pixels once.  The warp cull removes
+// most of the pairs a pixel would only skip.  Launch bounds of 4 blocks per
+// SM hold the kernel to 64 registers (a few bytes spill), which measured
+// faster than 79 registers at 3 blocks.
 
 #include <cuda_runtime.h>
 
+#include "composite.cuh"
+
 namespace {
 
-constexpr int TILE = 32;
-constexpr int THREADS = 256;
-constexpr int ROWS = TILE * TILE / THREADS;  // pixels per thread
-constexpr int FEAT = 12;  // mx my ca' cb' cc' opacity r g b (+3 pad) per Gaussian
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
+using namespace composite;
+
+constexpr int BATCH = THREADS;  // instances staged per round, one per thread
 constexpr float LOG_T_SKIP = -13.8f;
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ bool all_of(const bool (&done)[ROWS]) {
+  bool all = true;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) all = all && done[k];
+  return all;
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
 composite_forward_kernel(const int* __restrict__ inst_gauss,
                          const int* __restrict__ tile_offsets,
                          const int* __restrict__ tile_counts,
@@ -50,17 +65,18 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
                          int width, int height, float* __restrict__ rgb_out,
                          float* __restrict__ logt_out,
                          int* __restrict__ stop_out) {
-  __shared__ float s_mx[THREADS], s_my[THREADS], s_ca[THREADS], s_cb[THREADS],
-      s_cc[THREADS], s_op[THREADS], s_r[THREADS], s_g[THREADS], s_b[THREADS];
+  __shared__ __align__(16) float s_feat[2][BATCH][FEAT];
+  __shared__ unsigned char s_mask[BATCH];
 
   const int tile = blockIdx.x;
   const int ox = (tile % tiles_x) * TILE;
   const int oy = (tile / tiles_x) * TILE;
-  const int lx = threadIdx.x % TILE;
-  const int ly0 = threadIdx.x / TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lx = sub_x0(warp) + lane % SUB_W;
+  const int ly0 = sub_y0(warp) + lane / SUB_W;  // rows ly0 + 2k
   const float px = (float)lx;
 
-  const int start = tile_offsets[tile];
+  const int* ids = inst_gauss + tile_offsets[tile];
   const int count = tile_counts[tile];
 
   float logt[ROWS], cr[ROWS], cg[ROWS], cb[ROWS];
@@ -71,60 +87,82 @@ composite_forward_kernel(const int* __restrict__ inst_gauss,
     logt[k] = 0.0f;
     cr[k] = cg[k] = cb[k] = 0.0f;
     // pixels of the padded tile grid outside the image are never written
-    done[k] = ox + lx >= width || oy + ly0 + 8 * k >= height;
+    done[k] = ox + lx >= width || oy + ly0 + 2 * k >= height;
     stop[k] = count;
   }
-  for (int batch = 0; batch < count; batch += THREADS) {
-    bool all_done = true;
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) all_done = all_done && done[k];
-    // barrier before the staging buffers are overwritten, and block vote
+
+  // batch 0 is staged before the loop; batch i + 1 while batch i composites
+  if ((int)threadIdx.x < min(BATCH, count))
+    stage_row(s_feat[0][threadIdx.x], feat, ids[threadIdx.x]);
+  cp_async_commit();
+  int next = BATCH + (int)threadIdx.x;
+  int id_next = next < count ? ids[next] : 0;
+  for (int batch = 0, buf = 0; batch < count; batch += BATCH, buf ^= 1) {
+    const bool all_done = all_of(done);
+    // barrier before the other buffer and the masks are overwritten, and
+    // block vote
     if (__syncthreads_and(all_done)) break;
-    const int n = min(THREADS, count - batch);
+    const int n = min(BATCH, count - batch);
+    if (next < count) stage_row(s_feat[buf ^ 1][threadIdx.x], feat, id_next);
+    cp_async_commit();
+    next += BATCH;
+    if (next < count) id_next = ids[next];
+    cp_async_wait_prev();
     if ((int)threadIdx.x < n) {
-      const int g = inst_gauss[start + batch + threadIdx.x];
-      const float4* f = reinterpret_cast<const float4*>(feat + (size_t)g * FEAT);
-      const float4 a = f[0], b = f[1], c = f[2];
-      s_mx[threadIdx.x] = a.x - (float)ox;
-      s_my[threadIdx.x] = a.y - (float)oy;
-      s_ca[threadIdx.x] = a.z;
-      s_cb[threadIdx.x] = a.w;
-      s_cc[threadIdx.x] = b.x;
-      s_op[threadIdx.x] = b.y;
-      s_r[threadIdx.x] = b.z;
-      s_g[threadIdx.x] = b.w;
-      s_b[threadIdx.x] = c.x;
+      float* row = s_feat[buf][threadIdx.x];
+      row[0] = row[0] - (float)ox;
+      row[1] = row[1] - (float)oy;
+      const Cull c = cull_of(row);
+      unsigned m = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        m |= reaches(c, (float)sub_x0(w), (float)sub_y0(w)) ? 1u << w : 0u;
+      s_mask[threadIdx.x] = (unsigned char)m;
     }
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float mx = s_mx[j], my = s_my[j];
-      const float ca = s_ca[j], cbc = s_cb[j], cc = s_cc[j], op = s_op[j];
-      const float dx = mx - px;
+
+    bool warp_done = __all_sync(FULL, all_done);
+    for (int g0 = 0; g0 < n && !warp_done; g0 += 32) {
+      const int i = g0 + lane;
+      unsigned bits = __ballot_sync(FULL, i < n && ((s_mask[i] >> warp) & 1));
+      while (bits) {
+        const int j = g0 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        const float4 f0 = *reinterpret_cast<const float4*>(&s_feat[buf][j][0]);
+        const float4 f1 = *reinterpret_cast<const float4*>(&s_feat[buf][j][4]);
+        const float fb = s_feat[buf][j][8];
+        const float dx = f0.x - px;
 #pragma unroll
-      for (int k = 0; k < ROWS; ++k) {
-        if (done[k]) continue;
-        const float dy = my - (float)(ly0 + 8 * k);
-        const float power = ca * (dx * dx) + cbc * (dx * dy) + cc * (dy * dy);
-        if (power > 0.0f) continue;
-        const float raw = op * expf(power);
-        if (raw < ALPHA_MIN) continue;
-        const float alpha = fminf(ALPHA_MAX, raw);
-        const float w = alpha * expf(logt[k]);
-        cr[k] = cr[k] + w * s_r[j];
-        cg[k] = cg[k] + w * s_g[j];
-        cb[k] = cb[k] + w * s_b[j];
-        logt[k] = logt[k] + log1pf(-alpha);
-        if (logt[k] < LOG_T_SKIP) {
-          done[k] = true;
-          stop[k] = batch + j + 1;
+        for (int k = 0; k < ROWS; ++k) {
+          if (done[k]) continue;
+          const float dy = f0.y - (float)(ly0 + 2 * k);
+          const float power = f0.z * (dx * dx) + f0.w * (dx * dy) + f1.x * (dy * dy);
+          if (power > 0.0f) continue;
+          const float raw = f1.y * expf(power);
+          if (raw < ALPHA_MIN) continue;
+          const float alpha = fminf(ALPHA_MAX, raw);
+          const float w = alpha * expf(logt[k]);
+          cr[k] = cr[k] + w * f1.z;
+          cg[k] = cg[k] + w * f1.w;
+          cb[k] = cb[k] + w * fb;
+          logt[k] = logt[k] + log1pf(-alpha);
+          if (logt[k] < LOG_T_SKIP) {
+            done[k] = true;
+            stop[k] = batch + j + 1;
+          }
+        }
+        if (__all_sync(FULL, all_of(done))) {
+          warp_done = true;
+          break;
         }
       }
     }
   }
+  cp_async_wait_all();  // no copy may land after the block has left
 
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
-    const int x = ox + lx, y = oy + ly0 + 8 * k;
+    const int x = ox + lx, y = oy + ly0 + 2 * k;
     if (x < width && y < height) {
       const size_t p = (size_t)y * width + x;
       rgb_out[3 * p] = cr[k];
@@ -150,4 +188,13 @@ extern "C" int e3d_composite_forward(const int* inst_gauss,
       inst_gauss, tile_offsets, tile_counts, feat, tiles_x, width, height,
       rgb_out, logt_out, stop_out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int e3d_composite_forward_occupancy(int* regs, int* blocks_per_sm) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, composite_forward_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, composite_forward_kernel, THREADS, 0);
 }

@@ -5,13 +5,16 @@ functions returning the ``cudaError_t`` of the launch) and is compiled on
 first use by ``nvcc`` for ``sm_90a`` into its own shared library, then
 loaded with ``ctypes``.  All sources are compiled in parallel, one ``nvcc``
 process each.  Libraries are cached under ``csrc/build/`` by a digest of
-the source and the flags, so a changed source is rebuilt.  Importing this
-module never runs ``nvcc``.
+the source, the headers of ``csrc/`` it includes and the flags, so a
+changed source or header is rebuilt.  Importing this module never runs
+``nvcc``.
 
 ``-fmad=false`` is part of the build: the expansion kernel's ellipse cull
 and the compositing kernels' alpha must round like their plain PyTorch
 versions, which run one rounding per operation, and the backward kernel
 must skip exactly the (pixel, instance) pairs the forward kernel skipped.
+A kernel fuses a product into a sum only where it says so (``__fmaf_rn``
+in the backward kernel's gradient sums).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -33,9 +37,12 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # source name → {C function: argtypes}; every function returns an int
-# (cudaError_t of its launches, 0 on success) and takes the stream last
+# (a cudaError_t, 0 on success); the launch functions take the stream last,
+# the ``*_occupancy`` ones write (registers per thread, resident blocks per
+# SM) of their kernel
 SIGNATURES = {
     "expand": {
         # offsets, order, rect, cull, n, cap, tiles_x, num_tiles,
@@ -54,12 +61,14 @@ SIGNATURES = {
         # width, height, rgb_out, logt_out, stop_out, stream
         "e3d_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                   _P],
+        "e3d_composite_forward_occupancy": [_IP, _IP],
     },
     "rasterize_bwd": {
         # inst_gauss, tile_offsets, tile_counts, feat, num_tiles, tiles_x,
         # width, height, g_rgb, g_logt, logt_final, stop, rows_out, stream
         "e3d_composite_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                    _P, _P, _P],
+        "e3d_composite_backward_occupancy": [_IP, _IP],
     },
     "segsum": {
         # rows, n_rows, width, dest, starts, ends, n_seg, limit, order, out,
@@ -79,12 +88,29 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/{name}.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header, in the order first included."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, str]:
@@ -134,6 +160,16 @@ def function(name: str, fn: str):
             getattr(lib, f).restype = ctypes.c_int
         _loaded[name] = lib
     return getattr(lib, fn)
+
+
+def occupancy(name: str, fn: str) -> tuple[int, int]:
+    """(registers per thread, resident blocks per SM) of the kernel that
+    the C function ``fn`` of source ``name`` reports on."""
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = function(name, fn)(ctypes.byref(regs), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: cudaError_t {err}")
+    return regs.value, blocks.value
 
 
 def launch(name: str, fn: str, *args) -> None:

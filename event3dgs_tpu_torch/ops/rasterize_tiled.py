@@ -17,6 +17,10 @@ from the image weighs < 1e-6.
   each pixel's stop index, rebuilding log T by subtraction; it writes nine
   gradient floats per instance slot (mean2d x/y, conic a/b/c, opacity,
   r/g/b), summed over the tile's pixels in a fixed order.
+- In both, each warp owns a 16×8 sub-block of the tile and skips the
+  instances whose α ≥ 1/255 region cannot reach it (:func:`warp_cull_mask`,
+  ``csrc/composite.cuh``); a culled instance is one every pixel of the
+  sub-block would skip, so the cull changes no result.
 - K3 (``ops/segscan.py``) sums each Gaussian's slot rows.
 
 :class:`TiledRasterize` is the ``torch.autograd.Function`` tying them
@@ -37,6 +41,7 @@ from event3dgs_tpu_torch.ops.binning import (
     Binning,
     bin_gaussians,
 )
+from event3dgs_tpu_torch.ops.expand import rect_min_q
 from event3dgs_tpu_torch.ops.projection import ProjectedGaussians
 from event3dgs_tpu_torch.ops.segscan import segment_sums, segment_sums_plain
 
@@ -46,6 +51,8 @@ LOG_T_SKIP = -13.8  # ln(1e-6): per-pixel early stop
 FEAT = 12  # packed floats per Gaussian (see pack_features)
 NGRAD = 9  # gradient floats per instance slot (K2's rows)
 DEPTH_CHUNK = 16  # instances per step of the plain versions' alpha pass
+SUB_W, SUB_H = 16, 8  # a warp's sub-block of the tile in K1 and K2
+CULL_SLACK, CULL_EPS = 1e-3, 4e-6  # the warp cull's margins (warp_cull_mask)
 _Q = TILE_H * TILE_W
 
 
@@ -85,6 +92,47 @@ def _retile(x, tiles_x, tiles_y):
     return pad.reshape((tiles_y * tiles_x, _Q) + rest)
 
 
+def warp_cull_mask(f, ox, oy):
+    """[..., 8] bool: which 16×8 sub-blocks of its tile (sub-block s at
+    (16·(s % 2), 8·(s // 2)); the warps of K1 and K2) the instance with
+    packed features ``f`` [..., 12] can reach, for tile origins ``ox``,
+    ``oy`` broadcastable to ``f[..., 0]``.
+
+    The kernels' arithmetic (``csrc/composite.cuh``), operation for
+    operation: the conic (a, b, c) recovered from the pre-scaled one, the
+    binning's per-tile test (:func:`~event3dgs_tpu_torch.ops.expand.rect_min_q`
+    over the sub-block's pixel box expanded by 1 px, against
+    qthr = 2·ln(255·o)) with a margin for float rounding:
+    ``CULL_SLACK``·(qthr + 1), plus ``CULL_EPS`` times the largest
+    magnitude of Q's terms over the box, (|a| + |b|)·X² + (|b| + |c|)·Y²
+    (X, Y the box's largest |dx|, |dy|), which bounds the rounding of power
+    where the terms cancel.  A NaN keeps the instance.  False only where
+    every pixel of the sub-block has power > 0 or raw < 1/255.
+    """
+    mx = (f[..., 0] - ox)[..., None]
+    my = (f[..., 1] - oy)[..., None]
+    a, b, c = f[..., 2] * -2.0, f[..., 3] * -1.0, f[..., 4] * -2.0
+    pd = (a > 1e-12) & (c > 1e-12) & (a * c - b * b > 1e-12)
+    one, zero = torch.ones_like(a), torch.zeros_like(a)
+    nba = torch.where(pd, -b / torch.where(pd, a, one), zero)[..., None]
+    nbc = torch.where(pd, -b / torch.where(pd, c, one), zero)[..., None]
+    a, b, c = (torch.where(pd, x, zero)[..., None] for x in (a, b, c))
+    qthr = 2.0 * torch.clamp(
+        torch.log(255.0 * torch.clamp(f[..., 5], min=1e-12)), min=0.0)
+    limit = (qthr + CULL_SLACK * (qthr + 1.0))[..., None]
+    sa, sc = a.abs() + b.abs(), b.abs() + c.abs()
+    s = torch.arange(8, device=f.device)
+    x0 = ((s % 2) * SUB_W).to(torch.float32)
+    y0 = ((s // 2) * SUB_H).to(torch.float32)
+    lx, hx = x0 - 1.0 - mx, x0 + float(SUB_W) - mx
+    ly, hy = y0 - 1.0 - my, y0 + float(SUB_H) - my
+    qmin = rect_min_q(lx, hx, ly, hy, a, b, c, nba, nbc)
+    x = torch.maximum(lx.abs(), hx.abs())
+    y = torch.maximum(ly.abs(), hy.abs())
+    terms = sa * (x * x) + sc * (y * y)
+    return ~(qmin > limit + CULL_EPS * terms)
+
+
 class _TileGeometry:
     """Tile-local pixel coordinates and tile origins, as K1 and K2 use them."""
 
@@ -92,6 +140,8 @@ class _TileGeometry:
         q = torch.arange(_Q, device=device)
         self.lx = (q % TILE_W).to(torch.float32)
         self.ly = (q // TILE_W).to(torch.float32)
+        # the sub-block (warp) of each pixel
+        self.sub = (q // TILE_W // SUB_H) * (TILE_W // SUB_W) + q % TILE_W // SUB_W
         t = torch.arange(num_tiles, device=device)
         self.ox = ((t % tiles_x) * TILE_W).to(torch.float32)
         self.oy = ((t // tiles_x) * TILE_H).to(torch.float32)
@@ -131,9 +181,11 @@ def _composite_plain(inst_gauss, tile_offsets, tile_counts, feat, tiles_x,
     """K1's arithmetic on padded per-tile lists: alphas of ``DEPTH_CHUNK``
     instances at a time, vectorised over tiles and pixels, then the
     compositing in depth order.  Returns (rgb, logt, stop, pairs), ``pairs``
-    counting the (pixel, instance) pairs evaluated before each pixel's early
+    counting the (pixel, instance) pairs visited before each pixel's early
     stop by what K1 (and K2, which visits the same pairs) does with them:
-    int64 [3] (skipped at power > 0, skipped at raw < 1/255, composited)."""
+    int64 [4] (skipped at power > 0, skipped at raw < 1/255, composited, and
+    of the skipped, those the warp cull removes: the kernels evaluate the
+    visited pairs less these)."""
     dev = feat.device
     num_tiles = tile_counts.shape[0]
     tiles_y = num_tiles // tiles_x
@@ -142,11 +194,13 @@ def _composite_plain(inst_gauss, tile_offsets, tile_counts, feat, tiles_x,
     logt = torch.zeros(num_tiles, _Q, device=dev)
     stop = torch.zeros(num_tiles, _Q, dtype=torch.int32, device=dev)
     feat_pad = torch.cat([feat, feat.new_zeros(1, FEAT)])
-    power_skipped = composited = torch.zeros((), dtype=torch.int64, device=dev)
+    power_skipped = composited = culled = torch.zeros((), dtype=torch.int64,
+                                                     device=dev)
     max_count = int(tile_counts.max()) if num_tiles else 0
     for d0 in range(0, max_count, DEPTH_CHUNK):
         j, has, _, f, _, _, _, power, _, alpha = geo.chunk(
             inst_gauss, tile_offsets, tile_counts, feat_pad, d0)
+        reach = warp_cull_mask(f, geo.ox[:, None], geo.oy[:, None])[..., geo.sub]
         for d in range(min(DEPTH_CHUNK, max_count - d0)):
             active = geo.inside & (logt >= LOG_T_SKIP)
             stop += (active & has[:, d, None]).to(torch.int32)
@@ -158,8 +212,10 @@ def _composite_plain(inst_gauss, tile_offsets, tile_counts, feat, tiles_x,
         visited = j[None, :, None] < stop[:, None, :]
         power_skipped = power_skipped + (visited & (power > 0.0)).sum()
         composited = composited + (visited & (alpha > 0.0)).sum()
+        culled = culled + (visited & ~reach).sum()
     pairs = torch.stack([power_skipped,
-                         stop.sum() - power_skipped - composited, composited])
+                         stop.sum() - power_skipped - composited, composited,
+                         culled])
     untile = lambda x: _untile(x, tiles_x, tiles_y, width, height)
     return untile(rgb), untile(logt), untile(stop), pairs
 
@@ -221,7 +277,8 @@ def composite_backward_plain(inst_gauss, tile_offsets, tile_counts, feat,
     Walks ``DEPTH_CHUNK`` instances at a time from the deepest chunk up,
     vectorised over tiles and pixels, with K2's per-pixel carries; the
     per-instance sums over a tile's pixels are ``torch.sum`` (another order
-    than K2's shuffle tree, so the two agree to rounding)."""
+    than K2's butterfly, and K2 fuses its gradient products and sums into
+    FMAs, so the two agree to rounding)."""
     dev = feat.device
     num_tiles = tile_counts.shape[0]
     tiles_y = num_tiles // tiles_x

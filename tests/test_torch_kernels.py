@@ -22,14 +22,14 @@ from event3dgs_tpu_torch.core import make_camera
 from event3dgs_tpu_torch.models import activated, params_from_numpy
 from event3dgs_tpu_torch.ops import binning, expand, kernels, segscan, sort_tiles
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
-from event3dgs_tpu_torch.ops.projection import project_gaussians
+from event3dgs_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from event3dgs_tpu_torch.ops.render import render
 
 torch.set_num_threads(1)
 
 
 def scene(n, seed, w, h, spread=1.2, z=(2.0, 6.0), scale=(0.03, 0.25),
-          ratio=1.0, device="cpu"):
+          ratio=1.0, opacity=(0.2, 0.95), device="cpu"):
     """Random Gaussians in front of an identity camera, projected."""
     rng = np.random.default_rng(seed)
     means = np.c_[rng.uniform(-spread, spread, n),
@@ -37,7 +37,7 @@ def scene(n, seed, w, h, spread=1.2, z=(2.0, 6.0), scale=(0.03, 0.25),
     scales = (np.exp(rng.uniform(np.log(scale[0]), np.log(scale[1]), (n, 1)))
               * rng.uniform(0.7, 1.4, (n, 3)) * [1.0, 1.0 / ratio, 1.0])
     rots = rng.normal(size=(n, 4))
-    opac = rng.uniform(0.2, 0.95, n)
+    opac = rng.uniform(*opacity, n)
     colors = rng.uniform(0.0, 1.0, (n, 3))
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.8, w, h, device=device)
@@ -55,6 +55,44 @@ SCENES = {
     "multi_tile_rows": dict(n=60, seed=2, w=384, h=96),
     "wide_frame": dict(n=20000, seed=3, w=1280, h=720, spread=3.0, z=(2, 10),
                        scale=(0.005, 0.05)),
+}
+
+
+def edge_scene(n, seed, w, h, device="cpu"):
+    """Thin splats (axis ratio 8-40, along x or y) centred on the edges of
+    the 16×8 sub-blocks the warps of K1 and K2 own: the warp cull removes
+    most of their visits."""
+    rng = np.random.default_rng(seed)
+    mean2d = np.c_[rng.integers(0, w // 16 + 1, n) * 16.0,
+                   rng.integers(0, h // 8 + 1, n) * 8.0]
+    mean2d += rng.choice([-0.5, -1e-3, 0.0, 1e-3, 0.5], (n, 2))
+    major = rng.uniform(2.0, 12.0, n)
+    minor = np.maximum(major / rng.uniform(8.0, 40.0, n), 0.3)
+    theta = rng.choice([0.0, np.pi / 2], n) + rng.normal(0.0, 0.02, n)
+    c, s = np.cos(theta), np.sin(theta)
+    # covariance R·diag(major², minor²)·Rᵀ and its inverse, the conic
+    cxx = c * c * major ** 2 + s * s * minor ** 2
+    cyy = s * s * major ** 2 + c * c * minor ** 2
+    cxy = c * s * (major ** 2 - minor ** 2)
+    det = cxx * cyy - cxy * cxy
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    proj = ProjectedGaussians(
+        mean2d=f(mean2d), depth=f(rng.uniform(1.0, 10.0, n)),
+        conic=f(np.c_[cyy / det, -cxy / det, cxx / det]),
+        radius=f(np.ceil(3.0 * major)), valid=torch.ones(n, dtype=torch.bool,
+                                                         device=device))
+    colors = rng.uniform(0.0, 1.0, (n, 3))
+    return proj, f(colors), f(rng.uniform(0.3, 0.99, n)), w, h
+
+
+# scenes that stress the compositing kernels' batching and warp cull:
+# name → function(device) that makes the scene
+HARD_SCENES = {
+    # tiles of ~700 instances, pixels stopping inside K1's second batch
+    "deep_tiles": lambda device: scene(n=3000, seed=6, w=64, h=64, spread=0.6,
+                                       scale=(0.02, 0.08), opacity=(0.05, 0.5),
+                                       device=device),
+    "thin_edges": lambda device: edge_scene(300, 7, 128, 64, device=device),
 }
 
 
@@ -168,6 +206,39 @@ def test_backward_kernels_match_plain_versions(name, cap):
     assert segscan.segment_sums_kernel.launches == before + 1
     assert torch.equal(gk, rt.gaussian_grads(b, rows_k, plain=True))
     assert torch.isfinite(gk).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(HARD_SCENES))
+def test_composite_kernels_on_deep_and_culled_scenes(name):
+    """K1 and K2 against their plain versions where tiles need several
+    staging rounds and pixels stop inside them (``deep_tiles``) and where
+    the warp cull removes most visits (``thin_edges``); K2 run twice gives
+    bit-identical rows."""
+    need_card()
+    proj, colors, opac, w, h = HARD_SCENES[name]("cuda")
+    cap = rt.default_instance_cap(proj.mean2d.shape[0])
+    b = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius, proj.valid,
+                              w, h, cap, opacities=opac, conic=proj.conic)
+    feat = rt.pack_features(proj.mean2d, proj.conic, colors, opac)
+    fwd = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat, b.num_tiles_x, w, h)
+    rk, lk, sk = rt.composite_forward_kernel(*fwd)
+    rp, lp, sp = rt.composite_forward_plain(*fwd)
+    torch.testing.assert_close(rk, rp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(torch.exp(lk), torch.exp(lp), atol=1e-6, rtol=0)
+    assert torch.equal(sk, sp)
+    g = torch.Generator().manual_seed(7)
+    g_rgb = (torch.rand(h, w, 3, generator=g) - 0.5).cuda()
+    g_logt = (torch.rand(h, w, generator=g) - 0.5).cuda()
+    args = fwd + (g_rgb, g_logt, lk, sk, cap)
+    rows_k = rt.composite_backward_kernel(*args)
+    rows_p = rt.composite_backward_plain(*args)
+    live = int(b.tile_counts.sum())
+    scale = rows_p[:live].abs().max().clamp(min=1e-12)
+    torch.testing.assert_close(rows_k[:live] / scale, rows_p[:live] / scale,
+                               atol=1e-5, rtol=0)
+    assert torch.equal(rows_k[:live], rt.composite_backward_kernel(*args)[:live])
     torch.cuda.synchronize()
 
 
@@ -287,10 +358,12 @@ def test_cpu_dispatch_takes_the_plain_versions():
     assert [k.launches for k in wrappers] == before
 
 
-def test_kernel_build_is_lazy_and_keyed_by_source():
+def test_kernel_build_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     """Importing the port loads no kernel library; each source has its own
-    library path, keyed by the source's content, and exports the C launch
-    functions the bindings declare."""
+    library path, keyed by the source's content and the headers it
+    includes, and exports the C functions the bindings declare.  K1 and K2
+    share ``csrc/composite.cuh``: a change to it changes both libraries'
+    paths (so both rebuild) and no other's."""
     code = ("import event3dgs_tpu_torch.cli.render, event3dgs_tpu_torch.cli.train, "
             "event3dgs_tpu_torch.ops.render; "
             "from event3dgs_tpu_torch.ops import kernels; "
@@ -304,3 +377,14 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
         text = src.read_text()
         for fn in functions:
             assert f'extern "C" int {fn}(' in text
+    for f in kernels.CSRC.glob("*.cu*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    assert [p.name for p in kernels.sources("rasterize_bwd")] == [
+        "rasterize_bwd.cu", "composite.cuh"]
+    before = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
+    header = tmp_path / "composite.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    after = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
+    changed = sorted(n for n in before if before[n] != after[n])
+    assert changed == ["rasterize_bwd", "rasterize_fwd"]
