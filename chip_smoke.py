@@ -16,11 +16,16 @@ Phases (any failed check exits non-zero; nothing is caught):
    (``event3dgs_tpu_torch.cli.render.main``) and check that each kernel of
    the path (K1, K4, K5, K6) launched once per view and that the PNGs exist.
 4. Hold each render kernel against its plain PyTorch version at the shapes
-   of view 0 (K4, K5, K6 exactly, K1 within 1e-5), one full view of the
-   kernel path against the all-plain path, and the kernel path against the
-   oracle rasterizer on a small scene.
+   of view 0 (K4, K5, K6 and the fused counting sort exactly, the whole
+   ``Binning`` exactly, K1 within 1e-5), one full view of the kernel path
+   against the all-plain path, and the kernel path against the oracle
+   rasterizer on a small scene.  The fused counting sort (K5 and K6 with
+   the tile lists, everything from K4's output to the ``Binning``) must run
+   as its three CUDA functions and nothing else.
 5. Time each render kernel, its plain version and the PyTorch yardstick
-   call with CUDA events, and one view's render with the host clock.
+   call with CUDA events (per call, the host's enqueue included) and the
+   profiler's device time in the kernel's own CUDA functions (``device_ms``),
+   and one view's render with the host clock.
 6. Train through the entry point: a COLMAP scene with 8 views at
    1920×1080 (``images/`` and ``images_event/``) and a 100k-point cloud
    drawn like ``bench.py``'s scene; ``cli.train --gray --event`` for 6
@@ -32,12 +37,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
    cap): K1's stop index, K2's rows (1e-5 of the max) and K3 (bit-equal)
    against their plain versions on the main view, and K2 run twice giving
-   bit-identical rows; one step's gradients, kernel path against the
+   bit-identical rows; K5, K6, the fused counting sort and the whole
+   ``Binning`` there exactly (and the counting sort timed); one step's
+   gradients, kernel path against the
    all-plain path (2e-4 of each field's max); the same step twice under
    ``torch.use_deterministic_algorithms`` giving bit-identical parameters.
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
-   profile one step, and time K2 and K3 with CUDA events.  Then densify
+   profile one step, and time K2 and K3 as in phase 5.  Then densify
    the timed state with capacity growth and run one more step at a
    re-measured instance cap (3 launches of each kernel, finite loss).
 
@@ -269,22 +276,6 @@ def composite_report(name, row, pairs, nbytes, lib, fn):
           f"{sum(pairs[:3])} visited; {regs} registers, {blocks} blocks per SM")
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def profile_view(fn, what: str = "one view", top: int = 12):
     """Where ``fn``'s time goes: device time per kernel name (torch
     profiler) against its host-clock time."""
@@ -311,6 +302,78 @@ def profile_view(fn, what: str = "one view", top: int = 12):
           f"{sum(r[1] for r in rows)} device kernels")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.4f} ms  x{count:<3d} {key[:90]}")
+
+
+# each kernel's own CUDA functions (csrc/), whose device time is its
+# device_ms; K5 and K6 share the count and scan of csrc/sort_tiles.cu
+KERNEL_FUNCTIONS = {
+    "K1 composite_forward": ("composite_forward_kernel",),
+    "K2 composite_backward": ("composite_backward_kernel",),
+    "K3 segment_sums": ("segment_sums_kernel",),
+    "K4 expand_instances": ("expand_kernel",),
+    "K5 tile_histogram": ("segment_count_kernel", "scan_kernel"),
+    "K6 stable_tile_rank": ("segment_count_kernel", "scan_kernel", "rank_kernel"),
+}
+SORT_FUNCTIONS = KERNEL_FUNCTIONS["K6 stable_tile_rank"]
+
+
+def counting_sort_check(what, tile, gauss, n_live, nt, n):
+    """K5, K6 and the fused counting sort against their plain versions on
+    K4's output (bit-equal); the fused sort's event time, its device time
+    per CUDA function and the device kernels it runs (all of them from
+    K4's output to the ``Binning``), beside its bound.  Returns the K5 and
+    K6 errors."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import sort_tiles
+    from event3dgs_tpu_torch.tools.kernel_timing import cuda_ms, device_profile
+
+    ck = sort_tiles.tile_histogram_kernel(tile, nt, n_live)
+    cp = sort_tiles.tile_histogram_plain(tile, nt, n_live)
+    starts = (torch.cumsum(ck, 0) - ck).to(torch.int32)
+    cap = tile.shape[0]
+    dk = sort_tiles.stable_tile_rank_kernel(tile, n_live, nt, starts, cap)
+    dp = sort_tiles.stable_tile_rank_plain(tile, n_live, nt, starts, cap)
+    errs = {"K5 tile_histogram": (ck - cp).abs().max().item(),
+            "K6 stable_tile_rank": (dk - dp).abs().max().item()}
+    for k, e in errs.items():
+        check(e == 0, f"{what}: {k} differs from its plain version by {e}")
+    call = lambda: sort_tiles.counting_sort_kernel(tile, gauss, n_live, nt, n)
+    fused = call()
+    plain = sort_tiles.counting_sort_plain(tile, gauss, n_live, nt, n)
+    for field, k, p in zip(fused._fields, fused, plain):
+        check(torch.equal(k, p), f"{what}: the counting sort's {field} "
+              f"differs from its plain version")
+    ms = cuda_ms(call, 50)
+    prof = device_profile(call)
+    check(set(prof) == set(SORT_FUNCTIONS),
+          f"{what}: the counting sort ran {sorted(prof)}")
+    ops = sum(v[1] for v in prof.values())
+    check(ops <= 4, f"{what}: {ops} device kernels from K4's output to the "
+          f"Binning")
+    live = int(fused.counts.sum())
+    # live ids and their Gaussians read, dest and the lists written once,
+    # counts and offsets written
+    nbytes = min(int(n_live), cap) * 4 + live * 4 + cap * 8 + nt * 8
+    bound, _ = bound_ms(nbytes, (0, 0))
+    device = sum(v[0] for v in prof.values())
+    print(f"{what}: counting sort (K5 + K6 fused, the tile lists) equal to its "
+          f"plain version; {ms:.4f} ms per call (CUDA events), device "
+          f"{device * 1e3:.2f} us per call ("
+          + ", ".join(f"{f} {prof[f][0] * 1e3:.2f}" for f in SORT_FUNCTIONS)
+          + f"), {ops:.0f} device kernels from K4's output to the Binning; "
+          f"bound {bound * 1e3:.2f} us (bytes)")
+    return errs
+
+
+def check_binning(what, bk, bp):
+    """The kernel path's Binning equal to the all-plain one."""
+    import torch
+
+    for field in ("inst_gauss", "tile_offsets", "tile_counts", "dest",
+                  "overflow", "offsets", "order"):
+        check(torch.equal(getattr(bk, field), getattr(bp, field)),
+              f"{what}: the binning's {field} differs from the plain path's")
 
 
 def wrappers():
@@ -408,15 +471,11 @@ def render_path(root: str, dev):
     tp, gp = expand.expand_instances_plain(*tables, cap, tiles_x, nt)
     errs["K4 expand_instances"] = max(
         (tk - tp).abs().max().item(), (gk - gp).abs().max().item())
-    ck = sort_tiles.tile_histogram_kernel(tk, nt, n_live)
-    cp = sort_tiles.tile_histogram_plain(tk, nt, n_live)
-    errs["K5 tile_histogram"] = (ck - cp).abs().max().item()
-    starts = (torch.cumsum(ck, 0) - ck).to(torch.int32)
-    dk = sort_tiles.stable_tile_rank_kernel(tk, n_live, nt, starts, cap)
-    dp = sort_tiles.stable_tile_rank_plain(tk, n_live, nt, starts, cap)
-    errs["K6 stable_tile_rank"] = (dk - dp).abs().max().item()
-    for k in ("K4 expand_instances", "K5 tile_histogram", "K6 stable_tile_rank"):
-        check(errs[k] == 0, f"{k} differs from its plain version by {errs[k]}")
+    check(errs["K4 expand_instances"] == 0, "K4 differs from its plain version "
+          f"by {errs['K4 expand_instances']}")
+    errs.update(counting_sort_check("view 0", tk, gk, n_live, nt, N_GAUSSIANS))
+    counts = sort_tiles.tile_histogram_plain(tk, nt, n_live)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)  # K6's input
 
     bk = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius, proj.valid,
                                WIDTH, HEIGHT, cap, opacities=act.opacities,
@@ -424,9 +483,7 @@ def render_path(root: str, dev):
     bp = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius, proj.valid,
                                WIDTH, HEIGHT, cap, opacities=act.opacities,
                                conic=proj.conic, plain=True)
-    check(torch.equal(bk.inst_gauss, bp.inst_gauss)
-          and torch.equal(bk.tile_counts, bp.tile_counts)
-          and torch.equal(bk.dest, bp.dest), "binning differs")
+    check_binning("view 0", bk, bp)
     live = int(bk.tile_counts.sum())
     n_inst = int(n_live)
     print(f"view 0: {n_inst} rect instances, {live} after the ellipse cull, "
@@ -538,12 +595,29 @@ def render_path(root: str, dev):
     return launches, errs, rows
 
 
+def kernel_device_ms(name, fn) -> float:
+    """The profiler's self device time per call of ``fn`` in the CUDA
+    functions of kernel ``name`` (KERNEL_FUNCTIONS), matched by exact name;
+    fails if one of them did not run."""
+    from event3dgs_tpu_torch.tools.kernel_timing import device_profile
+
+    prof = device_profile(fn)
+    missing = [f for f in KERNEL_FUNCTIONS[name] if f not in prof]
+    check(not missing, f"{name}: the profiler saw no device time in {missing}")
+    return sum(prof[f][0] for f in KERNEL_FUNCTIONS[name])
+
+
 def kernel_rows(timings, bounds, meta, errs):
-    """Time each kernel, its plain version and its yardstick; one JSON row
-    each (``launches`` is filled in by the caller)."""
+    """Time each kernel (CUDA events per call, and the profiler's device
+    time in the kernel's own CUDA functions), its plain version and its
+    yardstick; one JSON row each (``launches`` is filled in by the
+    caller)."""
+    from event3dgs_tpu_torch.tools.kernel_timing import cuda_ms
+
     rows = {}
     for name, (kern, plain, lib, iters) in timings.items():
         ms = cuda_ms(kern, iters)
+        device_ms = kernel_device_ms(name, kern)
         plain_ms = cuda_ms(plain, max(iters // 10, 2), warmup=1)
         lib_ms = cuda_ms(lib, iters) if lib is not None else None
         bound, bound_by = bound_ms(*bounds[name])
@@ -556,14 +630,16 @@ def kernel_rows(timings, bounds, meta, errs):
             "launches": None,
             "max_abs_err": errs[name],
             "ms": ms,
+            "device_ms": device_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": bound_by,
             "library_ms": lib_ms,
         }
         lib_txt = "-" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_txt} ms, bound {bound:.4f} ms ({bound_by})")
+        print(f"{name}: kernel {ms:.4f} ms per call ({device_ms:.4f} ms device), "
+              f"plain {plain_ms:.4f} ms, library {lib_txt} ms, bound "
+              f"{bound:.4f} ms ({bound_by})")
     return rows
 
 
@@ -673,7 +749,7 @@ def train_kernels(dev):
     import torch
 
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops import binning, segscan
+    from event3dgs_tpu_torch.ops import binning, expand, segscan
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors
@@ -699,6 +775,17 @@ def train_kernels(dev):
                                   proj.valid, WIDTH, HEIGHT, icap,
                                   opacities=act.opacities, conic=proj.conic)
         feat = rt.pack_features(proj.mean2d, proj.conic, colors, act.opacities)
+        check_binning("main view", b, binning.bin_gaussians(
+            proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH, HEIGHT,
+            icap, opacities=act.opacities, conic=proj.conic, plain=True))
+        tables = binning.depth_tables(proj.mean2d, proj.depth, proj.radius,
+                                      proj.valid, WIDTH, HEIGHT,
+                                      opacities=act.opacities, conic=proj.conic)
+        nt = b.tile_counts.shape[0]
+        tile, gauss = expand.expand_instances_kernel(*tables, icap,
+                                                     b.num_tiles_x, nt)
+        counting_sort_check("main view", tile, gauss, tables.offsets[-1:], nt,
+                            proj.mean2d.shape[0])
     check(int(b.overflow) == 0, "measured instance cap overflowed")
     fwd = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat, b.num_tiles_x,
            WIDTH, HEIGHT)
@@ -822,7 +909,6 @@ def train_kernels(dev):
             lambda: rt.gaussian_grads(b, rows_k, plain=True),
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
     }
-    nt = b.tile_counts.shape[0]
     k2_bytes = (live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 24
                 + live * rt.NGRAD * 4)
     bounds = {

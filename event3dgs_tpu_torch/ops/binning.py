@@ -14,8 +14,9 @@ port's own layout: per-tile contiguous ranges (``tile_offsets``,
    with the exact per-tile ellipse cull; at most ``instance_cap`` instances
    are kept, the first in depth order, and the rest are counted in
    ``overflow``.
-4. A stable counting sort by tile — histogram (K5), offsets by ``cumsum``,
-   stable rank (K6) — keeps each tile's instances in depth order.
+4. A stable counting sort by tile — histogram (K5) and stable rank (K6),
+   fused into one pass that also writes the offsets and the per-tile
+   lists — keeps each tile's instances in depth order.
 
 Tiles are 32×32 pixels.  Binning produces index data only; no gradient
 flows through it.  Besides the per-tile lists, :class:`Binning` keeps what
@@ -34,12 +35,7 @@ import numpy as np
 import torch
 
 from event3dgs_tpu_torch.ops.expand import expand_instances, expand_instances_plain
-from event3dgs_tpu_torch.ops.sort_tiles import (
-    stable_tile_rank,
-    stable_tile_rank_plain,
-    tile_histogram,
-    tile_histogram_plain,
-)
+from event3dgs_tpu_torch.ops.sort_tiles import counting_sort, counting_sort_plain
 
 TILE_H = 32
 TILE_W = 32
@@ -206,30 +202,24 @@ def bin_gaussians(
     n = mean2d.shape[0]
     tiles_x, tiles_y = tile_grid(width, height)
     num_tiles = tiles_x * tiles_y
-    expand, hist, rank = (
-        (expand_instances_plain, tile_histogram_plain, stable_tile_rank_plain)
-        if plain else (expand_instances, tile_histogram, stable_tile_rank)
+    expand, sort = (
+        (expand_instances_plain, counting_sort_plain) if plain
+        else (expand_instances, counting_sort)
     )
     with torch.no_grad():
         tables = depth_tables(mean2d, depth, radius, valid, width, height,
                               opacities=opacities, conic=conic)
         tile, gauss = expand(*tables, instance_cap, tiles_x, num_tiles)
         n_live = tables.offsets[n:]  # [1] total instances, uncapped
-        counts = hist(tile, num_tiles, n_live)
-        starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-        dest = rank(tile, n_live, num_tiles, starts, instance_cap)
-        inst = torch.full((instance_cap + 1,), n, dtype=torch.int32,
-                          device=mean2d.device)
-        inst.scatter_(0, dest.long(), gauss)  # sentinels land in the last slot
-        overflow = torch.clamp(tables.offsets[n] - instance_cap, min=0)
+        lists = sort(tile, gauss, n_live, num_tiles, n)
     return Binning(
-        inst_gauss=inst[:instance_cap],
-        tile_offsets=starts,
-        tile_counts=counts,
-        overflow=overflow,
+        inst_gauss=lists.inst,
+        tile_offsets=lists.offsets,
+        tile_counts=lists.counts,
+        overflow=lists.overflow,
         num_tiles_x=tiles_x,
         num_tiles_y=tiles_y,
-        dest=dest,
+        dest=lists.dest,
         offsets=tables.offsets,
         order=tables.order,
     )

@@ -50,11 +50,16 @@ SIGNATURES = {
         "e3d_expand_instances": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     },
     "sort_tiles": {
-        # ids, n_ids, n_live, n_bins, counts_out, stream
-        "e3d_tile_histogram": [_P, _I, _P, _I, _P, _P],
-        # ids, n_ids, n_live, n_bins, offsets, drop_dest, block_base
+        # ids, n_ids, n_live, n_bins, segment_base scratch, counts_out,
+        # stream
+        "e3d_tile_histogram": [_P, _I, _P, _I, _P, _P, _P],
+        # ids, n_ids, n_live, n_bins, offsets, drop_dest, segment_base
         # scratch, dest_out, stream
         "e3d_stable_tile_rank": [_P, _I, _P, _I, _P, _I, _P, _P, _P],
+        # ids, gauss, n_ids, n_live, n_bins, fill, segment_base scratch,
+        # counts_out, offsets_out, dest_out, inst_out, overflow_out, stream
+        "e3d_counting_sort": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _P],
     },
     "rasterize_fwd": {
         # inst_gauss, tile_offsets, tile_counts, feat, num_tiles, tiles_x,

@@ -1,27 +1,64 @@
 """Counting sort of instances by tile: kernels K5 (histogram) and K6
-(stable in-tile rank), with their plain versions.
+(stable in-tile rank), fused into one count → scan → rank pass that also
+writes the tile lists, with their plain versions.
 
 Counterpart of ``event3dgs_tpu/ops/sort_tiles.py``.  Ids are tile ids in
 ``[0, n_bins]`` where ``n_bins`` is the drop sentinel, and every id at an
-index ``>= n_live`` must already be the sentinel (the kernels skip that
-tail).  ``n_live`` is a one-element int32 tensor on the ids' device, so the
-host never waits for it.
+index ``>= n_live`` counts as the sentinel.  ``n_live`` is a one-element
+int32 tensor on the ids' device, so the host never waits for it.
 
 - :func:`tile_histogram`: instances per tile, sentinels dropped.
 - :func:`stable_tile_rank`: ``dest[i] = offsets[id] + #{j < i: ids[j] == id}``
   for real ids and ``drop_dest`` for sentinels — the destinations of a
   stable counting sort, which keeps the depth order inside each tile.
+- :func:`counting_sort`: both at once, with the offsets the exclusive
+  prefix of the counts, and the sorted lists themselves (what
+  ``ops/binning.py`` needs).
 
 The kernels are ``csrc/sort_tiles.cu``; CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from event3dgs_tpu_torch.ops import kernels
 
-RANK_SEGMENT = 1024  # ids per segment of the rank kernel (SEG in the source)
+SEGMENT = 2048  # ids per block of the count and rank kernels (SEGMENT in the source)
+RANK_STATIC_LIMIT = 48 * 1024  # static shared bytes of a rank block, at most
+SHARED_LIMIT = 232_448  # bytes of shared memory one block may use (227 KB, H100)
+
+
+class SortPlan(NamedTuple):
+    """How the kernels of ``csrc/sort_tiles.cu`` are launched."""
+
+    segments: int  # blocks of the count and rank kernels, SEGMENT ids each
+    count_shared: int  # shared bytes of a count block: one int per tile
+    rank_shared: int  # shared bytes of a rank block, at most: its static
+    # storage and one int per tile
+
+
+def sort_plan(n_ids: int, n_bins: int) -> SortPlan:
+    """The launch plan; raises where a block's per-tile shared memory would
+    not fit."""
+    rank_shared = RANK_STATIC_LIMIT + 4 * n_bins
+    if n_bins < 1 or rank_shared > SHARED_LIMIT:
+        raise ValueError(f"counting sort: {n_bins} tiles do not fit the "
+                         f"{SHARED_LIMIT} bytes of shared memory of a block")
+    return SortPlan(segments=max(-(-n_ids // SEGMENT), 1),
+                    count_shared=4 * n_bins, rank_shared=rank_shared)
+
+
+class TileSort(NamedTuple):
+    """The result of :func:`counting_sort`."""
+
+    counts: torch.Tensor  # [n_bins] int32 real ids per tile
+    offsets: torch.Tensor  # [n_bins] int32 exclusive prefix of counts
+    dest: torch.Tensor  # [m] int32 slot of each id; m for sentinels
+    inst: torch.Tensor  # [m] int32 gauss in (tile, index) order; fill pads
+    overflow: torch.Tensor  # [] int32 max(n_live - m, 0)
 
 
 def _effective_ids(ids, n_live, n_bins):
@@ -56,15 +93,35 @@ def stable_tile_rank_plain(ids, n_live, n_bins: int, offsets, drop_dest: int):
     return dest.to(torch.int32)
 
 
-def tile_histogram_kernel(ids, n_bins: int, n_live):
-    """Launch K5 (``csrc/sort_tiles.cu``) on CUDA tensors."""
+def counting_sort_plain(ids, gauss, n_live, n_bins: int, fill: int) -> TileSort:
+    """Plain PyTorch version of the fused counting sort, from K5's and K6's
+    plain versions."""
+    m = ids.shape[0]
+    counts = tile_histogram_plain(ids, n_bins, n_live)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    dest = stable_tile_rank_plain(ids, n_live, n_bins, offsets, m)
+    inst = torch.full((m + 1,), fill, dtype=torch.int32, device=ids.device)
+    inst.scatter_(0, dest.long(), gauss)  # sentinels land in the last slot
+    overflow = torch.clamp(n_live[0] - m, min=0)
+    return TileSort(counts, offsets, dest, inst[:m], overflow)
+
+
+def _check(ids, n_live):
     kernels.check(ids, torch.int32, "ids")
     kernels.check(n_live, torch.int32, "n_live", (1,))
+
+
+def tile_histogram_kernel(ids, n_bins: int, n_live):
+    """Launch K5 (``csrc/sort_tiles.cu``: count and scan) on CUDA tensors."""
+    _check(ids, n_live)
+    plan = sort_plan(ids.shape[0], n_bins)
+    base = torch.empty(plan.segments * n_bins, dtype=torch.int32,
+                       device=ids.device)
     counts = torch.empty(n_bins, dtype=torch.int32, device=ids.device)
     kernels.launch(
         "sort_tiles", "e3d_tile_histogram",
         ids.data_ptr(), ids.shape[0], n_live.data_ptr(), n_bins,
-        counts.data_ptr(),
+        base.data_ptr(), counts.data_ptr(),
     )
     tile_histogram_kernel.launches += 1
     return counts
@@ -74,13 +131,14 @@ tile_histogram_kernel.launches = 0
 
 
 def stable_tile_rank_kernel(ids, n_live, n_bins: int, offsets, drop_dest: int):
-    """Launch K6 (``csrc/sort_tiles.cu``, three launches) on CUDA tensors."""
+    """Launch K6 (``csrc/sort_tiles.cu``: count, scan and rank) on CUDA
+    tensors."""
     m = ids.shape[0]
-    kernels.check(ids, torch.int32, "ids")
-    kernels.check(n_live, torch.int32, "n_live", (1,))
+    _check(ids, n_live)
     kernels.check(offsets, torch.int32, "offsets", (n_bins,))
-    n_seg = -(-m // RANK_SEGMENT)
-    base = torch.empty(n_seg * n_bins, dtype=torch.int32, device=ids.device)
+    plan = sort_plan(m, n_bins)
+    base = torch.empty(plan.segments * n_bins, dtype=torch.int32,
+                       device=ids.device)
     dest = torch.empty(m, dtype=torch.int32, device=ids.device)
     kernels.launch(
         "sort_tiles", "e3d_stable_tile_rank",
@@ -92,6 +150,28 @@ def stable_tile_rank_kernel(ids, n_live, n_bins: int, offsets, drop_dest: int):
 
 
 stable_tile_rank_kernel.launches = 0
+
+
+def counting_sort_kernel(ids, gauss, n_live, n_bins: int, fill: int) -> TileSort:
+    """Launch K5 and K6 fused (``csrc/sort_tiles.cu``: count, scan, rank)
+    on CUDA tensors; counts as one launch of each."""
+    m = ids.shape[0]
+    _check(ids, n_live)
+    kernels.check(gauss, torch.int32, "gauss", (m,))
+    plan = sort_plan(m, n_bins)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.int32,
+                                       device=ids.device)
+    base = empty(plan.segments * n_bins)
+    out = TileSort(counts=empty(n_bins), offsets=empty(n_bins), dest=empty(m),
+                   inst=empty(m), overflow=empty())
+    kernels.launch(
+        "sort_tiles", "e3d_counting_sort",
+        ids.data_ptr(), gauss.data_ptr(), m, n_live.data_ptr(), n_bins, fill,
+        base.data_ptr(), *(t.data_ptr() for t in out),
+    )
+    tile_histogram_kernel.launches += 1
+    stable_tile_rank_kernel.launches += 1
+    return out
 
 
 def tile_histogram(ids: torch.Tensor, n_bins: int, n_live: torch.Tensor):
@@ -107,3 +187,12 @@ def stable_tile_rank(ids: torch.Tensor, n_live: torch.Tensor, n_bins: int,
     fn = stable_tile_rank_plain if ids.device.type == "cpu" else \
         stable_tile_rank_kernel
     return fn(ids, n_live, n_bins, offsets, drop_dest)
+
+
+def counting_sort(ids: torch.Tensor, gauss: torch.Tensor, n_live: torch.Tensor,
+                  n_bins: int, fill: int) -> TileSort:
+    """Counts, offsets, destinations and the sorted ``gauss`` of a stable
+    counting sort by tile (K5 and K6 fused; plain version on the CPU)."""
+    fn = counting_sort_plain if ids.device.type == "cpu" else \
+        counting_sort_kernel
+    return fn(ids, gauss, n_live, n_bins, fill)

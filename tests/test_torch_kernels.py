@@ -145,6 +145,79 @@ def test_counting_sort_kernels_on_random_ids(n_bins, m, n_live):
                                                                starts, m))
 
 
+def _random_ids(m, n_bins, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, n_bins + 1, (m,), generator=g, dtype=torch.int32)
+
+
+# counting-sort edge cases: name → (ids, n_live, n_bins), on the CPU
+SORT_CASES = {
+    # the train view's instance cap, every id in one tile of a 1080p grid
+    "one_tile": lambda: (torch.full((428_032,), 1234, dtype=torch.int32),
+                         428_032, 2040),
+    "no_live": lambda: (_random_ids(20_000, 2040, 1), 0, 2040),
+    "live_past_ids": lambda: (_random_ids(20_000, 2040, 2), 25_000, 2040),
+    # the live count inside a segment, random ids past it (all sentinels)
+    "live_off_segment": lambda: (_random_ids(50_000, 2040, 3), 3 * 4096 + 77,
+                                 2040),
+    "bins_8160": lambda: (_random_ids(300_000, 8160, 4), 290_001, 8160),
+    "bins_15000": lambda: (_random_ids(120_000, 15_000, 5), 120_000, 15_000),
+    "all_sentinels": lambda: (torch.full((50_000,), 2040, dtype=torch.int32),
+                              50_000, 2040),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_counting_sort_edge_cases_match_plain_versions(case):
+    """K5, K6 and the fused counting sort bit-equal to their plain versions
+    on edge cases of the live count, the tile grid and the ids; the fused
+    sort run twice gives bit-identical results."""
+    need_card()
+    ids, n_live, n_bins = SORT_CASES[case]()
+    m = ids.shape[0]
+    gauss = torch.randperm(m, generator=torch.Generator().manual_seed(m))
+    ids, gauss = ids.cuda(), gauss.to(torch.int32).cuda()
+    live = torch.tensor([n_live], dtype=torch.int32, device="cuda")
+    counts = sort_tiles.tile_histogram_kernel(ids, n_bins, live)
+    assert torch.equal(counts, sort_tiles.tile_histogram_plain(ids, n_bins, live))
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    dest = sort_tiles.stable_tile_rank_kernel(ids, live, n_bins, starts, m)
+    assert torch.equal(dest, sort_tiles.stable_tile_rank_plain(ids, live, n_bins,
+                                                               starts, m))
+    fused = sort_tiles.counting_sort_kernel(ids, gauss, live, n_bins, -1)
+    plain = sort_tiles.counting_sort_plain(ids, gauss, live, n_bins, -1)
+    again = sort_tiles.counting_sort_kernel(ids, gauss, live, n_bins, -1)
+    for field, k, p, a in zip(fused._fields, fused, plain, again):
+        assert torch.equal(k, p), field
+        assert torch.equal(k, a), field
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SCENES) + sorted(HARD_SCENES))
+def test_whole_binning_matches_plain_version(name):
+    """The kernel path's ``Binning`` (K4 and the fused counting sort, one
+    launch of K4, K5 and K6 each) equal to the all-plain one."""
+    need_card()
+    make = HARD_SCENES.get(name) or (lambda device: scene(**SCENES[name],
+                                                          device=device))
+    proj, _, opac, w, h = make("cuda")
+    args = (proj.mean2d, proj.depth, proj.radius, proj.valid, w, h,
+            rt.default_instance_cap(proj.mean2d.shape[0]))
+    wrappers = (expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
+                sort_tiles.stable_tile_rank_kernel)
+    before = [k.launches for k in wrappers]
+    bk = binning.bin_gaussians(*args, opacities=opac, conic=proj.conic)
+    assert [k.launches - b for k, b in zip(wrappers, before)] == [1, 1, 1]
+    bp = binning.bin_gaussians(*args, opacities=opac, conic=proj.conic,
+                               plain=True)
+    for field in ("inst_gauss", "tile_offsets", "tile_counts", "dest",
+                  "overflow"):
+        assert torch.equal(getattr(bk, field), getattr(bp, field)), field
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_composite_kernel_matches_plain_version(name):
@@ -326,6 +399,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: sort_tiles.tile_histogram_kernel(ids, 4, live),
         lambda: sort_tiles.stable_tile_rank_kernel(
             ids, live, 4, torch.zeros(4, dtype=torch.int32), 8),
+        lambda: sort_tiles.counting_sort_kernel(ids, ids, live, 4, 50),
         lambda: rt.composite_forward_kernel(
             ids, torch.zeros(4, dtype=torch.int32),
             torch.zeros(4, dtype=torch.int32), feat, 2, w, h),
