@@ -14,14 +14,17 @@ Phases (any failed check exits non-zero; nothing is caught):
    four 1920×1080 views at ``bench.py``'s four camera poses.
 3. Render the train views through the entry point
    (``event3dgs_tpu_torch.cli.render.main``) and check that each kernel of
-   the path (K1, K4, K5, K6) launched once per view and that the PNGs exist.
+   the path (the binning's table and depth offsets kernels, K1, K4, K5,
+   K6) launched once per view and that the PNGs exist.
 4. Hold each render kernel against its plain PyTorch version at the shapes
-   of view 0 (K4, K5, K6 and the fused counting sort exactly, the whole
-   ``Binning`` exactly, K1 within 1e-5), one full view of the kernel path
-   against the all-plain path, and the kernel path against the oracle
-   rasterizer on a small scene.  The fused counting sort (K5 and K6 with
-   the tile lists, everything from K4's output to the ``Binning``) must run
-   as its three CUDA functions and nothing else.
+   of view 0 (the table kernel, the depth offsets kernel, K4 with its count
+   rows, K5, K6, the fused counting sort with and without K4's rows and
+   the whole ``Binning`` exactly, K1 within 1e-5), one full view of the
+   kernel path against the all-plain path, and the kernel path against the
+   oracle rasterizer on a small scene.  The fused counting sort (K5 and K6
+   with the tile lists) must run as its three CUDA functions and nothing
+   else, and the binning from the projection's outputs to the ``Binning``
+   in at most 16 device kernels (memsets and copies counted beside them).
 5. Time each render kernel, its plain version and the PyTorch yardstick
    call with CUDA events (per call, the host's enqueue included) and the
    profiler's device time in the kernel's own CUDA functions (``device_ms``),
@@ -31,14 +34,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    drawn like ``bench.py``'s scene; ``cli.train --gray --event`` for 6
    iterations with densification at 3 and 6 (threshold 0, so both passes
    clone and split every Gaussian and the instance cap is re-measured), then
-   ``cli.render`` on the saved PLY.  Every kernel (K1-K6) must launch 3
-   times per step, the alive count must grow and the loss must be finite.
+   ``cli.render`` on the saved PLY.  Every kernel (K1-K6 and the binning's
+   table and depth offsets kernels) must launch 3 times per step, the alive count must grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
    cap): K1's stop index, K2's rows (1e-5 of the max) and K3 (bit-equal)
    against their plain versions on the main view, and K2 run twice giving
-   bit-identical rows; K5, K6, the fused counting sort and the whole
-   ``Binning`` there exactly (and the counting sort timed); one step's
+   bit-identical rows; the table kernel, the depth offsets kernel, K4, K5,
+   K6, the fused counting sort and the whole ``Binning`` there exactly (and
+   the counting sort and the binning's device kernels timed); one step's
    gradients, kernel path against the
    all-plain path (2e-4 of each field's max); the same step twice under
    ``torch.use_deterministic_algorithms`` giving bit-identical parameters.
@@ -305,16 +309,85 @@ def profile_view(fn, what: str = "one view", top: int = 12):
 
 
 # each kernel's own CUDA functions (csrc/), whose device time is its
-# device_ms; K5 and K6 share the count and scan of csrc/sort_tiles.cu
+# device_ms; K5 and K6 share the count and scan of csrc/sort_tiles.cu; the
+# table and depth offsets kernels build K4's inputs (csrc/expand.cu)
 KERNEL_FUNCTIONS = {
     "K1 composite_forward": ("composite_forward_kernel",),
     "K2 composite_backward": ("composite_backward_kernel",),
     "K3 segment_sums": ("segment_sums_kernel",),
+    "K4 gaussian_tables": ("gaussian_table_kernel",),
+    "K4 depth_offsets": ("depth_offsets_kernel",),
     "K4 expand_instances": ("expand_kernel",),
     "K5 tile_histogram": ("segment_count_kernel", "scan_kernel"),
     "K6 stable_tile_rank": ("segment_count_kernel", "scan_kernel", "rank_kernel"),
 }
 SORT_FUNCTIONS = KERNEL_FUNCTIONS["K6 stable_tile_rank"]
+
+
+def expansion_check(what, args, kw, cap):
+    """The table kernel, the depth offsets kernel and K4 (tile, gauss and
+    the live segments' count rows) bit-equal to their plain versions on
+    the projection's outputs ``args``, ``kw``; the counting sort from K4's
+    rows equal to its plain version; the binning from the projection's
+    outputs to the ``Binning`` in at most 16 device kernels.  Returns (the
+    tables, the depth order, K4's output, the errors)."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import binning, expand, sort_tiles
+    from event3dgs_tpu_torch.tools.kernel_timing import device_profile
+
+    tiles_x, tiles_y = binning.tile_grid(args[4], args[5])
+    nt, n = tiles_x * tiles_y, args[0].shape[0]
+    tk = binning.gaussian_tables_kernel(*args, **kw)
+    tp = binning.gaussian_tables_plain(*args, **kw)
+    bits = lambda t: t.view(torch.int32)
+    live = tp.rect[:, 3] > 0
+    check(torch.equal(tk.rect, tp.rect) and torch.equal(bits(tk.key), bits(tp.key))
+          and torch.equal(bits(tk.cull[live]), bits(tp.cull[live])),
+          f"{what}: the table kernel differs from its plain version")
+    errs = {"K4 gaussian_tables": max(
+        (tk.rect - tp.rect).abs().max().item(),
+        (tk.cull[live] - tp.cull[live]).abs().max().item())}
+    rk = binning.depth_order_kernel(tk, cap)
+    rp = binning.depth_order_plain(tk, cap)
+    segments = -(-min(int(rk.offsets[-1]), cap) // sort_tiles.SEGMENT)
+    errs["K4 depth_offsets"] = max(
+        (rk.offsets - rp.offsets).abs().max().item(),
+        (rk.order - rp.order).abs().max().item(),
+        (rk.seg_rank[:segments] - rp.seg_rank[:segments]).abs().max().item())
+    check(errs["K4 depth_offsets"] == 0, f"{what}: the depth offsets kernel "
+          f"differs from its plain version by {errs['K4 depth_offsets']}")
+    k4 = (tk.rect, tk.cull, *rk, cap, tiles_x, nt, True)
+    ek, ep = expand.expand_instances_kernel(*k4), expand.expand_instances_plain(*k4)
+    errs["K4 expand_instances"] = max(
+        (ek.tile - ep.tile).abs().max().item(),
+        (ek.gauss - ep.gauss).abs().max().item(),
+        (ek.rows[:segments] - ep.rows[:segments]).abs().max().item())
+    check(errs["K4 expand_instances"] == 0, f"{what}: K4 differs from its "
+          f"plain version by {errs['K4 expand_instances']}")
+    n_live = rk.offsets[-1:]
+    counted = sort_tiles.counting_sort_kernel(ek.tile, ek.gauss, n_live, nt, n,
+                                              base=ek.rows.clone())
+    plain = sort_tiles.counting_sort_plain(ek.tile, ek.gauss, n_live, nt, n)
+    for field, k, p in zip(counted._fields, counted, plain):
+        check(torch.equal(k, p), f"{what}: the counting sort from K4's rows: "
+              f"{field} differs from its plain version")
+    prof = device_profile(lambda: binning.bin_gaussians(*args, cap, **kw))
+    other = {k for k in prof if k.startswith(("Memset", "Memcpy"))}
+    n_kernels = sum(v[1] for k, v in prof.items() if k not in other)
+    n_other = sum(prof[k][1] for k in other)
+    device_us = sum(v[0] for v in prof.values()) * 1e3
+    check(n_kernels <= 16, f"{what}: {n_kernels:.0f} device kernels from the "
+          f"projection's outputs to the Binning")
+    print(f"{what}: table kernel, depth offsets kernel and K4 (tile, gauss and "
+          f"{segments} count rows) bit-equal to their plain versions; the "
+          f"counting sort from K4's rows equal to its plain version; the "
+          f"binning from the projection's outputs: {n_kernels:.0f} device "
+          f"kernels and {n_other:.0f} memsets or copies, {device_us:.2f} us "
+          "of device time per binning ("
+          + ", ".join(f"{k} x{c:.0f} {ms * 1e3:.2f}" for k, (ms, c) in
+                      sorted(prof.items(), key=lambda kv: -kv[1][0])) + ")")
+    return tk, rk, ek, errs
 
 
 def counting_sort_check(what, tile, gauss, n_live, nt, n):
@@ -378,13 +451,15 @@ def check_binning(what, bk, bp):
 
 def wrappers():
     """Every kernel's launch wrapper, by name."""
-    from event3dgs_tpu_torch.ops import expand, segscan, sort_tiles
+    from event3dgs_tpu_torch.ops import binning, expand, segscan, sort_tiles
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 
     return {
         "K1 composite_forward": rt.composite_forward_kernel,
         "K2 composite_backward": rt.composite_backward_kernel,
         "K3 segment_sums": segscan.segment_sums_kernel,
+        "K4 gaussian_tables": binning.gaussian_tables_kernel,
+        "K4 depth_offsets": binning.depth_order_kernel,
         "K4 expand_instances": expand.expand_instances_kernel,
         "K5 tile_histogram": sort_tiles.tile_histogram_kernel,
         "K6 stable_tile_rank": sort_tiles.stable_tile_rank_kernel,
@@ -461,18 +536,12 @@ def render_path(root: str, dev):
     cap = rt.default_instance_cap(N_GAUSSIANS)
     tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT)
     nt = tiles_x * tiles_y
-    tables = binning.depth_tables(proj.mean2d, proj.depth, proj.radius,
-                                  proj.valid, WIDTH, HEIGHT,
-                                  opacities=act.opacities, conic=proj.conic)
-    n_live = tables.offsets[-1:]
-    errs = {}
-
-    tk, gk = expand.expand_instances_kernel(*tables, cap, tiles_x, nt)
-    tp, gp = expand.expand_instances_plain(*tables, cap, tiles_x, nt)
-    errs["K4 expand_instances"] = max(
-        (tk - tp).abs().max().item(), (gk - gp).abs().max().item())
-    check(errs["K4 expand_instances"] == 0, "K4 differs from its plain version "
-          f"by {errs['K4 expand_instances']}")
+    bin_args = (proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH,
+                HEIGHT)
+    bin_kw = dict(opacities=act.opacities, conic=proj.conic)
+    tables, ranks, inst, errs = expansion_check("view 0", bin_args, bin_kw,
+                                                cap)
+    tk, gk, n_live = inst.tile, inst.gauss, ranks.offsets[-1:]
     errs.update(counting_sort_check("view 0", tk, gk, n_live, nt, N_GAUSSIANS))
     counts = sort_tiles.tile_histogram_plain(tk, nt, n_live)
     starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)  # K6's input
@@ -554,11 +623,19 @@ def render_path(root: str, dev):
         profile_view(lambda: render(*view, sh_degree=3, rasterizer="tiled"))
 
     ids_long = tk.long()
+    k4_args = (tables.rect, tables.cull, *ranks, cap, tiles_x, nt, True)
     timings = {
-        "K4 expand_instances": (
-            lambda: expand.expand_instances_kernel(*tables, cap, tiles_x, nt),
-            lambda: expand.expand_instances_plain(*tables, cap, tiles_x, nt),
+        "K4 gaussian_tables": (
+            lambda: binning.gaussian_tables_kernel(*bin_args, **bin_kw),
+            lambda: binning.gaussian_tables_plain(*bin_args, **bin_kw),
             None, 50),
+        # the call times include the argsort before the kernel
+        "K4 depth_offsets": (
+            lambda: binning.depth_order_kernel(tables, cap),
+            lambda: binning.depth_order_plain(tables, cap), None, 50),
+        "K4 expand_instances": (
+            lambda: expand.expand_instances_kernel(*k4_args),
+            lambda: expand.expand_instances_plain(*k4_args), None, 50),
         "K5 tile_histogram": (
             lambda: sort_tiles.tile_histogram_kernel(tk, nt, n_live),
             lambda: sort_tiles.tile_histogram_plain(tk, nt, n_live),
@@ -573,10 +650,23 @@ def render_path(root: str, dev):
             None, 20),
     }
     capped = min(n_inst, cap)
+    off = ranks.offsets.long()
+    live_ranks = int(((off[:-1] < capped) & (off[1:] > off[:-1])).sum())
+    live_segments = -(-capped // sort_tiles.SEGMENT)
     k1_bytes = live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 20
     bounds = {  # (bytes, (FP32, SFU) operations) this run's inputs need
+        # per Gaussian 33 bytes read, 52 written; at least 60 FP32 and 7
+        # SFU operations (a log, two square roots, four divisions)
+        "K4 gaussian_tables": (N_GAUSSIANS * (33 + 52),
+                               (60 * N_GAUSSIANS, 7 * N_GAUSSIANS)),
+        # per rank the argsort's int64 and its count read, the int32 order
+        # and its offset written; a rank per segment
+        "K4 depth_offsets": (N_GAUSSIANS * (8 + 4 + 4 + 4) + 4
+                             + sort_tiles.segments(cap) * 4, (0, 0)),
+        # per live rank its 48-byte table row, order entry and offset; 8
+        # bytes per slot; each live segment's count row
         "K4 expand_instances": (
-            (N_GAUSSIANS + 1) * 4 + N_GAUSSIANS * (4 + 12 + 32) + cap * 8,
+            live_ranks * (48 + 4 + 4) + cap * 8 + live_segments * nt * 4,
             (0, 0)),
         "K5 tile_histogram": (capped * 4 + nt * 4, (0, 0)),
         "K6 stable_tile_rank": (capped * 4 + nt * 4 + cap * 4, (0, 0)),
@@ -584,6 +674,10 @@ def render_path(root: str, dev):
     }
     meta = {
         "K1 composite_forward": ("rasterize_fwd.cu", "event3dgs_tpu/ops/rasterize_tiled.py:296"),
+        # the table and depth offsets kernels replace the XLA code that
+        # feeds K4 in the JAX binning
+        "K4 gaussian_tables": ("expand.cu", "event3dgs_tpu/ops/binning.py:273"),
+        "K4 depth_offsets": ("expand.cu", "event3dgs_tpu/ops/binning.py:321"),
         "K4 expand_instances": ("expand.cu", "event3dgs_tpu/ops/expand.py:65"),
         "K5 tile_histogram": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:62"),
         "K6 stable_tile_rank": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:88"),
@@ -749,7 +843,7 @@ def train_kernels(dev):
     import torch
 
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops import binning, expand, segscan
+    from event3dgs_tpu_torch.ops import binning
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors
@@ -778,14 +872,13 @@ def train_kernels(dev):
         check_binning("main view", b, binning.bin_gaussians(
             proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH, HEIGHT,
             icap, opacities=act.opacities, conic=proj.conic, plain=True))
-        tables = binning.depth_tables(proj.mean2d, proj.depth, proj.radius,
-                                      proj.valid, WIDTH, HEIGHT,
-                                      opacities=act.opacities, conic=proj.conic)
         nt = b.tile_counts.shape[0]
-        tile, gauss = expand.expand_instances_kernel(*tables, icap,
-                                                     b.num_tiles_x, nt)
-        counting_sort_check("main view", tile, gauss, tables.offsets[-1:], nt,
-                            proj.mean2d.shape[0])
+        _, ranks, inst, _ = expansion_check(
+            "main view", (proj.mean2d, proj.depth, proj.radius, proj.valid,
+                          WIDTH, HEIGHT),
+            dict(opacities=act.opacities, conic=proj.conic), icap)
+        counting_sort_check("main view", inst.tile, inst.gauss,
+                            ranks.offsets[-1:], nt, proj.mean2d.shape[0])
     check(int(b.overflow) == 0, "measured instance cap overflowed")
     fwd = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat, b.num_tiles_x,
            WIDTH, HEIGHT)

@@ -1,32 +1,294 @@
-// Instance expansion for tile binning (kernel K4).
+// Instance expansion for tile binning (kernel K4), and the two kernels
+// that build its inputs from the projection's outputs.
 //
 // Replaces the TPU kernel `_expand_kernel_factory` of
-// event3dgs_tpu/ops/expand.py (launched by `expand_instances` there).
+// event3dgs_tpu/ops/expand.py (launched by `expand_instances` there) and,
+// in the table and offsets kernels, the XLA code of
+// event3dgs_tpu/ops/binning.py that builds its inputs (tile rects,
+// instance counts, ellipse-cull data, the depth sort key, the gather of
+// the counts into depth order and their scan, `bin_gaussians` there).  The
+// depth sort itself stays `torch.argsort` between the first two kernels,
+// as the JAX package leaves it to `jnp.argsort`.
 //
-// For every instance slot i < cap, in depth order: its source Gaussian (the
-// depth rank k whose range [offsets[k], offsets[k+1]) holds i), its tile
-// inside that Gaussian's tile rect (row-major), and the exact per-tile
-// ellipse cull of ops/binning.py `rect_min_q`.  Dead slots (past the live
-// total, or culled) get the sentinels (num_tiles, n).
-//
-// Design: one thread per slot, a binary search into the offsets table
-// (the TPU kernel's one-hot window matmul has no place here), integer
-// division for the tile index.  The cull repeats `rect_min_q`'s operation
-// order; the library is built with -fmad=false so every float operation
-// rounds once, like the plain PyTorch version, and the decisions agree
-// exactly.
-//
-// Bound: bytes.  Per slot it writes 8 bytes; per live slot it reads the
-// rank's 44 bytes of rect and cull data (from L2 after the first slot of a
-// rank) plus ~17 offsets of the search.
+// 1. gaussian_table_kernel, one thread per Gaussian, in Gaussian order:
+//    the tile rect (the radius rect of ops/binning.py `_tile_rect`
+//    intersected with the alpha >= 1/255 box of `_alpha_bbox_half_extents`),
+//    its instance count, the cull row of `gaussian_tables_plain` and the
+//    sort key (the depth, +inf where the count is 0).  Every operation of
+//    the plain PyTorch version, in its order, rounded once each (the
+//    library is built with -fmad=false and without fast math: logf, sqrtf
+//    and `/` are the IEEE ones PyTorch's CUDA kernels use); torch.clamp
+//    passes NaN through, and so does `clamp_nan` here.  Bound: bytes, 33
+//    read and 52 written per Gaussian.
+// 2. depth_offsets_kernel, after the argsort: the order as int32, the
+//    running instance offsets in depth order and, for K4's blocks, the
+//    rank of each segment's first slot, in one pass (below).  Its
+//    look-back state is cleared by the table kernel.  Bound: bytes, 8 read
+//    per rank of the order and 4 of the counts, 8 written.
+// 3. expand_kernel (K4), one block per SEGMENT instance slots (the counting
+//    sort's segments, csrc/segment.cuh).  Every slot i < cap in depth order
+//    gets its source Gaussian (the depth rank k whose range
+//    [offsets[k], offsets[k+1]) holds i), its tile inside that Gaussian's
+//    rect (row-major) and the exact per-tile ellipse cull of
+//    ops/expand.py `rect_min_q`; dead slots (past the live total, or
+//    culled) get the sentinels (num_tiles, n).  When `base` is given the
+//    block also writes its segment's tile counts, the row
+//    base[segment * num_tiles + tile] that the counting sort's scan reads
+//    (csrc/sort_tiles.cu), for live segments only.
+//    Design: the block loads the rank of the segment's first slot (the
+//    depth offsets kernel wrote it) beside the live total, so the chain of
+//    dependent loads before the expansion is three long: those two, each
+//    rank's offsets and order entry, its table row.  From that rank, 1,024
+//    ranks at a time until one starts past the segment, each rank with
+//    instances reads its table row once, through `order`, into shared
+//    memory at the position of its first slot in the segment, and marks
+//    that position; an inclusive max-scan of the marks gives every slot the
+//    position of its rank's row (a load-balancing search: no slot searches,
+//    and any rank span works, since a position holds at most one rank).
+//    Each thread then
+//    expands 4 consecutive slots, repeating the plain version's tile and
+//    cull arithmetic, counts them into the segment's shared tile row and
+//    stores them with one 16-byte store per output.  A block past the live
+//    total writes only its sentinels, with 16-byte stores.
+//    Bound: bytes; per live rank its 48-byte table row, its order entry
+//    and offset, per slot 8 bytes written, per live segment its count row.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <cub/block/block_scan.cuh>
+
+#include "segment.cuh"
 
 namespace {
 
 constexpr int TILE_W = 32;
 constexpr int TILE_H = 32;
-constexpr int THREADS = 256;
+constexpr int TABLE_THREADS = 256;
+constexpr int EXPAND_THREADS = 512;
+constexpr int ITEMS = SEGMENT / EXPAND_THREADS;  // consecutive slots a thread
+constexpr int RANK_ITEMS = 2;  // ranks a thread stages per pass
+static_assert(ITEMS == 4, "a thread stores its slots as one int4");
+constexpr int EXPAND_STATIC_LIMIT = 1024;  // static shared bytes, at most
+constexpr unsigned FULL = 0xffffffffu;
+// 2 * ln(255) rounded once to f32: `2.0 * np.log(255.0)` in
+// `_alpha_bbox_half_extents` when there are no opacities
+constexpr float T2_NO_OPACITY = 0x1.62a41p+3f;
+
+// torch.clamp: NaN passes through
+__device__ __forceinline__ float clamp_min_nan(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// `_tile_rect`'s bound: clamp(floor(v / size), 0, n) as int32 (a NaN
+// converts to 0, as PyTorch's cast does on the card)
+__device__ __forceinline__ int tile_bound(float v, float size, int n) {
+  return (int)clamp_nan(floorf(v / size), 0.0f, (float)n);
+}
+
+__global__ void __launch_bounds__(TABLE_THREADS)
+gaussian_table_kernel(const float* __restrict__ mean2d,   // [n, 2]
+                      const float* __restrict__ conic,    // [n, 3] or null
+                      const float* __restrict__ radius,   // [n]
+                      const bool* __restrict__ valid,     // [n]
+                      const float* __restrict__ opacity,  // [n] or null
+                      const float* __restrict__ depth,    // [n]
+                      int n, int tiles_x, int tiles_y, float one,
+                      int4* __restrict__ rect,    // [n] x0, y0, rw, count
+                      float4* __restrict__ cull,  // [n, 2] mx my ca cb | cc nba nbc qthr
+                      float* __restrict__ key,    // [n]
+                      unsigned long long* __restrict__ lookback,
+                      int lookback_blocks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  // the depth offsets kernel's look-back state: a word per block and the
+  // count of finished blocks, cleared here because this kernel runs before
+  // it
+  if (lookback != nullptr) {
+    if (i < lookback_blocks) lookback[i] = 0;
+    if (i == 0) lookback[lookback_blocks] = 0;
+  }
+  const float mx = mean2d[2 * i], my = mean2d[2 * i + 1];
+  const float r = radius[i];
+  const float tw = (float)TILE_W, th = (float)TILE_H;
+  // the radius rect
+  int x0 = tile_bound(mx - r, tw, tiles_x);
+  int y0 = tile_bound(my - r, th, tiles_y);
+  int x1 = tile_bound(mx + r + tw - 1.0f, tw, tiles_x);
+  int y1 = tile_bound(my + r + th - 1.0f, th, tiles_y);
+  // qthr = 2 * clamp(log(255 * clamp(o, 1e-12)), 0); `one` (1.0f, an
+  // argument so that the compiler cannot fold logf) where there are no
+  // opacities, as torch.ones_like there
+  const float o = opacity != nullptr ? opacity[i] : one;
+  const float qthr =
+      2.0f * clamp_min_nan(logf(255.0f * clamp_min_nan(o, 1e-12f)), 0.0f);
+  float ca = 0.0f, cb = 0.0f, cc = 0.0f, nba = 0.0f, nbc = 0.0f;
+  if (conic != nullptr) {
+    ca = conic[3 * i];
+    cb = conic[3 * i + 1];
+    cc = conic[3 * i + 2];
+    // the alpha >= 1/255 box: half extents sqrt(t2 * cov) + 1, or the
+    // radius where the conic is degenerate
+    const float det = ca * cc - cb * cb;
+    const bool ok = det > 1e-12f;
+    const float safe_det = ok ? det : 1.0f;
+    const float t2 = opacity != nullptr ? qthr : T2_NO_OPACITY;
+    const float wx = ok ? sqrtf(clamp_min_nan(t2 * cc / safe_det, 0.0f)) + 1.0f
+                        : r;
+    const float wy = ok ? sqrtf(clamp_min_nan(t2 * ca / safe_det, 0.0f)) + 1.0f
+                        : r;
+    x0 = max(x0, tile_bound(mx - wx, tw, tiles_x));
+    y0 = max(y0, tile_bound(my - wy, th, tiles_y));
+    x1 = min(x1, tile_bound(mx + wx + tw - 1.0f, tw, tiles_x));
+    y1 = min(y1, tile_bound(my + wy + th - 1.0f, th, tiles_y));
+    // the cull data; degenerate conics never cull (Q = 0 <= qthr)
+    const bool pd = ca > 1e-12f && cc > 1e-12f && det > 1e-12f;
+    nba = pd ? -cb / ca : 0.0f;
+    nbc = pd ? -cb / cc : 0.0f;
+    ca = pd ? ca : 0.0f;
+    cb = pd ? cb : 0.0f;
+    cc = pd ? cc : 0.0f;
+  }
+  const int rw = max(x1 - x0, 0);
+  const int rh = max(y1 - y0, 0);
+  const int count = valid[i] ? rw * rh : 0;
+  rect[i] = make_int4(x0, y0, rw, count);
+  cull[2 * i] = make_float4(mx, my, ca, cb);
+  cull[2 * i + 1] = make_float4(cc, nba, nbc, qthr);
+  // zero-count Gaussians sort last
+  key[i] = count > 0 ? depth[i] : __int_as_float(0x7f800000);
+}
+
+// The instance offsets in depth order: order_out[k] = order[k] (int64 ->
+// int32) and offsets = [0, inclusive prefix of count[order[k]]], one pass
+// of OFFSETS_TILE ranks a block (a decoupled look-back scan, as CUB's
+// single-pass scan: block b publishes its tile's sum and then its
+// inclusive prefix in lookback[b], and finds its prefix by reading the
+// earlier tiles' words, 32 at a time; blocks start in index order, so a
+// block waits only on blocks that have started).  Each word is written
+// whole, flag and value together, so a reader needs no fence.  The last
+// block to finish clears the state for the next call (the table kernel
+// clears it first); lookback[blocks] counts the finished blocks.  A wait
+// that outlasts SPIN_LIMIT reads traps, so a fault shows as a launch error
+// and not as a hang.
+constexpr int OFFSETS_THREADS = 256;
+constexpr int OFFSETS_ITEMS = 8;
+constexpr int OFFSETS_TILE = OFFSETS_THREADS * OFFSETS_ITEMS;
+constexpr unsigned long long HAS_SUM = 1ull << 32;     // low word: the tile's sum
+constexpr unsigned long long HAS_PREFIX = 2ull << 32;  // low word: inclusive prefix
+constexpr long long SPIN_LIMIT = 1ll << 22;
+
+using OffsetsScan =
+    cub::BlockScan<int, OFFSETS_THREADS, cub::BLOCK_SCAN_WARP_SCANS>;
+
+__device__ __forceinline__ void publish(unsigned long long* word,
+                                        unsigned long long value) {
+  *reinterpret_cast<volatile unsigned long long*>(word) = value;
+}
+
+__global__ void __launch_bounds__(OFFSETS_THREADS)
+depth_offsets_kernel(const long long* __restrict__ order,  // [n] argsort
+                     const int* __restrict__ rect,         // [n, 4]
+                     int n, int segments,
+                     unsigned long long* lookback,         // [blocks + 1]
+                     int* __restrict__ order_out,          // [n]
+                     int* __restrict__ offsets,            // [n + 1]
+                     int* __restrict__ seg_rank) {         // [segments]
+  __shared__ OffsetsScan::TempStorage scan;
+  __shared__ int s_prefix;
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int first = tile * OFFSETS_TILE + tid * OFFSETS_ITEMS;
+  const bool whole = first + OFFSETS_ITEMS <= n;
+  long long g[OFFSETS_ITEMS];
+  int count[OFFSETS_ITEMS], excl[OFFSETS_ITEMS];
+  if (whole) {  // 16-byte loads: the argsort's output is 256-byte aligned
+    const longlong2* src = reinterpret_cast<const longlong2*>(order + first);
+#pragma unroll
+    for (int q = 0; q < OFFSETS_ITEMS / 2; ++q) {
+      const longlong2 v = src[q];
+      g[2 * q] = v.x;
+      g[2 * q + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < OFFSETS_ITEMS; ++q) {
+      g[q] = first + q < n ? order[first + q] : 0;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < OFFSETS_ITEMS; ++q) {
+    count[q] = first + q < n ? rect[4 * g[q] + 3] : 0;
+  }
+  if (whole) {
+    int4* dst = reinterpret_cast<int4*>(order_out + first);
+    dst[0] = make_int4((int)g[0], (int)g[1], (int)g[2], (int)g[3]);
+    dst[1] = make_int4((int)g[4], (int)g[5], (int)g[6], (int)g[7]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < OFFSETS_ITEMS; ++q) {
+      if (first + q < n) order_out[first + q] = (int)g[q];
+    }
+  }
+  int sum;
+  OffsetsScan(scan).ExclusiveSum(count, excl, sum);
+  if (tid < 32) {
+    const int lane = tid;
+    int prefix = 0;
+    if (tile > 0) {
+      if (lane == 0) publish(lookback + tile, HAS_SUM | (unsigned)sum);
+      for (int hi = tile - 1; hi >= 0; hi -= 32) {
+        const int k = hi - lane;  // lane 0: the nearest earlier tile
+        unsigned long long w = HAS_PREFIX;  // past tile 0: a prefix of 0
+        if (k >= 0) {
+          long long spins = 0;
+          while (((w = *reinterpret_cast<volatile unsigned long long*>(
+                       lookback + k)) >> 32) == 0) {
+            if (++spins > SPIN_LIMIT) __trap();
+          }
+        }
+        const unsigned has_prefix =
+            __ballot_sync(FULL, (w & HAS_PREFIX) != 0);
+        // the words of the tiles after the nearest prefix, and that prefix
+        const int stop = has_prefix ? __ffs(has_prefix) - 1 : 31;
+        int v = lane <= stop ? (int)(unsigned)w : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+        prefix += v;
+        if (has_prefix) break;
+      }
+    }
+    if (lane == 0) {
+      publish(lookback + tile, HAS_PREFIX | (unsigned)(prefix + sum));
+      s_prefix = prefix;
+    }
+  }
+  __syncthreads();
+  const int prefix = s_prefix;
+  if (tile == 0 && tid == 0) offsets[0] = 0;
+#pragma unroll
+  for (int q = 0; q < OFFSETS_ITEMS; ++q) {
+    if (first + q >= n) continue;
+    const int e = prefix + excl[q];  // the rank's slots are [e, e + count)
+    offsets[first + q + 1] = e + count[q];
+    // the rank of each segment's first slot, for the expansion's blocks
+    for (int sg = (e + SEGMENT - 1) / SEGMENT;
+         sg < segments && sg * SEGMENT < e + count[q]; ++sg) {
+      seg_rank[sg] = first + q;
+    }
+  }
+  // this block is done with the state; the last one clears it
+  if (tid == 0) {
+    unsigned int* done = reinterpret_cast<unsigned int*>(lookback + gridDim.x);
+    if (atomicAdd(done, 1u) == gridDim.x - 1) {
+      for (unsigned b = 0; b <= gridDim.x; ++b) lookback[b] = 0;
+    }
+  }
+}
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -45,68 +307,257 @@ __device__ __forceinline__ float edge_y(float ca, float cb, float cc, float e,
   return ca * dx * dx + 2.0f * cb * dx * e + cc * e * e;
 }
 
-__global__ void __launch_bounds__(THREADS)
-expand_kernel(const int* __restrict__ offsets,  // [n + 1]
-              const int* __restrict__ order,    // [n] gaussian id per rank
-              const int* __restrict__ rect,     // [n, 3] x0, y0, rw per rank
-              const float* __restrict__ cull,   // [n, 8] mx my ca cb cc nba nbc qthr
+struct MaxOp {
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return a > b ? a : b;
+  }
+};
+
+using MarkScan =
+    cub::BlockScan<int, EXPAND_THREADS, cub::BLOCK_SCAN_WARP_SCANS>;
+
+struct ExpandStatic {
+  MarkScan::TempStorage scan;
+  int first_offset;  // offsets[k] of the rank k of the segment's first slot
+};
+static_assert(sizeof(ExpandStatic) <= EXPAND_STATIC_LIMIT,
+              "the launch plan counts at most EXPAND_STATIC_LIMIT static bytes");
+
+// dynamic shared memory: the rows by position (int4 x0 y0 rw gaussian,
+// then two float4 of cull data), the marks, and the tile counts
+constexpr int ROW_BYTES = 48;
+constexpr int MARK_BYTES = 4;
+constexpr int SEGMENT_SHARED = SEGMENT * (ROW_BYTES + MARK_BYTES);
+
+__global__ void __launch_bounds__(EXPAND_THREADS, 2)
+expand_kernel(const int4* __restrict__ rect,     // [n] x0, y0, rw, count
+              const float4* __restrict__ cull,   // [n, 2]
+              const int* __restrict__ offsets,   // [n + 1] by depth rank
+              const int* __restrict__ order,     // [n] gaussian per rank
+              const int* __restrict__ seg_rank,  // [segments] first slots' ranks
               int n, int cap, int tiles_x, int num_tiles,
-              int* __restrict__ tile_out, int* __restrict__ gauss_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const int total = min(offsets[n], cap);
-  if (i >= total) {
-    tile_out[i] = num_tiles;
-    gauss_out[i] = n;
+              int* __restrict__ tile_out, int* __restrict__ gauss_out,
+              int* __restrict__ base) {          // count rows, or null
+  __shared__ ExpandStatic st;
+  extern __shared__ int4 dyn[];
+  int4* row_i = dyn;                                           // [SEGMENT]
+  float4* row_f = reinterpret_cast<float4*>(dyn + SEGMENT);    // [2 SEGMENT]
+  int* mark = reinterpret_cast<int*>(dyn + 3 * SEGMENT);       // [SEGMENT]
+  int* bins = mark + SEGMENT;                                  // [num_tiles]
+
+  const int tid = threadIdx.x;
+  const int start = blockIdx.x * SEGMENT;
+  const int len = min(SEGMENT, cap - start);  // a multiple of 4
+  // the live total and the rank of the segment's first slot, loaded
+  // together (the rank is written for live segments only)
+  const int raw_total = offsets[n];
+  const int r0 = seg_rank[blockIdx.x];
+  const int total = min(raw_total, cap);
+  if (start >= total) {
+    const int4 t4 = make_int4(num_tiles, num_tiles, num_tiles, num_tiles);
+    const int4 g4 = make_int4(n, n, n, n);
+    int4* t = reinterpret_cast<int4*>(tile_out + start);
+    int4* g = reinterpret_cast<int4*>(gauss_out + start);
+    for (int q = tid; q < len / 4; q += EXPAND_THREADS) {
+      t[q] = t4;
+      g[q] = g4;
+    }
     return;
   }
-  // last rank k with offsets[k] <= i (searchsorted side="right" - 1)
-  int lo = 0, hi = n + 1;  // first index with offsets[idx] > i lies in [lo, hi]
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (offsets[mid] <= i) lo = mid + 1; else hi = mid;
+  const int end = min(start + SEGMENT, total);  // live slots [start, end)
+  for (int q = tid; q < SEGMENT; q += EXPAND_THREADS) mark[q] = 0;
+  if (base != nullptr) {
+    for (int b = tid; b < num_tiles; b += EXPAND_THREADS) bins[b] = 0;
   }
-  const int k = min(max(lo - 1, 0), n - 1);
-  const int j = i - offsets[k];
-  const int x0 = rect[3 * k], y0 = rect[3 * k + 1];
-  const int rw = max(rect[3 * k + 2], 1);
-  const int tx = x0 + j % rw;
-  const int ty = y0 + j / rw;
+  __syncthreads();
+  // every rank with instances in the segment, RANK_ITEMS * EXPAND_THREADS
+  // at a time from the first one until a rank starts past it (one pass for
+  // a segment of up to 1,024 ranks): its row at the position of its first
+  // slot here (the first rank's range starts at or before the segment,
+  // every later one inside it)
+  for (int k0 = r0;; k0 += RANK_ITEMS * EXPAND_THREADS) {
+    int o[RANK_ITEMS], o1[RANK_ITEMS], g[RANK_ITEMS];
+#pragma unroll
+    for (int j = 0; j < RANK_ITEMS; ++j) {
+      const int k = k0 + j * EXPAND_THREADS + tid;
+      const bool in = k < n;
+      o[j] = in ? offsets[k] : total;
+      o1[j] = in ? offsets[k + 1] : total;
+      g[j] = in ? order[k] : 0;
+    }
+    bool here[RANK_ITEMS];  // the rank has instances in the segment
+    int4 ri[RANK_ITEMS];
+    float4 c0[RANK_ITEMS], c1[RANK_ITEMS];
+#pragma unroll
+    for (int j = 0; j < RANK_ITEMS; ++j) {  // the rows' loads side by side
+      here[j] = o[j] < end && o1[j] > o[j];
+      if (here[j]) {
+        ri[j] = rect[g[j]];
+        c0[j] = cull[2 * g[j]];
+        c1[j] = cull[2 * g[j] + 1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RANK_ITEMS; ++j) {
+      if (here[j]) {
+        const int p = max(o[j], start) - start;
+        row_i[p] = make_int4(ri[j].x, ri[j].y, ri[j].z, g[j]);
+        row_f[2 * p] = c0[j];
+        row_f[2 * p + 1] = c1[j];
+        mark[p] = p;
+        if (p == 0) st.first_offset = o[j];
+      }
+    }
+    // ranks start in order: the pass's last one says whether more follow
+    if (!__syncthreads_or(tid == EXPAND_THREADS - 1 &&
+                          o1[RANK_ITEMS - 1] < end)) {
+      break;
+    }
+  }
 
-  const float4 c0 = reinterpret_cast<const float4*>(cull)[2 * k];
-  const float4 c1 = reinterpret_cast<const float4*>(cull)[2 * k + 1];
-  const float mx = c0.x, my = c0.y, ca = c0.z, cb = c0.w;
-  const float cc = c1.x, nba = c1.y, nbc = c1.z, qthr = c1.w;
+  // each slot's row: the last mark at or before it
+  const int4 m4 = reinterpret_cast<const int4*>(mark)[tid];
+  int pos[ITEMS] = {m4.x, m4.y, m4.z, m4.w};
+  MarkScan(st.scan).InclusiveScan(pos, pos, MaxOp());
+  const int first_offset = st.first_offset;
+  int tile[ITEMS], gauss[ITEMS];
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    const int i = start + ITEMS * tid + q;
+    tile[q] = num_tiles;
+    gauss[q] = n;
+    if (i >= end) continue;
+    const int p = pos[q];
+    const int4 ri = row_i[p];
+    const float4 c0 = row_f[2 * p], c1 = row_f[2 * p + 1];
+    const int j = i - (p == 0 ? first_offset : start + p);
+    const int rw = max(ri.z, 1);
+    const int tx = ri.x + j % rw;
+    const int ty = ri.y + j / rw;
+    const float mx = c0.x, my = c0.y, ca = c0.z, cb = c0.w;
+    const float cc = c1.x, nba = c1.y, nbc = c1.z, qthr = c1.w;
+    const float px0 = (float)(tx * TILE_W);
+    const float py0 = (float)(ty * TILE_H);
+    const float lx = px0 - 1.0f - mx;
+    const float hx = px0 + (float)TILE_W - mx;
+    const float ly = py0 - 1.0f - my;
+    const float hy = py0 + (float)TILE_H - my;
+    const bool inside =
+        (lx <= 0.0f) && (0.0f <= hx) && (ly <= 0.0f) && (0.0f <= hy);
+    const float q_xl = edge_x(ca, cb, cc, lx, clampf(nbc * lx, ly, hy));
+    const float q_xh = edge_x(ca, cb, cc, hx, clampf(nbc * hx, ly, hy));
+    const float q_yl = edge_y(ca, cb, cc, ly, clampf(nba * ly, lx, hx));
+    const float q_yh = edge_y(ca, cb, cc, hy, clampf(nba * hy, lx, hx));
+    const float qmin =
+        inside ? 0.0f : fminf(fminf(q_xl, q_xh), fminf(q_yl, q_yh));
+    if (qmin <= qthr) {
+      tile[q] = ty * tiles_x + tx;
+      gauss[q] = ri.w;
+    }
+  }
+  if (ITEMS * tid < len) {
+    reinterpret_cast<int4*>(tile_out + start)[tid] =
+        make_int4(tile[0], tile[1], tile[2], tile[3]);
+    reinterpret_cast<int4*>(gauss_out + start)[tid] =
+        make_int4(gauss[0], gauss[1], gauss[2], gauss[3]);
+  }
+  if (base == nullptr) return;
+  // integer atomics only form a count, whose value does not depend on
+  // their order
+#pragma unroll
+  for (int q = 0; q < ITEMS; ++q) {
+    if ((unsigned)tile[q] < (unsigned)num_tiles) atomicAdd(&bins[tile[q]], 1);
+  }
+  __syncthreads();
+  int* row = base + (size_t)blockIdx.x * num_tiles;
+  for (int b = tid; b < num_tiles; b += EXPAND_THREADS) row[b] = bins[b];
+}
 
-  const float px0 = (float)(tx * TILE_W);
-  const float py0 = (float)(ty * TILE_H);
-  const float lx = px0 - 1.0f - mx;
-  const float hx = px0 + (float)TILE_W - mx;
-  const float ly = py0 - 1.0f - my;
-  const float hy = py0 + (float)TILE_H - my;
-  const bool inside = (lx <= 0.0f) && (0.0f <= hx) && (ly <= 0.0f) && (0.0f <= hy);
-  const float q_xl = edge_x(ca, cb, cc, lx, clampf(nbc * lx, ly, hy));
-  const float q_xh = edge_x(ca, cb, cc, hx, clampf(nbc * hx, ly, hy));
-  const float q_yl = edge_y(ca, cb, cc, ly, clampf(nba * ly, lx, hx));
-  const float q_yh = edge_y(ca, cb, cc, hy, clampf(nba * hy, lx, hx));
-  const float qmin = inside ? 0.0f
-                            : fminf(fminf(q_xl, q_xh), fminf(q_yl, q_yh));
-  const bool covered = qmin <= qthr;
-  tile_out[i] = covered ? ty * tiles_x + tx : num_tiles;
-  gauss_out[i] = covered ? order[k] : n;
+// Let the expansion kernel use the card's opt-in shared memory and prefer
+// shared memory over L1; once (a function-local static is initialised
+// once).
+cudaError_t allow_shared_once() {
+  static const cudaError_t err = [] {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    cudaFuncAttributes attr;
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, expand_kernel);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute((const void*)expand_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
+    }
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute((const void*)expand_kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }();
+  return err;
 }
 
 }  // namespace
 
-extern "C" int e3d_expand_instances(const int* offsets, const int* order,
-                                    const int* rect, const float* cull, int n,
-                                    int cap, int tiles_x, int num_tiles,
-                                    int* tile_out, int* gauss_out,
+// The per-Gaussian tables (conic and opacity may be null).
+// The per-Gaussian tables (conic and opacity may be null); lookback (or
+// null): the depth offsets kernel's state, ceil(n / OFFSETS_TILE) + 1
+// words, cleared.
+extern "C" int e3d_gaussian_tables(const float* mean2d, const float* conic,
+                                   const float* radius, const bool* valid,
+                                   const float* opacity, const float* depth,
+                                   int n, int tiles_x, int tiles_y,
+                                   void* rect_out, void* cull_out,
+                                   float* key_out, void* lookback,
+                                   cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + TABLE_THREADS - 1) / TABLE_THREADS;
+  gaussian_table_kernel<<<blocks, TABLE_THREADS, 0, stream>>>(
+      mean2d, conic, radius, valid, opacity, depth, n, tiles_x, tiles_y, 1.0f,
+      static_cast<int4*>(rect_out), static_cast<float4*>(cull_out), key_out,
+      static_cast<unsigned long long*>(lookback),
+      (n + OFFSETS_TILE - 1) / OFFSETS_TILE);
+  return (int)cudaGetLastError();
+}
+
+// The depth order as int32 and the instance offsets in it, from the
+// argsort of the keys and the tables' counts; lookback (max(ceil(n /
+// OFFSETS_TILE), 1) + 1 words) as cleared by e3d_gaussian_tables.
+extern "C" int e3d_depth_offsets(const long long* order, const void* rect,
+                                 int n, int segments, void* lookback,
+                                 int* order_out, int* offsets_out,
+                                 int* seg_rank_out, cudaStream_t stream) {
+  const int blocks = n > OFFSETS_TILE ? (n + OFFSETS_TILE - 1) / OFFSETS_TILE
+                                      : 1;
+  depth_offsets_kernel<<<blocks, OFFSETS_THREADS, 0, stream>>>(
+      order, static_cast<const int*>(rect), n, segments,
+      static_cast<unsigned long long*>(lookback), order_out, offsets_out,
+      seg_rank_out);
+  return (int)cudaGetLastError();
+}
+
+// K4: (tile, gaussian) per slot of [0, cap) (cap a multiple of 4) and, when
+// base is given, each live segment's tile counts into
+// base[segment * num_tiles + tile].
+extern "C" int e3d_expand_instances(const void* rect, const void* cull,
+                                    const int* offsets, const int* order,
+                                    const int* seg_rank, int n, int cap,
+                                    int tiles_x,
+                                    int num_tiles, int* tile_out,
+                                    int* gauss_out, int* base,
                                     cudaStream_t stream) {
   if (cap <= 0) return 0;
-  const int blocks = (cap + THREADS - 1) / THREADS;
-  expand_kernel<<<blocks, THREADS, 0, stream>>>(
-      offsets, order, rect, cull, n, cap, tiles_x, num_tiles, tile_out,
-      gauss_out);
+  if (cap % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_shared_once();
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (cap + SEGMENT - 1) / SEGMENT;
+  const size_t shared =
+      SEGMENT_SHARED + (base != nullptr ? sizeof(int) * (size_t)num_tiles : 0);
+  expand_kernel<<<blocks, EXPAND_THREADS, shared, stream>>>(
+      static_cast<const int4*>(rect), static_cast<const float4*>(cull),
+      offsets, order, seg_rank, n, cap, tiles_x, num_tiles, tile_out,
+      gauss_out, base);
   return (int)cudaGetLastError();
 }

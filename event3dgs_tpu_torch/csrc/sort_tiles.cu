@@ -23,7 +23,10 @@
 // train view (cap 428,032, 285k live ids) and 2.6 us at the render view
 // (cap 800,768) at 3.35 TB/s.
 //
-// Design: three launches over segments of SEGMENT ids.
+// Design: three launches over segments of SEGMENT ids (csrc/segment.cuh).
+// On the binning path the expansion kernel (csrc/expand.cu) writes the
+// count rows of step 1 as it writes the ids, and the fused entry runs
+// steps 2 and 3 only (`counted`).
 //   1. segment_count_kernel: one block per segment loads it (SEGMENT /
 //      COUNT_THREADS independent coalesced loads a thread, all in flight
 //      before the first use) and counts it per tile with shared-memory
@@ -78,9 +81,10 @@
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "segment.cuh"  // SEGMENT: ids per block of the count and rank kernels
+
 namespace {
 
-constexpr int SEGMENT = 2048;       // ids per block of the count and rank kernels
 constexpr int COUNT_THREADS = 256;  // SEGMENT / COUNT_THREADS ids per thread
 constexpr int RANK_THREADS = 256;   // ITEMS ids per thread
 constexpr int ITEMS = SEGMENT / RANK_THREADS;
@@ -441,6 +445,15 @@ int segments(int n_ids) {
   return n_ids > SEGMENT ? (n_ids + SEGMENT - 1) / SEGMENT : 1;
 }
 
+// launch 2: the count rows' prefixes in place and (if given) counts
+cudaError_t scan(int n_ids, const int* n_live, int n_bins, int* base,
+                 int* counts, cudaStream_t stream) {
+  const int scan_blocks = (n_bins + SCAN_TILES - 1) / SCAN_TILES;
+  scan_kernel<<<scan_blocks, dim3(SCAN_TILES, SCAN_GROUPS), 0, stream>>>(
+      n_live, n_ids, n_bins, base, counts);
+  return cudaGetLastError();
+}
+
 // launches 1 and 2: count rows into base, their prefixes and (if given)
 // counts
 cudaError_t count_and_scan(const int* ids, int n_ids, const int* n_live,
@@ -452,10 +465,7 @@ cudaError_t count_and_scan(const int* ids, int n_ids, const int* n_live,
                          stream>>>(ids, n_ids, n_live, n_bins, base);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int scan_blocks = (n_bins + SCAN_TILES - 1) / SCAN_TILES;
-  scan_kernel<<<scan_blocks, dim3(SCAN_TILES, SCAN_GROUPS), 0, stream>>>(
-      n_live, n_ids, n_bins, base, counts);
-  return cudaGetLastError();
+  return scan(n_ids, n_live, n_bins, base, counts, stream);
 }
 
 // launch 3
@@ -497,14 +507,19 @@ extern "C" int e3d_stable_tile_rank(const int* ids, int n_ids,
 }
 
 // K5 and K6 fused: counts, offsets, destinations (drop slot n_ids), the
-// tile lists inst (fill past the live total) and the overflow
+// tile lists inst (fill past the live total) and the overflow.  counted:
+// base already holds the live segments' count rows (the expansion kernel
+// writes them, csrc/expand.cu), so the count kernel does not run.
 extern "C" int e3d_counting_sort(const int* ids, const int* gauss, int n_ids,
                                  const int* n_live, int n_bins, int fill,
-                                 int* base, int* counts, int* offsets,
-                                 int* dest, int* inst, int* overflow,
-                                 cudaStream_t stream) {
-  cudaError_t err = count_and_scan(ids, n_ids, n_live, n_bins, base, counts,
-                                   stream);
+                                 int counted, int* base, int* counts,
+                                 int* offsets, int* dest, int* inst,
+                                 int* overflow, cudaStream_t stream) {
+  cudaError_t err = allow_shared_once();  // the rank kernel's, too
+  if (err != cudaSuccess) return (int)err;
+  err = counted ? scan(n_ids, n_live, n_bins, base, counts, stream)
+                : count_and_scan(ids, n_ids, n_live, n_bins, base, counts,
+                                 stream);
   if (err != cudaSuccess) return (int)err;
   return (int)rank(ids, gauss, n_ids, n_live, n_bins, base, nullptr, counts,
                    offsets, n_ids, fill, dest, inst, overflow, stream);

@@ -9,9 +9,9 @@ the source, the headers of ``csrc/`` it includes and the flags, so a
 changed source or header is rebuilt.  Importing this module never runs
 ``nvcc``.
 
-``-fmad=false`` is part of the build: the expansion kernel's ellipse cull
-and the compositing kernels' alpha must round like their plain PyTorch
-versions, which run one rounding per operation, and the backward kernel
+``-fmad=false`` is part of the build: the table kernel's rects and cull
+data, the expansion kernel's ellipse cull and the compositing kernels'
+alpha must round like their plain PyTorch versions, which run one rounding per operation, and the backward kernel
 must skip exactly the (pixel, instance) pairs the forward kernel skipped.
 A kernel fuses a product into a sum only where it says so (``__fmaf_rn``
 in the backward kernel's gradient sums).
@@ -45,9 +45,18 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # SM) of their kernel
 SIGNATURES = {
     "expand": {
-        # offsets, order, rect, cull, n, cap, tiles_x, num_tiles,
-        # tile_out, gauss_out, stream
-        "e3d_expand_instances": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        # mean2d, conic (or null), radius, valid, opacity (or null), depth,
+        # n, tiles_x, tiles_y, rect_out, cull_out, key_out, lookback state
+        # to clear (or null), stream
+        "e3d_gaussian_tables": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                                _P, _P, _P],
+        # order (int64 argsort), rect, n, segments, lookback state,
+        # order_out, offsets_out, seg_rank_out, stream
+        "e3d_depth_offsets": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+        # rect, cull, offsets, order, seg_rank, n, cap, tiles_x, num_tiles,
+        # tile_out, gauss_out, count rows out (or null), stream
+        "e3d_expand_instances": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                 _P, _P],
     },
     "sort_tiles": {
         # ids, n_ids, n_live, n_bins, segment_base scratch, counts_out,
@@ -56,10 +65,11 @@ SIGNATURES = {
         # ids, n_ids, n_live, n_bins, offsets, drop_dest, segment_base
         # scratch, dest_out, stream
         "e3d_stable_tile_rank": [_P, _I, _P, _I, _P, _I, _P, _P, _P],
-        # ids, gauss, n_ids, n_live, n_bins, fill, segment_base scratch,
-        # counts_out, offsets_out, dest_out, inst_out, overflow_out, stream
-        "e3d_counting_sort": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                              _P],
+        # ids, gauss, n_ids, n_live, n_bins, fill, counted (segment_base
+        # holds the count rows), segment_base scratch, counts_out,
+        # offsets_out, dest_out, inst_out, overflow_out, stream
+        "e3d_counting_sort": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P],
     },
     "rasterize_fwd": {
         # inst_gauss, tile_offsets, tile_counts, feat, num_tiles, tiles_x,

@@ -13,7 +13,9 @@ int32 tensor on the ids' device, so the host never waits for it.
   stable counting sort, which keeps the depth order inside each tile.
 - :func:`counting_sort`: both at once, with the offsets the exclusive
   prefix of the counts, and the sorted lists themselves (what
-  ``ops/binning.py`` needs).
+  ``ops/binning.py`` needs).  Given ``base``, the per-segment tile counts
+  that the expansion kernel writes (``ops/expand.py``), it skips its own
+  count.
 
 The kernels are ``csrc/sort_tiles.cu``; CPU tensors take the plain versions.
 """
@@ -26,7 +28,7 @@ import torch
 
 from event3dgs_tpu_torch.ops import kernels
 
-SEGMENT = 2048  # ids per block of the count and rank kernels (SEGMENT in the source)
+SEGMENT = 2048  # ids per block of the count and rank kernels (csrc/segment.cuh)
 RANK_STATIC_LIMIT = 48 * 1024  # static shared bytes of a rank block, at most
 SHARED_LIMIT = 232_448  # bytes of shared memory one block may use (227 KB, H100)
 
@@ -40,6 +42,11 @@ class SortPlan(NamedTuple):
     # storage and one int per tile
 
 
+def segments(n_ids: int) -> int:
+    """The SEGMENT-id segments of ``n_ids`` ids (at least one)."""
+    return max(-(-n_ids // SEGMENT), 1)
+
+
 def sort_plan(n_ids: int, n_bins: int) -> SortPlan:
     """The launch plan; raises where a block's per-tile shared memory would
     not fit."""
@@ -47,8 +54,8 @@ def sort_plan(n_ids: int, n_bins: int) -> SortPlan:
     if n_bins < 1 or rank_shared > SHARED_LIMIT:
         raise ValueError(f"counting sort: {n_bins} tiles do not fit the "
                          f"{SHARED_LIMIT} bytes of shared memory of a block")
-    return SortPlan(segments=max(-(-n_ids // SEGMENT), 1),
-                    count_shared=4 * n_bins, rank_shared=rank_shared)
+    return SortPlan(segments=segments(n_ids), count_shared=4 * n_bins,
+                    rank_shared=rank_shared)
 
 
 class TileSort(NamedTuple):
@@ -93,9 +100,11 @@ def stable_tile_rank_plain(ids, n_live, n_bins: int, offsets, drop_dest: int):
     return dest.to(torch.int32)
 
 
-def counting_sort_plain(ids, gauss, n_live, n_bins: int, fill: int) -> TileSort:
+def counting_sort_plain(ids, gauss, n_live, n_bins: int, fill: int,
+                        base=None) -> TileSort:
     """Plain PyTorch version of the fused counting sort, from K5's and K6's
-    plain versions."""
+    plain versions (``base`` only spares the kernel a count: it is not
+    read here)."""
     m = ids.shape[0]
     counts = tile_histogram_plain(ids, n_bins, n_live)
     offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
@@ -152,22 +161,29 @@ def stable_tile_rank_kernel(ids, n_live, n_bins: int, offsets, drop_dest: int):
 stable_tile_rank_kernel.launches = 0
 
 
-def counting_sort_kernel(ids, gauss, n_live, n_bins: int, fill: int) -> TileSort:
-    """Launch K5 and K6 fused (``csrc/sort_tiles.cu``: count, scan, rank)
-    on CUDA tensors; counts as one launch of each."""
+def counting_sort_kernel(ids, gauss, n_live, n_bins: int, fill: int,
+                         base=None) -> TileSort:
+    """Launch K5 and K6 fused (``csrc/sort_tiles.cu``: count, scan, rank;
+    scan and rank only where ``base``, [segments, n_bins] int32, holds the
+    live segments' count rows, which the scan overwrites) on CUDA tensors;
+    counts as one launch of each."""
     m = ids.shape[0]
     _check(ids, n_live)
     kernels.check(gauss, torch.int32, "gauss", (m,))
     plan = sort_plan(m, n_bins)
     empty = lambda *shape: torch.empty(shape, dtype=torch.int32,
                                        device=ids.device)
-    base = empty(plan.segments * n_bins)
+    counted = base is not None
+    if counted:
+        kernels.check(base, torch.int32, "base", (plan.segments, n_bins))
+    else:
+        base = empty(plan.segments * n_bins)
     out = TileSort(counts=empty(n_bins), offsets=empty(n_bins), dest=empty(m),
                    inst=empty(m), overflow=empty())
     kernels.launch(
         "sort_tiles", "e3d_counting_sort",
         ids.data_ptr(), gauss.data_ptr(), m, n_live.data_ptr(), n_bins, fill,
-        base.data_ptr(), *(t.data_ptr() for t in out),
+        int(counted), base.data_ptr(), *(t.data_ptr() for t in out),
     )
     tile_histogram_kernel.launches += 1
     stable_tile_rank_kernel.launches += 1
@@ -190,9 +206,11 @@ def stable_tile_rank(ids: torch.Tensor, n_live: torch.Tensor, n_bins: int,
 
 
 def counting_sort(ids: torch.Tensor, gauss: torch.Tensor, n_live: torch.Tensor,
-                  n_bins: int, fill: int) -> TileSort:
+                  n_bins: int, fill: int, base: torch.Tensor | None = None
+                  ) -> TileSort:
     """Counts, offsets, destinations and the sorted ``gauss`` of a stable
-    counting sort by tile (K5 and K6 fused; plain version on the CPU)."""
+    counting sort by tile (K5 and K6 fused; plain version on the CPU).
+    ``base``: the live segments' tile counts, where the caller has them."""
     fn = counting_sort_plain if ids.device.type == "cpu" else \
         counting_sort_kernel
-    return fn(ids, gauss, n_live, n_bins, fill)
+    return fn(ids, gauss, n_live, n_bins, fill, base)

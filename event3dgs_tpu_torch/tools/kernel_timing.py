@@ -1,23 +1,22 @@
 """Timing of the port's kernels on a CUDA card: the helpers
-``chip_smoke.py`` uses, and the binning's counting sort, one source tree
-against another, in turns:
+``chip_smoke.py`` uses, and the tile binning from the projection's outputs,
+one source tree against another, in turns:
 
     python3 event3dgs_tpu_torch/tools/kernel_timing.py --trees OLD . . OLD
 
 Each tree (a checkout of this repository) runs in a fresh process, in the
 order given, with the tree first on ``sys.path``: it builds the tree's
-kernels and bins ``bench.py``'s scene (100k Gaussians from seed 0, cameras
-at ``bench.py``'s poses, 1920×1080) at the render view (camera 0, instance
-cap 800,768) and at the train step's main view (camera 1, cap 428,032).
-From K4's output to the finished ``Binning`` it runs the tree's counting
-sort: ``sort_tiles.counting_sort`` where the tree has it, else the earlier
-sequence (K5; the offsets by ``cumsum``; K6; ``torch.full`` and
-``scatter_`` into the tile lists; the overflow clamp).  Per view it prints
-one JSON line: the device time per call of each device kernel and in all
-(``torch.profiler``, 20 calls), the device kernels per call, the event
-time per call (CUDA events over 50 calls, the host's enqueue included) and
-a digest of the outputs, which must agree between trees.  The last lines
-are the card's name and power limit and a table of the runs.
+kernels, projects ``bench.py``'s scene (100k Gaussians from seed 0,
+cameras at ``bench.py``'s poses, 1920×1080) and bins it with the tree's
+``binning.bin_gaussians`` at the render view (camera 0, instance cap
+800,768) and at the train step's main view (camera 1, cap 428,032): every
+device kernel from the projection's outputs to the finished ``Binning``.
+Per view it prints one JSON line: the device time per call of each device
+kernel and in all (``torch.profiler``, 20 calls), the device kernels per
+call, the event time per call (CUDA events over 50 calls, the host's
+enqueue included) and a digest of the ``Binning``, which must agree
+between trees.  The last lines are the card's name and power limit and a
+table of the runs.
 """
 
 from __future__ import annotations
@@ -84,20 +83,6 @@ def device_profile(fn, calls: int = 20) -> dict[str, tuple[float, float]]:
     return out
 
 
-def _earlier_sort(sort_tiles, tile, gauss, n_live, n_bins, fill):
-    """The binning's sequence after K4 before the fused counting sort."""
-    import torch
-
-    cap = tile.shape[0]
-    counts = sort_tiles.tile_histogram(tile, n_bins, n_live)
-    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-    dest = sort_tiles.stable_tile_rank(tile, n_live, n_bins, starts, cap)
-    inst = torch.full((cap + 1,), fill, dtype=torch.int32, device=tile.device)
-    inst.scatter_(0, dest.long(), gauss)
-    overflow = torch.clamp(n_live[0] - cap, min=0)
-    return counts, starts, dest, inst[:cap], overflow
-
-
 def worker(tree: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -106,7 +91,7 @@ def worker(tree: str) -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_timing: needs a CUDA card")
     from event3dgs_tpu_torch.core import make_camera
-    from event3dgs_tpu_torch.ops import binning, expand, kernels, sort_tiles
+    from event3dgs_tpu_torch.ops import binning, kernels
     from event3dgs_tpu_torch.ops.projection import project_gaussians
 
     kernels.build()
@@ -121,30 +106,26 @@ def worker(tree: str) -> None:
     rots = rng.normal(size=(n, 4))
     opac = rng.uniform(0.3, 0.9, n)
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    fused = getattr(sort_tiles, "counting_sort", None)
+    opacities = f(opac)
+    fields = ("inst_gauss", "tile_offsets", "tile_counts", "dest", "overflow",
+              "offsets", "order")
     for view, i, cap in VIEWS:
         cam = make_camera(np.eye(3), np.asarray([0.01 * i, 0.0, 0.02 * i]),
                           1.2, 0.75, WIDTH, HEIGHT, device=dev)
         proj = project_gaussians(f(means), f(scales), f(rots), cam,
-                                 opacities=f(opac))
-        tables = binning.depth_tables(proj.mean2d, proj.depth, proj.radius,
-                                      proj.valid, WIDTH, HEIGHT,
-                                      opacities=f(opac), conic=proj.conic)
-        tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT)
-        nt = tiles_x * tiles_y
-        tile, gauss = expand.expand_instances(*tables, cap, tiles_x, nt)
-        args = (tile, gauss, tables.offsets[n:], nt, n)
-        if fused is not None:
-            call = lambda: fused(*args)
-        else:
-            call = lambda: _earlier_sort(sort_tiles, *args)
+                                 opacities=opacities)
+        call = lambda: binning.bin_gaussians(
+            proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH, HEIGHT,
+            cap, opacities=opacities, conic=proj.conic)
+        out = call()
         digest = 0
-        for t in call():
-            digest = zlib.crc32(t.cpu().numpy().tobytes(), digest)
+        for field in fields:
+            digest = zlib.crc32(getattr(out, field).cpu().numpy().tobytes(),
+                                digest)
         prof = device_profile(call)
         print(json.dumps({
             "tree": tree, "view": view, "cap": cap,
-            "live": int(tables.offsets[n]), "digest": digest,
+            "live": int(out.offsets[n]), "digest": digest,
             "device_us": {k: round(v[0] * 1e3, 3) for k, v in sorted(prof.items())},
             "device_us_total": sum(v[0] for v in prof.values()) * 1e3,
             "device_ops": sum(v[1] for v in prof.values()),

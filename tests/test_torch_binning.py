@@ -1,5 +1,5 @@
-"""The port's tile binning (kernels K4, K5, K6 and their plain versions)
-against the JAX package's Pallas binning, exactly.
+"""The port's tile binning (the table kernel, K4, K5, K6 and their plain
+versions) against the JAX package's Pallas binning, exactly.
 
 On the CPU the port runs the plain versions; the JAX kernels run in
 interpret mode, as the JAX suite runs them.  The CUDA kernels are held
@@ -122,22 +122,55 @@ def test_count_instances_matches(scene):
     assert out == ref
 
 
+def jax_expand(rect, cull, offsets, order, seg_rank, cap, tiles_x, num_tiles):
+    """The JAX kernel (interpret mode) on the port's Gaussian-order tables,
+    fed in depth order as the JAX binning feeds it (K4's arguments; the JAX
+    kernel finds its own starting ranks)."""
+    o = order.long()
+    sorted_cols = np.concatenate(
+        [rect[o, :3].numpy().astype(np.float32), cull[o].numpy()], axis=1
+    )  # the JAX kernel's [N, 11] layout: x0 y0 rw mx my ca cb cc nba nbc qthr
+    tile, g = jexpand(jnp.asarray(offsets.numpy()), jnp.asarray(order.numpy()),
+                      jnp.asarray(sorted_cols), cap, tiles_x, num_tiles,
+                      interpret=True)
+    return np.asarray(tile), np.asarray(g)
+
+
 def test_plain_expand_matches_jax_kernel(scene):
+    """K4's plain version (Gaussian-order tables and the depth order)
+    against the JAX kernel fed the tables in depth order; its count rows
+    against K5's plain histogram per segment and, summed, the JAX K5
+    histogram (tests/test_torch_expand.py)."""
     _, cam, proj, opac, cap, cull = scene
     inp = port_inputs(proj, opac, cull)
-    tables = tb.depth_tables(width=cam.width, height=cam.height, **inp)
+    tables = tb.gaussian_tables(width=cam.width, height=cam.height, **inp)
+    ranks = tb.depth_order(tables, cap)
     tiles_x, tiles_y = tb.tile_grid(cam.width, cam.height)
-    sorted_cols = np.concatenate(
-        [tables.rect.numpy().astype(np.float32), tables.cull.numpy()], axis=1
-    )  # the JAX kernel's [N, 11] layout: x0 y0 rw mx my ca cb cc nba nbc qthr
-    ref_tile, ref_g = jexpand(
-        jnp.asarray(tables.offsets.numpy()), jnp.asarray(tables.order.numpy()),
-        jnp.asarray(sorted_cols), cap, tiles_x, tiles_x * tiles_y,
-        interpret=True,
-    )
-    tile, g = tex.expand_instances(*tables, cap, tiles_x, tiles_x * tiles_y)
-    np.testing.assert_array_equal(tile.numpy(), np.asarray(ref_tile))
-    np.testing.assert_array_equal(g.numpy(), np.asarray(ref_g))
+    args = (tables.rect, tables.cull, *ranks, cap, tiles_x, tiles_x * tiles_y)
+    ref_tile, ref_g = jax_expand(*args)
+    out = tex.expand_instances(*args, count_rows=True)
+    np.testing.assert_array_equal(out.tile.numpy(), ref_tile)
+    np.testing.assert_array_equal(out.gauss.numpy(), ref_g)
+    assert_rows_are_segment_histograms(out, ranks.offsets, tiles_x * tiles_y)
+
+
+def assert_rows_are_segment_histograms(out, offsets, num_tiles):
+    """K4's count rows: per segment, K5's plain histogram of its tiles;
+    over all segments, the JAX K5 histogram."""
+    n_live = offsets[-1:]
+    s = tst.SEGMENT
+    assert out.rows.shape == (tst.sort_plan(out.tile.shape[0], num_tiles).segments,
+                              num_tiles)
+    for k, row in enumerate(out.rows):
+        ref = tst.tile_histogram_plain(out.tile[k * s:(k + 1) * s], num_tiles,
+                                       torch.clamp(n_live - k * s, min=0))
+        assert torch.equal(row, ref), k
+    live = min(int(n_live), out.tile.shape[0])
+    ref_counts, _ = counting_sort_buckets(jnp.asarray(out.tile.numpy()),
+                                          num_tiles, interpret=True,
+                                          n_live=live)
+    np.testing.assert_array_equal(out.rows.sum(0).numpy(),
+                                  np.asarray(ref_counts))
 
 
 @pytest.mark.parametrize("m,n_bins,n_live", [(4096, 40, 3000), (2048, 300, 2048)])

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K6) against their plain PyTorch versions, and
-the wrappers' dispatch rules.
+"""The port's CUDA kernels (K1-K6 and the binning's table kernel) against
+their plain PyTorch versions, and the wrappers' dispatch rules.
 
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and without JAX it runs on its own:
@@ -13,6 +13,7 @@ anywhere.
 import pathlib
 import subprocess
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -101,6 +102,241 @@ def need_card():
         pytest.skip("needs a CUDA card (kernel vs plain version)")
 
 
+class ExpansionCase(NamedTuple):
+    """K4's inputs: tables in Gaussian order, offsets and order by rank."""
+
+    rect: torch.Tensor  # [N, 4] int32 x0, y0, rw, count
+    cull: torch.Tensor  # [N, 8] float32
+    offsets: torch.Tensor  # [N+1] int32
+    order: torch.Tensor  # [N] int32
+    seg_rank: torch.Tensor  # [segments] int32 rank of each segment's first slot
+    cap: int
+    tiles_x: int
+    num_tiles: int
+
+    def to(self, device):
+        return self._replace(**{f: getattr(self, f).to(device) for f in
+                                ("rect", "cull", "offsets", "order", "seg_rank")})
+
+    def args(self):
+        """K4's arguments."""
+        return (self.rect, self.cull, self.offsets, self.order, self.seg_rank,
+                self.cap, self.tiles_x, self.num_tiles)
+
+
+def expansion_case(sizes, cap, seed, tiles_x=60, tiles_y=34) -> ExpansionCase:
+    """Synthetic K4 inputs on the CPU: one rank per (rect width, rect
+    height) of ``sizes``, in that depth order, placed at random Gaussian
+    ids, with random rects on a 1080p tile grid and ellipse-cull data that
+    drops some of their tiles (a tenth of them degenerate, never culling)."""
+    rng = np.random.default_rng(seed)
+    n = len(sizes)
+    rw, rh = (np.array([s[k] for s in sizes], np.int64).reshape(n) for k in (0, 1))
+    counts = rw * rh
+    x0 = rng.integers(0, tiles_x - np.maximum(rw, 1) + 1)
+    y0 = rng.integers(0, tiles_y - np.maximum(rh, 1) + 1)
+    mx = (x0 + rw / 2) * 32 + rng.normal(0, 8, n)
+    my = (y0 + rh / 2) * 32 + rng.normal(0, 8, n)
+    sx, sy = rng.uniform(4, 40, n) * np.maximum(rw, 1), rng.uniform(4, 40, n)
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    cxx, cyy = c * c * sx ** 2 + s * s * sy ** 2, s * s * sx ** 2 + c * c * sy ** 2
+    cxy = c * s * (sx ** 2 - sy ** 2)
+    det = cxx * cyy - cxy * cxy
+    ca, cb, cc = cyy / det, -cxy / det, cxx / det
+    pd = rng.uniform(size=n) > 0.1
+    ca, cb, cc = ca * pd, cb * pd, cc * pd
+    nba = np.where(pd, -cb / np.where(pd, ca, 1), 0)
+    nbc = np.where(pd, -cb / np.where(pd, cc, 1), 0)
+    qthr = 2 * np.log(255 * rng.uniform(0.05, 1.0, n))
+    perm = rng.permutation(n)  # the Gaussian of each rank
+    rect = np.zeros((n, 4), np.int32)
+    cull = np.zeros((n, 8), np.float32)
+    rect[perm] = np.c_[x0, y0, rw, counts]
+    cull[perm] = np.c_[mx, my, ca, cb, cc, nba, nbc, qthr]
+    offsets = np.r_[0, np.cumsum(counts)].astype(np.int32)
+    starts = np.arange(sort_tiles.segments(cap)) * sort_tiles.SEGMENT
+    seg_rank = np.clip(np.searchsorted(offsets, starts, side="right") - 1, 0,
+                       n - 1)
+    return ExpansionCase(torch.tensor(rect), torch.tensor(cull),
+                         torch.tensor(offsets), torch.tensor(perm, dtype=torch.int32),
+                         torch.tensor(seg_rank, dtype=torch.int32), cap, tiles_x,
+                         tiles_x * tiles_y)
+
+
+# K4 edge cases: name → function that makes the case (on the CPU)
+EXPAND_CASES = {
+    # a 12×8 rect's 96 instances across the boundary of segments 0 and 1
+    "cross_segment": lambda: expansion_case(
+        [(3, 2)] * 330 + [(12, 8)] + [(2, 2)] * 700 + [(0, 0)] * 20, 8192, 1),
+    # segment 0 holds 2,048 one-instance ranks (the widest rank window)
+    "one_instance_ranks": lambda: expansion_case(
+        [(1, 1)] * 3000 + [(4, 3)] * 50 + [(0, 2)] * 10, 4096, 2),
+    # a cap of 3,072: the last segment is half of one, partly live
+    "half_segment": lambda: expansion_case([(2, 3)] * 430 + [(0, 0)] * 5,
+                                           3072, 3),
+    # 6,000 instances for a cap of 2,048
+    "overflow": lambda: expansion_case([(4, 3)] * 500, 2048, 4),
+    # offsets[N] = 0
+    "no_instances": lambda: expansion_case([(0, 0)] * 40 + [(3, 0)] * 10,
+                                           2048, 5),
+    "one_gaussian": lambda: expansion_case([(3, 2)], 1024, 6),
+    # zero-count ranks between the live ones (never so in a binning, whose
+    # depth order puts them last; the JAX kernel assumes it): segment 0
+    # spans 6,142 ranks
+    "zero_ranks_between": lambda: expansion_case(
+        [(1, 1), (0, 0), (5, 0)] * 2100 + [(2, 2)] * 300, 8192, 7),
+}
+# cases outside the JAX kernel's assumptions (held against the plain version
+# only)
+EXPAND_CARD_ONLY = {"zero_ranks_between"}
+
+
+def tables_scene(name, variant, device):
+    """A test scene's projection outputs, with some Gaussians made hard for
+    the table kernel by ``variant``."""
+    proj, _, opac, w, h = scene(**SCENES[name], device=device)
+    mean2d, conic, radius, valid, depth = (proj.mean2d.clone(), proj.conic.clone(),
+                                           proj.radius.clone(), proj.valid.clone(),
+                                           proj.depth.clone())
+    n = mean2d.shape[0]
+    k = torch.arange(n, device=device)
+    if variant == "degenerate":
+        # singular, indefinite, zero and NaN conics; NaN means on culled
+        # Gaussians (projection leaves them unconstrained)
+        conic[k % 7 == 0] = torch.tensor([1.0, 1.0, 1.0], device=device)
+        conic[k % 7 == 1] = torch.tensor([-0.5, 0.1, 0.2], device=device)
+        conic[k % 7 == 2] = 0.0
+        conic[k % 11 == 3] = float("nan")
+        cull = k % 13 == 4
+        valid[cull], radius[cull], depth[cull] = False, 0.0, float("inf")
+        mean2d[cull] = float("nan")
+    elif variant == "opacity_edges":
+        # opacities at and around 1/255, and 0, tiny and 1
+        edge = torch.tensor([1 / 255, np.nextafter(1 / 255, 0),
+                             np.nextafter(1 / 255, 1), 0.0, 1e-13, 1.0],
+                            dtype=torch.float32, device=device)
+        opac = opac.clone()
+        opac[k % 3 == 0] = edge[(k[k % 3 == 0] // 3) % 6]
+    elif variant == "no_conic":
+        conic = None
+    elif variant == "no_opacity":
+        opac = None
+    return (mean2d, depth, radius, valid, w, h), dict(opacities=opac, conic=conic)
+
+
+TABLE_VARIANTS = ("plain", "degenerate", "opacity_edges", "no_conic",
+                  "no_opacity")
+
+
+def assert_tables_equal(tk, tp):
+    """Rects, counts and keys of every Gaussian, and the cull rows of every
+    Gaussian with instances, bit for bit."""
+    assert torch.equal(tk.rect, tp.rect)
+    assert torch.equal(tk.key.view(torch.int32), tp.key.view(torch.int32))
+    live = tp.rect[:, 3] > 0
+    assert torch.equal(tk.cull[live].view(torch.int32),
+                       tp.cull[live].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SCENES))
+@pytest.mark.parametrize("variant", TABLE_VARIANTS)
+def test_table_kernel_matches_plain_version(name, variant):
+    need_card()
+    args, kw = tables_scene(name, variant, "cuda")
+    before = binning.gaussian_tables_kernel.launches
+    tk = binning.gaussian_tables(*args, **kw)
+    assert binning.gaussian_tables_kernel.launches == before + 1
+    tp = binning.gaussian_tables_plain(*args, **kw)
+    assert_tables_equal(tk, tp)
+    torch.cuda.synchronize()
+
+
+def depth_tables(n, seed, device):
+    """Random sort keys (ties among them, +inf where the count is 0) and
+    instance counts, as the table kernel leaves them (its look-back state
+    cleared)."""
+    g = torch.Generator().manual_seed(seed)
+    count = torch.randint(0, 12, (n,), generator=g, dtype=torch.int32)
+    count[torch.rand(n, generator=g) < 0.3] = 0
+    key = torch.randint(0, max(n // 4, 1), (n,), generator=g).float()
+    key[count == 0] = float("inf")
+    rect = torch.zeros(n, 4, dtype=torch.int32)
+    rect[:, 3] = count
+    return binning.GaussianTables(
+        rect=rect.to(device), cull=torch.zeros(n, 8, device=device),
+        key=key.to(device),
+        lookback=torch.zeros(binning.lookback_words(n), dtype=torch.int64,
+                             device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 100_000, 400_000])
+def test_depth_offsets_kernel_matches_plain_version(n):
+    """The depth offsets kernel (order cast, counts gathered in depth order,
+    their prefix by a decoupled look-back over blocks of 2,048 ranks) equal
+    to its plain version, on one block, on a block boundary and on 49 and
+    196 blocks, twice on the same state."""
+    need_card()
+    tables = depth_tables(n, n, "cuda")
+    cap = suggest_cap(int(tables.rect[:, 3].sum()))
+    before = binning.depth_order_kernel.launches
+    k = binning.depth_order(tables, cap)
+    assert binning.depth_order_kernel.launches == before + 1
+    p = binning.depth_order_plain(tables, cap)
+    assert_depth_order_equal(k, p, cap)
+    # the kernel leaves its state cleared: a second call repeats the first
+    assert not tables.lookback.any()
+    assert_depth_order_equal(binning.depth_order(tables, cap), p, cap)
+    torch.cuda.synchronize()
+
+
+def suggest_cap(total):
+    """An instance cap for ``total`` instances: a multiple of 1,024 below it
+    where there are many (the segments past it unwritten), else above."""
+    return max(total // 2 // 1024 * 1024, 1024) if total > 4096 else \
+        binning.suggest_instance_cap(total)
+
+
+def assert_depth_order_equal(k, p, cap):
+    """Order and offsets, and the first ranks of the live segments."""
+    assert torch.equal(k.order, p.order) and torch.equal(k.offsets, p.offsets)
+    live = -(-min(int(p.offsets[-1]), cap) // sort_tiles.SEGMENT)
+    assert torch.equal(k.seg_rank[:live], p.seg_rank[:live])
+
+
+def expansion_rows_live(exp, offsets, cap):
+    """The count rows of the live segments (the kernel writes no other)."""
+    live = min(int(offsets[-1]), cap)
+    return exp.rows[:-(-live // sort_tiles.SEGMENT)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(EXPAND_CASES))
+def test_expand_kernel_edge_cases_match_plain_version(case):
+    """K4 (tile, gauss and the count rows of the live segments) bit-equal to
+    its plain version; the counting sort from K4's rows equal to the
+    counting sort that counts for itself."""
+    need_card()
+    c = EXPAND_CASES[case]().to("cuda")
+    args = c.args()
+    before = expand.expand_instances_kernel.launches
+    k = expand.expand_instances(*args, count_rows=True)
+    assert expand.expand_instances_kernel.launches == before + 1
+    p = expand.expand_instances_plain(*args, count_rows=True)
+    assert torch.equal(k.tile, p.tile) and torch.equal(k.gauss, p.gauss)
+    assert torch.equal(expansion_rows_live(k, c.offsets, c.cap),
+                       expansion_rows_live(p, c.offsets, c.cap))
+    n_live, n = c.offsets[-1:], c.order.shape[0]
+    counted = sort_tiles.counting_sort(k.tile, k.gauss, n_live, c.num_tiles,
+                                       n, base=k.rows)
+    itself = sort_tiles.counting_sort(k.tile, k.gauss, n_live, c.num_tiles, n)
+    for field, a, b in zip(counted._fields, counted, itself):
+        assert torch.equal(a, b), field
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SCENES))
 @pytest.mark.parametrize("cap", [None, 1024])
@@ -108,23 +344,33 @@ def test_binning_kernels_match_plain_versions(name, cap):
     need_card()
     proj, _, opac, w, h = scene(**SCENES[name], device="cuda")
     cap = cap or rt.default_instance_cap(proj.mean2d.shape[0])
-    tables = binning.depth_tables(proj.mean2d, proj.depth, proj.radius,
-                                  proj.valid, w, h, opacities=opac,
-                                  conic=proj.conic)
+    args = (proj.mean2d, proj.depth, proj.radius, proj.valid, w, h)
+    kw = dict(opacities=opac, conic=proj.conic)
+    tables = binning.gaussian_tables(*args, **kw)
+    assert_tables_equal(tables, binning.gaussian_tables_plain(*args, **kw))
+    ranks = binning.depth_order(tables, cap)
+    assert_depth_order_equal(ranks, binning.depth_order_plain(tables, cap), cap)
     tiles_x, tiles_y = binning.tile_grid(w, h)
     nt = tiles_x * tiles_y
-    before = expand.expand_instances_kernel.launches
-    tk, gk = expand.expand_instances(*tables, cap, tiles_x, nt)
-    assert expand.expand_instances_kernel.launches == before + 1
-    tp, gp = expand.expand_instances_plain(*tables, cap, tiles_x, nt)
-    assert torch.equal(tk, tp) and torch.equal(gk, gp)
-    n_live = tables.offsets[-1:]
+    k = expand.expand_instances(tables.rect, tables.cull, *ranks, cap, tiles_x,
+                                nt, count_rows=True)
+    p = expand.expand_instances_plain(tables.rect, tables.cull, *ranks, cap,
+                                      tiles_x, nt, count_rows=True)
+    assert torch.equal(k.tile, p.tile) and torch.equal(k.gauss, p.gauss)
+    assert torch.equal(expansion_rows_live(k, ranks.offsets, cap),
+                       expansion_rows_live(p, ranks.offsets, cap))
+    tk, n_live = k.tile, ranks.offsets[-1:]
     ck = sort_tiles.tile_histogram(tk, nt, n_live)
     assert torch.equal(ck, sort_tiles.tile_histogram_plain(tk, nt, n_live))
     starts = (torch.cumsum(ck, 0) - ck).to(torch.int32)
     dk = sort_tiles.stable_tile_rank(tk, n_live, nt, starts, cap)
     assert torch.equal(dk, sort_tiles.stable_tile_rank_plain(tk, n_live, nt,
                                                              starts, cap))
+    n = proj.mean2d.shape[0]
+    counted = sort_tiles.counting_sort(tk, k.gauss, n_live, nt, n, base=k.rows)
+    itself = sort_tiles.counting_sort(tk, k.gauss, n_live, nt, n)
+    for field, a, b in zip(counted._fields, counted, itself):
+        assert torch.equal(a, b), field
     torch.cuda.synchronize()
 
 
@@ -197,23 +443,47 @@ def test_counting_sort_edge_cases_match_plain_versions(case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SCENES) + sorted(HARD_SCENES))
 def test_whole_binning_matches_plain_version(name):
-    """The kernel path's ``Binning`` (K4 and the fused counting sort, one
-    launch of K4, K5 and K6 each) equal to the all-plain one."""
+    """The kernel path's ``Binning`` (the table kernel, the depth offsets
+    kernel, K4 and the fused counting sort from K4's count rows, one launch
+    of each of them, K5 and K6) equal to the all-plain one."""
     need_card()
     make = HARD_SCENES.get(name) or (lambda device: scene(**SCENES[name],
                                                           device=device))
     proj, _, opac, w, h = make("cuda")
     args = (proj.mean2d, proj.depth, proj.radius, proj.valid, w, h,
             rt.default_instance_cap(proj.mean2d.shape[0]))
-    wrappers = (expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
+    wrappers = (binning.gaussian_tables_kernel, binning.depth_order_kernel,
+                expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
                 sort_tiles.stable_tile_rank_kernel)
     before = [k.launches for k in wrappers]
     bk = binning.bin_gaussians(*args, opacities=opac, conic=proj.conic)
-    assert [k.launches - b for k, b in zip(wrappers, before)] == [1, 1, 1]
+    assert [k.launches - b for k, b in zip(wrappers, before)] == [1] * 5
     bp = binning.bin_gaussians(*args, opacities=opac, conic=proj.conic,
                                plain=True)
     for field in ("inst_gauss", "tile_offsets", "tile_counts", "dest",
-                  "overflow"):
+                  "overflow", "offsets", "order"):
+        assert torch.equal(getattr(bk, field), getattr(bp, field)), field
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_binning_on_a_tile_grid_past_the_expansion_counts():
+    """Where a segment's tile counts do not fit an expansion block's shared
+    memory (32,000 tiles), K4 writes no count rows and the counting sort
+    counts for itself; the ``Binning`` still equals the all-plain one."""
+    need_card()
+    w, h = 32 * 200, 32 * 160
+    assert not expand.expand_plan(1 << 14, 200 * 160).counts
+    proj, _, opac, _, _ = scene(n=3000, seed=8, w=w, h=h, spread=3.0,
+                                scale=(0.01, 0.05), device="cuda")
+    args = (proj.mean2d, proj.depth, proj.radius, proj.valid, w, h,
+            rt.default_instance_cap(proj.mean2d.shape[0]))
+    bk = binning.bin_gaussians(*args, opacities=opac, conic=proj.conic)
+    bp = binning.bin_gaussians(*args, opacities=opac, conic=proj.conic,
+                               plain=True)
+    assert int(bp.tile_counts.sum()) > 0
+    for field in ("inst_gauss", "tile_offsets", "tile_counts", "dest",
+                  "overflow", "offsets", "order"):
         assert torch.equal(getattr(bk, field), getattr(bp, field)), field
     torch.cuda.synchronize()
 
@@ -386,16 +656,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel wrapper launches on CUDA tensors or raises; it never runs
     the plain version itself (the dispatchers pick it for CPU tensors)."""
     proj, colors, opac, w, h = scene(n=50, seed=0, w=64, h=64)
-    tables = binning.depth_tables(proj.mean2d, proj.depth, proj.radius,
-                                  proj.valid, w, h, opacities=opac,
-                                  conic=proj.conic)
+    targs = (proj.mean2d, proj.depth, proj.radius, proj.valid, w, h)
+    tables = binning.gaussian_tables(*targs, opacities=opac, conic=proj.conic)
+    ranks = binning.depth_order(tables, 1024)
     ids = torch.zeros(8, dtype=torch.int32)
     live = torch.tensor([8], dtype=torch.int32)
     feat = rt.pack_features(proj.mean2d, proj.conic, colors, opac)
     img = torch.zeros(h, w)
     rows = torch.zeros(8, 9)
     calls = [
-        lambda: expand.expand_instances_kernel(*tables, 1024, 2, 4),
+        lambda: binning.gaussian_tables_kernel(*targs, opacities=opac,
+                                               conic=proj.conic),
+        lambda: binning.depth_order_kernel(tables, 1024),
+        lambda: expand.expand_instances_kernel(tables.rect, tables.cull,
+                                               *ranks, 1024, 2, 4),
         lambda: sort_tiles.tile_histogram_kernel(ids, 4, live),
         lambda: sort_tiles.stable_tile_rank_kernel(
             ids, live, 4, torch.zeros(4, dtype=torch.int32), 8),
@@ -409,7 +683,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(h, w, 3), img, img, img.to(torch.int32), 8),
         lambda: segscan.segment_sums_kernel(rows, ids, ids, 8, ids, ids),
     ]
-    wrappers = [expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
+    wrappers = [binning.gaussian_tables_kernel, binning.depth_order_kernel,
+                expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
                 sort_tiles.stable_tile_rank_kernel, rt.composite_forward_kernel,
                 rt.composite_backward_kernel, segscan.segment_sums_kernel]
     counts = [k.launches for k in wrappers]
@@ -462,3 +737,9 @@ def test_kernel_build_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     after = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
     changed = sorted(n for n in before if before[n] != after[n])
     assert changed == ["rasterize_bwd", "rasterize_fwd"]
+    # the expansion and the counting sort share csrc/segment.cuh
+    header = tmp_path / "segment.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    again = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
+    assert sorted(n for n in after if after[n] != again[n]) == [
+        "expand", "sort_tiles"]

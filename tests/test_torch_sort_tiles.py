@@ -74,11 +74,13 @@ def test_cpu_counting_sort_takes_the_plain_version():
 
 
 def test_launch_plan_fits_a_block_for_every_tile_grid():
-    """``sort_plan`` mirrors ``csrc/sort_tiles.cu``: segments of SEGMENT ids,
-    one shared int per tile in a count block and, beside at most
-    RANK_STATIC_LIMIT static bytes, in a rank block (within a block's 227 KB
-    for every grid of 1 to 20,000 tiles, and refused past it)."""
-    src = (kernels.CSRC / "sort_tiles.cu").read_text()
+    """``sort_plan`` mirrors ``csrc/sort_tiles.cu``: segments of SEGMENT ids
+    (``csrc/segment.cuh``), one shared int per tile in a count block and,
+    beside at most RANK_STATIC_LIMIT static bytes, in a rank block (within
+    a block's 227 KB for every grid of 1 to 20,000 tiles, and refused past
+    it)."""
+    src = "\n".join((kernels.CSRC / f).read_text()
+                    for f in ("segment.cuh", "sort_tiles.cu"))
     const = lambda name: int(eval(re.search(
         rf"constexpr int {name} = ([\d *]+);", src).group(1)))
     assert const("SEGMENT") == tst.SEGMENT
