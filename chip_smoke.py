@@ -30,12 +30,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    profiler's device time in the kernel's own CUDA functions (``device_ms``),
    and one view's render with the host clock.
 6. Train through the entry point: a COLMAP scene with 8 views at
-   1920×1080 (``images/`` and ``images_event/``) and a 100k-point cloud
-   drawn like ``bench.py``'s scene; ``cli.train --gray --event`` for 6
-   iterations with densification at 3 and 6 (threshold 0, so both passes
-   clone and split every Gaussian and the instance cap is re-measured), then
-   ``cli.render`` on the saved PLY.  Every kernel (K1-K6 and the binning's
-   table and depth offsets kernels) must launch 3 times per step, the alive count must grow and the loss must be finite.
+   1920×1080 (``images/``, ``images_event/`` and the held-out ``renders/``)
+   and a 100k-point cloud drawn like ``bench.py``'s scene; ``cli.train
+   --gray --event`` for 6 iterations with densification at 3 and 6
+   (threshold 0, so both passes clone and split every Gaussian and the
+   instance cap is re-measured), then ``cli.render`` on the saved PLY (the
+   train and test sets).  Every kernel (K1-K6 and the binning's table and
+   depth offsets kernels) must launch 3 times per step, the alive count must
+   grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
    cap): K1's stop index, K2's rows (1e-5 of the max) and K3 (bit-equal)
@@ -51,6 +53,21 @@ Phases (any failed check exits non-zero; nothing is caught):
    profile one step, and time K2 and K3 as in phase 5.  Then densify
    the timed state with capacity growth and run one more step at a
    re-measured instance cap (3 launches of each kernel, finite loss).
+
+9. (Run after phase 6, on its trained model of ~400k alive Gaussians.)
+   ``cli.evaluate --save_images --lpips_weights`` with AlexNet-shaped
+   random weights from seed 0: each render kernel launched once for the
+   holdout view 5, finite SSIM, PSNR and LPIPS, the ``sim_``/``real_``
+   PNGs; LPIPS of one 1080p pair on the card against the CPU for the three
+   backbones (rtol 1e-4), its time on the card and its convolutions' FLOPs
+   against the FP32 peak; ``cli.metrics``
+   (``results.json``, ``per_view.json``); ``cli.render --depth --point
+   --blurrySpeed 1 --export_transforms --skip_test``: 8 depth, 8 point and
+   7 blurry images and the transforms, each render kernel launched
+   8 + 8 + 7·18 times; ``point_depth_map`` launching no kernel; a blurry
+   frame timed alone; an SH degree 4 render of ``bench.py``'s scene, kernel
+   path against the all-plain path within 1e-5.  Each part prints its wall
+   time with the card's name and power limit.
 
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
@@ -87,12 +104,16 @@ WIDTH, HEIGHT = 1920, 1080
 VIEWS = 4
 TRAIN_VIEWS = 8
 TRAIN_ITERS = 6
+BLUR_STEPS = 18  # renders per blurry frame (render_blurry_set's default)
 DEVICE = "cuda"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # H100 SXM FP32 outside the tensor cores is 67 TFLOP/s with an FMA counted
 # as two operations.  The kernels are built with -fmad=false, so they issue
 # no FMA: one FP32 instruction is one operation, at half that rate.
 PEAK_FP32_PER_S = 33.5e12
+# library code (cuDNN's convolutions) runs FMAs: the data sheet's 67
+# TFLOP/s of FP32 outside the tensor cores, an FMA counted as two FLOPs
+PEAK_FP32_FLOPS = 67e12
 # exp, log and reciprocal run on the special function units: 16 of an SM's
 # 128 lanes per clock, so an eighth of the FP32 instruction rate
 PEAK_SFU_PER_S = PEAK_FP32_PER_S / 8
@@ -198,8 +219,9 @@ def generate_colmap(root: str) -> str:
     """Phase 6's source: a COLMAP scene with ``TRAIN_VIEWS`` views at
     bench.py's camera poses (identity rotation, centers (-0.01·i, 0,
     -0.02·i)), ``images/`` and ``images_event/`` holding the same smooth
-    patterns that move from view to view, and a point cloud drawn like
-    bench.py's scene."""
+    patterns that move from view to view, ``renders/`` (the held-out ground
+    truth of the evaluation) the same patterns shifted, and a point cloud
+    drawn like bench.py's scene."""
     from PIL import Image
 
     from event3dgs_tpu_torch.core.transforms import fov2focal
@@ -220,15 +242,20 @@ def generate_colmap(root: str) -> str:
     }
     write_model(cams, images, (means, colors * 255.0), os.path.join(src, "sparse", "0"))
     y, x = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float32)
-    for folder in ("images", "images_event"):
+    for folder in ("images", "images_event", "renders"):
         os.makedirs(os.path.join(src, folder))
-    for i in range(TRAIN_VIEWS):
-        img = np.stack([0.5 + 0.4 * np.sin(x / (60.0 + 7 * c) + 0.3 * i)
+
+    def pattern(i, shift):
+        img = np.stack([0.5 + 0.4 * np.sin(x / (60.0 + 7 * c) + 0.3 * i + shift)
                         * np.cos(y / (45.0 + 5 * c) - 0.2 * i) for c in range(3)],
                        axis=-1)
-        png = Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+        return Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+    for i in range(TRAIN_VIEWS):
+        png = pattern(i, 0.0)
         for folder in ("images", "images_event"):
             png.save(os.path.join(src, folder, f"r_{i:05d}.png"))
+        pattern(i, 0.5).save(os.path.join(src, "renders", f"r_{i:05d}.png"))
     return src
 
 
@@ -480,6 +507,25 @@ def count_launches(fn):
     return out, {k: w.launches for k, w in ws.items()}
 
 
+def run_cli(main, args):
+    """Run an entry point with every launch count set to 0, its standard
+    output captured and echoed.  Returns (exit code, counts, output)."""
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc, launches = count_launches(lambda: main(args))
+    finally:
+        print(log.getvalue().strip())
+    return rc, launches, log.getvalue()
+
+
+def check_render_launches(what, launches, renders):
+    """Each render kernel launched once per render; K2 and K3 never."""
+    for k, n in launches.items():
+        want = 0 if k[:2] in ("K2", "K3") else renders
+        check(n == want, f"{what}: {k} launched {n} times for {renders} renders")
+
+
 def render_path(root: str, dev):
     """Phases 2-5: cli.render on bench.py's model; the render kernels against
     their plain versions and timed.  Returns (launches, errors, rows)."""
@@ -508,9 +554,7 @@ def render_path(root: str, dev):
     cli_s = time.perf_counter() - t0
     print(f"cli.render: {VIEWS} views in {cli_s:.2f} s (PNG IO included); "
           f"launches {launches}")
-    for k, n in launches.items():
-        want = 0 if k[:2] in ("K2", "K3") else VIEWS
-        check(n == want, f"{k} launched {n} times for {VIEWS} views")
+    check_render_launches("cli.render", launches, VIEWS)
     out = os.path.join(model, "train", "ours_1")
     for sub in ("renders", "gt"):
         for i in range(VIEWS):
@@ -739,7 +783,8 @@ def kernel_rows(timings, bounds, meta, errs):
 
 def train_path(root: str):
     """Phase 6: cli.train --gray --event on a 1080p COLMAP scene, then
-    cli.render on its PLY.  Returns the training run's launch counts."""
+    cli.render on its PLY (the train and the held-out test views).
+    Returns the training run's launch counts and the model folder."""
     from event3dgs_tpu_torch.cli.render import main as render_main
     from event3dgs_tpu_torch.cli.train import main as train_main
 
@@ -758,13 +803,8 @@ def train_path(root: str):
             "--save_iterations", str(TRAIN_ITERS),
             "--checkpoint_iterations", str(TRAIN_ITERS), "--device", DEVICE]
     print("cli.train " + " ".join(args))
-    log = io.StringIO()
     t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(log):
-            rc, launches = count_launches(lambda: train_main(args))
-    finally:
-        print(log.getvalue().strip())
+    rc, launches, log = run_cli(train_main, args)
     train_s = time.perf_counter() - t0
     check(rc == 0, "cli.train failed")
     print(f"cli.train: {TRAIN_ITERS} iterations in {train_s:.2f} s (scene "
@@ -772,14 +812,14 @@ def train_path(root: str):
     for k, n in launches.items():
         check(n == 3 * TRAIN_ITERS,
               f"{k} launched {n} times in {TRAIN_ITERS} event steps")
-    last = re.search(r"last loss (\S+)", log.getvalue())
+    last = re.search(r"last loss (\S+)", log)
     check(last is not None and math.isfinite(float(last.group(1))),
           "no finite loss reported")
-    alive = [int(n) for n in re.findall(r"num_alive=(\d+)", log.getvalue())]
+    alive = [int(n) for n in re.findall(r"num_alive=(\d+)", log)]
     check(len(alive) == 2, "densify did not run at iterations 3 and 6")
     check(N_GAUSSIANS < alive[0] < alive[1],
           f"densify did not add Gaussians: {N_GAUSSIANS} -> {alive}")
-    caps = re.findall(r"instance_cap=(\d+)", log.getvalue())
+    caps = re.findall(r"instance_cap=(\d+)", log)
     print(f"densify: {N_GAUSSIANS} -> {alive[0]} -> {alive[1]} alive; instance "
           f"cap re-measured upward {len(caps)} times ({', '.join(caps) or '-'}), "
           f"each time with the step rebuilt")
@@ -797,14 +837,219 @@ def train_path(root: str):
     rc, rlaunches = count_launches(
         lambda: render_main(["-m", model, "--device", DEVICE]))
     check(rc == 0, "cli.render of the trained model failed")
-    print(f"cli.render of the trained model: {TRAIN_VIEWS} views in "
+    views = 2 * TRAIN_VIEWS  # the train and the test set
+    print(f"cli.render of the trained model: {views} views in "
           f"{time.perf_counter() - t0:.2f} s; launches {rlaunches}")
-    for k, n in rlaunches.items():
-        want = 0 if k[:2] in ("K2", "K3") else TRAIN_VIEWS
-        check(n == want, f"{k} launched {n} times rendering {TRAIN_VIEWS} views")
-    renders = os.path.join(model, "train", f"ours_{TRAIN_ITERS}", "renders")
-    check(len(os.listdir(renders)) == TRAIN_VIEWS, "missing trained renders")
-    return launches
+    check_render_launches("cli.render of the trained model", rlaunches, views)
+    for split in ("train", "test"):
+        renders = os.path.join(model, split, f"ours_{TRAIN_ITERS}", "renders")
+        check(len(os.listdir(renders)) == TRAIN_VIEWS,
+              f"missing trained {split} renders")
+    return launches, model
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def random_lpips_weights(net: str, seed: int = 0) -> dict:
+    """LPIPS weights of ``net``'s shapes from ``seed``: He-normal kernels
+    (HWIO), small biases, non-negative heads."""
+    from event3dgs_tpu_torch.losses.lpips import weight_shapes
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, shape in weight_shapes(net).items():
+        if len(shape) == 4:
+            out[key] = rng.normal(0, np.sqrt(2.0 / np.prod(shape[:3])), shape)
+        elif key.startswith("lin"):
+            out[key] = np.abs(rng.normal(0, 1, shape))
+        else:
+            out[key] = rng.normal(0, 0.05, shape)
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def evaluation_path(root: str, model: str, dev):
+    """Phase 9 on phase 6's trained model (1080p, ~400k alive):
+    ``cli.evaluate`` with LPIPS, LPIPS on the card against the CPU for the
+    three backbones, ``cli.metrics``, the rest of ``cli.render`` (depth,
+    point, blurry, transforms) and an SH degree 4 render."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from event3dgs_tpu_torch.cli.common import load_trained_model
+    from event3dgs_tpu_torch.cli.evaluate import main as evaluate_main
+    from event3dgs_tpu_torch.cli.metrics import main as metrics_main
+    from event3dgs_tpu_torch.cli.render import main as render_main
+    from event3dgs_tpu_torch.core import make_camera
+    from event3dgs_tpu_torch.data.scene import read_colmap_scene
+    from event3dgs_tpu_torch.losses.lpips import LPIPS, params_from_arrays
+    from event3dgs_tpu_torch.tools.kernel_timing import cuda_ms
+    from event3dgs_tpu_torch.tools.render_products import (
+        point_depth_map,
+        render_blurry_set,
+    )
+    from event3dgs_tpu_torch.train.loop import TEST_VIEW_INDICES
+    from event3dgs_tpu_torch.utils.image_io import load_image_f32
+
+    smi = card()
+    weights = os.path.join(root, "lpips_alex.npz")
+    np.savez(weights, **random_lpips_weights("alex"))
+
+    # cli.evaluate: the holdout views below TRAIN_VIEWS (index 5)
+    views = [i for i in TEST_VIEW_INDICES if i < TRAIN_VIEWS]
+    t0 = time.perf_counter()
+    rc, launches, out = run_cli(evaluate_main, [
+        "-m", model, "--save_images", "--lpips_weights", weights,
+        "--device", DEVICE])
+    eval_s = time.perf_counter() - t0
+    check(rc == 0, "cli.evaluate failed")
+    check_render_launches("cli.evaluate", launches, len(views))
+    m = re.search(r"\[SSIM (\S+) PSNR (\S+) LPiPS ([^\]\s]+)\]", out)
+    check(m is not None, "cli.evaluate printed no SSIM/PSNR/LPiPS line")
+    scores = [float(x) for x in m.groups()]
+    check(all(math.isfinite(v) for v in scores), f"non-finite scores {scores}")
+    images = os.path.join(model, "images")
+    for i in views:
+        for kind in ("sim", "real"):
+            path = os.path.join(images, f"{kind}_{i:05d}.png")
+            check(os.path.exists(path), f"missing {path}")
+    print(f"cli.evaluate: holdout views {views} at {WIDTH}x{HEIGHT} in "
+          f"{eval_s:.2f} s wall (scene load and PNG IO included); SSIM "
+          f"{scores[0]} PSNR {scores[1]} LPIPS {scores[2]}; launches "
+          f"{launches}; {smi}")
+
+    # LPIPS on the card against the CPU, one 1080p pair per backbone; its
+    # bound: the convolutions' FLOPs (PyTorch's flop counter) at the FP32
+    # peak
+    pair = [torch.tensor(load_image_f32(os.path.join(images, f"{kind}_{views[0]:05d}.png")))
+            for kind in ("sim", "real")]
+    on_card = [x.to(dev) for x in pair]
+    for net in ("alex", "vgg", "squeeze"):
+        params = params_from_arrays(random_lpips_weights(net))
+        cpu = float(LPIPS(params, net)(*pair))
+        module = LPIPS(params, net).to(dev)
+        with FlopCounterMode(display=False) as flops:
+            got = float(module(*on_card))
+        rel = abs(got - cpu) / abs(cpu)
+        check(math.isfinite(got) and rel <= 1e-4,
+              f"LPIPS {net}: card {got} vs CPU {cpu} (rel {rel:.3g})")
+        ms = cuda_ms(lambda: module(*on_card), 5, warmup=1)
+        gflop = flops.get_total_flops() / 1e9
+        bound = gflop / PEAK_FP32_FLOPS * 1e12
+        print(f"LPIPS {net}, one {WIDTH}x{HEIGHT} pair: {ms:.2f} ms on the card "
+              f"(CUDA events, 5 pairs); {gflop:.1f} GFLOP of convolutions, "
+              f"{gflop / ms:.2f} TFLOP/s, bound {bound:.2f} ms at the FP32 "
+              f"peak ({ms / bound:.1f}x); card {got:.8f} vs CPU {cpu:.8f} "
+              f"(rel {rel:.2e}); {smi}")
+        del module
+
+    # cli.metrics over test/ours_<it>/{renders,gt} of phase 6's cli.render
+    t0 = time.perf_counter()
+    rc, _, _ = run_cli(metrics_main, ["-m", model, "--lpips_weights", weights,
+                                      "--device", DEVICE])
+    check(rc == 0, "cli.metrics failed")
+    for name in ("results.json", "per_view.json"):
+        check(os.path.exists(os.path.join(model, name)), f"cli.metrics wrote no {name}")
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)
+    check(sorted(results) == ["LPIPS", "PSNR", "SSIM"]
+          and all(math.isfinite(v) for v in results.values()),
+          f"cli.metrics results {results}")
+    print(f"cli.metrics: {TRAIN_VIEWS} test views at {WIDTH}x{HEIGHT} in "
+          f"{time.perf_counter() - t0:.2f} s wall (PNG IO included); {results}; "
+          f"{smi}")
+
+    # the rest of cli.render: depth, point, blurry (18 renders per frame),
+    # transforms
+    t0 = time.perf_counter()
+    rc, launches, _ = run_cli(render_main, [
+        "-m", model, "--depth", "--point", "--blurrySpeed", "1",
+        "--export_transforms", "--skip_test", "--device", DEVICE])
+    products_s = time.perf_counter() - t0
+    check(rc == 0, "cli.render --depth --point --blurrySpeed 1 failed")
+    blurry = (TRAIN_VIEWS - 1) * BLUR_STEPS
+    check_render_launches("cli.render products", launches,
+                          TRAIN_VIEWS + TRAIN_VIEWS + blurry)
+    base = os.path.join(model, "train", f"ours_{TRAIN_ITERS}")
+    for sub, want in (("depth", TRAIN_VIEWS), ("point", TRAIN_VIEWS),
+                      ("blurry", TRAIN_VIEWS - 1)):
+        n = len(os.listdir(os.path.join(base, sub)))
+        check(n == want, f"cli.render wrote {n} {sub} images, not {want}")
+    check(os.path.exists(os.path.join(model, "transforms_train.json")),
+          "cli.render wrote no transforms_train.json")
+    print(f"cli.render --depth --point --blurrySpeed 1 --export_transforms: "
+          f"{TRAIN_VIEWS} train + {TRAIN_VIEWS} depth + {blurry} blur renders "
+          f"and {TRAIN_VIEWS} point maps in {products_s:.2f} s wall; launches "
+          f"{launches}; {smi}")
+
+    # the point path alone launches no kernel (on phase 2's model: the
+    # trained one has no Gaussian above the 0.8 opacity threshold yet)
+    _, _, bench_params = load_trained_model(os.path.join(root, "model"), -1, dev)
+    view0 = make_camera(np.eye(3), np.zeros(3), 1.2, 0.75, WIDTH, HEIGHT,
+                        device=dev)
+    depth, launches = count_launches(lambda: point_depth_map(bench_params, view0))
+    check(not any(launches.values()), f"point_depth_map launched {launches}")
+    check(bool(torch.isfinite(depth).any()), "point_depth_map found no point")
+    # a blurry frame timed alone, on the trained model
+    _, _, params = load_trained_model(model, -1, dev)
+    info = read_colmap_scene(os.path.join(root, "colmap"))
+    bg = torch.zeros(3, device=dev)
+    frames = 2
+    t0 = time.perf_counter()
+    render_blurry_set(params, info.train_cameras[:frames + 1],
+                      os.path.join(root, "blurry_timed"), WIDTH, HEIGHT, 3,
+                      bg=bg, rasterizer="tiled")
+    torch.cuda.synchronize()
+    blur_ms = (time.perf_counter() - t0) / frames * 1e3
+    print(f"blurry set: {blur_ms:.1f} ms per {WIDTH}x{HEIGHT} frame "
+          f"({BLUR_STEPS} renders, camera set-up and PNG write; host clock, "
+          f"{frames} frames); point_depth_map of bench.py's view 0: no kernel "
+          f"launch, {int(torch.isfinite(depth).sum())} pixels hit; {smi}")
+    sh_degree_4(dev)
+
+
+def sh_degree_4(dev):
+    """An SH degree 4 render of bench.py's scene (view 0, small random
+    degree-4 coefficients from the seed): the kernel path against the
+    all-plain path, at phase 4's tolerance."""
+    import torch
+
+    from event3dgs_tpu_torch.core import make_camera
+    from event3dgs_tpu_torch.core.sh import rgb_to_sh
+    from event3dgs_tpu_torch.models import activated, params_from_numpy
+    from event3dgs_tpu_torch.ops.render import render
+
+    rng = np.random.default_rng(0)
+    means, scales, rots, opac, colors = bench_scene(rng)
+    params = params_from_numpy(dict(
+        xyz=means, features_dc=rgb_to_sh(colors)[:, None, :],
+        features_rest=rng.normal(0.0, 0.05, (N_GAUSSIANS, 24, 3)),
+        scaling=np.log(scales), rotation=rots,
+        opacity=np.log(opac / (1 - opac))[:, None],
+        alive=np.ones(N_GAUSSIANS, bool)), device=dev)
+    act = activated(params)
+    cam = make_camera(np.eye(3), np.zeros(3), 1.2, 0.75, WIDTH, HEIGHT, device=dev)
+    view = (act.means3d, act.features, act.opacities, act.scales, act.rotations,
+            cam, torch.zeros(3, device=dev))
+    with torch.no_grad():
+        kern, launches = count_launches(
+            lambda: render(*view, sh_degree=4, rasterizer="tiled"))
+        plain = render(*view, sh_degree=4, rasterizer="tiled", plain=True).image
+        deg3 = render(*view, sh_degree=3, rasterizer="tiled").image
+    err = (kern.image - plain).abs().max().item()
+    check(bool(torch.isfinite(kern.image).all()), "SH degree 4: non-finite image")
+    check_render_launches("SH degree 4 render", launches, 1)
+    check(err <= 1e-5, f"SH degree 4: kernel path vs plain path {err}")
+    moved = (kern.image - deg3).abs().max().item()
+    check(moved > 1e-3, f"SH degree 4 render equals degree 3 ({moved})")
+    print(f"SH degree 4, view 0 of bench.py's scene: kernel path vs all-plain "
+          f"path max |diff| {err:.3g}; degree 4 vs degree 3 max |diff| "
+          f"{moved:.3g}")
 
 
 def bench_state(dev):
@@ -1092,7 +1337,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         render_launches, _, rows = render_path(root, dev)
-        train_launches = train_path(root)
+        train_launches, model = train_path(root)
+        evaluation_path(root, model, dev)
     _, train_rows, per_step = train_kernels(dev)
     rows.update(train_rows)
     print(f"launches: cli.render {render_launches}; cli.train "
@@ -1100,11 +1346,7 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = train_launches[name]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import torch
 
+from event3dgs_tpu_torch.data.ply import load_gaussian_ply
 from event3dgs_tpu_torch.data.scene import (
     build_camera_batch,
     camera_to_json,
@@ -25,6 +26,7 @@ from event3dgs_tpu_torch.data.scene import (
 )
 from event3dgs_tpu_torch.losses.event import raw_contrast_init
 from event3dgs_tpu_torch.models.gaussians import init_from_point_cloud
+from event3dgs_tpu_torch.train.checkpoint import find_max_iteration
 from event3dgs_tpu_torch.train.state import SceneData, init_train_state
 from event3dgs_tpu_torch.utils.config import (
     EventConfig,
@@ -211,3 +213,15 @@ def load_run_config(model_path: str) -> TrainConfig:
     """Re-load a run's persisted ``cfg.json`` (the JAX package's format)."""
     with open(os.path.join(model_path, "cfg.json")) as f:
         return TrainConfig.from_json(f.read())
+
+
+def load_trained_model(model_path: str, iteration: int, device):
+    """A run's config, the iteration to load (the newest saved one when
+    ``iteration`` ≤ 0) and its PLY as Gaussian params on ``device``."""
+    cfg = load_run_config(model_path)
+    it = iteration if iteration > 0 else find_max_iteration(model_path)
+    ply = os.path.join(model_path, "point_cloud", f"iteration_{it}",
+                       "point_cloud.ply")
+    params = load_gaussian_ply(ply, max_sh_degree=cfg.model.sh_degree,
+                               device=device)
+    return cfg, it, params

@@ -1,4 +1,4 @@
-"""Real spherical harmonics, degrees 0-3 (counterpart of ``event3dgs_tpu/core/sh.py``).
+"""Real spherical harmonics, degrees 0-4 (counterpart of ``event3dgs_tpu/core/sh.py``).
 
 Standard real-SH normalization constants (identical to PlenOctree / 3DGS;
 reference `utils/sh_utils.py:26-54`), sign conventions as in the reference
@@ -27,12 +27,23 @@ SH_C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
+SH_C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
 
 
 def sh_basis(deg: int, dirs: torch.Tensor) -> torch.Tensor:
     """Real SH basis at unit directions: [..., 3] → [..., (deg+1)**2]."""
-    if not (0 <= deg <= 3):
-        raise ValueError(f"SH degree must be in [0, 3], got {deg}")
+    if not (0 <= deg <= 4):
+        raise ValueError(f"SH degree must be in [0, 4], got {deg}")
     basis = [torch.full(dirs.shape[:-1], SH_C0, dtype=dirs.dtype,
                         device=dirs.device)]
     if deg >= 1:
@@ -58,6 +69,18 @@ def sh_basis(deg: int, dirs: torch.Tensor) -> torch.Tensor:
             SH_C3[5] * z * (xx - yy),
             SH_C3[6] * x * (xx - 3.0 * yy),
         ]
+    if deg >= 4:
+        basis += [
+            SH_C4[0] * xy * (xx - yy),
+            SH_C4[1] * yz * (3.0 * xx - yy),
+            SH_C4[2] * xy * (7.0 * zz - 1.0),
+            SH_C4[3] * yz * (7.0 * zz - 3.0),
+            SH_C4[4] * (zz * (35.0 * zz - 30.0) + 3.0),
+            SH_C4[5] * xz * (7.0 * zz - 3.0),
+            SH_C4[6] * (xx - yy) * (7.0 * zz - 1.0),
+            SH_C4[7] * xz * (xx - 3.0 * yy),
+            SH_C4[8] * (xx * (xx - 3.0 * yy) - yy * (3.0 * xx - yy)),
+        ]
     return torch.stack(basis, dim=-1)
 
 
@@ -65,7 +88,7 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Contract SH coefficients against the basis at unit directions.
 
     Args:
-        deg: degree in [0, 3].
+        deg: degree in [0, 4].
         sh: [..., C, K] coefficients with K >= (deg+1)**2 (channel-major).
         dirs: [..., 3] unit directions.
 

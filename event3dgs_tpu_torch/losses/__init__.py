@@ -1,8 +1,11 @@
-"""Loss library: L1/SSIM (+gray), the event simulation loss, mode losses."""
+"""Loss library: L1/L2/SSIM (+gray), the event simulation loss, mode losses
+(LPIPS is in :mod:`event3dgs_tpu_torch.losses.lpips`)."""
 
 from event3dgs_tpu_torch.losses.basic import (
     l1_loss,
     l1_loss_gray,
+    l2_loss,
+    mse,
     psnr,
     rgb_to_grayscale,
     rgb_to_luv_l,
@@ -25,6 +28,8 @@ from event3dgs_tpu_torch.losses.modes import (
 __all__ = [
     "l1_loss",
     "l1_loss_gray",
+    "l2_loss",
+    "mse",
     "psnr",
     "rgb_to_grayscale",
     "rgb_to_luv_l",

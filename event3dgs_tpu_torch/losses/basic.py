@@ -15,6 +15,7 @@ match `utils/loss_utils.py` / `utils/image_utils.py`:
 
 from __future__ import annotations
 
+import contextlib
 from functools import lru_cache
 
 import numpy as np
@@ -46,6 +47,14 @@ def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(a - b))
 
 
+def l2_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a - b) ** 2)
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean((a - b) ** 2)
+
+
 def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Peak SNR in dB for images in [0, 1] (`image_utils.py:19-21`)."""
     return -10.0 * torch.log10(torch.mean((a - b) ** 2) + 1e-12)
@@ -54,6 +63,18 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def l1_loss_gray(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """L1 between grayscale conversions (`loss_utils.py:40-48`)."""
     return l1_loss(rgb_to_grayscale(a), rgb_to_grayscale(b))
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """Run ``F.conv2d`` in full float32: cuDNN on the card otherwise rounds
+    its inputs to TF32 (the JAX package convolves in float32)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 @lru_cache(maxsize=8)
@@ -71,13 +92,9 @@ def _depthwise_blur(img: torch.Tensor, window_size: int, sigma: float):
     x = img.permute(2, 0, 1)[None]  # [1, C, H, W]
     kh = g.reshape(1, 1, window_size, 1).expand(c, 1, window_size, 1)
     kw = g.reshape(1, 1, 1, window_size).expand(c, 1, 1, window_size)
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with fp32_convolutions():
         x = F.conv2d(x, kh, padding=(pad, 0), groups=c)
         x = F.conv2d(x, kw, padding=(0, pad), groups=c)
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
     return x[0].permute(1, 2, 0)
 
 

@@ -33,8 +33,15 @@ def effective_contrast(raw, parameterization: str = "identity"):
 
 
 def raw_contrast_init(c_init: float, parameterization: str = "identity"):
-    """Host-side inverse of :func:`effective_contrast` for state init."""
+    """Host-side inverse of :func:`effective_contrast` for state init.
+
+    Under "softplus" the contrast is above its 1e-4 floor, so a ``c_init``
+    at or below it has no inverse and raises ``ValueError``.
+    """
     if parameterization == "softplus":
+        if not c_init > 1e-4:
+            raise ValueError(f"softplus contrast init must exceed its 1e-4 "
+                             f"floor, got {c_init}")
         return float(np.log(np.expm1(c_init - 1e-4)))
     return c_init
 

@@ -133,7 +133,7 @@ def render_partials(
 
 
 def render_depth(means3d, opacities, scales, rotations, camera: Camera,
-                 background) -> RenderOutput:
+                 background, rasterizer: str = "reference") -> RenderOutput:
     """Alpha-composited camera-distance map (reference `render_depth`):
     colors are ``‖xyz − campos‖ + 0.5`` on all three channels."""
     dist = torch.linalg.norm(means3d - camera.camera_center[None, :], dim=-1,
@@ -141,4 +141,5 @@ def render_depth(means3d, opacities, scales, rotations, camera: Camera,
     colors = torch.clamp(dist + 0.5, min=0.0).expand(-1, 3)
     dummy = means3d.new_zeros(means3d.shape[0], 1, 3)
     return render(means3d, dummy, opacities, scales, rotations, camera,
-                  background, sh_degree=0, override_colors=colors)
+                  background, sh_degree=0, override_colors=colors,
+                  rasterizer=rasterizer)

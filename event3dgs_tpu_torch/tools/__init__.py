@@ -1,1 +1,1 @@
-"""Offline tooling: render products."""
+"""Offline tooling: render products, evaluation, kernel timing."""

@@ -71,10 +71,10 @@ def test_make_and_stack_cameras_match(seed):
     assert one.batch_shape == ()
 
 
-@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
 def test_eval_sh_matches(deg):
     rng = np.random.default_rng(deg)
-    sh = rng.normal(size=(50, 3, 16)).astype(np.float32)
+    sh = rng.normal(size=(50, 3, 25)).astype(np.float32)
     dirs = rng.normal(size=(50, 3))
     dirs = (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)).astype(np.float32)
     ref = jcore.eval_sh(deg, jnp.asarray(sh), jnp.asarray(dirs))
@@ -117,6 +117,7 @@ def test_params_from_numpy_and_activated_match():
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
+    from event3dgs_tpu_torch.cli import evaluate, full_eval, metrics
     from event3dgs_tpu_torch.cli import render as trender
     from event3dgs_tpu_torch.utils.device import resolve_device
 
@@ -126,6 +127,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
         lambda: resolve_device("cuda"),
         lambda: tcore.make_camera(np.eye(3), np.zeros(3), 1.0, 0.8, 8, 8),
         lambda: trender.main(["-m", "unused"]),
+        lambda: evaluate.main(["-m", "unused"]),
+        lambda: metrics.main(["-m", "unused"]),
+        lambda: full_eval.main(["--scenes", "unused"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
@@ -145,6 +149,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "event3dgs_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    for module in ("losses/lpips.py", "tools/evaluation.py", "cli/evaluate.py",
+                   "cli/metrics.py", "cli/full_eval.py"):
+        assert f"event3dgs_tpu_torch/{module}" in scanned, module
     banned = ("jax", "flax", "event3dgs_tpu")
     bad = [
         (str(f.relative_to(ROOT)), m)

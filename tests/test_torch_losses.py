@@ -36,7 +36,7 @@ def test_color_transforms_match(name, channels):
     np.testing.assert_allclose(t, j, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["l1_loss", "l1_loss_gray", "psnr"])
+@pytest.mark.parametrize("name", ["l1_loss", "l1_loss_gray", "psnr", "l2_loss", "mse"])
 def test_pixel_losses_match(name):
     a, b = images(1, n=2)
     j, t = both(getattr(jbasic, name), getattr(tbasic, name), a, b)
@@ -64,6 +64,25 @@ def test_contrast_parameterizations_match(param):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6)
     with pytest.raises(ValueError):
         tevent.effective_contrast(torch.tensor(1.0), "cubic")
+
+
+@pytest.mark.parametrize("c_init", [1.5e-4, 1e-3, 0.17, 2.0])
+def test_softplus_contrast_init_matches_jax(c_init):
+    raw = tevent.raw_contrast_init(c_init, "softplus")
+    assert raw == pytest.approx(jevent.raw_contrast_init(c_init, "softplus"),
+                                rel=1e-12)
+    c = tevent.effective_contrast(torch.tensor(raw, dtype=torch.float64),
+                                  "softplus")
+    assert float(c) == pytest.approx(c_init, rel=1e-9)
+
+
+@pytest.mark.parametrize("c_init", [1e-4, 5e-5, 0.0, -0.1])
+def test_softplus_contrast_init_raises_where_jax_is_not_finite(c_init):
+    with np.errstate(all="ignore"):
+        assert not np.isfinite(jevent.raw_contrast_init(c_init, "softplus"))
+    with pytest.raises(ValueError, match="floor"):
+        tevent.raw_contrast_init(c_init, "softplus")
+    assert tevent.raw_contrast_init(c_init) == c_init  # identity: no floor
 
 
 def test_event_log_diff_matches():

@@ -47,6 +47,13 @@ def jax_params(seed=0, n=N_GAUSS, capacity=None):
     )
 
 
+def with_sh_degree_4(params, seed=4):
+    """``params`` with 24 random higher-order coefficients (SH degree 4)."""
+    rng = np.random.default_rng(seed)
+    rest = rng.normal(0, 0.1, (params.capacity, 24, 3))
+    return params.replace(features_rest=jnp.asarray(rest, jnp.float32))
+
+
 def to_port(params):
     return tgauss.params_from_numpy(
         {f: np.asarray(getattr(params, f)) for f in tgauss.FIELDS}, device="cpu"
@@ -106,12 +113,24 @@ def test_cli_render_pngs_match_jax(tiny_scene):
 
 
 def test_cli_rejects_unported_flags(tiny_scene):
+    """Only ``--event`` is still rejected; the flags the JAX parser takes
+    beside it parse with the JAX defaults."""
     _, models, _ = tiny_scene
-    for flags in (["--depth"], ["--point"], ["--event"], ["--blurrySpeed", "3"],
-                  ["--export_transforms"]):
+    for flags in (["--event"], ["--event", "--interpolationN", "2"]):
         with pytest.raises(SystemExit) as e:
             trender_main(["-m", str(models["torch"]), "--device", "cpu", *flags])
         assert e.value.code == 2
+    from event3dgs_tpu.cli.render import build_parser as jparser
+    from event3dgs_tpu_torch.cli.render import build_parser as tparser
+
+    for flags in ([], ["--depth", "--point", "--export_transforms"],
+                  ["--blurrySpeed", "0"], ["--blurrySpeed", "3"],
+                  ["--interpolationN", "5", "--dt", "250.5"]):
+        j = vars(jparser().parse_args(["-m", "x", *flags]))
+        t = vars(tparser().parse_args(["-m", "x", *flags]))
+        for key in ("depth", "point", "blurrySpeed", "interpolationN", "dt",
+                    "export_transforms"):
+            assert t[key] == j[key], (flags, key)
 
 
 @pytest.mark.parametrize("rasterizer", ["tiled", "reference"])
@@ -133,6 +152,29 @@ def test_render_matches_jax(tiny_scene, rasterizer):
     np.testing.assert_array_equal(out.radii.numpy(), np.asarray(ref.radii))
     np.testing.assert_allclose(out.image.numpy(), np.asarray(ref.image),
                                atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("rasterizer", ["tiled", "reference"])
+def test_render_at_sh_degree_4_matches_jax(tiny_scene, rasterizer):
+    src, _, params = tiny_scene
+    params = with_sh_degree_4(params)
+    jcam = jscene.build_camera_batch(jscene.read_blender_scene(str(src)).train_cameras, 1)[0]
+    tcam = tscene.build_camera_batch(tscene.read_blender_scene(str(src)).train_cameras,
+                                     1, device="cpu")[0]
+    ja, ta = jgauss.activated(params), tgauss.activated(to_port(params))
+    assert ta.features.shape[1] == 25
+    ref = jrender(ja.means3d, ja.features, ja.opacities, ja.scales,
+                  ja.rotations, jcam, jnp.zeros(3), sh_degree=4,
+                  rasterizer=rasterizer)
+    out = trender(ta.means3d, ta.features, ta.opacities, ta.scales,
+                  ta.rotations, tcam, torch.zeros(3), sh_degree=4,
+                  rasterizer=rasterizer)
+    np.testing.assert_allclose(out.image.numpy(), np.asarray(ref.image),
+                               atol=2e-5, rtol=1e-4)
+    deg3 = trender(ta.means3d, ta.features, ta.opacities, ta.scales,
+                   ta.rotations, tcam, torch.zeros(3), sh_degree=3,
+                   rasterizer=rasterizer)
+    assert (deg3.image - out.image).abs().max() > 1e-3  # degree 4 counts
 
 
 def test_render_depth_matches_jax(tiny_scene):
@@ -194,3 +236,20 @@ def test_ply_roundtrips_between_packages(tmp_path):
         np.testing.assert_array_equal(getattr(from_j, f).numpy()[:30],
                                       np.asarray(getattr(params, f))[alive])
     assert tgauss.num_alive(from_j) == 30
+
+
+def test_ply_roundtrips_between_packages_at_sh_degree_4(tmp_path):
+    params = with_sh_degree_4(jax_params(seed=5, n=30, capacity=40))
+    jpath, tpath = str(tmp_path / "j.ply"), str(tmp_path / "t.ply")
+    jply.save_gaussian_ply(jpath, params)
+    tply.save_gaussian_ply(tpath, to_port(params))
+    with open(jpath, "rb") as a, open(tpath, "rb") as b:
+        assert a.read() == b.read()
+    from_j = tply.load_gaussian_ply(jpath, max_sh_degree=4, device="cpu")
+    from_t = jply.load_gaussian_ply(tpath, max_sh_degree=4)
+    assert from_j.sh_coeffs == 25
+    for f in tgauss.FIELDS:
+        np.testing.assert_array_equal(getattr(from_j, f).numpy(),
+                                      np.asarray(getattr(from_t, f)))
+    with pytest.raises(ValueError, match="f_rest"):
+        tply.load_gaussian_ply(jpath, max_sh_degree=3, device="cpu")

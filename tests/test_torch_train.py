@@ -177,6 +177,41 @@ def test_other_mode_steps_match(scene, mode):
     assert_states_match(ts, js)
 
 
+def test_step_at_max_sh_degree_4_matches(scene):
+    """One RGB step with 25 SH coefficients at step 4000, where the active
+    degree has reached 4."""
+    rng = np.random.default_rng(19)
+    cap = 128
+    rest = rng.normal(0, 0.1, (cap, 24, 3)).astype(np.float32)
+    rot = rng.normal(size=(cap, 4)).astype(np.float32)
+    jp = jinit(scene.points, scene.colors, cap, max_sh_degree=4)
+    scl = (np.asarray(jp.scaling)
+           + rng.uniform(-0.3, 0.3, (cap, 3))).astype(np.float32)
+    jp = jp.replace(features_rest=jnp.asarray(rest), rotation=jnp.asarray(rot),
+                    scaling=jnp.asarray(scl))
+    tp = dataclasses.replace(
+        tinit(scene.points, scene.colors, cap, max_sh_degree=4, device="cpu"),
+        features_rest=torch.tensor(rest), rotation=torch.tensor(rot),
+        scaling=torch.tensor(scl))
+    js = jinit_state(jp, spatial_lr_scale=scene.extent)
+    ts = tinit_state(tp, spatial_lr_scale=scene.extent)
+    js = js.replace(step=jnp.asarray(4000, jnp.int32))
+    ts = ts.replace(step=torch.tensor(4000, dtype=torch.int32))
+    jd, td = scene_data(scene)
+    cfg = JTrainConfig()
+    jstep = jmake_step("rgb", cfg.optimization, cfg.event, max_sh_degree=4,
+                       spatial_lr_scale=scene.extent, rasterizer="reference")
+    tstep = tmake_step("rgb", cfg.optimization, cfg.event, max_sh_degree=4,
+                       spatial_lr_scale=scene.extent, rasterizer="reference")
+    js, jl = run_steps(jstep, js, jd, [5], jnp.zeros(3), jnp.asarray)
+    ts, tl = run_steps(tstep, ts, td, [5], torch.zeros(3), int)
+    np.testing.assert_allclose(tl, jl, rtol=RTOL)
+    assert_states_match(ts, js)
+    # the degree-4 coefficients (16-24) got gradient and moved
+    moved = ts.params.features_rest[:, 15:] - torch.tensor(rest)[:, 15:]
+    assert moved.abs().max() > 0
+
+
 def test_tiled_step_matches_reference_step(scene):
     """The kernel path's plain versions (tiled) against the oracle
     rasterizer inside the port, 3 event steps."""
