@@ -68,6 +68,23 @@ Phases (any failed check exits non-zero; nothing is caught):
    frame timed alone; an SH degree 4 render of ``bench.py``'s scene, kernel
    path against the all-plain path within 1e-5.  Each part prints its wall
    time with the card's name and power limit.
+10. (On the same model, behind a copy of its source whose cameras are 20
+   times farther apart along x: phase 6's move about a pixel from view to
+   view, too little for the DVS to fire.) ``cli.render --event
+   --interpolationN 3 --dt 1000 --skip_train --skip_test``: 22 renders of
+   the interpolated chain, each render kernel launched 22 times,
+   ``raw.dat`` read back (events, sorted timestamps, x < 1920, y < 1080)
+   and one ``frames/`` PNG per window; the four frame functions of
+   ``events/accumulate`` on the card against the CPU, exactly, on the
+   stream's busiest window (repeated pixels) and on it with half its x
+   moved past the row; the native DVS simulator, built with g++, equal to
+   the numpy model along the chain (deterministic, frame by frame from the
+   first until one fires); each part of the synthesis timed on the host
+   clock (renders, host copies, PNG writes, luminance, the median DVS
+   update per 1080p frame of each simulator, the frames on the card, the
+   ``.dat`` write), the numpy model reproducing the CLI's stream; and
+   ``cli.generate_dataset`` with ``--events raw.dat`` and with
+   ``--images`` of the chain's 22 renders.
 
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
@@ -105,6 +122,9 @@ VIEWS = 4
 TRAIN_VIEWS = 8
 TRAIN_ITERS = 6
 BLUR_STEPS = 18  # renders per blurry frame (render_blurry_set's default)
+EVENT_STEPS = 3  # cli.render --event's --interpolationN (its default)
+EVENT_DT = 1000.0  # µs between the chain's frames (--dt's default)
+EVENT_SPREAD = 20.0  # phase 10's camera spacing along x, times phase 6's
 DEVICE = "cuda"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # H100 SXM FP32 outside the tensor cores is 67 TFLOP/s with an FMA counted
@@ -1013,6 +1033,223 @@ def evaluation_path(root: str, model: str, dev):
     sh_degree_4(dev)
 
 
+def timed(fn):
+    """(fn's result, its host-clock ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def event_model(root: str, model: str) -> tuple[str, str]:
+    """Phase 6's trained model behind a copy of its source whose cameras
+    are ``EVENT_SPREAD`` times farther apart along x.  Phase 6's views move
+    0.01 apart (bench.py's poses), about a pixel at the scene's depth: the
+    chain between them changes no pixel's log intensity by a contrast
+    threshold and the DVS fires nothing.  Returns (model, source)."""
+    from event3dgs_tpu_torch.cli.common import load_run_config
+    from event3dgs_tpu_torch.data.colmap import read_model, write_model
+
+    src, wide = os.path.join(root, "colmap"), os.path.join(root, "colmap_wide")
+    cams, images, points = read_model(os.path.join(src, "sparse", "0"))
+    images = {k: im._replace(tvec=im.tvec * [EVENT_SPREAD, 1.0, 1.0])
+              for k, im in images.items()}
+    write_model(cams, images, points, os.path.join(wide, "sparse", "0"))
+    for folder in ("images", "images_event", "renders"):
+        os.symlink(os.path.join(src, folder), os.path.join(wide, folder))
+    out = os.path.join(root, "trained_wide")
+    os.makedirs(out)
+    os.symlink(os.path.join(model, "point_cloud"), os.path.join(out, "point_cloud"))
+    cfg = load_run_config(model)
+    cfg.model.source_path = wide
+    with open(os.path.join(out, "cfg.json"), "w") as f:
+        f.write(cfg.to_json())
+    return out, wide
+
+
+def event_path(root: str, model: str, dev):
+    """Phase 10 on phase 6's trained model (1080p, ~400k alive), seen from
+    cameras spread wider (:func:`event_model`): ``cli.render --event``, the
+    event frames on the card against the CPU, the native DVS simulator
+    against the numpy model, ``cli.generate_dataset`` in both modes, and
+    each part of the event synthesis timed."""
+    import torch
+
+    from event3dgs_tpu_torch.cli.common import load_trained_model
+    from event3dgs_tpu_torch.cli.generate_dataset import main as generate_main
+    from event3dgs_tpu_torch.cli.render import main as render_main
+    from event3dgs_tpu_torch.data.scene import read_colmap_scene
+    from event3dgs_tpu_torch.events import accumulate, native
+    from event3dgs_tpu_torch.events.buffer import EventBuffer
+    from event3dgs_tpu_torch.events.dvs_model import DvsParams, DvsSimulator
+    from event3dgs_tpu_torch.events.io import load_dat_events, window_events
+    from event3dgs_tpu_torch.events.simulate import (
+        generate_event_frames,
+        rgb_to_luminance,
+        save_event_result,
+    )
+    from event3dgs_tpu_torch.tools.render_products import (
+        _render_view,
+        interpolated_cameras,
+    )
+    from event3dgs_tpu_torch.utils.image_io import load_image_f32, save_image
+
+    smi = card()
+    renders = (TRAIN_VIEWS - 1) * EVENT_STEPS + 1
+    window = int(EVENT_DT * EVENT_STEPS)  # render_event_set's frame window
+    wide_model, wide_src = event_model(root, model)
+
+    # cli.render --event: the interpolated chain alone (--skip_train and
+    # --skip_test), so each render kernel launches once per chain view
+    t0 = time.perf_counter()
+    rc, launches, _ = run_cli(render_main, [
+        "-m", wide_model, "--event", "--interpolationN", str(EVENT_STEPS), "--dt",
+        str(EVENT_DT), "--skip_train", "--skip_test", "--device", DEVICE])
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, "cli.render --event failed")
+    check_render_launches("cli.render --event", launches, renders)
+    out = os.path.join(wide_model, "train", f"ours_{TRAIN_ITERS}", "event")
+    names = sorted(os.listdir(out))
+    want = [f"render_{i:05d}.png" for i in range(renders)]
+    check(names == sorted(want + ["frames", "raw.dat"]),
+          f"cli.render --event wrote {names[:5]}... ({len(names)} entries)")
+    t, x, y, p = load_dat_events(os.path.join(out, "raw.dat"))
+    check(len(t) > 0, "raw.dat holds no event")
+    check(bool((np.diff(t.astype(np.int64)) >= 0).all()), "raw.dat: unsorted timestamps")
+    check(int(x.max()) < WIDTH and int(y.max()) < HEIGHT,
+          f"raw.dat: x max {x.max()}, y max {y.max()}")
+    windows = window_events(t, x, y, p, window).events
+    n_frames = len(os.listdir(os.path.join(out, "frames")))
+    check(n_frames == len(windows) > 0,
+          f"frames/ holds {n_frames} PNGs for {len(windows)} windows")
+    print(f"cli.render --event --interpolationN {EVENT_STEPS} --dt {EVENT_DT}: "
+          f"{renders} renders, {len(t)} events, {n_frames} frames in "
+          f"{cli_s:.2f} s wall; launches {launches}; {smi}")
+
+    # the event frames on the card against the CPU, exactly: the busiest
+    # window (it repeats pixels), and that window with every other x moved
+    # one row width on (past the row: wraps, or dropped past the image)
+    busiest = max(windows, key=len)
+    bx, by = busiest["x"].astype(np.int32), busiest["y"].astype(np.int32)
+    check(len(np.unique(by * WIDTH + bx)) < len(bx),
+          "the busiest window repeats no pixel")
+    shifted = bx.copy()
+    shifted[::2] += WIDTH
+    for what, wx in (("busiest window", bx), ("x past the row", shifted)):
+        for fn in ("event_count_image", "accumulation_frame",
+                   "color_polarity_frame", "polarity_frame"):
+            card_img = getattr(accumulate, fn)(wx, by, busiest["p"], WIDTH,
+                                               HEIGHT, device=dev).cpu()
+            cpu_img = getattr(accumulate, fn)(wx, by, busiest["p"], WIDTH,
+                                              HEIGHT, device="cpu")
+            check(torch.equal(card_img, cpu_img),
+                  f"{fn} on the card differs from the CPU ({what})")
+    print(f"event frames, card vs CPU: equal for the four frame functions on "
+          f"{len(bx)} events of one window (repeated pixels; and half of "
+          f"them past the row)")
+
+    # the native simulator (built with g++ here) against the numpy model,
+    # deterministic, along the chain from its first frame until a frame
+    # fires events
+    _, build_ms = timed(native.build)
+    lum = [rgb_to_luminance(load_image_f32(os.path.join(out, f)).astype(np.float64))
+           for f in want]
+    k = 0
+    det = DvsParams(th_noise=0, jitter=0)
+    sims = [cls(WIDTH, HEIGHT, det) for cls in (native.NativeDvsSimulator,
+                                                 DvsSimulator)]
+    for sim in sims:
+        sim.disable_noise()
+        sim.init_image(lum[k])
+    n_events, last = 0, k
+    while n_events == 0 and last + 1 < len(lum):
+        last += 1
+        a, b = (np.sort(sim.update(lum[last], EVENT_DT).to_structured(),
+                        order=["t", "x", "y", "p"]) for sim in sims)
+        check(np.array_equal(a, b), f"native DVS stream ({len(a)} events) "
+              f"differs from the numpy model's ({len(b)}) at frame {last}")
+        n_events = len(a)
+    check(n_events > 0, f"no DVS event from frame {k} on")
+    print(f"native DVS simulator: g++ build {build_ms:.0f} ms; its stream "
+          f"equals the numpy model's on frames {k}-{last} ({n_events} events "
+          f"at the last, deterministic)")
+
+    # each part timed on the host clock, on the same model and chain
+    _, _, params = load_trained_model(model, -1, dev)
+    info = read_colmap_scene(wide_src)
+    cams, _ = interpolated_cameras(info.train_cameras, EVENT_STEPS, WIDTH,
+                                   HEIGHT, device=dev)
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        _render_view(params, cams[0], 3, bg, "tiled")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = [_render_view(params, c, 3, bg, "tiled") for c in cams]
+        torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3 / len(cams)
+    host, copy_ms = timed(lambda: [np.clip(i.cpu().numpy(), 0, 1) for i in imgs])
+    pngs = os.path.join(root, "png_timed")
+    os.makedirs(pngs)
+    _, png_ms = timed(lambda: [save_image(os.path.join(pngs, f"{i:05d}.png"), f)
+                               for i, f in enumerate(host)])
+    lums, lum_ms = timed(lambda: [rgb_to_luminance(f) for f in host])
+    update_ms, update_events = {}, {}
+    for name, cls in (("numpy", DvsSimulator), ("native", native.NativeDvsSimulator)):
+        sim = cls(WIDTH, HEIGHT, DvsParams(), seed=0)
+        sim.disable_noise()
+        sim.init_image(lums[0])
+        runs = [timed(lambda f=f: len(sim.update(f, EVENT_DT))) for f in lums[1:]]
+        update_ms[name] = float(np.median([ms for _, ms in runs]))
+        update_events[name] = sum(n for n, _ in runs)
+    check(update_events["numpy"] == len(t), f"the numpy model on the same "
+          f"frames gave {update_events['numpy']} events, cli.render {len(t)}")
+    buf = EventBuffer.from_arrays(t, x, y, p)
+    _, dat_ms = timed(lambda: save_event_result(buf, os.path.join(root, "dat_timed"),
+                                                WIDTH, HEIGHT))
+
+    def frames_on_card():
+        frames = generate_event_frames(buf, WIDTH, HEIGHT, window, device=dev)
+        torch.cuda.synchronize()
+        return frames
+
+    frames, frames_ms = timed(frames_on_card)
+    check(len(frames) == n_frames, "generate_event_frames frame count")
+    n = len(cams)
+    print(f"event synthesis parts, host clock, {WIDTH}x{HEIGHT}: render "
+          f"{render_ms:.2f} ms per view ({n} views); host copy "
+          f"{copy_ms / n:.2f} ms per frame; PNG write {png_ms / n:.1f} ms per "
+          f"frame; luminance {lum_ms / n:.2f} ms per "
+          f"frame; DVS update median {update_ms['numpy']:.1f} ms per frame "
+          f"(numpy model, {update_events['numpy']} events) and "
+          f"{update_ms['native']:.1f} ms (native, {update_events['native']} "
+          f"events), {n - 1} frames each; {len(frames)} frames on the card "
+          f"{frames_ms:.1f} ms ({len(t)} events, PNGs not written); raw.dat "
+          f"write {dat_ms:.1f} ms; {smi}")
+
+    # cli.generate_dataset: the stream to frames, and the chain's renders
+    # (the PNGs of cli.render --event) to a simulated stream and its frames
+    gen = os.path.join(root, "generated")
+    rc, _, log = run_cli(generate_main, [
+        "--events", os.path.join(out, "raw.dat"), "--delta_t", str(window),
+        "-o", os.path.join(gen, "from_events"), "--device", DEVICE])
+    check(rc == 0, "cli.generate_dataset --events failed")
+    n_gen = len(os.listdir(os.path.join(gen, "from_events")))
+    check(n_gen == n_frames, f"generate_dataset --events wrote {n_gen} frames, "
+          f"not {n_frames}")
+    t0 = time.perf_counter()
+    rc, _, log = run_cli(generate_main, [
+        "--images", out, "--dt", str(int(EVENT_DT)), "-o",
+        os.path.join(gen, "from_images"), "--device", DEVICE])
+    images_s = time.perf_counter() - t0
+    check(rc == 0, "cli.generate_dataset --images failed")
+    tg, xg, yg, _ = load_dat_events(os.path.join(gen, "from_images", "raw.dat"))
+    n_img = len(os.listdir(os.path.join(gen, "from_images", "images_event")))
+    check(len(tg) > 0 and int(xg.max()) < WIDTH and int(yg.max()) < HEIGHT
+          and n_img > 0, "cli.generate_dataset --images: empty or bad stream")
+    print(f"cli.generate_dataset: --events {n_gen} frames; --images "
+          f"{renders} renders -> {len(tg)} events, {n_img} frames in "
+          f"{images_s:.2f} s wall; {smi}")
+
+
 def sh_degree_4(dev):
     """An SH degree 4 render of bench.py's scene (view 0, small random
     degree-4 coefficients from the seed): the kernel path against the
@@ -1339,6 +1576,7 @@ def main() -> int:
         render_launches, _, rows = render_path(root, dev)
         train_launches, model = train_path(root)
         evaluation_path(root, model, dev)
+        event_path(root, model, dev)
     _, train_rows, per_step = train_kernels(dev)
     rows.update(train_rows)
     print(f"launches: cli.render {render_launches}; cli.train "

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of ``event3dgs_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package mirrors its subpackage
-and module names (``core/``, ``data/``, ``losses/``, ``models/``,
-``ops/``, ``tools/``, ``cli/``, ``utils/``, ``train/``) so each module's
-counterpart is easy to find.  It imports ``torch``, numpy, scipy and PIL
-only — never JAX or the JAX package.
+and module names (``core/``, ``data/``, ``events/``, ``examples/``,
+``losses/``, ``models/``, ``ops/``, ``tools/``, ``cli/``, ``utils/``,
+``train/``) so each module's counterpart is easy to find.  It imports
+``torch``, numpy, scipy and PIL only — never JAX or the JAX package — and
+builds the DVS simulator's C++ twin (``events/native/``) with ``g++`` on
+first use.
 
 The render path (``python -m event3dgs_tpu_torch.cli.render``) and the
 training path (``python -m event3dgs_tpu_torch.cli.train``) run the tile

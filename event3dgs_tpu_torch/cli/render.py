@@ -2,17 +2,18 @@
 
     python -m event3dgs_tpu_torch.cli.render -m <model_path> [--skip_train]
         [--skip_test] [--depth] [--point] [--blurrySpeed K]
-        [--export_transforms] [--iteration N] [--rasterizer tiled|reference]
-        [--device cuda|cpu]
+        [--event --interpolationN 3 --dt 1000] [--export_transforms]
+        [--iteration N] [--rasterizer tiled|reference] [--device cuda|cpu]
 
 Renders the train and test camera sets of a trained model to
 ``<model>/{train,test}/ours_<iteration>/{renders,gt}/``, and on request the
-train set's depth maps (``depth/``), point-depth maps (``point/``) and
-motion-blurred frames (``blurry/``, when ``--blurrySpeed`` > 0) and
+train set's depth maps (``depth/``), point-depth maps (``point/``),
+motion-blurred frames (``blurry/``, when ``--blurrySpeed`` > 0), its
+synthesized event stream (``event/``: the ``--interpolationN`` chain's
+``render_*.png``, ``raw.dat`` from the DVS simulator at ``--dt`` µs per
+frame, and the accumulation ``frames/``) and
 ``<model>/transforms_train.json``.  Runs on the CUDA card unless
-``--device cpu`` is given.  Event synthesis (``--event``) is not ported
-yet and is rejected; ``--interpolationN`` and ``--dt`` belong to it and are
-accepted, as the JAX parser does.
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -37,12 +38,11 @@ from event3dgs_tpu_torch.tools.render_products import (
     point_depth_map,
     render_blurry_set,
     render_depth_set,
+    render_event_set,
     render_set,
 )
 from event3dgs_tpu_torch.utils.device import resolve_device
 from event3dgs_tpu_torch.utils.image_io import save_image
-
-NOT_PORTED = ("event",)
 
 
 def build_parser():
@@ -53,6 +53,7 @@ def build_parser():
     p.add_argument("--skip_test", action="store_true")
     p.add_argument("--depth", action="store_true")
     p.add_argument("--point", action="store_true")
+    p.add_argument("--event", action="store_true")
     p.add_argument("--blurrySpeed", type=int, default=0)
     p.add_argument("--interpolationN", type=int, default=3)
     p.add_argument("--dt", type=float, default=1000.0)
@@ -63,9 +64,6 @@ def build_parser():
     )
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
-    for flag in NOT_PORTED:
-        p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
-                       help=argparse.SUPPRESS)
     return p
 
 
@@ -82,12 +80,7 @@ def point_depth_image(d: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag} is not yet ported to event3dgs_tpu_torch "
-                         "(the JAX package's event3dgs_tpu.cli.render has it)")
+    args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg, it, params = load_trained_model(args.model_path, args.iteration,
                                          device)
@@ -139,6 +132,13 @@ def main(argv=None):
             w, h, m.sh_degree, bg=bg, rasterizer=args.rasterizer,
         )
         print("wrote blurry set")
+    if args.event:
+        render_event_set(
+            params, info.train_cameras, os.path.join(base, "event"),
+            w, h, m.sh_degree, interpolation=args.interpolationN,
+            dt=args.dt, bg=bg, rasterizer=args.rasterizer,
+        )
+        print("wrote event synthesis")
     if args.export_transforms:
         export_transforms_json(
             info.train_cameras,

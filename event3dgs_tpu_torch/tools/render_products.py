@@ -1,5 +1,5 @@
-"""Render products: view sets, pose interpolation, blur, depth and point
-depth, ``transforms_train.json`` (counterpart of
+"""Render products: view sets, pose interpolation, blur and event
+synthesis, depth and point depth, ``transforms_train.json`` (counterpart of
 ``event3dgs_tpu/tools/render_products.py``; reference `render.py:45-420`).
 
 - render train/test camera sets to PNG folders;
@@ -7,11 +7,10 @@ depth, ``transforms_train.json`` (counterpart of
   translation, `render.py:32-44,98-106`);
 - synthetic motion blur: average of ``blur_steps`` interpolated renders over
   a shutter window (`render_set_blurry:222-293`);
+- event-stream synthesis: densely interpolated renders through the DVS
+  simulator (`render_set_event:136-215`);
 - depth and point-depth products (`render_set_depth/point`);
 - `transforms_train.json` export (`render.py:110-128`).
-
-Event-stream synthesis (`render_set_event`) comes with the port of the
-``events`` package.
 """
 
 from __future__ import annotations
@@ -24,6 +23,11 @@ import torch
 
 from event3dgs_tpu_torch.core.camera import Camera, make_camera
 from event3dgs_tpu_torch.data.colmap import qvec2rotmat, rotmat2qvec
+from event3dgs_tpu_torch.events.simulate import (
+    generate_event_frames,
+    save_event_result,
+    simulate_event_camera,
+)
 from event3dgs_tpu_torch.models import activated
 from event3dgs_tpu_torch.ops.projection import project_gaussians
 from event3dgs_tpu_torch.ops.render import render, render_depth
@@ -175,6 +179,39 @@ def render_blurry_set(params, cam_infos, out_dir: str, width, height,
             acc = img if acc is None else acc + img
         save_image(os.path.join(out_dir, f"blurry_{i:05d}.png"),
                    np.clip((acc / blur_steps).cpu().numpy(), 0, 1))
+
+
+@torch.no_grad()
+def render_event_set(params, cam_infos, out_dir: str, width, height,
+                     sh_degree=3, interpolation: int = 3, dt: float = 1000.0,
+                     dvs_params=None, bg=None, rasterizer="reference"):
+    """Event synthesis: interpolated render chain → DVS sim → ``raw.dat`` +
+    event frames (`render_set_event:136-215`).
+
+    The chain renders on the model's device and each frame comes to the
+    host once, for its ``render_%05d.png`` and the DVS simulator (numpy, on
+    the host, as in the JAX package); the ``frames/`` accumulation images
+    are built on the model's device.  Returns the event buffer."""
+    dev = params.device
+    if bg is None:
+        bg = torch.zeros(3, device=dev)
+    os.makedirs(out_dir, exist_ok=True)
+    cams, _ = interpolated_cameras(cam_infos, interpolation, width, height,
+                                   device=dev)
+    frames = []
+    for i, cam in enumerate(cams):
+        img = np.clip(
+            _render_view(params, cam, sh_degree, bg, rasterizer).cpu().numpy(),
+            0, 1)
+        frames.append(img)
+        save_image(os.path.join(out_dir, f"render_{i:05d}.png"), img)
+    buf = simulate_event_camera(frames, dt=dt, params=dvs_params)
+    save_event_result(buf, out_dir, width=width, height=height)
+    generate_event_frames(
+        buf, width, height, int(dt * interpolation),
+        out_dir=os.path.join(out_dir, "frames"), device=dev,
+    )
+    return buf
 
 
 def export_transforms_json(cam_infos, out_path: str):

@@ -3,6 +3,7 @@ package (event3dgs_tpu_torch vs event3dgs_tpu), on the CPU."""
 
 import ast
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,8 +118,10 @@ def test_params_from_numpy_and_activated_match():
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
-    from event3dgs_tpu_torch.cli import evaluate, full_eval, metrics
+    from event3dgs_tpu_torch.cli import evaluate, full_eval, generate_dataset, metrics
     from event3dgs_tpu_torch.cli import render as trender
+    from event3dgs_tpu_torch.events import accumulate
+    from event3dgs_tpu_torch.examples import exr_to_events, images_to_events
     from event3dgs_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -130,6 +133,10 @@ def test_cuda_without_a_card_raises(monkeypatch):
         lambda: evaluate.main(["-m", "unused"]),
         lambda: metrics.main(["-m", "unused"]),
         lambda: full_eval.main(["--scenes", "unused"]),
+        lambda: generate_dataset.main(["--events", "unused", "-o", "unused"]),
+        lambda: images_to_events.main(["--images", "unused", "-o", "unused"]),
+        lambda: exr_to_events.main(["--exr_dir", "unused", "-o", "unused"]),
+        lambda: accumulate.event_count_image([0], [0], [1], 4, 4),
     ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             call()
@@ -145,13 +152,34 @@ def _imported_modules(path):
             yield node.module
 
 
+def _path_strings(path):
+    """The string constants of ``path`` that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)):
+            docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.value
+
+
 def test_port_never_imports_jax_or_the_jax_package():
+    """No module of the port (nor ``chip_smoke.py``) imports JAX or the JAX
+    package, or names a path inside it (its prebuilt native module, its
+    noise histograms): the port reads and builds its own copies."""
     files = sorted((ROOT / "event3dgs_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     for module in ("losses/lpips.py", "tools/evaluation.py", "cli/evaluate.py",
-                   "cli/metrics.py", "cli/full_eval.py"):
+                   "cli/metrics.py", "cli/full_eval.py", "events/dvs_model.py",
+                   "events/native/__init__.py", "events/accumulate.py",
+                   "utils/colorimetry.py", "cli/generate_dataset.py",
+                   "examples/compare_streams.py"):
         assert f"event3dgs_tpu_torch/{module}" in scanned, module
     banned = ("jax", "flax", "event3dgs_tpu")
     bad = [
@@ -161,3 +189,12 @@ def test_port_never_imports_jax_or_the_jax_package():
         if m.split(".")[0] in banned
     ]
     assert not bad, bad
+    jax_path = re.compile(r"(^|[/\\])event3dgs_tpu($|[/\\])|dvs_native\.cpython")
+    citation = re.compile(r"^[\w/.]+\.py:\d+$")  # "file:line" of a TPU kernel
+    named = [(str(f.relative_to(ROOT)), v) for f in files
+             for v in _path_strings(f)
+             if jax_path.search(v) and not citation.match(v)]
+    assert not named, named
+    assert jax_path.search("x/event3dgs_tpu/data/noise")
+    assert citation.match("event3dgs_tpu/ops/expand.py:65")
+    assert jax_path.search("event3dgs_tpu") and not jax_path.search("event3dgs_tpu_torch/x")

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1-K6 and the binning's table kernel) against
-their plain PyTorch versions, and the wrappers' dispatch rules.
+their plain PyTorch versions, the wrappers' dispatch rules, and the event
+frames accumulated on the card against the CPU's.
 
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and without JAX it runs on its own:
@@ -650,6 +651,50 @@ def test_render_on_card_matches_cpu_render():
                           a.rotations, cam, torch.zeros(3, device=dev),
                           sh_degree=3, rasterizer="tiled").image.cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], atol=2e-5, rtol=1e-4)
+
+
+def accumulation_streams():
+    """Event streams at 1080p: random pixels, repeated pixels (the last
+    event must win), ``x`` past the row (wraps) or past the image and ``y``
+    past the image (dropped)."""
+    rng = np.random.default_rng(21)
+    w, h, n = 1920, 1080, 2_000_000
+    x = rng.integers(0, w, n)
+    y = rng.integers(0, h, n)
+    p = rng.integers(0, 2, n)
+    rep = rng.integers(0, 8, n)
+    wrap_x = x.copy()
+    wrap_x[: n // 10] = rng.integers(w, 3 * w, n // 10)
+    wrap_x[n // 10: n // 10 + 100] = 1_000_000
+    wrap_y = y.copy()
+    wrap_y[:1000] = h + rng.integers(0, 5, 1000)
+    return w, h, {
+        "random": (x, y, p),
+        "repeated_pixels": (rep % 4, rep // 4, p),
+        "x_past_the_row": (wrap_x, y, p),
+        "y_past_the_image": (x, wrap_y, p),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["event_count_image", "accumulation_frame",
+                                "polarity_frame", "color_polarity_frame"])
+def test_accumulation_on_card_equals_cpu(fn):
+    """The event frames built on the card (atomic adds, an ``amax`` scatter)
+    equal the CPU's exactly: counts are sums of ±1.0 in float32, and the
+    last event of a pixel is found by its index, not by write order."""
+    need_card()
+    from event3dgs_tpu_torch.events import accumulate
+
+    w, h, cases = accumulation_streams()
+    for case, (x, y, p) in cases.items():
+        want = getattr(accumulate, fn)(x, y, p, w, h, device="cpu")
+        got = getattr(accumulate, fn)(x, y, p, w, h, device="cuda")
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), case
+        on_card = [torch.as_tensor(a, device="cuda") for a in (x, y, p)]
+        assert torch.equal(getattr(accumulate, fn)(*on_card, w, h, device="cuda").cpu(),
+                           want), case
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

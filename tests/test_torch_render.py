@@ -113,24 +113,23 @@ def test_cli_render_pngs_match_jax(tiny_scene):
 
 
 def test_cli_rejects_unported_flags(tiny_scene):
-    """Only ``--event`` is still rejected; the flags the JAX parser takes
-    beside it parse with the JAX defaults."""
-    _, models, _ = tiny_scene
-    for flags in (["--event"], ["--event", "--interpolationN", "2"]):
-        with pytest.raises(SystemExit) as e:
-            trender_main(["-m", str(models["torch"]), "--device", "cpu", *flags])
-        assert e.value.code == 2
+    """Every flag of the JAX parser is ported (``--event`` too; its end-to-end
+    tests are in ``test_torch_event_render``), and each parses to the JAX
+    parser's value."""
     from event3dgs_tpu.cli.render import build_parser as jparser
     from event3dgs_tpu_torch.cli.render import build_parser as tparser
 
     for flags in ([], ["--depth", "--point", "--export_transforms"],
                   ["--blurrySpeed", "0"], ["--blurrySpeed", "3"],
-                  ["--interpolationN", "5", "--dt", "250.5"]):
+                  ["--interpolationN", "5", "--dt", "250.5"], ["--event"],
+                  ["--event", "--interpolationN", "2"]):
         j = vars(jparser().parse_args(["-m", "x", *flags]))
         t = vars(tparser().parse_args(["-m", "x", *flags]))
-        for key in ("depth", "point", "blurrySpeed", "interpolationN", "dt",
-                    "export_transforms"):
+        for key in ("depth", "point", "event", "blurrySpeed", "interpolationN",
+                    "dt", "export_transforms"):
             assert t[key] == j[key], (flags, key)
+    assert set(vars(jparser().parse_args(["-m", "x"]))) <= set(
+        vars(tparser().parse_args(["-m", "x"])))
 
 
 @pytest.mark.parametrize("rasterizer", ["tiled", "reference"])
