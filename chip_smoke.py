@@ -85,6 +85,18 @@ Phases (any failed check exits non-zero; nothing is caught):
    ``.dat`` write), the numpy model reproducing the CLI's stream; and
    ``cli.generate_dataset`` with ``--events raw.dat`` and with
    ``--images`` of the chain's 22 renders.
+11. (Last, on phase 6's COLMAP scene.) ``init_distributed`` at world size 1 with
+   NCCL and a 1 × 1 mesh; ``train_loop_sharded`` (exact mode) and
+   ``train_loop`` from the same state for 6 event steps, densifying at 3
+   and 6 as phase 6 does: each render kernel launched 3 times per step in
+   both, the loss histories within rel 1e-5 and the same alive count;
+   each loop's host clock per step and peak device memory; one step of
+   each (``train_step``, the sharded step) at the trained state timed in
+   turns, 10 steps a turn, with its peak memory; the profiler's
+   device time in NCCL kernels over one more sharded run; then
+   ``destroy_process_group``.  ``synthesize_scene`` writes an 8-view
+   1920×1080 scene of 100k Gaussians through the kernels (each render
+   kernel once per view) and its COLMAP model reads back.
 
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
@@ -160,6 +172,7 @@ CUDA_BASELINE_PIX_S = 30e6  # bench.py's yardstick for vs_baseline
 # stalls, and its median and spread are printed beside bench.py's mean
 STEP_ITERS = 50
 WARMUP_STEPS = 3
+STEP_TURN = 10  # phase 11: steps timed in each of its four turns
 
 
 def fail(msg: str):
@@ -1250,6 +1263,190 @@ def event_path(root: str, model: str, dev):
           f"{images_s:.2f} s wall; {smi}")
 
 
+def loop_run(loop, state, data, cfg, mode, extent, *extra):
+    """One training loop run with every launch count at 0 before it:
+    (result, launch counts, host-clock ms of each step, peak device bytes).
+    A step's time runs from the previous step's metrics to its own, so
+    the densify after step 3 falls into step 4's."""
+    import torch
+
+    from event3dgs_tpu_torch.train.loop import TrainCallbacks
+
+    stamps = []
+
+    def on_metrics(it, metrics):
+        if "loss" in metrics:
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, launches = count_launches(lambda: loop(
+        state, data, cfg, mode, extent, *extra,
+        callbacks=TrainCallbacks(on_metrics=on_metrics, log_every=1)))
+    step_ms = np.diff([t0] + stamps) * 1e3
+    return res, launches, step_ms, torch.cuda.max_memory_allocated()
+
+
+def sharded_path(root: str, dev):
+    """Phase 11 on phase 6's 1080p COLMAP scene: ``train_loop_sharded`` at
+    mesh 1 × 1 (exact) through ``init_distributed`` at world size 1 with
+    NCCL, against ``train_loop`` on the same state and views; then
+    ``synthesize_scene`` at 1080p through the kernels.  Returns the sharded
+    run's launch counts."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from event3dgs_tpu_torch.cli.common import (
+        config_from_args,
+        load_scene_and_state,
+        mode_from_config,
+    )
+    from event3dgs_tpu_torch.cli.train import build_parser
+    from event3dgs_tpu_torch.data.colmap import read_model
+    from event3dgs_tpu_torch.parallel.distributed import init_distributed, make_global_mesh
+    from event3dgs_tpu_torch.parallel.sharded_train import (
+        make_sharded_train_step,
+        shard_train_state,
+    )
+    from event3dgs_tpu_torch.tools.make_scene import synthesize_scene
+    from event3dgs_tpu_torch.train.loop import measure_instance_cap, train_loop
+    from event3dgs_tpu_torch.train.loop_sharded import train_loop_sharded
+    from event3dgs_tpu_torch.train.step import make_train_step
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    info = init_distributed(f"localhost:{port}", 1, 0, device="cuda")
+    try:
+        check(dist.get_backend() == "nccl" and info.world_size == 1,
+              f"phase 11: backend {dist.get_backend()}, world {info.world_size}")
+        mesh = make_global_mesh(1, 1)
+        args = build_parser().parse_args([
+            "-s", os.path.join(root, "colmap"), "--gray", "--event", "-r", "1",
+            "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "2",
+            "--densification_interval", "3", "--densify_grad_threshold", "0",
+            "--device", DEVICE])
+        cfg = config_from_args(args)
+        mode = mode_from_config(cfg)
+        _, data, state, extent = load_scene_and_state(cfg, dev)
+
+        plain, p_launches, p_ms, p_peak = loop_run(
+            train_loop, state, data, cfg, mode, extent)
+        sharded, s_launches, s_ms, s_peak = loop_run(
+            train_loop_sharded, state, data, cfg, mode, extent, mesh)
+        for what, launches in (("train_loop", p_launches),
+                               ("train_loop_sharded", s_launches)):
+            for k, n in launches.items():
+                check(n == 3 * TRAIN_ITERS,
+                      f"{what}: {k} launched {n} times in {TRAIN_ITERS} event steps")
+        hp, hs = plain.history, sharded.history
+        check(len(hs) == len(hp) == TRAIN_ITERS and all(
+            math.isfinite(b) and abs(a - b) <= 1e-5 * abs(b) for a, b in zip(hs, hp)),
+            f"the sharded loop's losses {hs} differ from train_loop's {hp}")
+        check(int(sharded.state.params.alive.sum())
+              == int(plain.state.params.alive.sum()) > N_GAUSSIANS,
+              "the sharded loop's densify differs from train_loop's")
+        print(f"phase 11, mesh {mesh.shape} on NCCL: losses {hs} (train_loop "
+              f"{hp}); max rel diff "
+              f"{max(abs(a - b) / abs(b) for a, b in zip(hs, hp)):.3e}")
+        for what, ms, peak in (("train_loop", p_ms, p_peak),
+                               ("train_loop_sharded", s_ms, s_peak)):
+            print(f"  {what}: host ms per step {[round(float(x), 3) for x in ms]} "
+                  f"(median {float(np.median(ms)):.3f}, steps 2-{TRAIN_ITERS}"
+                  f" median {float(np.median(ms[1:])):.3f}); peak "
+                  f"{peak / 2**20:.1f} MiB")
+        print(f"  launches: train_loop {p_launches}; train_loop_sharded "
+              f"{s_launches}")
+
+        # one event step of each at the trained state, in turns (plain,
+        # sharded, sharded, plain), STEP_TURN steps timed one by one each
+        st = plain.state
+        icap = measure_instance_cap(st.params, data.cameras)
+        kw = dict(max_sh_degree=st.max_sh_degree, rasterizer="tiled",
+                  spatial_lr_scale=st.spatial_lr_scale, instance_cap=icap)
+        steps = {
+            "train_step": (make_train_step(mode, cfg.optimization, cfg.event,
+                                           **kw), st, (1, 1, 2)),
+            "sharded step": (make_sharded_train_step(
+                mode, cfg.optimization, cfg.event, mesh, **kw),
+                shard_train_state(st, mesh), ([1], [1], [2])),
+        }
+        bg = torch.zeros(3, device=dev)
+        times = {k: [] for k in steps}
+        peaks = {}
+        for name in ("train_step", "sharded step", "sharded step", "train_step"):
+            fn, state_in, idx = steps[name]
+            fn(state_in, data, *idx, bg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(STEP_TURN):
+                t0 = time.perf_counter()
+                fn(state_in, data, *idx, bg)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = torch.cuda.max_memory_allocated()
+        for name, ts in times.items():
+            p10, p50, p90 = np.percentile(ts, [10, 50, 90])
+            print(f"  {name} at {int(st.params.alive.sum())} alive (capacity "
+                  f"{st.params.capacity}): host ms median {p50:.3f} (p10 "
+                  f"{p10:.3f}, p90 {p90:.3f}) over {len(ts)} steps; peak "
+                  f"{peaks[name] / 2**20:.1f} MiB")
+
+        # NCCL's device time inside one more sharded run (profiler on),
+        # and the host time spent inside its collectives' calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_loop_sharded(state, data, cfg, mode, extent, mesh)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        nccl, total, n_kernels, host = {}, 0.0, 0, {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                total += us / 1e3
+                n_kernels += e.count
+                if "nccl" in e.key.lower():
+                    nccl[e.key[:60]] = (us / 1e3, e.count)
+            elif (e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith(("c10d::", "nccl:"))):
+                host[e.key[:40]] = (e.cpu_time_total / 1e3, e.count)
+        nccl_ms = sum(v[0] for v in nccl.values())
+        print(f"  profiled sharded run: {wall_ms:.1f} ms host clock, device "
+              f"busy {total:.3f} ms over {n_kernels} device kernels; NCCL "
+              f"{nccl_ms:.4f} ms over {sum(v[1] for v in nccl.values())} "
+              f"kernels ({100 * nccl_ms / max(total, 1e-9):.2f}%): "
+              + ", ".join(f"{k} {v[0]:.4f} ms x{v[1]}" for k, v in nccl.items()))
+        print("  host ms inside the collectives' calls (profiler on): "
+              + ", ".join(f"{k} {v[0]:.3f} x{v[1]}" for k, v in
+                          sorted(host.items(), key=lambda kv: -kv[1][0])))
+    finally:
+        dist.destroy_process_group()
+
+    out = os.path.join(root, "synth1080")
+    t0 = time.perf_counter()
+    meta, launches = count_launches(lambda: synthesize_scene(
+        out, n_views=TRAIN_VIEWS, width=WIDTH, height=HEIGHT,
+        n_gaussians=N_GAUSSIANS, scale_min=0.004, scale_max=0.015,
+        rasterizer="tiled", device=DEVICE))
+    check_render_launches("synthesize_scene", launches, TRAIN_VIEWS)
+    for folder in ("images", "images_event", "renders"):
+        check(len(os.listdir(os.path.join(out, folder))) == TRAIN_VIEWS,
+              f"synthesize_scene: missing {folder}/")
+    _, images, (xyz, _, _) = read_model(os.path.join(out, "sparse", "0"))
+    check(len(images) == TRAIN_VIEWS and xyz.shape == (N_GAUSSIANS, 3),
+          "synthesize_scene: COLMAP model")
+    print(f"synthesize_scene: {TRAIN_VIEWS} views at {WIDTH}x{HEIGHT}, "
+          f"{N_GAUSSIANS} Gaussians, in {time.perf_counter() - t0:.2f} s; "
+          f"launches {launches}; {card()}")
+    return s_launches
+
+
 def sh_degree_4(dev):
     """An SH degree 4 render of bench.py's scene (view 0, small random
     degree-4 coefficients from the seed): the kernel path against the
@@ -1577,10 +1774,14 @@ def main() -> int:
         train_launches, model = train_path(root)
         evaluation_path(root, model, dev)
         event_path(root, model, dev)
-    _, train_rows, per_step = train_kernels(dev)
+        _, train_rows, per_step = train_kernels(dev)
+        # last: after its NCCL job and profiled run, the profiler's
+        # device times of K2 and K3 (phases 7-8) came out too low
+        sharded_launches = sharded_path(root, dev)
     rows.update(train_rows)
     print(f"launches: cli.render {render_launches}; cli.train "
-          f"{train_launches}; one event step {per_step}")
+          f"{train_launches}; train_loop_sharded {sharded_launches}; one "
+          f"event step {per_step}")
     for name, row in rows.items():
         row["launches"] = train_launches[name]
 

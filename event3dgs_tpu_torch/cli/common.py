@@ -61,8 +61,10 @@ def add_pipeline_args(p: argparse.ArgumentParser):
                    choices=["tiled", "reference"])
     p.add_argument("--gauss_mode", type=str, default="exact",
                    choices=["exact", "partials"],
-                   help="gauss-axis compositing strategy of the multi-chip "
-                        "loop (not yet ported)")
+                   help="gauss-axis compositing strategy of the multi-GPU "
+                        "loop: exact (projected-splat exchange) or partials "
+                        "(depth-ordered merge of per-shard images, "
+                        "approximate on orbit rigs)")
     p.add_argument("--fused_steps", type=int, default=1,
                    help="accepted for the JAX package's command lines; the "
                         "port runs steps one at a time")

@@ -96,6 +96,20 @@ def grow_state(state: TrainState, new_capacity: int) -> TrainState:
     )
 
 
+def map_tensors(fn, tree):
+    """``fn`` over every tensor of a state tree (the dataclasses of a
+    :class:`TrainState`, dicts and tensors); other values pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tensors(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    return tree
+
+
 def active_sh_degree(step: int, max_degree: int) -> int:
     """SH degree grows by one every 1000 iterations (`train.py:99-100`)."""
     return min(int(step) // 1000, max_degree)

@@ -179,7 +179,13 @@ def test_port_never_imports_jax_or_the_jax_package():
                    "cli/metrics.py", "cli/full_eval.py", "events/dvs_model.py",
                    "events/native/__init__.py", "events/accumulate.py",
                    "utils/colorimetry.py", "cli/generate_dataset.py",
-                   "examples/compare_streams.py"):
+                   "examples/compare_streams.py", "parallel/mesh.py",
+                   "parallel/collectives.py", "parallel/partition.py",
+                   "parallel/compose.py", "parallel/exchange.py",
+                   "parallel/sharded_train.py", "parallel/distributed.py",
+                   "train/loop_sharded.py", "train/network_gui.py",
+                   "data/synthetic.py", "tools/make_scene.py",
+                   "tools/dataset_prep.py", "cli/convert.py"):
         assert f"event3dgs_tpu_torch/{module}" in scanned, module
     banned = ("jax", "flax", "event3dgs_tpu")
     bad = [

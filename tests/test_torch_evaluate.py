@@ -2,7 +2,8 @@
 (all three backbones, one ``.npz`` of random weights read by both
 packages), ``evaluate_holdout``, ``metrics_over_dirs`` and the
 ``evaluate``, ``metrics`` and ``full_eval`` entry points on a tiny COLMAP
-scene written by the JAX ``tools/make_scene.synthesize_scene``.
+scene written by the port's ``tools/make_scene.synthesize_scene`` (the
+JAX tool's files, tests/test_torch_synthetic.py) and read by both.
 
 Tolerances: LPIPS feature maps per stage at rtol 1e-4 / atol 1e-6 after
 dividing by the stage's largest magnitude (float32 convolutions in two
@@ -32,7 +33,6 @@ from event3dgs_tpu.data import scene as jscene
 from event3dgs_tpu.losses import lpips as jlpips
 from event3dgs_tpu.models import gaussians as jgauss
 from event3dgs_tpu.tools import evaluation as jeval
-from event3dgs_tpu.tools.make_scene import synthesize_scene
 from event3dgs_tpu.utils.config import TrainConfig
 from event3dgs_tpu_torch.cli import evaluate as tevaluate
 from event3dgs_tpu_torch.cli import full_eval as tfull_eval
@@ -42,6 +42,7 @@ from event3dgs_tpu_torch.data import ply as tply
 from event3dgs_tpu_torch.data import scene as tscene
 from event3dgs_tpu_torch.losses import lpips as tlpips
 from event3dgs_tpu_torch.tools import evaluation as teval
+from event3dgs_tpu_torch.tools.make_scene import synthesize_scene
 
 torch.set_num_threads(1)
 
@@ -206,7 +207,8 @@ def colmap_scene(tmp_path_factory):
     root = tmp_path_factory.mktemp("evalscene")
     src = root / "scene"
     truth = synthesize_scene(str(src), n_views=VIEWS, width=W, height=H,
-                             n_gaussians=60, white_background=True)["true_model"]
+                             n_gaussians=60, white_background=True,
+                             device="cpu")["true_model"]
     rng = np.random.default_rng(1)
     n = truth["means"].shape[0]
     f32 = lambda a: jnp.asarray(a, jnp.float32)

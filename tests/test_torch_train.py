@@ -8,9 +8,12 @@
   reference one for 3 steps.
 - The training loop's view sequence and losses against the JAX loop.
 - Checkpoints written by either package load in the other.
-- ``cli.train --device cpu`` on a scene written by the JAX
+- ``cli.train --device cpu`` on a scene written by the port's
   ``tools/make_scene.synthesize_scene``, then ``cli.render --device cpu``
   on its PLY.
+
+Each package gets its scene from its own ``make_synthetic_scene`` (the
+same points and cameras; images within the render tolerance).
 
 The parity states start from random rotations and anisotropic scales: at
 the point-cloud init (identity rotations, isotropic scales) the rotation
@@ -20,13 +23,14 @@ rounding noise there and Adam scales that noise to ±lr.
 
 import dataclasses
 import os
+from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from event3dgs_tpu.data.synthetic import make_synthetic_scene
+from event3dgs_tpu.data.synthetic import make_synthetic_scene as jmake_scene
 from event3dgs_tpu.models import init_from_point_cloud as jinit
 from event3dgs_tpu.train import SceneData as JSceneData
 from event3dgs_tpu.train import init_train_state as jinit_state
@@ -36,7 +40,7 @@ from event3dgs_tpu.train.checkpoint import load_checkpoint as jload
 from event3dgs_tpu.train.checkpoint import save_checkpoint as jsave
 from event3dgs_tpu.utils.config import OptimizationConfig as JOptCfg
 from event3dgs_tpu.utils.config import TrainConfig as JTrainConfig
-from event3dgs_tpu_torch.core.camera import Camera
+from event3dgs_tpu_torch.data.synthetic import make_synthetic_scene as tmake_scene
 from event3dgs_tpu_torch.models import init_from_point_cloud as tinit
 from event3dgs_tpu_torch.train import SceneData as TSceneData
 from event3dgs_tpu_torch.train import init_train_state as tinit_state
@@ -54,15 +58,31 @@ PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                 "opacity")
 
 
+class Scenes(NamedTuple):
+    """One synthetic scene as each package builds it."""
+
+    jax: object
+    port: object
+
+    @property
+    def points(self):
+        return self.jax.points
+
+    @property
+    def colors(self):
+        return self.jax.colors
+
+    @property
+    def extent(self):
+        return self.jax.extent
+
+
 @pytest.fixture(scope="module")
 def scene():
-    return make_synthetic_scene(n_gaussians=60, n_views=12, width=64, height=48)
-
-
-def port_cameras(jcam):
-    return Camera(*(torch.tensor(np.asarray(getattr(jcam, f))) for f in (
-        "world_view", "full_proj", "camera_center", "tan_fovx", "tan_fovy")),
-        width=jcam.width, height=jcam.height)
+    kw = dict(n_gaussians=60, n_views=12, width=64, height=48)
+    scenes = Scenes(jmake_scene(**kw), tmake_scene(**kw, device="cpu"))
+    np.testing.assert_array_equal(scenes.port.points, scenes.jax.points)
+    return scenes
 
 
 def states(scene, capacity=128, seed=11):
@@ -81,9 +101,9 @@ def states(scene, capacity=128, seed=11):
 
 
 def scene_data(scene):
-    cams, imgs = port_cameras(scene.cameras), torch.tensor(np.asarray(scene.images))
-    return (JSceneData(cameras=scene.cameras, images=scene.images,
-                       event_cameras=scene.cameras, event_images=scene.images),
+    j, cams, imgs = scene.jax, scene.port.cameras, scene.port.images
+    return (JSceneData(cameras=j.cameras, images=j.images,
+                       event_cameras=j.cameras, event_images=j.images),
             TSceneData(cameras=cams, images=imgs, event_cameras=cams,
                        event_images=imgs))
 
@@ -161,11 +181,13 @@ def test_other_mode_steps_match(scene, mode):
     event loss mixed with L1 against blurry captures (a 3-view average)."""
     js, ts = states(scene, seed=18)
     jd, td = scene_data(scene)
-    imgs = np.asarray(scene.images)
-    blurry = ((np.roll(imgs, 1, axis=0) + imgs + np.roll(imgs, -1, axis=0))
-              / 3.0).astype(np.float32)
-    jd = jd._replace(blurry_images=jnp.asarray(blurry))
-    td = td._replace(blurry_images=torch.tensor(blurry))
+
+    def blurry(imgs):
+        return ((np.roll(imgs, 1, axis=0) + imgs + np.roll(imgs, -1, axis=0))
+                / 3.0).astype(np.float32)
+
+    jd = jd._replace(blurry_images=jnp.asarray(blurry(np.asarray(jd.images))))
+    td = td._replace(blurry_images=torch.tensor(blurry(td.images.numpy())))
     cfg = JTrainConfig()
     jstep = jmake_step(mode, cfg.optimization, cfg.event,
                        spatial_lr_scale=scene.extent, rasterizer="reference")
@@ -307,13 +329,13 @@ def test_checkpoints_load_in_both_packages(scene, tmp_path):
 
 
 def test_cli_train_then_render_on_cpu(tmp_path, capsys):
-    from event3dgs_tpu.tools.make_scene import synthesize_scene
+    from event3dgs_tpu_torch.tools.make_scene import synthesize_scene
     from event3dgs_tpu_torch.cli import render as trender
     from event3dgs_tpu_torch.cli import train as ttrain
 
     src, model = str(tmp_path / "scene"), str(tmp_path / "model")
     synthesize_scene(src, n_views=8, width=48, height=48, n_gaussians=60,
-                     white_background=True)
+                     white_background=True, device="cpu")
     rc = ttrain.main([
         "-s", src, "-m", model, "--gray", "--event", "-r", "1", "-w",
         "--iterations", "6", "--densify_from_iter", "2",
@@ -336,5 +358,5 @@ def test_cli_train_then_render_on_cpu(tmp_path, capsys):
     for sub in ("train", "test"):
         renders = os.path.join(model, sub, "ours_6", "renders")
         assert len(os.listdir(renders)) == 8, sub
-    with pytest.raises(SystemExit):
-        ttrain.main(["-s", src, "--port", "6009", "--device", "cpu"])
+    with pytest.raises(SystemExit):  # no --source_path
+        ttrain.main(["--port", "6009", "--device", "cpu"])
