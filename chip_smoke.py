@@ -6,8 +6,9 @@ card.
 
 Phases (any failed check exits non-zero; nothing is caught):
 
-1. Build the CUDA kernels of ``event3dgs_tpu_torch/csrc/`` (one ``nvcc``
-   per source, in parallel) and print what ``-Xptxas -v`` reports.
+1. Build the CUDA kernels of ``event3dgs_tpu_torch/csrc/`` and the
+   probes' K1 and K4 builds with ablation macros (one ``nvcc`` per build,
+   in parallel) and print what ``-Xptxas -v`` reports.
 2. Generate a model from seed 0 with ``bench.py``'s scene recipe: 100k
    Gaussians, SH degree 3 with small random higher-order coefficients,
    saved as a PLY with a ``cfg.json``, and a Blender-style source with
@@ -27,7 +28,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    in at most 16 device kernels (memsets and copies counted beside them).
 5. Time each render kernel, its plain version and the PyTorch yardstick
    call with CUDA events (per call, the host's enqueue included) and the
-   profiler's device time in the kernel's own CUDA functions (``device_ms``),
+   profiler's device time in the kernel's own CUDA functions (``device_ms``:
+   each function's time over the launches the profiler saw of it),
    and one view's render with the host clock.
 6. Train through the entry point: a COLMAP scene with 8 views at
    1920×1080 (``images/``, ``images_event/`` and the held-out ``renders/``)
@@ -98,6 +100,26 @@ Phases (any failed check exits non-zero; nothing is caught):
    1920×1080 scene of 100k Gaussians through the kernels (each render
    kernel once per view) and its COLMAP model reads back.
 
+12. (After phase 10 and phases 7-8, before phase 11.) The profiling probes
+   (``event3dgs_tpu_torch/tools/kernel_probes.py`` ``all``) at full size,
+   every probe build's launch count set to 0 before and read after: the
+   event step of phases 7-8's state in seven cumulative stages (device µs,
+   device kernels, event and host ms each); each K1 and K4 build (the
+   timing-only ablations, ``base`` and K1's ``clock``) at phase 4's view
+   (device ms, registers, spills, blocks per SM, K1's evaluated pairs, the
+   tile imbalance from ``clock``); K1's stop statistics at both views; K1,
+   K2 and K3 relaunched at the train view against their bounds; the
+   dynamic-grid kernel of ``csrc/probes.cu`` in a CUDA graph.  Checks:
+   ``base`` is the shipping K1 library and it and ``clock`` equal the
+   shipping K1 bit for bit; the graph's replays give 3·1024 and 7·1024
+   over ones, and over a seeded input whose sums depend on the block order
+   (at 3, 7, 0, -1, past capacity and 3 again) each replay equals the
+   plain version bit for bit; the stop statistics of K1's stop equal
+   those of the plain K1's; stage 7's parameters (finite) equal
+   ``train_step``'s from the same state.  A probe row's ``launches``
+   counts its wrapper's calls in that run, the 20 calls captured into a
+   CUDA graph for ``graph_ms`` included and their replays not.
+
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
 (pixel, instance) pairs (the work the function needs) and the earlier
@@ -106,7 +128,9 @@ bound over the visited pairs, the pairs they evaluate after the warp cull
 resident blocks per SM.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON line of per-kernel numbers, and the result line
+JSON line of per-kernel numbers (phase 12 adds one row per probe build,
+marked ``timing_only`` where it is an ablation, and one for the
+dynamic-grid kernel), and the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -118,7 +142,6 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -138,31 +161,15 @@ EVENT_STEPS = 3  # cli.render --event's --interpolationN (its default)
 EVENT_DT = 1000.0  # µs between the chain's frames (--dt's default)
 EVENT_SPREAD = 20.0  # phase 10's camera spacing along x, times phase 6's
 DEVICE = "cuda"
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# H100 SXM FP32 outside the tensor cores is 67 TFLOP/s with an FMA counted
-# as two operations.  The kernels are built with -fmad=false, so they issue
-# no FMA: one FP32 instruction is one operation, at half that rate.
-PEAK_FP32_PER_S = 33.5e12
 # library code (cuDNN's convolutions) runs FMAs: the data sheet's 67
 # TFLOP/s of FP32 outside the tensor cores, an FMA counted as two FLOPs
+# (the kernels' own rates and the bound arithmetic are in
+# event3dgs_tpu_torch/tools/kernel_timing.py)
 PEAK_FP32_FLOPS = 67e12
-# exp, log and reciprocal run on the special function units: 16 of an SM's
-# 128 lanes per clock, so an eighth of the FP32 instruction rate
-PEAK_SFU_PER_S = PEAK_FP32_PER_S / 8
-# (FP32, SFU) operations per (pixel, instance) pair a compositing kernel
-# visits, by what it does with the pair: skipped at power > 0, skipped at
-# raw < 1/255, composited.  Counted from the sources' arithmetic
-# (rasterize_fwd.cu, rasterize_bwd.cu), an expf, log1pf or division as one
-# SFU operation and nothing more, and an explicit FMA as one FP32
-# instruction, so the bound stays a lower bound.  The bound charges the
-# composited pairs only (the work the function needs); the earlier bound
-# charged every visited pair at the counts of the sources before the warp
-# cull and is printed beside it.
-K1_PAIR_OPS = ((10, 0), (12, 1), (23, 3))
-K2_PAIR_OPS = ((10, 0), (12, 1), (38, 4))
-VISITED_PAIR_OPS = {"K1 composite_forward": K1_PAIR_OPS,
-                    "K2 composite_backward": ((10, 0), (12, 1), (53, 4))}
-COMPOSITED = 2  # index of the composited pairs in the tables and counts
+# (FP32, SFU) operations per visited (pixel, instance) pair of K2's design
+# before the warp cull (the earlier bound charged every visited pair; K1's
+# table is kernel_timing.K1_PAIR_OPS)
+EARLIER_K2_PAIR_OPS = ((10, 0), (12, 1), (53, 4))
 # the card times of the design before the warp cull (PERF.md's kernel
 # table, NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 EARLIER_MS = {"K1 composite_forward": "0.596-0.603",
@@ -188,15 +195,9 @@ def check(cond: bool, msg: str):
 def bench_scene(rng):
     """bench.py's scene (`_scene`): means, scales, rotations, opacities,
     colors."""
-    n = N_GAUSSIANS
-    means = np.c_[rng.uniform(-3, 3, n), rng.uniform(-1.8, 1.8, n),
-                  rng.uniform(2, 10, n)]
-    scales = (np.exp(rng.uniform(np.log(0.005), np.log(0.03), (n, 1)))
-              * rng.uniform(0.7, 1.4, (n, 3)))
-    rots = rng.normal(size=(n, 4))
-    opac = rng.uniform(0.3, 0.9, n)
-    colors = rng.uniform(0, 1, (n, 3))
-    return means, scales, rots, opac, colors
+    from event3dgs_tpu_torch.tools import kernel_timing
+
+    return kernel_timing.bench_scene(rng, N_GAUSSIANS)
 
 
 def generate(root: str):
@@ -292,22 +293,6 @@ def generate_colmap(root: str) -> str:
     return src
 
 
-def pair_ops(pairs, table, kinds=(COMPOSITED,)):
-    """(FP32, SFU) operations of the pairs of ``kinds`` (counts by kind, as
-    ``_composite_plain`` returns them)."""
-    return (sum(pairs[k] * table[k][0] for k in kinds),
-            sum(pairs[k] * table[k][1] for k in kinds))
-
-
-def bound_ms(nbytes, ops):
-    """The least time for ``nbytes`` moved and (FP32, SFU) ``ops``, and
-    which of the two bounds it."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    # the FP32 lanes and the SFUs work side by side
-    t_ops = max(ops[0] / PEAK_FP32_PER_S, ops[1] / PEAK_SFU_PER_S) * 1e3
-    return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
-
-
 def evaluated(pairs) -> int:
     """The visited pairs the kernels evaluate: less those the warp cull
     removes."""
@@ -327,8 +312,15 @@ def composite_report(name, row, pairs, nbytes, lib, fn):
     composited pairs and the earlier bound over the visited pairs, the
     pairs it evaluates, its registers and resident blocks per SM."""
     from event3dgs_tpu_torch.ops import kernels
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        COMPOSITED,
+        K1_PAIR_OPS,
+        bound_ms,
+        pair_ops,
+    )
 
-    old, _ = bound_ms(nbytes, pair_ops(pairs, VISITED_PAIR_OPS[name],
+    visited = K1_PAIR_OPS if name.startswith("K1") else EARLIER_K2_PAIR_OPS
+    old, _ = bound_ms(nbytes, pair_ops(pairs, visited,
                                        kinds=(0, 1, COMPOSITED)))
     regs, blocks = kernels.occupancy(lib, fn)
     print(f"{name}: kernel {row['ms']:.4f} ms (before the warp cull "
@@ -459,7 +451,11 @@ def counting_sort_check(what, tile, gauss, n_live, nt, n):
     import torch
 
     from event3dgs_tpu_torch.ops import sort_tiles
-    from event3dgs_tpu_torch.tools.kernel_timing import cuda_ms, device_profile
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        bound_ms,
+        cuda_ms,
+        device_profile,
+    )
 
     ck = sort_tiles.tile_histogram_kernel(tile, nt, n_live)
     cp = sort_tiles.tile_histogram_plain(tile, nt, n_live)
@@ -573,6 +569,12 @@ def render_path(root: str, dev):
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.rasterize_reference import rasterize_reference
     from event3dgs_tpu_torch.ops.render import gaussian_colors, render
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        K1_PAIR_OPS,
+        composite_bytes,
+        expansion_bytes,
+        pair_ops,
+    )
 
     # 2. generate ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -727,10 +729,7 @@ def render_path(root: str, dev):
             None, 20),
     }
     capped = min(n_inst, cap)
-    off = ranks.offsets.long()
-    live_ranks = int(((off[:-1] < capped) & (off[1:] > off[:-1])).sum())
-    live_segments = -(-capped // sort_tiles.SEGMENT)
-    k1_bytes = live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 20
+    k1_bytes = composite_bytes(live, N_GAUSSIANS, nt, WIDTH, HEIGHT)
     bounds = {  # (bytes, (FP32, SFU) operations) this run's inputs need
         # per Gaussian 33 bytes read, 52 written; at least 60 FP32 and 7
         # SFU operations (a log, two square roots, four divisions)
@@ -742,9 +741,8 @@ def render_path(root: str, dev):
                              + sort_tiles.segments(cap) * 4, (0, 0)),
         # per live rank its 48-byte table row, order entry and offset; 8
         # bytes per slot; each live segment's count row
-        "K4 expand_instances": (
-            live_ranks * (48 + 4 + 4) + cap * 8 + live_segments * nt * 4,
-            (0, 0)),
+        "K4 expand_instances": (expansion_bytes(ranks.offsets, cap, nt),
+                                (0, 0)),
         "K5 tile_histogram": (capped * 4 + nt * 4, (0, 0)),
         "K6 stable_tile_rank": (capped * 4 + nt * 4 + cap * 4, (0, 0)),
         "K1 composite_forward": (k1_bytes, pair_ops(pairs, K1_PAIR_OPS)),
@@ -766,29 +764,41 @@ def render_path(root: str, dev):
     return launches, errs, rows
 
 
-def kernel_device_ms(name, fn) -> float:
+def kernel_device_ms(name, fn) -> tuple[float, float]:
     """The profiler's self device time per call of ``fn`` in the CUDA
-    functions of kernel ``name`` (KERNEL_FUNCTIONS), matched by exact name;
-    fails if one of them did not run."""
-    from event3dgs_tpu_torch.tools.kernel_timing import device_profile
+    functions of kernel ``name`` (KERNEL_FUNCTIONS, each launched once per
+    call), matched by exact name, each function's time taken over the
+    launches the profiler saw of it; and the fewest launches per call it
+    saw of one of them.  Fails if one of them did not run."""
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        device_profile,
+        per_launch_ms,
+    )
 
     prof = device_profile(fn)
     missing = [f for f in KERNEL_FUNCTIONS[name] if f not in prof]
     check(not missing, f"{name}: the profiler saw no device time in {missing}")
-    return sum(prof[f][0] for f in KERNEL_FUNCTIONS[name])
+    return (per_launch_ms(prof, KERNEL_FUNCTIONS[name]),
+            min(prof[f][1] for f in KERNEL_FUNCTIONS[name]))
 
 
 def kernel_rows(timings, bounds, meta, errs):
-    """Time each kernel (CUDA events per call, and the profiler's device
-    time in the kernel's own CUDA functions), its plain version and its
-    yardstick; one JSON row each (``launches`` is filled in by the
+    """Time each kernel (CUDA events per call, the profiler's device time
+    in the kernel's own CUDA functions, and the time per call of 20 calls
+    captured in a CUDA graph, which no host work enters), its plain version
+    and its yardstick; one JSON row each (``launches`` is filled in by the
     caller)."""
-    from event3dgs_tpu_torch.tools.kernel_timing import cuda_ms
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        bound_ms,
+        cuda_ms,
+        graph_ms,
+    )
 
     rows = {}
     for name, (kern, plain, lib, iters) in timings.items():
         ms = cuda_ms(kern, iters)
-        device_ms = kernel_device_ms(name, kern)
+        device_ms, seen = kernel_device_ms(name, kern)
+        in_graph = graph_ms(kern)
         plain_ms = cuda_ms(plain, max(iters // 10, 2), warmup=1)
         lib_ms = cuda_ms(lib, iters) if lib is not None else None
         bound, bound_by = bound_ms(*bounds[name])
@@ -802,13 +812,16 @@ def kernel_rows(timings, bounds, meta, errs):
             "max_abs_err": errs[name],
             "ms": ms,
             "device_ms": device_ms,
+            "graph_ms": in_graph,
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": bound_by,
             "library_ms": lib_ms,
         }
         lib_txt = "-" if lib_ms is None else f"{lib_ms:.4f}"
-        print(f"{name}: kernel {ms:.4f} ms per call ({device_ms:.4f} ms device), "
+        print(f"{name}: kernel {ms:.4f} ms per call ({device_ms:.4f} ms device "
+              f"over {seen:.2f} launches seen per call, {in_graph:.4f} ms in a "
+              "graph), "
               f"plain {plain_ms:.4f} ms, library {lib_txt} ms, bound "
               f"{bound:.4f} ms ({bound_by})")
     return rows
@@ -883,10 +896,9 @@ def train_path(root: str):
 
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    from event3dgs_tpu_torch.tools import kernel_timing
+
+    return kernel_timing.card()
 
 
 def random_lpips_weights(net: str, seed: int = 0) -> dict:
@@ -1488,32 +1500,9 @@ def sh_degree_4(dev):
 
 def bench_state(dev):
     """bench.py's `bench_train_step` set-up: state, data, instance cap."""
-    import torch
+    from event3dgs_tpu_torch.tools import kernel_timing
 
-    from event3dgs_tpu_torch.core.camera import make_camera, stack_cameras
-    from event3dgs_tpu_torch.models import init_from_point_cloud
-    from event3dgs_tpu_torch.models.gaussians import GaussianParams
-    from event3dgs_tpu_torch.train import SceneData, init_train_state
-    from event3dgs_tpu_torch.train.loop import measure_instance_cap
-
-    means, scales, rots, opac, colors = bench_scene(np.random.default_rng(0))
-    cameras = stack_cameras([
-        make_camera(np.eye(3), np.asarray([0.01 * i, 0.0, 0.02 * i]), 1.2, 0.75,
-                    WIDTH, HEIGHT, device=dev) for i in range(4)])
-    images = torch.tensor(np.random.default_rng(1).uniform(
-        0, 1, (4, HEIGHT, WIDTH, 3)), dtype=torch.float32, device=dev)
-    params = init_from_point_cloud(means, colors, capacity=N_GAUSSIANS,
-                                   device=dev)
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    params = GaussianParams(
-        xyz=params.xyz, features_dc=params.features_dc,
-        features_rest=params.features_rest, scaling=f32(np.log(scales)),
-        rotation=f32(rots), opacity=f32(np.log(opac / (1 - opac))[:, None]),
-        alive=params.alive)
-    state = init_train_state(params, spatial_lr_scale=3.0)
-    data = SceneData(cameras=cameras, images=images, event_cameras=cameras,
-                     event_images=images)
-    return state, data, measure_instance_cap(state.params, cameras)
+    return kernel_timing.bench_state(dev, N_GAUSSIANS, WIDTH, HEIGHT)
 
 
 def train_kernels(dev):
@@ -1526,6 +1515,12 @@ def train_kernels(dev):
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        K2_PAIR_OPS,
+        composite_bytes,
+        pair_ops,
+        segment_sums_bytes,
+    )
     from event3dgs_tpu_torch.train.step import make_loss_and_grads, make_train_step
     from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
 
@@ -1681,14 +1676,12 @@ def train_kernels(dev):
             lambda: rt.gaussian_grads(b, rows_k, plain=True),
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
     }
-    k2_bytes = (live * 4 + N_GAUSSIANS * 48 + nt * 8 + WIDTH * HEIGHT * 24
-                + live * rt.NGRAD * 4)
+    k2_bytes = composite_bytes(live, N_GAUSSIANS, nt, WIDTH, HEIGHT,
+                               backward=True)
     bounds = {
         "K2 composite_backward": (k2_bytes, pair_ops(pairs, K2_PAIR_OPS)),
-        "K3 segment_sums": (
-            live * rt.NGRAD * 4 + n_exp * 4 + (N_GAUSSIANS + 1) * 4
-            + N_GAUSSIANS * 4 + N_GAUSSIANS * rt.NGRAD * 4,
-            (live * rt.NGRAD, 0)),
+        "K3 segment_sums": (segment_sums_bytes(live, n_exp, N_GAUSSIANS),
+                            (live * rt.NGRAD, 0)),
     }
     meta = {
         "K2 composite_backward": ("rasterize_bwd.cu",
@@ -1750,6 +1743,195 @@ def densify_growth(state, data, idx, bg):
           f"loss {float(metrics['loss']):.6f}")
 
 
+PROBE_REPLACES = {
+    "K1": "experiments/tools_exp_kernel.py:59",
+    "K4": "experiments/tools_r5_expandprobe.py:249",
+    "dyngrid": "experiments/tools_exp_dyngrid.py:18",
+}
+
+
+def probe_path(dev):
+    """Phase 12: ``tools/kernel_probes.py`` ``all`` at full size, with every
+    probe build's launch count set to 0 before and read after; the checks
+    on its outputs; one JSON row per K1 and K4 build and for the
+    dynamic-grid kernel (``launches`` from the probes' run)."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import expand, kernels
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        K1_PAIR_OPS,
+        bound_ms,
+        composite_bytes,
+        cuda_ms,
+        expansion_bytes,
+        pair_ops,
+    )
+    from event3dgs_tpu_torch.train.step import make_train_step
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    builds = kp.variants()
+    for v in builds:
+        v.launches = 0
+    kp.dyngrid_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probes = kp.run_probes(kp.MODES, dev, N_GAUSSIANS, WIDTH, HEIGHT)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = {v.label: v.launches for v in builds}
+    launches["dyngrid"] = kp.dyngrid_kernel.launches
+    print(f"kernel_probes all: {probe_s:.1f} s; launches {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"phase 12: {k} was not launched")
+    rec = probes.records
+
+    # K1's base is the shipping library, and it and clock equal K1
+    base = kp.K1_VARIANTS["base"]
+    check(kernels.library_path(base.source, base.defines)
+          == kernels.library_path("rasterize_fwd"),
+          "the probes' K1 base is not the shipping library")
+    out = probes.outputs["k1"]
+    for name in ("base", "clock"):
+        for what, got, want in zip(("rgb", "log T", "stop"), out[name],
+                                   out["shipping"]):
+            check(torch.equal(got, want),
+                  f"the probes' K1 {name}: {what} differs from the shipping K1")
+    # the dynamic grid in a CUDA graph
+    dg = rec["dyngrid"]
+    for n, want in dg["expected"].items():
+        check(dg["replays"][n] == want and dg["equal_to_plain"][n],
+              f"dyngrid: the replay at n = {n} gave {dg['replays'][n]}, "
+              f"not {want} and the plain version's")
+        check(dg["order_sensitive"][n], f"dyngrid: the seeded sum of {n} "
+              "blocks does not depend on their order")
+    for n, equal in dg["seeded_equal_to_plain"].items():
+        check(equal, f"dyngrid: the replay at n = {n} over the seeded input "
+              "differs from the plain version")
+    check(dg["max_abs_err"] == 0.0, f"dyngrid: {dg['max_abs_err']} from the "
+          "plain version")
+    # stop statistics of K1's stop against the plain K1's at view 0
+    rv = probes.render_view()
+    _, _, stop_p, pairs = rt._composite_plain(*rv.k1_args)
+    stop_k = probes.outputs["stops"]["render_stop"]
+    check(torch.equal(stop_k, stop_p), "phase 12: K1's stop differs from the "
+          "plain K1's at view 0")
+    plain_stats = kp.stop_statistics(stop_p, rv.k1_args[2], WIDTH, HEIGHT)
+    check(plain_stats == rec["stops"]["render"], "stop_statistics of K1's "
+          "stop differ from those of the plain K1's")
+    # stage 7 is the train step
+    tv = probes.train_view()
+    bg = torch.zeros(3, device=dev)
+    stage7 = kp.event_step_stages(tv.state, tv.data, kp.TRAIN_IDX, bg,
+                                  tv.cap)[-1][1]
+    step = make_train_step("event", OptimizationConfig(), EventConfig(),
+                           spatial_lr_scale=3.0, rasterizer="tiled",
+                           instance_cap=tv.cap)
+    torch.use_deterministic_algorithms(True)
+    try:
+        s7, m7 = stage7()
+        st, _ = step(tv.state, tv.data, *kp.TRAIN_IDX, bg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(math.isfinite(float(m7["loss"])), "stage 7: non-finite loss")
+    for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+              "opacity"):
+        check(bool(torch.isfinite(getattr(s7.params, f)).all()),
+              f"stage 7: non-finite {f}")
+        check(torch.equal(getattr(s7.params, f), getattr(st.params, f)),
+              f"stage 7: {f} differs from train_step's")
+    print("phase 12: K1 base (the shipping library) and clock bit-equal to the "
+          "shipping K1; dyngrid replays 3072 and 7168, and over the seeded "
+          f"input at counts {list(dg['seeded_equal_to_plain'])}, bit-equal "
+          "to the plain version; stop statistics equal on the plain K1's stop; stage 7's "
+          f"parameters equal train_step's; {card()}")
+    print_probe_tables(rec)
+
+    # one JSON row per build: plain and bound are those of the function
+    # the build replaces (K1 or K4 at the render view)
+    nt = rv.k1_args[2].shape[0]
+    k1_bound = bound_ms(composite_bytes(rv.live, N_GAUSSIANS, nt, WIDTH,
+                                        HEIGHT),
+                        pair_ops(pairs.tolist(), K1_PAIR_OPS))
+    plain_ms = {"K1": cuda_ms(lambda: rt.composite_forward_plain(*rv.k1_args),
+                              2, warmup=1),
+                "K4": cuda_ms(lambda: expand.expand_instances_plain(
+                    *rv.k4_args, True), 2, warmup=1)}
+    rows = {}
+    for kernel, table in (("K1", kp.K1_VARIANTS), ("K4", kp.K4_VARIANTS)):
+        for row in rec[kernel.lower()]["variants"]:
+            v = table[row["variant"]]
+            bound = k1_bound if kernel == "K1" else bound_ms(
+                expansion_bytes(rv.k4_args[2], rv.k4_args[5], nt,
+                                v.count_rows), (0, 0))
+            name = f"{kernel} probe {v.name}"
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"event3dgs_tpu_torch/csrc/{v.source}.cu",
+                "replaces": PROBE_REPLACES[kernel],
+                "launches": v.launches,
+                # against the shipping kernel on the same inputs (an
+                # ablated build has no plain version and differs by design)
+                "max_abs_err": row["max_abs_err_vs_shipping"],
+                "ms": row["event_ms"], "device_ms": row["device_ms"],
+                "graph_ms": row["graph_ms"],
+                "plain_ms": plain_ms[kernel], "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None,
+                "defines": row["defines"], "timing_only": v.timing_only,
+            }
+    rows["dyngrid probe"] = {
+        "name": "dyngrid probe", "route": "cuda",
+        "source": "event3dgs_tpu_torch/csrc/probes.cu",
+        "replaces": PROBE_REPLACES["dyngrid"],
+        "launches": kp.dyngrid_kernel.launches,
+        "max_abs_err": dg["max_abs_err"],
+        "ms": dg["replay_ms"], "plain_ms": dg["plain_ms"],
+        "bound_ms": dg["bound_ms"], "bound_by": "bytes",
+        "library_ms": dg["library_ms"],
+    }
+    return rows
+
+
+def print_probe_tables(rec):
+    """Phase 12's tables: the stages, the K1 and K4 builds, K1's stop
+    statistics, the relaunched kernels."""
+    print("stage                                device us  kernels  other  "
+          "event ms   host ms | added: device us  kernels  host ms")
+    for r in rec["stages"]["stages"]:
+        a = r.get("added", {})
+        print(f"{r['stage']} {r['name']:34s} {r['device_us']:10.1f} "
+              f"{r['kernels']:8.0f} {r['memsets_copies']:6.0f} "
+              f"{r['event_ms']:9.3f} {r['host_ms']:9.3f} | "
+              f"{a.get('device_us', r['device_us']):10.1f} "
+              f"{a.get('kernels', r['kernels']):8.0f} "
+              f"{a.get('host_ms', r['host_ms']):8.3f}")
+    for kernel in ("k1", "k4"):
+        print(f"{kernel.upper()} build  device ms (seen)  event ms  graph ms  "
+              "regs  spill st/ld  blocks/SM  vs base (graph)   pairs evaluated")
+        for r in rec[kernel]["variants"]:
+            vs = (f"{r['vs_base_ms']:+.4f} ({100 * r['vs_base_share']:.1f}%)"
+                  if "vs_base_ms" in r else "-")
+            print(f"{r['variant']:9s} {r['device_ms']:9.4f} "
+                  f"({r['profiled_per_call']:.2f}) {r['event_ms']:9.4f} "
+                  f"{r['graph_ms']:9.4f} {r['registers']:5d} "
+                  f"{r['spill_stores']:5d}/{r['spill_loads']:<5d} "
+                  f"{r['blocks_per_sm']:9d}  {vs:18s} "
+                  f"{r.get('evaluated_pairs', '-')}")
+            if "imbalance" in r:
+                print(f"  clock: {json.dumps(r['imbalance'])}")
+    for view in ("render", "train"):
+        print(f"K1 stops, {view} view: {json.dumps(rec['stops'][view])}")
+    print(f"stop_statistics at the render view: "
+          f"{rec['stops']['statistics_ms']:.3f} ms (CUDA events)")
+    for r in rec["relaunch"]["kernels"]:
+        print(f"relaunch {r['kernel']}: device {r['device_ms']:.4f} ms "
+              f"({r['profiled_per_call']:.2f} launches seen per call), event "
+              f"{r['event_ms']:.4f} ms, graph {r['graph_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['over_bound']:.2f}x "
+              "in graph time")
+
+
 def main() -> int:
     import torch
 
@@ -1763,10 +1945,13 @@ def main() -> int:
     print(f"device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build -------------------------------------------------------------
+    # 1. build: every source, and the probes' K1 and K4 builds -------------
+    from event3dgs_tpu_torch.tools.kernel_probes import variant_builds
+
     t0 = time.perf_counter()
-    for name, log in kernels.build().items():
-        print(f"--- nvcc {name}.cu (sm_90a) ---\n{log.strip()}")
+    for name, log in kernels.build([*kernels.SIGNATURES,
+                                    *variant_builds()]).items():
+        print(f"--- nvcc {name} (sm_90a) ---\n{log.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory() as root:
@@ -1775,6 +1960,7 @@ def main() -> int:
         evaluation_path(root, model, dev)
         event_path(root, model, dev)
         _, train_rows, per_step = train_kernels(dev)
+        probe_rows = probe_path(dev)
         # last: after its NCCL job and profiled run, the profiler's
         # device times of K2 and K3 (phases 7-8) came out too low
         sharded_launches = sharded_path(root, dev)
@@ -1784,6 +1970,7 @@ def main() -> int:
           f"event step {per_step}")
     for name, row in rows.items():
         row["launches"] = train_launches[name]
+    rows.update(probe_rows)
 
     print(card())
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

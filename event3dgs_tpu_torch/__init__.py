@@ -17,3 +17,5 @@ package never needs ``nvcc``.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``, where every kernel wrapper takes its plain
 PyTorch version.
 """
+
+__version__ = "0.1.0"

@@ -211,6 +211,14 @@ def prepare_output_dir(cfg: TrainConfig, info) -> str:
     return model_path
 
 
+def claim_accelerator(device: torch.device) -> None:
+    """Start the card's CUDA context on ``device`` before long host work
+    (dataset loads), at the JAX package's call sites, so a card that cannot
+    be used fails there and not after the load.  Nothing on the CPU."""
+    if device.type == "cuda":
+        torch.zeros(1, device=device).sum().item()
+
+
 def load_run_config(model_path: str) -> TrainConfig:
     """Re-load a run's persisted ``cfg.json`` (the JAX package's format)."""
     with open(os.path.join(model_path, "cfg.json")) as f:

@@ -19,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from event3dgs_tpu_torch.cli.common import load_trained_model
+from event3dgs_tpu_torch.cli.common import claim_accelerator, load_trained_model
 from event3dgs_tpu_torch.data.scene import (
     build_camera_batch,
     load_images_array,
@@ -72,6 +72,7 @@ def score_external(folder: str, gt: np.ndarray, device) -> tuple[float, float]:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    claim_accelerator(device)
     cfg, _, params = load_trained_model(args.model_path, args.iteration, device)
     m = cfg.model
 

@@ -36,6 +36,7 @@ from event3dgs_tpu_torch.cli.common import (
     add_model_args,
     add_optimization_args,
     add_pipeline_args,
+    claim_accelerator,
     config_from_args,
     load_scene_and_state,
     mode_from_config,
@@ -159,6 +160,7 @@ def train(args, device: torch.device, mesh=None) -> int:
     import torch.distributed as dist
 
     lead = mesh is None or dist.get_rank() == 0  # writes files and logs
+    claim_accelerator(device)  # before the dataset load
     cfg = config_from_args(args)
     cfg.save_iterations = tuple(
         sorted(set(args.save_iterations) | {cfg.optimization.iterations}))

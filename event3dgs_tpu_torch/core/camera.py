@@ -46,6 +46,10 @@ class Camera:
         )
 
 
+# a Camera whose tensor fields carry a leading batch dimension
+CameraBatch = Camera
+
+
 def make_camera(
     R,
     t,

@@ -89,6 +89,30 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def build_covariance(scaling, rotation, scaling_modifier=1.0):
+    """[..., 3, 3] covariances Σ = (R S)(R S)ᵀ from [..., 3] activated
+    scales and [..., 4] scalar-first quaternions (unnormalized ok), the
+    scales times ``scaling_modifier`` (reference `general_utils.py:101-110`,
+    `gaussian_model.py:27-31`)."""
+    L = quat_to_rotmat(rotation) * (scaling * scaling_modifier)[..., None, :]
+    return L @ L.transpose(-1, -2)
+
+
+def covariance_to_symm6(cov):
+    """Symmetric [..., 3, 3] → [..., 6] (xx, xy, xz, yy, yz, zz), the
+    reference's `strip_symmetric` layout (`general_utils.py:64-76`)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
+
+
+def symm6_to_covariance(sym):
+    """Inverse of :func:`covariance_to_symm6`."""
+    xx, xy, xz, yy, yz, zz = sym.unbind(-1)
+    rows = [torch.stack(r, dim=-1) for r in
+            ((xx, xy, xz), (xy, yy, yz), (xz, yz, zz))]
+    return torch.stack(rows, dim=-2)
+
+
 def inverse_sigmoid(x):
     """log(x / (1-x)), the inverse of the opacity activation
     (`general_utils.py:18`); tensors stay tensors, numbers become numpy."""

@@ -52,6 +52,22 @@
 //    total writes only its sentinels, with 16-byte stores.
 //    Bound: bytes; per live rank its 48-byte table row, its order entry
 //    and offset, per slot 8 bytes written, per live segment its count row.
+//
+// Timing-only builds of K4.  tools/kernel_probes.py builds this file with
+// one of the macros below, each removing one cost term of the expansion
+// named above, as experiments/tools_r5_expandprobe.py timed copies of the
+// TPU kernel with a term isolated.  Without a macro each expands to the
+// shipping code.  The ablated builds write wrong instances and have no
+// plain version.  (The count-row term is the shipping build called
+// without `base`.)
+//   E3D_K4_NOCHAIN  the table rows are read at the rank, not through
+//                   `order`: one link of the chain of dependent loads fewer
+//   E3D_K4_NOSTAGE  no rank staging and no max-scan: every slot expands
+//                   the segment's first rank's row
+//   E3D_K4_NOCULL   no per-slot tile and cull arithmetic: a slot's tile is
+//                   its row's position
+//   E3D_K4_NOSTORE  no 16-byte output stores (the outputs are still
+//                   consumed, behind a test no slot passes)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -369,6 +385,17 @@ expand_kernel(const int4* __restrict__ rect,     // [n] x0, y0, rw, count
   if (base != nullptr) {
     for (int b = tid; b < num_tiles; b += EXPAND_THREADS) bins[b] = 0;
   }
+#ifdef E3D_K4_NOSTAGE
+  if (tid == 0) {
+    const int g0 = order[r0];
+    row_i[0] = make_int4(rect[g0].x, rect[g0].y, rect[g0].z, g0);
+    row_f[0] = cull[2 * g0];
+    row_f[1] = cull[2 * g0 + 1];
+    st.first_offset = offsets[r0];
+  }
+  __syncthreads();
+  int pos[ITEMS] = {0, 0, 0, 0};
+#else
   __syncthreads();
   // every rank with instances in the segment, RANK_ITEMS * EXPAND_THREADS
   // at a time from the first one until a rank starts past it (one pass for
@@ -383,7 +410,11 @@ expand_kernel(const int4* __restrict__ rect,     // [n] x0, y0, rw, count
       const bool in = k < n;
       o[j] = in ? offsets[k] : total;
       o1[j] = in ? offsets[k + 1] : total;
+#ifdef E3D_K4_NOCHAIN
+      g[j] = in ? k : 0;
+#else
       g[j] = in ? order[k] : 0;
+#endif
     }
     bool here[RANK_ITEMS];  // the rank has instances in the segment
     int4 ri[RANK_ITEMS];
@@ -419,6 +450,7 @@ expand_kernel(const int4* __restrict__ rect,     // [n] x0, y0, rw, count
   const int4 m4 = reinterpret_cast<const int4*>(mark)[tid];
   int pos[ITEMS] = {m4.x, m4.y, m4.z, m4.w};
   MarkScan(st.scan).InclusiveScan(pos, pos, MaxOp());
+#endif
   const int first_offset = st.first_offset;
   int tile[ITEMS], gauss[ITEMS];
 #pragma unroll
@@ -429,6 +461,11 @@ expand_kernel(const int4* __restrict__ rect,     // [n] x0, y0, rw, count
     if (i >= end) continue;
     const int p = pos[q];
     const int4 ri = row_i[p];
+#ifdef E3D_K4_NOCULL
+    tile[q] = p;
+    gauss[q] = ri.w;
+    continue;
+#endif
     const float4 c0 = row_f[2 * p], c1 = row_f[2 * p + 1];
     const int j = i - (p == 0 ? first_offset : start + p);
     const int rw = max(ri.z, 1);
@@ -455,12 +492,20 @@ expand_kernel(const int4* __restrict__ rect,     // [n] x0, y0, rw, count
       gauss[q] = ri.w;
     }
   }
+#ifdef E3D_K4_NOSTORE
+  // a slot's tile and Gaussian are never negative: no thread stores
+  if ((tile[0] ^ tile[1] ^ tile[2] ^ tile[3] ^ gauss[0] ^ gauss[1] ^ gauss[2] ^
+       gauss[3]) == (int)0x80000000 && ITEMS * tid < len) {
+    tile_out[start + ITEMS * tid] = gauss[0];
+  }
+#else
   if (ITEMS * tid < len) {
     reinterpret_cast<int4*>(tile_out + start)[tid] =
         make_int4(tile[0], tile[1], tile[2], tile[3]);
     reinterpret_cast<int4*>(gauss_out + start)[tid] =
         make_int4(gauss[0], gauss[1], gauss[2], gauss[3]);
   }
+#endif
   if (base == nullptr) return;
   // integer atomics only form a count, whose value does not depend on
   // their order
@@ -501,7 +546,6 @@ cudaError_t allow_shared_once() {
 
 }  // namespace
 
-// The per-Gaussian tables (conic and opacity may be null).
 // The per-Gaussian tables (conic and opacity may be null); lookback (or
 // null): the depth offsets kernel's state, ceil(n / OFFSETS_TILE) + 1
 // words, cleared.
@@ -560,4 +604,20 @@ extern "C" int e3d_expand_instances(const void* rect, const void* cull,
       offsets, order, seg_rank, n, cap, tiles_x, num_tiles, tile_out,
       gauss_out, base);
   return (int)cudaGetLastError();
+}
+
+// (registers per thread, resident blocks per SM) of the expansion kernel
+// with the shared memory of a launch over num_tiles tiles (0: without the
+// count rows)
+extern "C" int e3d_expand_occupancy(int* regs, int* blocks_per_sm,
+                                    int num_tiles) {
+  cudaError_t err = allow_shared_once();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, expand_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, expand_kernel, EXPAND_THREADS,
+      SEGMENT_SHARED + sizeof(int) * (size_t)num_tiles);
 }

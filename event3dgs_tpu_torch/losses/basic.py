@@ -118,3 +118,13 @@ def ssim_gray(img1: torch.Tensor, img2: torch.Tensor,
               window_size: int = 11) -> torch.Tensor:
     """SSIM on grayscale conversions (`loss_utils.py:368-385`)."""
     return ssim(rgb_to_grayscale(img1), rgb_to_grayscale(img2), window_size)
+
+
+def rgb_to_qe_scale(img: torch.Tensor) -> torch.Tensor:
+    """Quantum-efficiency-weighted gray conversion (reference
+    `rgb_to_QEscale`, `loss_utils.py:29-33`): XYZ-X-row weights
+    0.4124/0.35758/0.1804, channel-last in, [..., H, W, 1] out (a
+    one-channel input is weighted by all three, as the JAX package's
+    broadcast does)."""
+    w = torch.tensor(_LUV_WEIGHTS, dtype=img.dtype, device=img.device)
+    return (img * w).sum(dim=-1, keepdim=True)

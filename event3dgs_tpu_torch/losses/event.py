@@ -1,5 +1,6 @@
-"""Event-camera losses: the differentiable event simulation (counterpart of
-``event3dgs_tpu/losses/event.py:22-104``).
+"""Event-camera losses: the differentiable event simulation and the
+reference's experimental variants (counterpart of
+``event3dgs_tpu/losses/event.py``).
 
 Two consecutively rendered views are turned into a normalized
 log-intensity difference (the event frame a DVS camera with contrast
@@ -7,6 +8,12 @@ threshold C would integrate to) and compared against the same quantity
 computed from event-derived ground-truth intensity pairs.  The contrast of
 the rendered pair is a learnable scalar optimized jointly (reference
 `train.py:71-72,165-196`; loss formula `utils/loss_utils.py:234-249`).
+
+The variants after :func:`event_mixture_loss` are the reference's
+experimental event losses, which no training mode calls.  They keep the
+JAX package's static shapes where those decide the result: the first
+``max_points`` hits in stable order, masked (not dropped) invalid points,
+``argmin`` taking the first minimum.
 """
 
 from __future__ import annotations
@@ -15,7 +22,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from event3dgs_tpu_torch.losses.basic import l1_loss, rgb_to_luv_l
+from event3dgs_tpu_torch.losses.basic import (
+    l1_loss,
+    rgb_to_grayscale,
+    rgb_to_luv_l,
+)
 
 LOG_EPS = 1e-8  # epsilon inside the logs (`loss_utils.py:243`)
 
@@ -76,3 +87,180 @@ def event_mixture_loss(render_now, render_next, render_main, gt_now, gt_next,
         1.0 - coverage)
     return loss, {"event_l1": loss1, "intensity_l1": loss2,
                   "coverage": coverage}
+
+
+def thresholded_event_l1(network_output, gt, thresh: float = 0.5):
+    """Band-tolerant event-count L1 (reference `l1_loss_gray_event`,
+    `loss_utils.py:49-63`): differences within ±thresh of the GT count are
+    free; the negative side is reweighted by the positive/negative count
+    ratio."""
+    out = rgb_to_grayscale(network_output)
+    g = rgb_to_grayscale(gt)
+    abs1 = torch.abs(out - g - thresh)
+    abs2 = torch.abs(g - out - thresh)
+    ratio = (g > 0).sum().to(out.dtype) / torch.clamp(
+        (g < 0).sum().to(out.dtype), min=1.0)
+    loss = torch.where(g > 0, torch.clamp(abs1 - thresh, min=0.0),
+                       torch.clamp(abs2 - thresh, min=0.0) * ratio)
+    return torch.mean(loss)
+
+
+def dice_loss(network_output, gt, smooth: float = 1e-8):
+    """Dice overlap loss on grayscale frames (reference `Dice_Loss`,
+    `loss_utils.py:64-78`)."""
+    out = rgb_to_grayscale(network_output)
+    g = rgb_to_grayscale(gt)
+    dice = (2.0 * (out * g) + smooth) / (out + g + smooth)
+    return torch.mean(1.0 - dice)
+
+
+def cross_entropy_event_loss(img_diff, gt_image):
+    """Cross-entropy between max-normalized event frames (reference
+    `cross_entropy_loss`, `loss_utils.py:101-126`): both frames grayscaled,
+    |·|-normalized by their max and flattened into a [2, HW] logit matrix
+    scored against the targets (0, 1), then divided by 10."""
+    d = rgb_to_grayscale(img_diff)
+    g = rgb_to_grayscale(gt_image)
+    d = torch.abs(d) / torch.clamp(torch.max(torch.abs(d)), min=LOG_EPS)
+    g = torch.abs(g) / torch.clamp(torch.max(torch.abs(g)), min=LOG_EPS)
+    rows = torch.stack([d.reshape(-1), g.reshape(-1)])
+    nll = torch.logsumexp(rows, dim=1) - torch.stack([rows[0, 0], rows[1, 1]])
+    return torch.mean(nll) / 10.0
+
+
+def quadratic_tolerance_loss(network_output, gt, tolerance: float = 0.2):
+    """Dead-band quadratic event loss (reference `l1_loss_event_new`,
+    `loss_utils.py:272-283`): differences within ±tolerance are free, the
+    excess is scaled by 1000 and squared."""
+    abs_diff = torch.abs(network_output - gt)
+    pixel = torch.where(abs_diff < tolerance, torch.zeros_like(abs_diff),
+                        ((abs_diff - tolerance) * 1000.0) ** 2)
+    return torch.mean(pixel)
+
+
+def _first_hits(mask, k: int):
+    """The indices of the first ``k`` entries of ``mask`` (last axis) that
+    are set, in stable order, then the unset ones: (indices, set)."""
+    order = torch.argsort((~mask).to(torch.int8), dim=-1, stable=True)[..., :k]
+    return order, torch.gather(mask, -1, order)
+
+
+def _masked_nn_mean_dist(src_xy, src_valid, dst_xy, dst_valid):
+    """Mean 2D distance from each valid src point to its nearest valid dst;
+    invalid rows are pushed to +inf instead of being dropped."""
+    d2 = torch.sum((src_xy[:, None, :] - dst_xy[None, :, :]) ** 2, dim=-1)
+    d2 = torch.where(dst_valid[None, :], d2, torch.full_like(d2, float("inf")))
+    dist = torch.sqrt(torch.clamp(torch.min(d2, dim=1).values, min=0.0))
+    denom = torch.clamp(src_valid.sum().to(dist.dtype), min=1.0)
+    return torch.sum(torch.where(src_valid, dist, torch.zeros_like(dist))) / denom
+
+
+def pointcloud_nn_loss(network_output, gt, threshold: float = 0.9,
+                       max_points: int = 9000):
+    """Nearest-neighbour point-cloud event loss (reference `l1_loss_event`,
+    `loss_utils.py:284-355`): pixels above +threshold / below -threshold
+    form point sets matched to the same-polarity GT sets; the loss is the
+    mean distance from each rendered event point to its nearest GT one
+    (each set its first ``max_points`` hits, where the reference draws a
+    randperm).  Plain L1 when any set is empty, as the reference."""
+    out = network_output.reshape(-1)
+    g = gt.reshape(-1)
+    h, w = gt.shape[-3], gt.shape[-2]
+    if gt.ndim == 2:
+        h, w = gt.shape
+    idx = torch.arange(g.shape[0], device=g.device)
+    xy = torch.stack([(idx // w).to(torch.float32),
+                      (idx % w).to(torch.float32)], dim=1)
+
+    def select(mask):
+        order, valid = _first_hits(mask, max_points)
+        return xy[order], valid
+
+    d_pos = _masked_nn_mean_dist(*select(out > threshold),
+                                 *select(g > threshold))
+    d_neg = _masked_nn_mean_dist(*select(out < -threshold),
+                                 *select(g < -threshold))
+    have_all = ((out > threshold).any() & (g > threshold).any()
+                & (out < -threshold).any() & (g < -threshold).any())
+    return torch.where(have_all, d_pos + d_neg, l1_loss(network_output, gt))
+
+
+def chamfer_event_loss(img_diff, gt_image, grid: int = 5,
+                       threshold: float = 0.85, band: float = 2.0,
+                       max_points: int = 1024):
+    """Sub-sampled chamfer event loss (reference `chamfer_loss` +
+    `chamfer_loss_bas`, `loss_utils.py:127-230`).
+
+    The image is decimated into ``grid``² strided sub-images; per sub-image,
+    pixels with |value| > threshold become (row, col, value) points split by
+    sign, each GT point is matched to the nearest rendered point of the same
+    polarity (3D distance over coordinates and value), and the mean of
+    relu(|gt − match − band| − band) is accumulated.
+    """
+    d = rgb_to_grayscale(img_diff)[..., 0]
+    g = rgb_to_grayscale(gt_image)[..., 0]
+    hh = (d.shape[0] // grid) * grid
+    ww = (d.shape[1] // grid) * grid
+    sub_h, sub_w = hh // grid, ww // grid
+
+    def subs(x):  # [grid², sub_h · sub_w]: one strided sub-image per phase
+        x = x[:hh, :ww].reshape(sub_h, grid, sub_w, grid)
+        return x.permute(1, 3, 0, 2).reshape(grid * grid, sub_h * sub_w)
+
+    dv, gv = subs(d), subs(g)
+    idx = torch.arange(sub_h * sub_w, device=d.device)
+    coords = torch.stack([(idx // sub_w).to(torch.float32),
+                          (idx % sub_w).to(torch.float32)], dim=1)
+    k = min(max_points, sub_h * sub_w)
+
+    def points(v, mask):
+        order, valid = _first_hits(mask, k)
+        return torch.cat([coords[order], torch.gather(v, 1, order)[..., None]],
+                         dim=-1), valid
+
+    def side(sign):
+        dp, dvalid = points(dv, sign * dv > threshold)
+        gp, gvalid = points(gv, sign * gv > threshold)
+        dist2 = torch.sum((dp[:, :, None, :] - gp[:, None, :, :]) ** 2, dim=-1)
+        dist2 = torch.where(dvalid[:, :, None], dist2,
+                            torch.full_like(dist2, float("inf")))
+        nearest = torch.argmin(dist2, dim=1)  # per GT point, the first minimum
+        matched = torch.gather(dp, 1, nearest[..., None].expand(-1, -1, 3))
+        resid = (torch.abs(gp - matched - band) if sign > 0
+                 else torch.abs(matched - gp - band))
+        pen = torch.clamp(resid - band, min=0.0)
+        ok = gvalid & (dvalid.sum(dim=1, keepdim=True) > 0)
+        denom = torch.clamp(ok.sum(dim=1) * 3, min=1)
+        return torch.where(ok[..., None], pen,
+                           torch.zeros_like(pen)).sum(dim=(1, 2)) / denom
+
+    return torch.mean(0.5 * (side(1.0) + side(-1.0)))
+
+
+def filtered_event_l1(network_output, gt):
+    """Neighborhood-tolerant event L1 (after `l1_filter_loss_gray_event`,
+    `loss_utils.py:79-100`): the absolute grayscale difference box-filtered
+    over a 1×2 window (÷2), then averaged; padded by the one column the
+    window needs (the JAX package's cleaned-up border, not the
+    reference's)."""
+    if network_output.shape[-1] == 3:
+        network_output = rgb_to_grayscale(network_output)
+    if gt.shape[-1] == 3:
+        gt = rgb_to_grayscale(gt)
+    abs_diff = torch.abs(network_output - gt)[..., 0]
+    padded = F.pad(abs_diff, (0, 1))
+    return torch.mean((padded[:, :-1] + padded[:, 1:]) / 2.0)
+
+
+def soft_threshold(x, contrast: float = 0.3, width: float = 10.0):
+    """Differentiable event-threshold gate (reference
+    `differentialable_threld`, `loss_utils.py:231-232`):
+    ``sign(x)·sigmoid(w·(|x| − C))``."""
+    return torch.sign(x) / (1.0 + torch.exp(width * (contrast - torch.abs(x))))
+
+
+def normalize_image(image):
+    """Min-max normalize to [0, 1] (reference `normalize_image`,
+    `loss_utils.py:34-39`)."""
+    lo, hi = torch.min(image), torch.max(image)
+    return (image - lo) / torch.clamp(hi - lo, min=1e-12)

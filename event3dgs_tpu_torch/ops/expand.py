@@ -140,10 +140,14 @@ def expand_instances_plain(rect, cull, offsets, order, seg_rank,
     return Expansion(tile, gauss, rows)
 
 
-def expand_instances_kernel(rect, cull, offsets, order, seg_rank,
+def launch_expand_instances(rect, cull, offsets, order, seg_rank,
                             instance_cap: int, tiles_x: int, num_tiles: int,
-                            count_rows: bool = False) -> Expansion:
-    """Launch K4 (``csrc/expand.cu``) on CUDA tensors."""
+                            count_rows: bool = False,
+                            defines=()) -> Expansion:
+    """Check K4's arguments and launch the build of ``csrc/expand.cu`` with
+    the macros ``defines`` (none: the shipping K4) on CUDA tensors.  The
+    timing-only builds are launched through here by
+    ``tools/kernel_probes.py``."""
     n = order.shape[0]
     kernels.check(rect, torch.int32, "rect", (n, RECT_COLS))
     kernels.check(cull, torch.float32, "cull", (n, CULL_COLS))
@@ -168,8 +172,17 @@ def expand_instances_kernel(rect, cull, offsets, order, seg_rank,
         rect.data_ptr(), cull.data_ptr(), offsets.data_ptr(), order.data_ptr(),
         seg_rank.data_ptr(), n, instance_cap, tiles_x, num_tiles,
         out.tile.data_ptr(), out.gauss.data_ptr(),
-        out.rows.data_ptr() if count_rows else None,
+        out.rows.data_ptr() if count_rows else None, defines=defines,
     )
+    return out
+
+
+def expand_instances_kernel(rect, cull, offsets, order, seg_rank,
+                            instance_cap: int, tiles_x: int, num_tiles: int,
+                            count_rows: bool = False) -> Expansion:
+    """Launch K4 (``csrc/expand.cu``) on CUDA tensors."""
+    out = launch_expand_instances(rect, cull, offsets, order, seg_rank,
+                                  instance_cap, tiles_x, num_tiles, count_rows)
     expand_instances_kernel.launches += 1
     return out
 

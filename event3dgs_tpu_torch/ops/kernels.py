@@ -9,6 +9,13 @@ the source, the headers of ``csrc/`` it includes and the flags, so a
 changed source or header is rebuilt.  Importing this module never runs
 ``nvcc``.
 
+A build may carry ``-D`` macros (``defines``): the timing-only variants
+of ``tools/kernel_probes.py`` (K1 and K4 with one cost term ablated) are
+the shipping sources built with one or more of them.  The macros enter the
+digest and the library's name, so each variant is its own cached library;
+with no macros the digest and the name are the shipping library's.
+Nothing on the render or training path passes macros.
+
 ``-fmad=false`` is part of the build: the table kernel's rects and cull
 data, the expansion kernel's ellipse cull and the compositing kernels'
 alpha must round like their plain PyTorch versions, which run one rounding per operation, and the backward kernel
@@ -57,6 +64,8 @@ SIGNATURES = {
         # tile_out, gauss_out, count rows out (or null), stream
         "e3d_expand_instances": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                  _P, _P],
+        # registers, blocks per SM, num_tiles (0: no count rows)
+        "e3d_expand_occupancy": [_IP, _IP, _I],
     },
     "sort_tiles": {
         # ids, n_ids, n_live, n_bins, segment_base scratch, counts_out,
@@ -77,6 +86,11 @@ SIGNATURES = {
         "e3d_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                   _P],
         "e3d_composite_forward_occupancy": [_IP, _IP],
+        # only in the build with E3D_CLOCK (tools/kernel_probes.py):
+        # e3d_composite_forward's arguments, then the int64 [num_tiles, 2]
+        # block clock (%globaltimer at entry and exit), stream
+        "e3d_composite_forward_clock": [_P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                        _P, _P, _P, _P],
     },
     "rasterize_bwd": {
         # inst_gauss, tile_offsets, tile_counts, feat, num_tiles, tiles_x,
@@ -90,9 +104,14 @@ SIGNATURES = {
         # stream
         "e3d_segment_sums": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
     },
+    "probes": {
+        # x, capacity (blocks of 1,024 floats), n (a device int), partials
+        # scratch, arrival counter, out, stream
+        "e3d_dyngrid_sum": [_P, _I, _P, _P, _P, _P, _P],
+    },
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -104,6 +123,7 @@ def _nvcc() -> str:
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+_MACRO = re.compile(r"[A-Z][A-Z0-9_]*(=[0-9]+)?")
 
 
 def sources(name: str) -> list[Path]:
@@ -120,77 +140,109 @@ def sources(name: str) -> list[Path]:
     return out
 
 
-def library_path(name: str) -> Path:
+def _defines(defines) -> tuple[str, ...]:
+    defines = tuple(defines)
+    for d in defines:
+        if not _MACRO.fullmatch(d):
+            raise ValueError(f"not a macro name: {d!r}")
+    return defines
+
+
+def library_path(name: str, defines=()) -> Path:
+    """The cached library of source ``name`` built with the ``-D`` macros
+    ``defines`` (none: the shipping library)."""
+    defines = _defines(defines)
     h = hashlib.sha256()
     for path in sources(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    if not defines:
+        return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+    h.update(b"\0" + " ".join(f"-D{d}" for d in defines).encode())
+    return BUILD_DIR / f"lib{name}+{'+'.join(defines)}_{h.hexdigest()[:12]}.so"
+
+
+def build_key(name: str, defines=()) -> str:
+    """How :func:`build` names a build in its report: the source, and its
+    macros after a ``+`` each."""
+    return "+".join((name,) + _defines(defines))
 
 
 def build(names=None) -> dict[str, str]:
     """Compile the named sources (default: all) that are not built yet.
 
-    One ``nvcc`` per source, all started together.  Returns, per source,
-    what the compiler reported (``-Xptxas -v``: registers, shared memory,
+    An entry of ``names`` is a source name (the shipping build) or a
+    ``(name, macros)`` pair.  One ``nvcc`` per build,
+    all started together.  Returns, per build (:func:`build_key`), what
+    the compiler reported (``-Xptxas -v``: registers, shared memory,
     spills of each kernel), or the saved report of an earlier build.
     Raises if any compile fails.
     """
     names = list(SIGNATURES) if names is None else list(names)
+    builds = [(n, ()) if isinstance(n, str) else (n[0], _defines(n[1]))
+              for n in names]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
+    for name, macros in builds:
+        out = library_path(name, macros)
+        if out.exists() or out in procs:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, out, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        procs[out] = (build_key(name, macros), tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in macros), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
-    for name, (tmp, out, proc) in procs.items():
+    for out, (key, tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{log}")
+            failed.append(f"{key}:\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return {n: library_path(n).with_suffix(".log").read_text() for n in names}
+    return {build_key(n, m): library_path(n, m).with_suffix(".log").read_text()
+            for n, m in builds}
 
 
-def function(name: str, fn: str):
-    """The bound C launch function ``fn`` of source ``name`` (built on first
-    use)."""
-    lib = _loaded.get(name)
+def function(name: str, fn: str, defines=()):
+    """The bound C launch function ``fn`` of source ``name`` built with the
+    macros ``defines`` (built on first use)."""
+    defines = _defines(defines)
+    lib = _loaded.get((name, defines))
     if lib is None:
-        path = library_path(name)
+        path = library_path(name, defines)
         if not path.exists():
-            build([name])
+            build([(name, defines)])
         lib = ctypes.CDLL(str(path))
-        for f, argtypes in SIGNATURES[name].items():
-            getattr(lib, f).argtypes = argtypes
-            getattr(lib, f).restype = ctypes.c_int
-        _loaded[name] = lib
-    return getattr(lib, fn)
+        _loaded[(name, defines)] = lib
+    argtypes = SIGNATURES[name].get(fn)
+    if argtypes is None:
+        raise KeyError(f"{fn}: not a C function of {build_key(name, defines)}")
+    f = getattr(lib, fn)
+    f.argtypes, f.restype = argtypes, ctypes.c_int
+    return f
 
 
-def occupancy(name: str, fn: str) -> tuple[int, int]:
+def occupancy(name: str, fn: str, *args, defines=()) -> tuple[int, int]:
     """(registers per thread, resident blocks per SM) of the kernel that
-    the C function ``fn`` of source ``name`` reports on."""
+    the C function ``fn`` of source ``name`` (built with ``defines``)
+    reports on; ``args`` follow the two outputs."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
-    err = function(name, fn)(ctypes.byref(regs), ctypes.byref(blocks))
+    err = function(name, fn, defines)(ctypes.byref(regs), ctypes.byref(blocks),
+                                      *args)
     if err != 0:
         raise RuntimeError(f"{fn} failed: cudaError_t {err}")
     return regs.value, blocks.value
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call a launch function on the current stream; raise on its error."""
+def launch(name: str, fn: str, *args, defines=()) -> None:
+    """Call a launch function (of the build with ``defines``) on the
+    current stream; raise on its error."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = function(name, fn)(*args, stream)
+    err = function(name, fn, defines)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: cudaError_t {err}")
 

@@ -230,9 +230,14 @@ def composite_forward_plain(inst_gauss, tile_offsets, tile_counts, feat,
     return rgb, logt, stop.contiguous()
 
 
-def composite_forward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
-                             tiles_x: int, width: int, height: int):
-    """Launch K1 (``csrc/rasterize_fwd.cu``) on CUDA tensors."""
+def launch_composite_forward(inst_gauss, tile_offsets, tile_counts, feat,
+                             tiles_x: int, width: int, height: int,
+                             defines=(), clock=None):
+    """Check K1's arguments and launch the build of ``csrc/rasterize_fwd.cu``
+    with the macros ``defines`` (none: the shipping K1) on CUDA tensors;
+    ``clock``, an int64 [num_tiles, 2] tensor, takes the blocks' entry and
+    exit times (a build with ``E3D_CLOCK``).  The timing-only builds are
+    launched through here by ``tools/kernel_probes.py``."""
     num_tiles = tile_counts.shape[0]
     kernels.check(inst_gauss, torch.int32, "inst_gauss")
     kernels.check(tile_offsets, torch.int32, "tile_offsets", (num_tiles,))
@@ -244,14 +249,26 @@ def composite_forward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
     rgb = torch.empty(height, width, 3, dtype=torch.float32, device=dev)
     logt = torch.empty(height, width, dtype=torch.float32, device=dev)
     stop = torch.empty(height, width, dtype=torch.int32, device=dev)
-    kernels.launch(
-        "rasterize_fwd", "e3d_composite_forward",
-        inst_gauss.data_ptr(), tile_offsets.data_ptr(), tile_counts.data_ptr(),
-        feat.data_ptr(), num_tiles, tiles_x, width, height, rgb.data_ptr(),
-        logt.data_ptr(), stop.data_ptr(),
-    )
-    composite_forward_kernel.launches += 1
+    args = (inst_gauss.data_ptr(), tile_offsets.data_ptr(),
+            tile_counts.data_ptr(), feat.data_ptr(), num_tiles, tiles_x, width,
+            height, rgb.data_ptr(), logt.data_ptr(), stop.data_ptr())
+    if clock is None:
+        kernels.launch("rasterize_fwd", "e3d_composite_forward", *args,
+                       defines=defines)
+    else:
+        kernels.check(clock, torch.int64, "clock", (num_tiles, 2))
+        kernels.launch("rasterize_fwd", "e3d_composite_forward_clock", *args,
+                       clock.data_ptr(), defines=defines)
     return rgb, logt, stop
+
+
+def composite_forward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
+                             tiles_x: int, width: int, height: int):
+    """Launch K1 (``csrc/rasterize_fwd.cu``) on CUDA tensors."""
+    out = launch_composite_forward(inst_gauss, tile_offsets, tile_counts,
+                                   feat, tiles_x, width, height)
+    composite_forward_kernel.launches += 1
+    return out
 
 
 composite_forward_kernel.launches = 0

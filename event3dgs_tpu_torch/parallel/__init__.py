@@ -17,7 +17,12 @@ Counterpart of ``event3dgs_tpu/parallel``:
 
 from event3dgs_tpu_torch.parallel.compose import merge_depth_partials, view_depth_ranks
 from event3dgs_tpu_torch.parallel.exchange import render_view_exchange
-from event3dgs_tpu_torch.parallel.mesh import data_sharding, gauss_sharding, make_mesh
+from event3dgs_tpu_torch.parallel.mesh import (
+    data_sharding,
+    gauss_sharding,
+    make_mesh,
+    replicated,
+)
 from event3dgs_tpu_torch.parallel.partition import repartition_by_depth
 from event3dgs_tpu_torch.parallel.sharded_train import (
     make_sharded_train_step,
@@ -34,6 +39,7 @@ __all__ = [
     "merge_depth_partials",
     "render_view_exchange",
     "repartition_by_depth",
+    "replicated",
     "shard_train_state",
     "state_partition_specs",
     "unshard_state",

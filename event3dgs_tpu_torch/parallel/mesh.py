@@ -122,6 +122,12 @@ def _block(n: int, parts: int, index: int, what: str) -> slice:
     return slice(index * per, (index + 1) * per)
 
 
+def replicated(mesh: Mesh) -> slice:
+    """What every rank holds of a replicated axis: all of it (the JAX
+    package's ``NamedSharding(mesh, P())``)."""
+    return slice(None)
+
+
 def data_sharding(mesh: Mesh, n: int) -> slice:
     """This rank's block of a leading axis of ``n`` sharded over ``data``."""
     return _block(n, mesh.data, mesh.data_rank, "batch")

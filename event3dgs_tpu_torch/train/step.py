@@ -19,7 +19,7 @@ projected means; the tap's gradient is what the reference reads from
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -73,6 +73,34 @@ def _lr_tree(opt_cfg: OptimizationConfig, step: int, spatial_scale: float) -> di
     }
 
 
+class StepInputs(NamedTuple):
+    """The leaves a step differentiates and what it renders from them."""
+
+    leaves: dict  # the six trainable tensors, detached, requiring grad
+    contrast: torch.Tensor  # the raw contrast, requiring grad
+    tap: torch.Tensor  # [C, 2] zeros requiring grad (the mean2d tap)
+    act: object  # the activated Gaussians of ``leaves``
+    features: torch.Tensor  # their SH features, masked to the active degree
+
+
+def step_inputs(state: TrainState, max_sh_degree: int = 3) -> StepInputs:
+    """The differentiable inputs of ``state``'s next step: fresh leaves of
+    its trainable tensors and contrast, the zero tap, and the activated
+    Gaussians with their SH features masked to the step's degree."""
+    params = state.params
+    dev = params.device
+    step = int(state.step) + 1  # reference iterations start at 1
+    cmask = sh_coeff_mask(active_sh_degree(step, max_sh_degree),
+                          (max_sh_degree + 1) ** 2, device=dev)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in trainable_dict(params).items()}
+    contrast = state.contrast.detach().requires_grad_(True)
+    tap = torch.zeros(params.capacity, 2, device=dev, requires_grad=True)
+    act = activated(with_trainable(params, leaves))
+    return StepInputs(leaves, contrast, tap, act,
+                      act.features * cmask[None, :, None])
+
+
 def make_loss_and_grads(
     mode: str,
     event_cfg: EventConfig,
@@ -93,18 +121,8 @@ def make_loss_and_grads(
 
     def loss_and_grads(state: TrainState, data: SceneData, idx_main: int,
                        idx_now: int, idx_next: int, bg: torch.Tensor):
-        params = state.params
-        dev = params.device
-        step = int(state.step) + 1  # reference iterations start at 1
-        cmask = sh_coeff_mask(active_sh_degree(step, max_sh_degree),
-                              (max_sh_degree + 1) ** 2, device=dev)
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in trainable_dict(params).items()}
-        contrast = state.contrast.detach().requires_grad_(True)
-        tap = torch.zeros(params.capacity, 2, device=dev, requires_grad=True)
-
-        act = activated(with_trainable(params, leaves))
-        features = act.features * cmask[None, :, None]
+        leaves, contrast, tap, act, features = step_inputs(state,
+                                                           max_sh_degree)
 
         def render_view(cam, tap=None):
             return render(act.means3d, features, act.opacities, act.scales,

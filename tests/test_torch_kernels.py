@@ -511,6 +511,89 @@ def test_composite_kernel_matches_plain_version(name):
                                atol=1e-6, rtol=0)
 
 
+def _composite_inputs(name, device):
+    """One scene's K1 arguments and K4's (tables and depth order)."""
+    proj, colors, opac, w, h = scene(**SCENES[name], device=device)
+    cap = rt.default_instance_cap(proj.mean2d.shape[0])
+    targs = (proj.mean2d, proj.depth, proj.radius, proj.valid, w, h)
+    b = binning.bin_gaussians(*targs, cap, opacities=opac, conic=proj.conic)
+    tables = binning.gaussian_tables(*targs, opacities=opac, conic=proj.conic)
+    feat = rt.pack_features(proj.mean2d, proj.conic, colors, opac)
+    return ((b.inst_gauss, b.tile_offsets, b.tile_counts, feat, b.num_tiles_x,
+             w, h),
+            (tables.rect, tables.cull, *binning.depth_order(tables, cap), cap,
+             b.num_tiles_x, b.tile_counts.shape[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["base", "clock"])
+@pytest.mark.parametrize("name", ["dense_opaque", "wide_frame"])
+def test_k1_probe_builds_with_the_shipping_arithmetic_equal_k1(name, variant):
+    """The probes' K1 ``base`` (the shipping library) and ``clock`` (its
+    arithmetic with block timers) give the shipping K1's outputs bit for
+    bit; ``clock`` writes each block's entry before its exit."""
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+
+    need_card()
+    args, _ = _composite_inputs(name, "cuda")
+    v = kp.K1_VARIANTS[variant]
+    clock = None
+    if variant == "clock":
+        clock = torch.zeros(args[2].shape[0], 2, dtype=torch.int64, device="cuda")
+    got = v(*args, clock=clock)
+    want = rt.composite_forward_kernel(*args)
+    for g, k in zip(got, want):
+        assert torch.equal(g, k)
+    if variant == "base":
+        assert kernels.library_path(v.source, v.defines) == \
+            kernels.library_path("rasterize_fwd")
+    else:
+        assert bool((clock[:, 1] >= clock[:, 0]).all() and (clock[:, 0] > 0).all())
+
+
+@pytest.mark.gpu
+def test_every_probe_build_compiles_and_launches():
+    """Each timing-only build of K1 and K4 compiles, reports its kernel to
+    ``-Xptxas -v`` and launches on a small scene."""
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+    from event3dgs_tpu_torch.tools import kernel_timing as kt
+
+    need_card()
+    logs = kernels.build(kp.variant_builds())
+    k1_args, k4_args = _composite_inputs("binning_seed0", "cuda")
+    for v in kp.variants():
+        kernel = ("composite_forward_kernel" if v.kernel == "K1"
+                  else "expand_kernel")
+        assert kt.ptxas_report(logs[kernels.build_key(v.source, v.defines)],
+                               kernel)["registers"] > 0
+        clock = None
+        if v.name == "clock":
+            clock = torch.zeros(k1_args[2].shape[0], 2, dtype=torch.int64,
+                                device="cuda")
+        out = v(*k1_args, clock=clock) if v.kernel == "K1" else v(*k4_args)
+        torch.cuda.synchronize()
+        assert out[0].shape[0] > 0, v.label
+
+
+@pytest.mark.gpu
+def test_dyngrid_kernel_in_a_cuda_graph_serves_a_changing_count():
+    """The probe kernel, captured once at capacity, replayed with n = 3 then
+    n = 7 written into device memory: 3·1024, then 7·1024, bit-equal to
+    the plain version; then over the seeded input, whose sums depend on
+    the block order, at those counts, at 0, -1 and past capacity (clamped)
+    and at 3 again, each bit-equal to the plain version."""
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+
+    need_card()
+    rec = kp.dyngrid("cuda")
+    assert rec["replays"] == {"3": 3072.0, "7": 7168.0}
+    assert rec["equal_to_plain"] == {"3": True, "7": True}
+    assert rec["order_sensitive"] == {"3": True, "7": True}
+    assert rec["seeded_equal_to_plain"] == {
+        str(n): True for n in kp.DYNGRID_SEEDED_COUNTS}
+    assert rec["max_abs_err"] == 0.0
+
+
 def _backward_inputs(name, cap, device):
     """One scene's binning, K1 outputs and random image cotangents."""
     proj, colors, opac, w, h = scene(**SCENES[name], device=device)
