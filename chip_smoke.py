@@ -120,6 +120,24 @@ Phases (any failed check exits non-zero; nothing is caught):
    counts its wrapper's calls in that run, the 20 calls captured into a
    CUDA graph for ``graph_ms`` included and their replays not.
 
+13. (After phase 12, before phase 11.) ``pipeline.fused_steps``: at
+   phases 7-8's training state with 8 views (the loop's event-mode view
+   pick needs 6), ``train_loop`` for 60 event iterations, log every 10,
+   with ``fused_steps`` 1 (eager) and 10 (a CUDA graph of the step,
+   replayed once per step): losses within rtol 2e-5 / atol 1e-6 and
+   final parameters within 3e-3 of the eager loop's; each kernel
+   launched 3 times per eager step, and in the fused loop only in the
+   warm-up steps and the capture (9 launches), with 60 graph replays.
+   Printed beside the card's name and power limit: the capture time, host
+   ms per step and ``bench.py``'s pixels/s of both loops over iterations
+   11-60, the device ms per replayed step (CUDA events around 10 replays,
+   5 windows), the peak memory of both loops and what the fused steps
+   reserve.  Then a graph swap: 12 iterations densifying at 5 and 10 with
+   capacity growth (the instance cap re-measured upward), captured again
+   after each, against the eager loop; and ``cli.train --fused_steps 3``
+   on phase 6's scene as phase 6 runs it, ending with phase 6's alive
+   count and launching the kernels in its captures only.
+
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
 (pixel, instance) pairs (the work the function needs) and the earlier
@@ -180,6 +198,12 @@ CUDA_BASELINE_PIX_S = 30e6  # bench.py's yardstick for vs_baseline
 STEP_ITERS = 50
 WARMUP_STEPS = 3
 STEP_TURN = 10  # phase 11: steps timed in each of its four turns
+# phase 13: pipeline.fused_steps against the per-step loop; the loop's
+# event-mode view pick needs at least 6 views, so bench.py's state with 8
+FUSED_VIEWS = 8
+FUSED_ITERS = 60
+FUSED_STEPS = 10
+FUSED_LOG = 10  # log_every: the host clock is read at these ticks
 
 
 def fail(msg: str):
@@ -1932,6 +1956,235 @@ def print_probe_tables(rec):
               "in graph time")
 
 
+@contextlib.contextmanager
+def fused_runs():
+    """Every ``FusedSteps`` the training loops inside make, in order: their
+    capture times and graph replays (the kernels' launch counts see only
+    the warm-up steps and the captures)."""
+    from event3dgs_tpu_torch.train.fused import GraphCache
+
+    made, get = [], GraphCache.get
+
+    def watched(self, *args):
+        entry = get(self, *args)
+        if not made or made[-1] is not entry:
+            made.append(entry)
+        return entry
+
+    GraphCache.get = watched
+    try:
+        yield made
+    finally:
+        GraphCache.get = get
+
+
+def fused_loop(state, data, cfg, iters):
+    """``train_loop`` in event mode (extent 3.0, bench.py's
+    spatial_lr_scale) with every launch count at 0 before it: (result,
+    launches, host clock at each log tick, on_metrics events, peak device
+    bytes, the fused steps it made)."""
+    import torch
+
+    from event3dgs_tpu_torch.train.loop import TrainCallbacks, train_loop
+
+    stamps, events = {}, []
+
+    def on_metrics(it, metrics):
+        events.append((it, metrics))
+        if "loss" in metrics:
+            stamps[it] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fused_runs() as made:
+        res, launches = count_launches(lambda: train_loop(
+            state, data, cfg, "event", 3.0, iterations=iters,
+            callbacks=TrainCallbacks(on_metrics=on_metrics,
+                                     log_every=FUSED_LOG)))
+    return (res, launches, stamps, events, torch.cuda.max_memory_allocated(),
+            made)
+
+
+def check_same_run(what, eager, fused):
+    """The fused loop's losses against the eager loop's (the JAX fused-loop
+    test's rtol 2e-5 / atol 1e-6) and its parameters (atol 3e-3): the
+    largest differences."""
+    h1, hf = np.asarray(eager.history), np.asarray(fused.history)
+    check(len(h1) == len(hf) and np.isfinite(h1).all()
+          and np.isfinite(hf).all(), f"{what}: losses missing or not finite")
+    loss_err = float(np.abs(hf - h1).max())
+    check(np.allclose(hf, h1, rtol=2e-5, atol=1e-6),
+          f"{what}: losses differ by {loss_err:.3g}")
+    check(fused.state.params.capacity == eager.state.params.capacity,
+          f"{what}: capacities differ")
+    param_err = max(
+        (getattr(fused.state.params, f) - getattr(eager.state.params, f))
+        .abs().max().item()
+        for f in ("xyz", "features_dc", "features_rest", "scaling",
+                  "rotation", "opacity"))
+    check(param_err <= 3e-3, f"{what}: parameters differ by {param_err:.3g}")
+    return loss_err, param_err
+
+
+def fused_path(root: str, dev):
+    """Phase 13: ``pipeline.fused_steps`` (a CUDA graph of the event step,
+    replayed once per step) against the per-step loop, at bench.py's
+    training state with 8 views, through a densify with capacity growth,
+    and through ``cli.train --fused_steps 3`` on phase 6's scene."""
+    import torch
+
+    from event3dgs_tpu_torch.cli.train import main as train_main
+    from event3dgs_tpu_torch.tools import kernel_timing
+    from event3dgs_tpu_torch.train.fused import WARMUP_STEPS, FusedSteps
+    from event3dgs_tpu_torch.train.step import GraphTrainStep
+    from event3dgs_tpu_torch.utils.config import OptimizationConfig, TrainConfig
+
+    smi = card()
+    per_capture = 3 * (WARMUP_STEPS + 1)  # launches of each kernel
+    state, data, icap = kernel_timing.bench_state(dev, N_GAUSSIANS, WIDTH,
+                                                  HEIGHT, views=FUSED_VIEWS)
+    print(f"phase 13: bench.py's training state with {FUSED_VIEWS} views "
+          f"({N_GAUSSIANS} Gaussians, {WIDTH}x{HEIGHT}, instance cap {icap}), "
+          f"{FUSED_ITERS} event iterations, log every {FUSED_LOG}")
+    runs = {}
+    for fused in (1, FUSED_STEPS):
+        cfg = TrainConfig()
+        cfg.pipeline.fused_steps = fused
+        runs[fused] = fused_loop(state, data, cfg, FUSED_ITERS)
+    (r1, n1, t1, _, peak1, _), (rf, nf, tf, ef, peakf, made) = (
+        runs[1], runs[FUSED_STEPS])
+    loss_err, param_err = check_same_run("fused_steps 10", r1, rf)
+    for k, n in n1.items():
+        check(n == 3 * FUSED_ITERS, f"eager loop: {k} launched {n} times")
+    captures = [m["graph_capture_ms"] for _, m in ef if "graph_capture_ms" in m]
+    check(len(captures) == len(made) == 1, f"{len(captures)} graphs captured")
+    for k, n in nf.items():
+        check(n == per_capture, f"fused loop: {k} launched {n} times, not "
+              f"{per_capture} (warm-up and capture only)")
+    replays = sum(e.replays for e in made)
+    check(replays == FUSED_ITERS, f"{replays} replays for {FUSED_ITERS} steps")
+    print(f"phase 13: losses of fused_steps {FUSED_STEPS} vs 1 max |diff| "
+          f"{loss_err:.3g} (0 expected), final parameters max |diff| "
+          f"{param_err:.3g}; launches eager {n1}; fused {nf} (warm-up and "
+          f"capture), {replays} graph replays")
+
+    # host clock per step over iterations 11-60 (the first window holds the
+    # capture and, in both loops, the first steps' warm-up)
+    window = FUSED_ITERS - FUSED_LOG
+    ms = {f: (t[FUSED_ITERS] - t[FUSED_LOG]) / window * 1e3
+          for f, t in ((1, t1), (FUSED_STEPS, tf))}
+    pix = {f: 3 * WIDTH * HEIGHT / (v / 1e3) for f, v in ms.items()}
+    print(f"phase 13: graph capture {captures[0]:.1f} ms (warm-up "
+          f"{WARMUP_STEPS} steps + capture); host clock per step over "
+          f"iterations {FUSED_LOG + 1}-{FUSED_ITERS}: eager {ms[1]:.3f} ms "
+          f"({pix[1]:.1f} pixels/s), fused_steps {FUSED_STEPS} "
+          f"{ms[FUSED_STEPS]:.3f} ms ({pix[FUSED_STEPS]:.1f} pixels/s), "
+          f"{ms[1] / ms[FUSED_STEPS]:.2f}x; peak memory eager "
+          f"{peak1 / 2**20:.1f} MiB, fused {peakf / 2**20:.1f} MiB; {smi}")
+
+    # device time per replayed step: CUDA events around 10 replays, 5 times
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    cfg = TrainConfig()
+    step = GraphTrainStep("event", cfg.optimization, cfg.event,
+                          spatial_lr_scale=3.0, rasterizer="tiled",
+                          instance_cap=icap)
+    runner = FusedSteps(step, rf.state, data, FUSED_STEPS)
+    reserved = torch.cuda.memory_reserved() - reserved
+    runner.table.copy_(torch.from_numpy(np.stack([
+        step.row(FUSED_ITERS + 1 + j, (2 + j % 3, 2 + j % 3, 3 + j % 3),
+                 np.zeros(3)) for j in range(FUSED_STEPS)])))
+    replay_ms = []
+    for _ in range(5):
+        runner.cursor.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FUSED_STEPS):
+            runner.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms.append(start.elapsed_time(end) / FUSED_STEPS)
+    check(bool(torch.isfinite(runner.slots.history).all()),
+          "non-finite loss in a timed replay")
+    runner.release()
+    q = np.percentile(replay_ms, [0, 50, 100])
+    print(f"phase 13: device time per replayed step (CUDA events around "
+          f"{FUSED_STEPS} replays, 5 windows): median {q[1]:.4f} ms, min "
+          f"{q[0]:.4f}, max {q[2]:.4f} ({3 * WIDTH * HEIGHT / (q[1] / 1e3):.1f}"
+          f" pixels/s); capture {runner.capture_ms:.1f} ms; reserved by the "
+          f"fused steps (static buffers and graph pool) {reserved / 2**20:.1f}"
+          f" MiB against the eager step's 1,058 MiB peak (PERF.md); {smi}")
+    del runner
+
+    # graph swap: densify with capacity growth at 5 and 10, the instance
+    # cap re-measured upward after each: captured at 0, 5 and 10
+    opt = OptimizationConfig(densify_from_iter=2, densification_interval=5,
+                             densify_until_iter=11, densify_grad_threshold=0.0)
+    swaps = {}
+    for fused in (1, 5):
+        cfg = TrainConfig(optimization=opt)
+        cfg.pipeline.fused_steps = fused
+        swaps[fused] = fused_loop(state, data, cfg, 12)
+    (s1, _, _, se1, _, _), (s5, sn5, _, se5, _, made) = swaps[1], swaps[5]
+    grown = [it for it, m in se1 if "capacity" in m]
+    rebuilt = [it for it, m in se1 if "instance_cap" in m]
+    recaptured = [it for it, m in se5 if "graph_capture_ms" in m]
+    check(grown == [5, 10] and rebuilt,
+          f"capacity grown at {grown} (not 5 and 10), cap rebuilt at {rebuilt}")
+    want = [0] + sorted(set(grown) | set(rebuilt))
+    check(recaptured == want and len(made) == len(want),
+          f"graphs captured at {recaptured}, not {want}")
+    for k, n in sn5.items():
+        check(n == len(want) * per_capture,
+              f"graph swap: {k} launched {n} times")
+    swap_err, _ = check_same_run("graph swap", s1, s5)
+    print(f"phase 13: graph swap, capacity {N_GAUSSIANS} -> "
+          f"{s5.state.params.capacity} (grown at {grown}), instance cap "
+          f"rebuilt at {rebuilt}, graphs captured at {recaptured} in "
+          f"{', '.join(f'{e.capture_ms:.1f}' for e in made)} ms; losses vs "
+          f"the eager loop max |diff| {swap_err:.3g}; {smi}")
+
+    # cli.train --fused_steps 3 on phase 6's scene, as phase 6 runs it
+    model = os.path.join(root, "trained_fused")
+    args = ["-s", os.path.join(root, "colmap"), "-m", model, "--gray",
+            "--event", "-r", "1", "--iterations", str(TRAIN_ITERS),
+            "--densify_from_iter", "2", "--densification_interval", "3",
+            "--densify_grad_threshold", "0", "--save_iterations",
+            str(TRAIN_ITERS), "--checkpoint_iterations", str(TRAIN_ITERS),
+            "--fused_steps", "3", "--device", DEVICE]
+    print("cli.train " + " ".join(args))
+    t0 = time.perf_counter()
+    rc, launches, log = run_cli(train_main, args)
+    check(rc == 0, "cli.train --fused_steps 3 failed")
+    last = re.search(r"last loss (\S+)", log)
+    check(last is not None and math.isfinite(float(last.group(1))),
+          "cli.train --fused_steps 3: no finite loss")
+    # a capture at the start, and again after each iteration before the
+    # last that grew the capacity or rebuilt the step at a new cap
+    n_graphs = len(re.findall(r"graph_capture_ms=", log))
+    swapped = {int(it) for it in re.findall(
+        r"\[ *(\d+)\] (?:capacity|instance_cap)=", log)
+        if int(it) < TRAIN_ITERS}
+    check(n_graphs == 1 + len(swapped),
+          f"cli.train --fused_steps 3: {n_graphs} captures, capacity or cap "
+          f"changed after {sorted(swapped)}")
+    for k, n in launches.items():
+        check(n == per_capture * n_graphs,
+              f"cli.train --fused_steps 3: {k} launched {n} times")
+    alive = [int(n) for n in re.findall(r"num_alive=(\d+)", log)]
+    ck = lambda m: np.load(os.path.join(m, f"chkpnt{TRAIN_ITERS}.npz"))
+    eager_alive = int(ck(os.path.join(root, "trained"))["params/alive"].sum())
+    check(len(alive) == 2 and alive[1] == eager_alive
+          and int(ck(model)["params/alive"].sum()) == eager_alive,
+          f"cli.train --fused_steps 3: alive {alive}, phase 6 {eager_alive}")
+    print(f"phase 13: cli.train --fused_steps 3 in "
+          f"{time.perf_counter() - t0:.2f} s: {n_graphs} graphs captured, "
+          f"launches {launches}, alive {alive} (phase 6: {eager_alive}), "
+          f"last loss {float(last.group(1)):.6f}; {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1961,6 +2214,7 @@ def main() -> int:
         event_path(root, model, dev)
         _, train_rows, per_step = train_kernels(dev)
         probe_rows = probe_path(dev)
+        fused_path(root, dev)
         # last: after its NCCL job and profiled run, the profiler's
         # device times of K2 and K3 (phases 7-8) came out too low
         sharded_launches = sharded_path(root, dev)

@@ -66,8 +66,10 @@ def add_pipeline_args(p: argparse.ArgumentParser):
                         "(depth-ordered merge of per-shard images, "
                         "approximate on orbit rigs)")
     p.add_argument("--fused_steps", type=int, default=1,
-                   help="accepted for the JAX package's command lines; the "
-                        "port runs steps one at a time")
+                   help="steps per chunk between host events (log, "
+                        "densify, save, test): on a CUDA card a chunk "
+                        "replays a CUDA graph of the step once per step; 1 "
+                        "runs one eager step per iteration")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
 

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from event3dgs_tpu_torch.utils.device import constant
+
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)
 _LUV_WEIGHTS = (0.4124, 0.35758, 0.1804)
 
@@ -29,7 +31,7 @@ _LUV_WEIGHTS = (0.4124, 0.35758, 0.1804)
 def _weighted_channels(img, weights):
     if img.shape[-1] == 1:
         return img
-    w = torch.tensor(weights, dtype=img.dtype, device=img.device)
+    w = constant(weights, img.dtype, img.device)
     return (img * w).sum(dim=-1, keepdim=True)
 
 
@@ -78,16 +80,17 @@ def fp32_convolutions():
 
 
 @lru_cache(maxsize=8)
-def _gauss_window_1d(size: int, sigma: float) -> np.ndarray:
+def _gauss_window_1d(size: int, sigma: float) -> tuple:
     x = np.arange(size) - size // 2
     g = np.exp(-(x**2) / (2.0 * sigma**2))
-    return (g / g.sum()).astype(np.float32)
+    return tuple((g / g.sum()).astype(np.float32).tolist())
 
 
 def _depthwise_blur(img: torch.Tensor, window_size: int, sigma: float):
     """Separable gaussian blur on [H, W, C] with zero ("same") padding."""
     c = img.shape[-1]
-    g = torch.tensor(_gauss_window_1d(window_size, sigma), device=img.device)
+    g = constant(_gauss_window_1d(window_size, sigma), torch.float32,
+                 img.device)
     pad = window_size // 2
     x = img.permute(2, 0, 1)[None]  # [1, C, H, W]
     kh = g.reshape(1, 1, window_size, 1).expand(c, 1, window_size, 1)
@@ -126,5 +129,5 @@ def rgb_to_qe_scale(img: torch.Tensor) -> torch.Tensor:
     0.4124/0.35758/0.1804, channel-last in, [..., H, W, 1] out (a
     one-channel input is weighted by all three, as the JAX package's
     broadcast does)."""
-    w = torch.tensor(_LUV_WEIGHTS, dtype=img.dtype, device=img.device)
+    w = constant(_LUV_WEIGHTS, img.dtype, img.device)
     return (img * w).sum(dim=-1, keepdim=True)

@@ -33,6 +33,7 @@ import torch
 from event3dgs_tpu_torch.core.transforms import inverse_sigmoid, quat_to_rotmat
 from event3dgs_tpu_torch.models.gaussians import TRAINABLE_FIELDS, GaussianParams
 from event3dgs_tpu_torch.models.optimizer import AdamState
+from event3dgs_tpu_torch.utils.device import constant
 
 
 @dataclasses.dataclass
@@ -58,8 +59,7 @@ def update_stats(stats: DensifyStats, mean2d_grad, radii, visibility,
     resolution-independent; the tap gradient here is in pixels.
     """
     vis = visibility.to(torch.float32)
-    scale = torch.tensor(grad_scale, dtype=mean2d_grad.dtype,
-                         device=mean2d_grad.device)
+    scale = constant(grad_scale, mean2d_grad.dtype, mean2d_grad.device)
     gnorm = torch.linalg.norm(mean2d_grad * scale, dim=-1)
     return DensifyStats(
         grad_accum=stats.grad_accum + gnorm * vis,

@@ -21,6 +21,8 @@ import dataclasses
 
 import torch
 
+from event3dgs_tpu_torch.utils.device import constant
+
 
 def _map(fn, *trees):
     """``fn`` over matching dicts of tensors, or over single tensors."""
@@ -53,8 +55,8 @@ def adam_update(params, grads, state: AdamState, lr_tree, b1: float = 0.9,
     """
     count = state.count + 1
     t = count.to(torch.float32)
-    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=t.device) ** t
-    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=t.device) ** t
+    c1 = 1.0 - constant(b1, torch.float32, t.device) ** t
+    c2 = 1.0 - constant(b2, torch.float32, t.device) ** t
     mu = _map(lambda m, g: b1 * m + (1.0 - b1) * g, state.mu, grads)
     nu = _map(lambda v, g: b2 * v + (1.0 - b2) * g * g, state.nu, grads)
 

@@ -44,6 +44,7 @@ from event3dgs_tpu_torch.ops.binning import (
 from event3dgs_tpu_torch.ops.expand import rect_min_q
 from event3dgs_tpu_torch.ops.projection import ProjectedGaussians
 from event3dgs_tpu_torch.ops.segscan import segment_sums, segment_sums_plain
+from event3dgs_tpu_torch.utils.device import constant
 
 ALPHA_MAX = 0.99
 ALPHA_MIN = 1.0 / 255.0
@@ -67,7 +68,7 @@ def pack_features(mean2d, conic, colors, opacities) -> torch.Tensor:
     conic pre-scaled for the power form (−a/2, −b, −c/2); opacity; r, g, b;
     three pad floats (48-byte rows for aligned vector loads)."""
     n = mean2d.shape[0]
-    scale = torch.tensor([-0.5, -1.0, -0.5], dtype=conic.dtype, device=conic.device)
+    scale = constant((-0.5, -1.0, -0.5), conic.dtype, conic.device)
     return torch.cat(
         [mean2d, conic * scale, opacities[:, None], colors,
          mean2d.new_zeros(n, 3)],

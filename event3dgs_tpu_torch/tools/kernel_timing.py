@@ -150,11 +150,12 @@ def bench_camera(i: int, width: int, height: int, device):
 
 
 def bench_state(device, n: int = N_GAUSSIANS, width: int = WIDTH,
-                height: int = HEIGHT):
+                height: int = HEIGHT, views: int = 4):
     """bench.py's `bench_train_step` set-up: (state, data, measured
     instance cap): ``n`` Gaussians of its scene from seed 0 at its scales,
-    rotations and opacities, 4 cameras, random images from seed 1, event
-    mode's data, ``spatial_lr_scale`` 3.0."""
+    rotations and opacities, ``views`` cameras (bench.py's 4; the training
+    loop's event-mode view pick needs at least 6), random images from seed
+    1, event mode's data, ``spatial_lr_scale`` 3.0."""
     import torch
 
     from event3dgs_tpu_torch.core.camera import stack_cameras
@@ -165,9 +166,9 @@ def bench_state(device, n: int = N_GAUSSIANS, width: int = WIDTH,
 
     means, scales, rots, opac, colors = bench_scene(np.random.default_rng(0), n)
     cameras = stack_cameras([bench_camera(i, width, height, device)
-                             for i in range(4)])
+                             for i in range(views)])
     images = torch.tensor(np.random.default_rng(1).uniform(
-        0, 1, (4, height, width, 3)), dtype=torch.float32, device=device)
+        0, 1, (views, height, width, 3)), dtype=torch.float32, device=device)
     params = init_from_point_cloud(means, colors, capacity=n, device=device)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     params = GaussianParams(

@@ -17,9 +17,17 @@ same views.  The split samples of densification come from a
 ``torch.Generator`` seeded with ``seed`` (``jax.random`` has no torch
 counterpart), drawn on the CPU so every device gets the same samples.
 
-``pipeline.fused_steps`` is a TPU dispatch device (several steps in one
-``lax.scan``); it is accepted and the steps run one at a time, in the same
-sequence, which gives the same results.
+``pipeline.fused_steps`` N > 1 runs the steps between host events in
+chunks of up to N (:func:`next_event` plans them as the JAX loop does;
+chunks never cross a log, densify, opacity-reset, instance-recheck, save,
+checkpoint or test iteration, and may end on one).  Each chunk's view
+indices and backgrounds are drawn on the host in the order the per-step
+loop draws them, so the step sequence is the same.  On a CUDA device a
+chunk replays a CUDA graph of the step once per step (``train/fused.py``)
+and reads its losses back once; on the CPU the same graph-ready step runs
+eagerly.  Metrics reach ``on_metrics`` at log ticks only, and callbacks get
+copies of the state.  N = 1 (the default) runs one eager step per
+iteration.
 """
 
 from __future__ import annotations
@@ -36,8 +44,15 @@ import torch
 from event3dgs_tpu_torch.models.gaussians import activated
 from event3dgs_tpu_torch.ops.binning import count_instances, suggest_instance_cap
 from event3dgs_tpu_torch.ops.projection import project_gaussians
-from event3dgs_tpu_torch.train.state import SceneData, TrainState, grow_state
+from event3dgs_tpu_torch.train.fused import GraphCache
+from event3dgs_tpu_torch.train.state import (
+    SceneData,
+    TrainState,
+    grow_state,
+    map_tensors,
+)
 from event3dgs_tpu_torch.train.step import (
+    GraphTrainStep,
     make_densify_step,
     make_train_step,
     opacity_reset_step,
@@ -128,6 +143,32 @@ def pick_view_index(rng: pyrandom.Random, n_views: int, mode: str,
     return idx
 
 
+def opacity_reset_interval(cfg: TrainConfig, mode: str) -> int:
+    """Iterations between opacity resets: event mode's override or the
+    optimization config's (`train.py:119`)."""
+    return (cfg.event.opacity_reset_interval if mode.startswith("event")
+            else cfg.optimization.opacity_reset_interval)
+
+
+def next_event(it0: int, iters: int, cfg: TrainConfig, mode: str,
+               log_every: int) -> int:
+    """Smallest iteration ≥ ``it0`` at which the loop acts on the host: the
+    last one, a log tick, a densify, opacity-reset or instance-recheck
+    cadence, a save, checkpoint or test iteration, or ``densify_from_iter``
+    (the JAX loop's chunk planner, ``event3dgs_tpu/train/loop.py``)."""
+    opt = cfg.optimization
+    cands = [iters]
+    for interval in (log_every, opt.densification_interval,
+                     opacity_reset_interval(cfg, mode),
+                     INSTANCE_RECHECK_INTERVAL):
+        if interval and interval > 0:
+            cands.append(((it0 + interval - 1) // interval) * interval)
+    for lst in (cfg.save_iterations, cfg.checkpoint_iterations,
+                cfg.test_iterations, (opt.densify_from_iter,)):
+        cands.extend(t for t in lst if t >= it0)
+    return min(c for c in cands if c >= it0)
+
+
 def train_loop(
     state: TrainState,
     data: SceneData,
@@ -153,17 +194,17 @@ def train_loop(
     callbacks = callbacks or TrainCallbacks()
     dev = state.params.device
 
-    opacity_reset_interval = (ev.opacity_reset_interval
-                              if mode.startswith("event")
-                              else opt.opacity_reset_interval)
+    reset_interval = opacity_reset_interval(cfg, mode)
     holdout = mode != "rgb"  # gray/event hold out the manual test views
+    fused = max(int(cfg.pipeline.fused_steps), 1)
+    graphs = GraphCache() if fused > 1 else None
 
     use_tiled = cfg.pipeline.rasterizer == "tiled"
     instance_cap = (measure_instance_cap(state.params, data.cameras)
                     if use_tiled else None)
 
     def build_step():
-        return make_train_step(
+        return (make_train_step if graphs is None else GraphTrainStep)(
             mode, opt, ev, max_sh_degree=state.max_sh_degree,
             spatial_lr_scale=state.spatial_lr_scale,
             rasterizer=cfg.pipeline.rasterizer, instance_cap=instance_cap,
@@ -190,58 +231,92 @@ def train_loop(
     def split_normals(capacity):
         return torch.randn((2, capacity, 3), generator=split_rng).to(dev)
 
+    # callbacks keep what they are given: the fused steps' live state is
+    # handed out as a copy
+    public = (lambda st: st) if graphs is None else \
+        (lambda st: map_tensors(torch.clone, st))
+    base_bg = [1.0 if cfg.model.white_background else 0.0] * 3
     history = []
     t0 = time.perf_counter()
-    for it in range(1, iters + 1):
-        idx = pick_view_index(view_rng, data.num_views, mode, holdout)
-        iter_bg = (torch.tensor(np_rng.uniform(size=3), dtype=torch.float32,
-                                device=dev)
-                   if opt.random_background else bg)
-        state, metrics = step_fn(state, data, idx, idx, idx + 1, iter_bg)
-        history.append(float(metrics["loss"]))
+    it = 0
+    try:
+        while it < iters:
+            if graphs is None:
+                it += 1
+                idx = pick_view_index(view_rng, data.num_views, mode, holdout)
+                iter_bg = (torch.tensor(np_rng.uniform(size=3),
+                                        dtype=torch.float32, device=dev)
+                           if opt.random_background else bg)
+                state, metrics = step_fn(state, data, idx, idx, idx + 1,
+                                         iter_bg)
+                history.append(float(metrics["loss"]))
+            else:
+                # the steps up to the next host event, at most `fused`
+                k = min(fused, next_event(it + 1, iters, cfg, mode,
+                                          callbacks.log_every) - it)
+                captures = graphs.captures
+                runner = graphs.get(step_fn, state, data, fused)
+                if graphs.captures > captures and callbacks.on_metrics:
+                    callbacks.on_metrics(
+                        it, {"graph_capture_ms": runner.capture_ms})
+                step0 = int(runner.state.step)
+                rows = []
+                for j in range(k):
+                    idx = pick_view_index(view_rng, data.num_views, mode,
+                                          holdout)
+                    iter_bg = (np_rng.uniform(size=3)
+                               if opt.random_background else base_bg)
+                    rows.append(step_fn.row(step0 + 1 + j,
+                                            (idx, idx, idx + 1), iter_bg))
+                history.extend(runner.run(torch.from_numpy(np.stack(rows))))
+                state, metrics = runner.state, runner.slots.metrics
+                it += k
 
-        if it % callbacks.log_every == 0:
-            if callbacks.on_metrics:
-                callbacks.on_metrics(
-                    it, {k: float(v) for k, v in metrics.items()})
-            if callbacks.on_tick:
-                callbacks.on_tick(it, state)
-
-        # densification (`train.py:316-327`), growing capacity as needed
-        if it < opt.densify_until_iter:
-            if it > opt.densify_from_iter and it % opt.densification_interval == 0:
-                state, grew = densify_with_growth(
-                    state, densify_fn, split_normals,
-                    use_size_prune=it > opacity_reset_interval)
-                n_alive = int(state.params.alive.sum())
+            if it % callbacks.log_every == 0:
                 if callbacks.on_metrics:
-                    callbacks.on_metrics(it, {"num_alive": n_alive})
-                    if grew:
-                        callbacks.on_metrics(
-                            it, {"capacity": state.params.capacity})
-                if n_alive < 16:
-                    warnings.warn(
-                        f"model nearly dead after densify at iter {it}: "
-                        f"{n_alive} alive gaussians. Common causes: the "
-                        "reference's hardcoded 20px screen-size prune vs "
-                        "large splats, or an opacity collapse.",
-                        stacklevel=2,
-                    )
-                if use_tiled:
-                    remeasure(it)
-            if it % opacity_reset_interval == 0 or (
-                cfg.model.white_background and it == opt.densify_from_iter
-            ):
-                state = opacity_reset_step(state)
-        elif use_tiled and it % INSTANCE_RECHECK_INTERVAL == 0:
-            # scales keep training after the densify window, so per-view
-            # instance counts can outgrow the budget: re-measure
-            remeasure(it)
+                    callbacks.on_metrics(
+                        it, {name: float(v) for name, v in metrics.items()})
+                if callbacks.on_tick:
+                    callbacks.on_tick(it, public(state))
 
-        if callbacks.on_save and it in cfg.save_iterations:
-            callbacks.on_save(it, state)
-        if callbacks.on_checkpoint and it in cfg.checkpoint_iterations:
-            callbacks.on_checkpoint(it, state)
+            # densification (`train.py:316-327`), growing capacity as needed
+            if it < opt.densify_until_iter:
+                if it > opt.densify_from_iter and it % opt.densification_interval == 0:
+                    state, grew = densify_with_growth(
+                        state, densify_fn, split_normals,
+                        use_size_prune=it > reset_interval)
+                    n_alive = int(state.params.alive.sum())
+                    if callbacks.on_metrics:
+                        callbacks.on_metrics(it, {"num_alive": n_alive})
+                        if grew:
+                            callbacks.on_metrics(
+                                it, {"capacity": state.params.capacity})
+                    if n_alive < 16:
+                        warnings.warn(
+                            f"model nearly dead after densify at iter {it}: "
+                            f"{n_alive} alive gaussians. Common causes: the "
+                            "reference's hardcoded 20px screen-size prune vs "
+                            "large splats, or an opacity collapse.",
+                            stacklevel=2,
+                        )
+                    if use_tiled:
+                        remeasure(it)
+                if it % reset_interval == 0 or (
+                    cfg.model.white_background and it == opt.densify_from_iter
+                ):
+                    state = opacity_reset_step(state)
+            elif use_tiled and it % INSTANCE_RECHECK_INTERVAL == 0:
+                # scales keep training after the densify window, so per-view
+                # instance counts can outgrow the budget: re-measure
+                remeasure(it)
+
+            if callbacks.on_save and it in cfg.save_iterations:
+                callbacks.on_save(it, public(state))
+            if callbacks.on_checkpoint and it in cfg.checkpoint_iterations:
+                callbacks.on_checkpoint(it, public(state))
+    finally:
+        if graphs is not None:
+            graphs.clear()  # its graph; the live state stays as the result
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

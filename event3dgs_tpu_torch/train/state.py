@@ -110,6 +110,21 @@ def map_tensors(fn, tree):
     return tree
 
 
+def copy_tree_(dst, src) -> None:
+    """Copy every tensor of the state tree ``src`` into the matching tensor
+    of ``dst`` (same structure and shapes), in place; a tensor that is
+    already ``dst``'s is skipped."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            copy_tree_(v, src[k])
+    elif dataclasses.is_dataclass(dst) and not isinstance(dst, type):
+        for f in dataclasses.fields(dst):
+            copy_tree_(getattr(dst, f.name), getattr(src, f.name))
+
+
 def active_sh_degree(step: int, max_degree: int) -> int:
     """SH degree grows by one every 1000 iterations (`train.py:99-100`)."""
     return min(int(step) // 1000, max_degree)

@@ -1,0 +1,193 @@
+"""``pipeline.fused_steps`` in the port against the JAX package, on the CPU.
+
+- The port's fused loop (8 steps a chunk) against the JAX package's fused
+  loop (one ``lax.scan`` a chunk) from the same state: rgb mode, the
+  oracle rasterizer, 25 iterations, as ``tests/test_train_slice.py``'s
+  ``test_fused_loop_matches_per_step``, at its tolerances (losses rtol
+  2e-5 / atol 1e-6; xyz, opacity and scaling atol 3e-3).
+- The port's fused loop against its per-step loop in event mode on the
+  tiled rasterizer's plain path, with a chunk ending on a densify
+  iteration, a densify that fits the capacity and one that grows it.
+- :class:`GraphTrainStep` against ``make_train_step`` field by field,
+  across the iteration where the SH degree steps up, with a black and a
+  random background.
+- :func:`next_event` against the chunk planner of the JAX loop.
+
+On the CPU the fused loop runs the graph-ready step eagerly through the
+same row table that a CUDA graph replays on a card
+(``tests/test_torch_kernels.py`` holds the graph against the eager loop
+there).
+"""
+
+import dataclasses
+import inspect
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import event3dgs_tpu.train.loop as jloop
+from event3dgs_tpu.train import train_loop as jtrain_loop
+from event3dgs_tpu.utils.config import OptimizationConfig as JOptCfg
+from event3dgs_tpu.utils.config import TrainConfig as JTrainConfig
+from event3dgs_tpu_torch.train import make_train_step, train_loop
+from event3dgs_tpu_torch.train.fused import FusedSteps
+from event3dgs_tpu_torch.train.loop import (
+    INSTANCE_RECHECK_INTERVAL,
+    TrainCallbacks,
+    next_event,
+    opacity_reset_interval,
+)
+from event3dgs_tpu_torch.train.step import GraphTrainStep
+from event3dgs_tpu_torch.utils.config import OptimizationConfig, TrainConfig
+from test_torch_train import PARAM_FIELDS, scene, scene_data, states  # noqa: F401
+
+LOSS_TOL = dict(rtol=2e-5, atol=1e-6)  # the JAX fused-loop test's
+PARAM_ATOL = 3e-3  # its parameter tolerance (Adam-amplified f32 noise)
+
+
+def test_fused_loop_matches_jax_fused_loop(scene):
+    js, ts = states(scene, seed=21)
+    jd, td = scene_data(scene)
+    kw = dict(densify_from_iter=10_000, densify_until_iter=0)
+    jcfg = JTrainConfig(optimization=JOptCfg(**kw))
+    jcfg.pipeline.rasterizer = "reference"
+    jcfg.pipeline.fused_steps = 8
+    tcfg = TrainConfig(optimization=OptimizationConfig(**kw))
+    tcfg.pipeline.rasterizer = "reference"
+    tcfg.pipeline.fused_steps = 8
+    before = ts.params.xyz.clone()
+    jr = jtrain_loop(js, jd, jcfg, "rgb", scene.extent, iterations=25)
+    tr = train_loop(ts, td, tcfg, "rgb", scene.extent, iterations=25)
+    assert len(tr.history) == len(jr.history) == 25
+    np.testing.assert_allclose(tr.history, jr.history, **LOSS_TOL)
+    for f in ("xyz", "opacity", "scaling"):
+        np.testing.assert_allclose(getattr(tr.state.params, f).numpy(),
+                                   np.asarray(getattr(jr.state.params, f)),
+                                   atol=PARAM_ATOL, err_msg=f)
+    assert int(tr.state.step) == int(jr.state.step) == 25
+    assert torch.equal(ts.params.xyz, before)  # the caller's state
+
+
+def test_fused_loop_matches_per_step_loop_across_densify_and_growth(scene):
+    """Chunks of 8 end on the densify iterations 5 and 10: the first
+    densify fits the 128 slots (its state is copied into the fused steps'
+    buffers), the second grows them (new buffers)."""
+    _, ts = states(scene, seed=22)
+    _, td = scene_data(scene)
+    opt = OptimizationConfig(densify_from_iter=2, densification_interval=5,
+                             densify_until_iter=100,
+                             densify_grad_threshold=0.0)
+    runs = {}
+    for fused in (1, 8):
+        cfg = TrainConfig(optimization=opt)
+        cfg.pipeline.rasterizer = "tiled"
+        cfg.pipeline.fused_steps = fused
+        events = []
+        cb = TrainCallbacks(
+            on_metrics=lambda it, m: events.append((it, sorted(m))),
+            log_every=10)
+        runs[fused] = train_loop(ts, td, cfg, "event", scene.extent,
+                                 iterations=12, callbacks=cb), events
+    (r1, e1), (r8, e8) = runs[1], runs[8]
+    assert r8.state.params.capacity == r1.state.params.capacity > 128
+    assert e8 == e1  # the same densify, capacity, cap and log events
+    assert [it for it, m in e1 if m == ["num_alive"]] == [5, 10]
+    np.testing.assert_allclose(r8.history, r1.history, **LOSS_TOL)
+    for f in PARAM_FIELDS + ("alive",):
+        np.testing.assert_allclose(
+            getattr(r8.state.params, f).numpy().astype(np.float64),
+            getattr(r1.state.params, f).numpy().astype(np.float64),
+            atol=PARAM_ATOL, err_msg=f)
+    np.testing.assert_allclose(r8.state.contrast.numpy(),
+                               r1.state.contrast.numpy(), **LOSS_TOL)
+    assert int(r8.state.step) == int(r1.state.step) == 12
+
+
+def assert_trees_equal(a, b, path=""):
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), path
+    elif isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}.{k}")
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            assert_trees_equal(getattr(a, f.name), getattr(b, f.name),
+                               f"{path}.{f.name}")
+    else:
+        assert a == b, path
+
+
+@pytest.mark.parametrize("background", ["black", "random"])
+def test_graph_step_matches_train_step_across_sh_degree_step(scene,
+                                                             background):
+    """From state.step 998 the rows are iterations 999, 1000 (SH degree
+    0 → 1) and 1001: one step a run, then the three as one chunk."""
+    _, ts = states(scene, seed=23)
+    _, td = scene_data(scene)
+    ts = ts.replace(step=torch.tensor(998, dtype=torch.int32))
+    cfg = TrainConfig()
+    kw = dict(spatial_lr_scale=scene.extent, rasterizer="tiled")
+    eager = make_train_step("event", cfg.optimization, cfg.event, **kw)
+    graph = GraphTrainStep("event", cfg.optimization, cfg.event, **kw)
+    rng = np.random.default_rng(5)
+    views = [(3, 3, 4), (6, 6, 7), (4, 4, 5)]
+    bgs = [rng.uniform(size=3) if background == "random" else np.zeros(3)
+           for _ in views]
+    rows = torch.from_numpy(np.stack([
+        graph.row(999 + i, v, bg) for i, (v, bg) in enumerate(zip(views, bgs))
+    ]))
+    assert not torch.equal(rows[0, 7:], rows[1, 7:])  # the SH mask steps up
+
+    one = FusedSteps(graph, ts, td, rows=1)
+    state = ts
+    for i, (v, bg) in enumerate(zip(views, bgs)):
+        state, metrics = eager(state, td, *v,
+                               torch.tensor(bg, dtype=torch.float32))
+        (loss,) = one.run(rows[i:i + 1])
+        assert loss == float(metrics["loss"])
+        assert_trees_equal(one.state, state, f"step {i}")
+        assert_trees_equal(one.slots.metrics, metrics, f"metrics {i}")
+    chunk = FusedSteps(graph, ts, td, rows=3)
+    losses = chunk.run(rows)
+    assert losses[-1] == float(metrics["loss"])
+    assert_trees_equal(chunk.state, state, "chunk")
+    assert int(ts.step) == 998  # the caller's state
+
+
+def jax_next_event(iters, cfg, mode, log_every):
+    """The JAX loop's chunk planner (a closure inside its ``train_loop``),
+    taken from its source and bound to the values it closes over."""
+    src = inspect.getsource(jloop.train_loop)
+    start = src.index("    def next_event(")
+    body = textwrap.dedent(src[start:src.index("\n    def ", start + 1)])
+    callbacks = TrainCallbacks(log_every=log_every)
+    env = dict(iters=iters, callbacks=callbacks, opt=cfg.optimization,
+               opacity_reset_interval=opacity_reset_interval(cfg, mode),
+               INSTANCE_RECHECK_INTERVAL=jloop.INSTANCE_RECHECK_INTERVAL,
+               cfg=cfg)
+    exec(body, env)
+    return env["next_event"]
+
+
+@pytest.mark.parametrize("mode,saves", [("event", ()),
+                                        ("rgb", (7_000, 30_000))])
+def test_next_event_matches_jax_chunk_planner(mode, saves):
+    cfg = TrainConfig(save_iterations=saves, test_iterations=saves,
+                      checkpoint_iterations=saves[:1])
+    iters = cfg.optimization.iterations
+    assert INSTANCE_RECHECK_INTERVAL == jloop.INSTANCE_RECHECK_INTERVAL
+    plan = jax_next_event(iters, cfg, mode, 10)
+    got = [next_event(i, iters, cfg, mode, 10) for i in range(1, iters + 1)]
+    want = [plan(i) for i in range(1, iters + 1)]
+    assert got == want
+    # chunks of 8 over the run end on every log tick and densify iteration
+    it, ends = 0, []
+    while it < iters:
+        it += min(8, next_event(it + 1, iters, cfg, mode, 10) - it)
+        ends.append(it)
+    assert set(range(10, iters + 1, 10)) <= set(ends)
+    assert {cfg.optimization.densify_from_iter, 600, 15_000} <= set(ends)
+    assert all(b - a <= 8 for a, b in zip([0] + ends, ends))

@@ -780,6 +780,110 @@ def test_accumulation_on_card_equals_cpu(fn):
                            want), case
 
 
+def graph_scene(capacity=512):
+    """A small event-mode scene on the card: 400 Gaussians in ``capacity``
+    slots, 12 views at 160×96."""
+    from event3dgs_tpu_torch.data.synthetic import make_synthetic_scene
+    from event3dgs_tpu_torch.models import init_from_point_cloud
+    from event3dgs_tpu_torch.train import SceneData, init_train_state
+
+    sc = make_synthetic_scene(n_gaussians=400, n_views=12, width=160,
+                              height=96, device="cuda")
+    params = init_from_point_cloud(sc.points, sc.colors, capacity=capacity,
+                                   device="cuda")
+    data = SceneData(cameras=sc.cameras, images=sc.images,
+                     event_cameras=sc.cameras, event_images=sc.images)
+    return init_train_state(params, spatial_lr_scale=sc.extent), data, sc.extent
+
+
+@pytest.mark.gpu
+def test_graphed_loop_matches_eager_loop():
+    """``fused_steps`` 8 (a CUDA graph of the step, replayed) against the
+    eager loop: 30 event iterations with one densify at 10 that grows the
+    capacity and rebuilds the step at a new instance cap, so the graph is
+    captured at the start and again after iteration 10.  The kernels
+    launch in the warm-up steps and the captures only, never in a replay."""
+    from event3dgs_tpu_torch.train import train_loop
+    from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
+    from event3dgs_tpu_torch.train.loop import TrainCallbacks
+    from event3dgs_tpu_torch.utils.config import OptimizationConfig, TrainConfig
+
+    need_card()
+    state, data, extent = graph_scene()
+    opt = OptimizationConfig(densify_from_iter=2, densification_interval=10,
+                             densify_until_iter=15, densify_grad_threshold=0.0)
+    wrappers = (rt.composite_forward_kernel, rt.composite_backward_kernel,
+                segscan.segment_sums_kernel, binning.gaussian_tables_kernel,
+                binning.depth_order_kernel, expand.expand_instances_kernel,
+                sort_tiles.tile_histogram_kernel,
+                sort_tiles.stable_tile_rank_kernel)
+    runs = {}
+    for fused in (1, 8):
+        cfg = TrainConfig(optimization=opt)
+        cfg.pipeline.fused_steps = fused
+        events = []
+        cb = TrainCallbacks(on_metrics=lambda it, m: events.append((it, m)),
+                            log_every=10)
+        for w in wrappers:
+            w.launches = 0
+        res = train_loop(state, data, cfg, "event", extent, iterations=30,
+                         callbacks=cb)
+        runs[fused] = res, events, [w.launches for w in wrappers]
+    (r1, e1, n1), (r8, e8, n8) = runs[1], runs[8]
+    grown = [it for it, m in e1 if "capacity" in m]
+    rebuilt = [it for it, m in e1 if "instance_cap" in m]
+    assert grown == rebuilt == [10]
+    captures = [it for it, m in e8 if "graph_capture_ms" in m]
+    assert captures == [0, 10]
+    host = lambda ev: [(it, m) for it, m in ev
+                       if "loss" not in m and "graph_capture_ms" not in m]
+    assert host(e8) == host(e1)  # densify, capacity and cap alike
+    assert [it for it, m in e8 if "loss" in m] == [10, 20, 30]
+    assert n1 == [90] * 8
+    assert n8 == [3 * (WARMUP_STEPS + 1) * len(captures)] * 8
+    np.testing.assert_allclose(r8.history, r1.history, rtol=2e-5, atol=1e-6)
+    for f in ("xyz", "opacity", "scaling", "rotation", "features_dc"):
+        np.testing.assert_allclose(getattr(r8.state.params, f).cpu().numpy(),
+                                   getattr(r1.state.params, f).cpu().numpy(),
+                                   atol=3e-3, err_msg=f)
+    assert torch.equal(r8.state.params.alive, r1.state.params.alive)
+
+
+@pytest.mark.gpu
+def test_graph_cache_reuses_a_graph_until_the_step_is_rebuilt():
+    """A second run of chunks on the same step object replays the cached
+    graph (no capture); a rebuilt step (a new object, even from the same
+    arguments) captures a new one and frees the old."""
+    from event3dgs_tpu_torch.train.fused import GraphCache
+    from event3dgs_tpu_torch.train.loop import measure_instance_cap
+    from event3dgs_tpu_torch.train.step import GraphTrainStep
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    need_card()
+    state, data, extent = graph_scene()
+    cap = measure_instance_cap(state.params, data.cameras)
+    build = lambda: GraphTrainStep("event", OptimizationConfig(),
+                                   EventConfig(), spatial_lr_scale=extent,
+                                   rasterizer="tiled", instance_cap=cap)
+    step = build()
+    rows = torch.from_numpy(np.stack([step.row(1 + i, (3 + i, 3 + i, 4 + i),
+                                               np.zeros(3)) for i in range(4)]))
+    cache = GraphCache()
+    first = cache.get(step, state, data, 4)
+    losses = first.run(rows)
+    assert cache.captures == 1 and int(first.state.step) == 4
+    again = cache.get(step, state, data, 4)
+    assert again is first and cache.captures == 1
+    assert int(again.state.step) == 0  # the state loaded again
+    np.testing.assert_allclose(again.run(rows), losses, rtol=2e-5, atol=1e-6)
+    rebuilt = cache.get(build(), state, data, 4)
+    assert rebuilt is not first and cache.captures == 2
+    assert first.graph is None and rebuilt.graph is not None
+    np.testing.assert_allclose(rebuilt.run(rows), losses, rtol=2e-5, atol=1e-6)
+    cache.clear()
+    assert rebuilt.graph is None
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel wrapper launches on CUDA tensors or raises; it never runs
     the plain version itself (the dispatchers pick it for CPU tensors)."""
