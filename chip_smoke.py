@@ -138,6 +138,32 @@ Phases (any failed check exits non-zero; nothing is caught):
    on phase 6's scene as phase 6 runs it, ending with phase 6's alive
    count and launching the kernels in its captures only.
 
+14. (After phase 13, before phase 11.) Scale, through
+   ``event3dgs_tpu_torch/tools/scale.py`` in process: ``maxcap`` at
+   2,097,152 slots (the JAX package's largest working point), the event
+   step eager (1 + 3 steps) and graphed (``fused_steps`` 10: warm-up,
+   capture, 1 + 3 replays), each on the scene built anew; every kernel
+   launched 3 × 4 + 3 × 3 times with the counts set to 0 before, the same
+   loss from both, state GiB, instance cap, ms per step, device ms per
+   replay, capture ms, peak and reserved memory.  At that state's main view
+   (camera 1) each kernel of the path against its plain version at phases
+   4 and 7's tolerances (the table and depth offsets kernels, K4, K5, K6,
+   the counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
+   stop index equal, K2 within 1e-5 of the max, K3 bit-equal) and its
+   graph ms beside its bound.  The depth offsets kernel over 8,192 + 1
+   look-back blocks (16.8M ranks, twice, its state left cleared) and the
+   counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
+   bit-equal to their plain versions.  ``train --densify --fused_steps
+   10`` at 1,048,576 slots (12 1080p views of a 100k-point world), cut
+   from 300 to 160 iterations so that the script's cadence densifies at
+   100 and 150: finite, decreasing losses (the script's checks), no
+   instance overflow at the loop's last cap, the kernels launched in the
+   warm-ups and captures only, and its first 20 losses equal to the eager
+   loop's bit for bit; then phase 8's densify with capacity growth on its
+   trained state (threshold 0: ~0.9M alive slots all candidates) and one
+   rgb step at the re-measured instance cap.  Each kernel's JSON row gets
+   the 2M columns under ``scale``.
+
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
 (pixel, instance) pairs (the work the function needs) and the earlier
@@ -204,6 +230,18 @@ FUSED_VIEWS = 8
 FUSED_ITERS = 60
 FUSED_STEPS = 10
 FUSED_LOG = 10  # log_every: the host clock is read at these ticks
+# phase 14: the JAX package's largest working point (RESULTS_r5.json), the
+# sizes of the 80 GB card's ceiling for the look-back and the counting sort,
+# and scale.train cut from 300 to 160 iterations: the script's cadence
+# (every 50 after 50, below the last) densifies at 100 and 150
+SCALE_CAPACITY = 2_097_152
+SCALE_FUSED = 10
+CEILING_BLOCKS = 8192  # look-back blocks of 2,048 ranks (16.8M Gaussians)
+CEILING_SLOTS = 1 << 25  # instance slots of the counting sort
+SCALE_TRAIN_ITERS = 160
+SCALE_TRAIN_CAPACITY = 1 << 20  # scale.train's slots and world
+SCALE_TRUE_POINTS = 100_000
+SCALE_TRAIN_EAGER = 20  # its first iterations, held against the eager loop
 
 
 def fail(msg: str):
@@ -410,7 +448,10 @@ def expansion_check(what, args, kw, cap):
     import torch
 
     from event3dgs_tpu_torch.ops import binning, expand, sort_tiles
-    from event3dgs_tpu_torch.tools.kernel_timing import device_profile
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        device_profile,
+        graph_kernels,
+    )
 
     tiles_x, tiles_y = binning.tile_grid(args[4], args[5])
     nt, n = tiles_x * tiles_y, args[0].shape[0]
@@ -448,19 +489,20 @@ def expansion_check(what, args, kw, cap):
     for field, k, p in zip(counted._fields, counted, plain):
         check(torch.equal(k, p), f"{what}: the counting sort from K4's rows: "
               f"{field} differs from its plain version")
-    prof = device_profile(lambda: binning.bin_gaussians(*args, cap, **kw))
-    other = {k for k in prof if k.startswith(("Memset", "Memcpy"))}
-    n_kernels = sum(v[1] for k, v in prof.items() if k not in other)
-    n_other = sum(prof[k][1] for k in other)
+    call = lambda: binning.bin_gaussians(*args, cap, **kw)
+    nodes = graph_kernels(call)
+    n_other = sum(nodes.pop(k, 0) for k in ("memset", "memcpy", "other"))
+    n_kernels = sum(nodes.values())
+    check(n_kernels <= 16, f"{what}: {n_kernels} device kernels from the "
+          f"projection's outputs to the Binning ({nodes})")
+    prof = device_profile(call)
     device_us = sum(v[0] for v in prof.values()) * 1e3
-    check(n_kernels <= 16, f"{what}: {n_kernels:.0f} device kernels from the "
-          f"projection's outputs to the Binning")
     print(f"{what}: table kernel, depth offsets kernel and K4 (tile, gauss and "
           f"{segments} count rows) bit-equal to their plain versions; the "
           f"counting sort from K4's rows equal to its plain version; the "
-          f"binning from the projection's outputs: {n_kernels:.0f} device "
-          f"kernels and {n_other:.0f} memsets or copies, {device_us:.2f} us "
-          "of device time per binning ("
+          f"binning from the projection's outputs: {n_kernels} device "
+          f"kernels and {n_other} memsets, copies or other nodes in its CUDA "
+          f"graph; profiler: {device_us:.2f} us of device time per binning ("
           + ", ".join(f"{k} x{c:.0f} {ms * 1e3:.2f}" for k, (ms, c) in
                       sorted(prof.items(), key=lambda kv: -kv[1][0])) + ")")
     return tk, rk, ek, errs
@@ -479,6 +521,7 @@ def counting_sort_check(what, tile, gauss, n_live, nt, n):
         bound_ms,
         cuda_ms,
         device_profile,
+        graph_kernels,
     )
 
     ck = sort_tiles.tile_histogram_kernel(tile, nt, n_live)
@@ -498,12 +541,13 @@ def counting_sort_check(what, tile, gauss, n_live, nt, n):
         check(torch.equal(k, p), f"{what}: the counting sort's {field} "
               f"differs from its plain version")
     ms = cuda_ms(call, 50)
-    prof = device_profile(call)
-    check(set(prof) == set(SORT_FUNCTIONS),
-          f"{what}: the counting sort ran {sorted(prof)}")
-    ops = sum(v[1] for v in prof.values())
+    nodes = graph_kernels(call)
+    check(set(nodes) == set(SORT_FUNCTIONS),
+          f"{what}: the counting sort ran {nodes}")
+    ops = sum(nodes.values())
     check(ops <= 4, f"{what}: {ops} device kernels from K4's output to the "
           f"Binning")
+    prof = device_profile(call, expect=SORT_FUNCTIONS)
     live = int(fused.counts.sum())
     # live ids and their Gaussians read, dest and the lists written once,
     # counts and offsets written
@@ -512,10 +556,11 @@ def counting_sort_check(what, tile, gauss, n_live, nt, n):
     device = sum(v[0] for v in prof.values())
     print(f"{what}: counting sort (K5 + K6 fused, the tile lists) equal to its "
           f"plain version; {ms:.4f} ms per call (CUDA events), device "
-          f"{device * 1e3:.2f} us per call ("
-          + ", ".join(f"{f} {prof[f][0] * 1e3:.2f}" for f in SORT_FUNCTIONS)
-          + f"), {ops:.0f} device kernels from K4's output to the Binning; "
-          f"bound {bound * 1e3:.2f} us (bytes)")
+          f"{device * 1e3:.2f} us per call by the profiler ("
+          + ", ".join(f"{f} {prof[f][0] * 1e3:.2f}" if f in prof else
+                      f"{f} not seen" for f in SORT_FUNCTIONS)
+          + f"), {ops} device kernels from K4's output to the Binning (its "
+          f"CUDA graph); bound {bound * 1e3:.2f} us (bytes)")
     return errs
 
 
@@ -527,6 +572,122 @@ def check_binning(what, bk, bp):
                   "overflow", "offsets", "order"):
         check(torch.equal(getattr(bk, field), getattr(bp, field)),
               f"{what}: the binning's {field} differs from the plain path's")
+
+
+def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
+    """Every kernel of one 1080p view's path against its plain version at
+    the instance cap ``cap`` (phases 4, 7 and 14): the table kernel, the
+    depth offsets kernel, K4, K5 and K6 bit-equal, the Binning equal to
+    the all-plain one without overflow, K1 (rgb within 1e-5, T within
+    1e-6, the stop index equal) and, with ``backward``, K2 on seeded
+    upstream gradients (rows within 1e-5 of their max, bit-identical when
+    run twice) and K3 (bit-equal).  Returns a namespace: ``errs``,
+    ``calls`` {kernel: (its call, its plain version's)}, ``bounds``
+    {kernel: (bytes, operations)} (``kernel_timing.path_bounds``), and the
+    inputs the phases time: ``bk`` (the Binning), ``tk``, ``n_live``,
+    ``nt``, ``live``, ``pairs``, ``k2_args`` and ``rows_k``."""
+    import types
+
+    import torch
+
+    from event3dgs_tpu_torch.ops import binning, expand, sort_tiles
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+    from event3dgs_tpu_torch.tools.kernel_timing import path_bounds
+
+    n = proj.mean2d.shape[0]
+    tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT)
+    nt = tiles_x * tiles_y
+    bin_args = (proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH,
+                HEIGHT)
+    bin_kw = dict(opacities=opac, conic=proj.conic)
+    tables, ranks, inst, errs = expansion_check(what, bin_args, bin_kw, cap)
+    tk, gk, n_live = inst.tile, inst.gauss, ranks.offsets[-1:]
+    errs.update(counting_sort_check(what, tk, gk, n_live, nt, n))
+    counts = sort_tiles.tile_histogram_plain(tk, nt, n_live)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)  # K6's input
+    bk = binning.bin_gaussians(*bin_args, cap, **bin_kw)
+    check_binning(what, bk, binning.bin_gaussians(*bin_args, cap, plain=True,
+                                                  **bin_kw))
+    check(int(bk.overflow) == 0, f"{what}: the instance cap {cap} overflowed")
+    live, n_inst = int(bk.tile_counts.sum()), int(n_live)
+
+    feat = rt.pack_features(proj.mean2d, proj.conic, colors, opac)
+    k1_args = (bk.inst_gauss, bk.tile_offsets, bk.tile_counts, feat, tiles_x,
+               WIDTH, HEIGHT)
+    rk, lk, sk = rt.composite_forward_kernel(*k1_args)
+    rp, lp, sp, pairs = rt._composite_plain(*k1_args)
+    pairs = pairs.tolist()
+    errs["K1 composite_forward"] = (rk - rp).abs().max().item()
+    t_err = (torch.exp(lk) - torch.exp(lp)).abs().max().item()
+    check(errs["K1 composite_forward"] <= 1e-5 and t_err <= 1e-6
+          and torch.equal(sk, sp), f"{what}: K1 differs from its plain "
+          f"version (rgb {errs['K1 composite_forward']:.3g}, T {t_err:.3g})")
+    del rp, lp, sp
+    k4_args = (tables.rect, tables.cull, *ranks, cap, tiles_x, nt, True)
+    calls = {
+        "K4 gaussian_tables": (
+            lambda: binning.gaussian_tables_kernel(*bin_args, **bin_kw),
+            lambda: binning.gaussian_tables_plain(*bin_args, **bin_kw)),
+        # the calls include the argsort before the kernel
+        "K4 depth_offsets": (lambda: binning.depth_order_kernel(tables, cap),
+                             lambda: binning.depth_order_plain(tables, cap)),
+        "K4 expand_instances": (
+            lambda: expand.expand_instances_kernel(*k4_args),
+            lambda: expand.expand_instances_plain(*k4_args)),
+        "K5 tile_histogram": (
+            lambda: sort_tiles.tile_histogram_kernel(tk, nt, n_live),
+            lambda: sort_tiles.tile_histogram_plain(tk, nt, n_live)),
+        "K6 stable_tile_rank": (
+            lambda: sort_tiles.stable_tile_rank_kernel(tk, n_live, nt, starts,
+                                                       cap),
+            lambda: sort_tiles.stable_tile_rank_plain(tk, n_live, nt, starts,
+                                                      cap)),
+        "K1 composite_forward": (
+            lambda: rt.composite_forward_kernel(*k1_args),
+            lambda: rt.composite_forward_plain(*k1_args)),
+    }
+    text = (f"K1 rgb {errs['K1 composite_forward']:.3g}, T {t_err:.3g}, "
+            "stop index equal")
+    k2_args = rows_k = None
+    if backward:
+        g = torch.Generator().manual_seed(7)
+        g_rgb = (torch.rand(HEIGHT, WIDTH, 3, generator=g) - 0.5).to(dev)
+        g_logt = (torch.rand(HEIGHT, WIDTH, generator=g) - 0.5).to(dev)
+        k2_args = k1_args + (g_rgb, g_logt, lk, sk, cap)
+        rows_k = rt.composite_backward_kernel(*k2_args)
+        rows_p = rt.composite_backward_plain(*k2_args)
+        top = rows_p[:live].abs().max().item()
+        errs["K2 composite_backward"] = (
+            rows_k[:live] - rows_p[:live]).abs().max().item()
+        del rows_p
+        check(errs["K2 composite_backward"] <= 1e-5 * top,
+              f"{what}: K2 rows differ by {errs['K2 composite_backward']:.3g} "
+              f"(max {top:.3g})")
+        check(torch.equal(rows_k[:live],
+                          rt.composite_backward_kernel(*k2_args)[:live]),
+              f"{what}: K2 run twice: rows differ")
+        errs["K3 segment_sums"] = (
+            rt.gaussian_grads(bk, rows_k)
+            - rt.gaussian_grads(bk, rows_k, plain=True)).abs().max().item()
+        check(errs["K3 segment_sums"] == 0, f"{what}: K3 differs from its "
+              "plain version")
+        calls["K2 composite_backward"] = (
+            lambda: rt.composite_backward_kernel(*k2_args),
+            lambda: rt.composite_backward_plain(*k2_args))
+        calls["K3 segment_sums"] = (
+            lambda: rt.gaussian_grads(bk, rows_k),
+            lambda: rt.gaussian_grads(bk, rows_k, plain=True))
+        text += (f"; K2 rows {errs['K2 composite_backward']:.3g} of max "
+                 f"{top:.3g}, bit-identical run twice; K3 bit-equal")
+    print(f"{what}: {n_inst} rect instances, {live} after the ellipse cull, "
+          f"cap {cap}, max per tile {int(bk.tile_counts.max())}; the Binning "
+          f"equal to the plain path's; {text}; {pairs_text(pairs)}")
+    return types.SimpleNamespace(
+        errs=errs, calls=calls,
+        bounds=path_bounds(n, cap, ranks.offsets, live, pairs, nt, WIDTH,
+                           HEIGHT),
+        bk=bk, tk=tk, n_live=n_live, nt=nt, live=live, pairs=pairs,
+        k2_args=k2_args, rows_k=rows_k)
 
 
 def wrappers():
@@ -588,17 +749,10 @@ def render_path(root: str, dev):
     from event3dgs_tpu_torch.data.ply import load_gaussian_ply
     from event3dgs_tpu_torch.data.scene import build_camera_batch, read_blender_scene
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops import binning, expand, sort_tiles
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.rasterize_reference import rasterize_reference
     from event3dgs_tpu_torch.ops.render import gaussian_colors, render
-    from event3dgs_tpu_torch.tools.kernel_timing import (
-        K1_PAIR_OPS,
-        composite_bytes,
-        expansion_bytes,
-        pair_ops,
-    )
 
     # 2. generate ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -636,46 +790,8 @@ def render_path(root: str, dev):
     proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
                              opacities=act.opacities)
     colors = gaussian_colors(3, act.features, act.means3d, cam.camera_center)
-    cap = rt.default_instance_cap(N_GAUSSIANS)
-    tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT)
-    nt = tiles_x * tiles_y
-    bin_args = (proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH,
-                HEIGHT)
-    bin_kw = dict(opacities=act.opacities, conic=proj.conic)
-    tables, ranks, inst, errs = expansion_check("view 0", bin_args, bin_kw,
-                                                cap)
-    tk, gk, n_live = inst.tile, inst.gauss, ranks.offsets[-1:]
-    errs.update(counting_sort_check("view 0", tk, gk, n_live, nt, N_GAUSSIANS))
-    counts = sort_tiles.tile_histogram_plain(tk, nt, n_live)
-    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)  # K6's input
-
-    bk = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius, proj.valid,
-                               WIDTH, HEIGHT, cap, opacities=act.opacities,
-                               conic=proj.conic)
-    bp = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius, proj.valid,
-                               WIDTH, HEIGHT, cap, opacities=act.opacities,
-                               conic=proj.conic, plain=True)
-    check_binning("view 0", bk, bp)
-    live = int(bk.tile_counts.sum())
-    n_inst = int(n_live)
-    print(f"view 0: {n_inst} rect instances, {live} after the ellipse cull, "
-          f"cap {cap}, overflow {int(bk.overflow)}, "
-          f"max per tile {int(bk.tile_counts.max())}")
-    check(int(bk.overflow) == 0, "instance cap overflowed")
-
-    feat = rt.pack_features(proj.mean2d, proj.conic, colors, act.opacities)
-    k1_args = (bk.inst_gauss, bk.tile_offsets, bk.tile_counts, feat, tiles_x,
-               WIDTH, HEIGHT)
-    rk, lk, sk = rt.composite_forward_kernel(*k1_args)
-    rp, lp, sp, pairs = rt._composite_plain(*k1_args)
-    pairs = pairs.tolist()
-    errs["K1 composite_forward"] = (rk - rp).abs().max().item()
-    t_err = (torch.exp(lk) - torch.exp(lp)).abs().max().item()
-    print(f"K1 vs plain: rgb {errs['K1 composite_forward']:.3g}, T {t_err:.3g}; "
-          + pairs_text(pairs))
-    check(errs["K1 composite_forward"] <= 1e-5, "K1 rgb differs by > 1e-5")
-    check(t_err <= 1e-6, "K1 transmittance differs by > 1e-6")
-    check(torch.equal(sk, sp), "K1 stop index differs from its plain version")
+    v = view_kernels("view 0", proj, colors, act.opacities,
+                     rt.default_instance_cap(N_GAUSSIANS), dev)
 
     bg = torch.zeros(3, device=dev)
     view = (act.means3d, act.features, act.opacities, act.scales,
@@ -725,52 +841,15 @@ def render_path(root: str, dev):
     with torch.no_grad():
         profile_view(lambda: render(*view, sh_degree=3, rasterizer="tiled"))
 
-    ids_long = tk.long()
-    k4_args = (tables.rect, tables.cull, *ranks, cap, tiles_x, nt, True)
-    timings = {
-        "K4 gaussian_tables": (
-            lambda: binning.gaussian_tables_kernel(*bin_args, **bin_kw),
-            lambda: binning.gaussian_tables_plain(*bin_args, **bin_kw),
-            None, 50),
-        # the call times include the argsort before the kernel
-        "K4 depth_offsets": (
-            lambda: binning.depth_order_kernel(tables, cap),
-            lambda: binning.depth_order_plain(tables, cap), None, 50),
-        "K4 expand_instances": (
-            lambda: expand.expand_instances_kernel(*k4_args),
-            lambda: expand.expand_instances_plain(*k4_args), None, 50),
-        "K5 tile_histogram": (
-            lambda: sort_tiles.tile_histogram_kernel(tk, nt, n_live),
-            lambda: sort_tiles.tile_histogram_plain(tk, nt, n_live),
-            lambda: torch.bincount(ids_long, minlength=nt + 1), 50),
-        "K6 stable_tile_rank": (
-            lambda: sort_tiles.stable_tile_rank_kernel(tk, n_live, nt, starts, cap),
-            lambda: sort_tiles.stable_tile_rank_plain(tk, n_live, nt, starts, cap),
-            lambda: torch.sort(tk, stable=True), 50),
-        "K1 composite_forward": (
-            lambda: rt.composite_forward_kernel(*k1_args),
-            lambda: rt.composite_forward_plain(*k1_args),
-            None, 20),
+    ids_long = v.tk.long()
+    libraries = {
+        "K5 tile_histogram": lambda: torch.bincount(ids_long,
+                                                    minlength=v.nt + 1),
+        "K6 stable_tile_rank": lambda: torch.sort(v.tk, stable=True),
     }
-    capped = min(n_inst, cap)
-    k1_bytes = composite_bytes(live, N_GAUSSIANS, nt, WIDTH, HEIGHT)
-    bounds = {  # (bytes, (FP32, SFU) operations) this run's inputs need
-        # per Gaussian 33 bytes read, 52 written; at least 60 FP32 and 7
-        # SFU operations (a log, two square roots, four divisions)
-        "K4 gaussian_tables": (N_GAUSSIANS * (33 + 52),
-                               (60 * N_GAUSSIANS, 7 * N_GAUSSIANS)),
-        # per rank the argsort's int64 and its count read, the int32 order
-        # and its offset written; a rank per segment
-        "K4 depth_offsets": (N_GAUSSIANS * (8 + 4 + 4 + 4) + 4
-                             + sort_tiles.segments(cap) * 4, (0, 0)),
-        # per live rank its 48-byte table row, order entry and offset; 8
-        # bytes per slot; each live segment's count row
-        "K4 expand_instances": (expansion_bytes(ranks.offsets, cap, nt),
-                                (0, 0)),
-        "K5 tile_histogram": (capped * 4 + nt * 4, (0, 0)),
-        "K6 stable_tile_rank": (capped * 4 + nt * 4 + cap * 4, (0, 0)),
-        "K1 composite_forward": (k1_bytes, pair_ops(pairs, K1_PAIR_OPS)),
-    }
+    timings = {name: (*v.calls[name], libraries.get(name),
+                      20 if name.startswith("K1") else 50)
+               for name in v.calls}
     meta = {
         "K1 composite_forward": ("rasterize_fwd.cu", "event3dgs_tpu/ops/rasterize_tiled.py:296"),
         # the table and depth offsets kernels replace the XLA code that
@@ -781,11 +860,11 @@ def render_path(root: str, dev):
         "K5 tile_histogram": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:62"),
         "K6 stable_tile_rank": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:88"),
     }
-    rows = kernel_rows(timings, bounds, meta, errs)
+    rows = kernel_rows(timings, v.bounds, meta, v.errs)
     composite_report("K1 composite_forward", rows["K1 composite_forward"],
-                     pairs, k1_bytes, "rasterize_fwd",
-                     "e3d_composite_forward_occupancy")
-    return launches, errs, rows
+                     v.pairs, v.bounds["K1 composite_forward"][0],
+                     "rasterize_fwd", "e3d_composite_forward_occupancy")
+    return launches, v.errs, rows
 
 
 def kernel_device_ms(name, fn) -> tuple[float, float]:
@@ -793,13 +872,14 @@ def kernel_device_ms(name, fn) -> tuple[float, float]:
     functions of kernel ``name`` (KERNEL_FUNCTIONS, each launched once per
     call), matched by exact name, each function's time taken over the
     launches the profiler saw of it; and the fewest launches per call it
-    saw of one of them.  Fails if one of them did not run."""
+    saw of one of them.  Fails if the profiler saw none of one of them in
+    three sessions."""
     from event3dgs_tpu_torch.tools.kernel_timing import (
         device_profile,
         per_launch_ms,
     )
 
-    prof = device_profile(fn)
+    prof = device_profile(fn, expect=KERNEL_FUNCTIONS[name])
     missing = [f for f in KERNEL_FUNCTIONS[name] if f not in prof]
     check(not missing, f"{name}: the profiler saw no device time in {missing}")
     return (per_launch_ms(prof, KERNEL_FUNCTIONS[name]),
@@ -1535,16 +1615,9 @@ def train_kernels(dev):
     import torch
 
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops import binning
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors
-    from event3dgs_tpu_torch.tools.kernel_timing import (
-        K2_PAIR_OPS,
-        composite_bytes,
-        pair_ops,
-        segment_sums_bytes,
-    )
     from event3dgs_tpu_torch.train.step import make_loss_and_grads, make_train_step
     from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
 
@@ -1555,59 +1628,15 @@ def train_kernels(dev):
     print(f"bench training state: {N_GAUSSIANS} Gaussians, 4 views at "
           f"{WIDTH}x{HEIGHT}, measured instance cap {icap}")
 
-    # 7. K1's stop index, K2 and K3 against their plain versions, main view
-    # (K2 visits exactly K1's pairs, so K1's plain version counts them)
+    # 7. every kernel of the main view's path against its plain version
     cam = data.cameras[idx[0]]
     act = activated(state.params)
     with torch.no_grad():
         proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
                                  opacities=act.opacities)
         colors = gaussian_colors(3, act.features, act.means3d, cam.camera_center)
-        b = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius,
-                                  proj.valid, WIDTH, HEIGHT, icap,
-                                  opacities=act.opacities, conic=proj.conic)
-        feat = rt.pack_features(proj.mean2d, proj.conic, colors, act.opacities)
-        check_binning("main view", b, binning.bin_gaussians(
-            proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH, HEIGHT,
-            icap, opacities=act.opacities, conic=proj.conic, plain=True))
-        nt = b.tile_counts.shape[0]
-        _, ranks, inst, _ = expansion_check(
-            "main view", (proj.mean2d, proj.depth, proj.radius, proj.valid,
-                          WIDTH, HEIGHT),
-            dict(opacities=act.opacities, conic=proj.conic), icap)
-        counting_sort_check("main view", inst.tile, inst.gauss,
-                            ranks.offsets[-1:], nt, proj.mean2d.shape[0])
-    check(int(b.overflow) == 0, "measured instance cap overflowed")
-    fwd = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat, b.num_tiles_x,
-           WIDTH, HEIGHT)
-    _, logt, stop = rt.composite_forward_kernel(*fwd)
-    _, _, stop_p, pairs = rt._composite_plain(*fwd)
-    check(torch.equal(stop, stop_p), "K1 stop index differs from its plain version")
-    pairs = pairs.tolist()
-    g = torch.Generator().manual_seed(7)
-    g_rgb = (torch.rand(HEIGHT, WIDTH, 3, generator=g) - 0.5).to(dev)
-    g_logt = (torch.rand(HEIGHT, WIDTH, generator=g) - 0.5).to(dev)
-    k2_args = fwd + (g_rgb, g_logt, logt, stop, icap)
-    rows_k = rt.composite_backward_kernel(*k2_args)
-    rows_p = rt.composite_backward_plain(*k2_args)
-    live = int(b.tile_counts.sum())
-    scale = rows_p[:live].abs().max().item()
-    errs = {"K2 composite_backward":
-            (rows_k[:live] - rows_p[:live]).abs().max().item()}
-    check(errs["K2 composite_backward"] <= 1e-5 * scale,
-          f"K2 rows differ by {errs['K2 composite_backward']:.3g} "
-          f"(max {scale:.3g})")
-    check(torch.equal(rows_k[:live],
-                      rt.composite_backward_kernel(*k2_args)[:live]),
-          "K2 run twice: rows differ")
-    gk = rt.gaussian_grads(b, rows_k)
-    gp = rt.gaussian_grads(b, rows_k, plain=True)
-    errs["K3 segment_sums"] = (gk - gp).abs().max().item()
-    check(torch.equal(gk, gp), "K3 differs from its plain version")
-    print(f"main view: {live} live instances, {pairs_text(pairs)}; K2 vs "
-          f"plain max |diff| {errs['K2 composite_backward']:.3g} of max "
-          f"{scale:.3g}; K2 run twice bit-identical; K3 vs plain bit-equal; "
-          f"K1 stop index equal")
+    v = view_kernels("main view", proj, colors, act.opacities, icap, dev,
+                     backward=True)
 
     # one step's gradients: kernel path against the all-plain path
     grads = {}
@@ -1685,6 +1714,7 @@ def train_kernels(dev):
     profile_view(lambda: step(st, data, *idx, bg), what="one event step",
                  top=15)
 
+    b, rows_k = v.bk, v.rows_k
     n_exp = min(int(b.offsets[-1]), icap)
     rows_pad = torch.cat([rows_k, rows_k.new_zeros(1, rt.NGRAD)])
     dest = b.dest[:n_exp].long()
@@ -1692,41 +1722,34 @@ def train_kernels(dev):
     off = torch.clamp(b.offsets.long(), max=icap)
     lengths = off[1:] - off[:-1]
     timings = {
-        "K2 composite_backward": (
-            lambda: rt.composite_backward_kernel(*k2_args),
-            lambda: rt.composite_backward_plain(*k2_args), None, 20),
+        "K2 composite_backward": (*v.calls["K2 composite_backward"], None, 20),
         "K3 segment_sums": (
-            lambda: rt.gaussian_grads(b, rows_k),
-            lambda: rt.gaussian_grads(b, rows_k, plain=True),
+            *v.calls["K3 segment_sums"],
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
-    }
-    k2_bytes = composite_bytes(live, N_GAUSSIANS, nt, WIDTH, HEIGHT,
-                               backward=True)
-    bounds = {
-        "K2 composite_backward": (k2_bytes, pair_ops(pairs, K2_PAIR_OPS)),
-        "K3 segment_sums": (segment_sums_bytes(live, n_exp, N_GAUSSIANS),
-                            (live * rt.NGRAD, 0)),
     }
     meta = {
         "K2 composite_backward": ("rasterize_bwd.cu",
                                   "event3dgs_tpu/ops/rasterize_tiled.py:386"),
         "K3 segment_sums": ("segsum.cu", "event3dgs_tpu/ops/segscan.py:46"),
     }
-    rows = kernel_rows(timings, bounds, meta, errs)
+    errs = {k: v.errs[k] for k in timings}
+    rows = kernel_rows(timings, v.bounds, meta, errs)
     composite_report("K2 composite_backward", rows["K2 composite_backward"],
-                     pairs, k2_bytes, "rasterize_bwd",
-                     "e3d_composite_backward_occupancy")
+                     v.pairs, v.bounds["K2 composite_backward"][0],
+                     "rasterize_bwd", "e3d_composite_backward_occupancy")
     densify_growth(st, data, idx, bg)
     return errs, rows, per_step
 
 
-def densify_growth(state, data, idx, bg):
+def densify_growth(state, data, idx, bg, mode="event", extent=3.0):
     """Densify the timed state with capacity growth (its 100k slots are all
-    alive, so any candidate grows them), then one event step at a
-    re-measured instance cap: every kernel launches 3 times and the loss is
-    finite.  Threshold 0 makes every alive Gaussian a candidate: the
-    event pair's coverage is 1 on bench.py's random images, so the main
-    view's gradient, the densify statistic, is exactly 0."""
+    alive, so any candidate grows them), then one step of ``mode`` at a
+    re-measured instance cap: every kernel launches once per render (3 in
+    the event modes) and the loss is finite.  Threshold 0 makes every alive
+    Gaussian a candidate: the event pair's coverage is 1 on bench.py's
+    random images, so the main view's gradient, the densify statistic, is
+    exactly 0.  ``extent``: the scene extent and ``spatial_lr_scale``
+    (bench.py's 3.0)."""
     import torch
 
     from event3dgs_tpu_torch.train.loop import densify_with_growth, measure_instance_cap
@@ -1737,9 +1760,8 @@ def densify_growth(state, data, idx, bg):
     capacity, alive = state.params.capacity, int(state.params.alive.sum())
     gen = torch.Generator().manual_seed(0)
     normals = lambda c: torch.randn((2, c, 3), generator=gen).to(dev)
-    # extent 3.0: bench.py's spatial_lr_scale, the reference's scene extent
     densify = make_densify_step(OptimizationConfig(densify_grad_threshold=0.0),
-                                3.0)
+                                extent)
     t0 = time.perf_counter()
     grown, grew = densify_with_growth(state, densify, normals,
                                       use_size_prune=False)
@@ -1750,18 +1772,19 @@ def densify_growth(state, data, idx, bg):
           f"capacity did not grow from {capacity}")
     check(alive_after > alive, f"densify added no Gaussian ({alive})")
     icap = measure_instance_cap(grown.params, data.cameras)
-    step = make_train_step("event", OptimizationConfig(), EventConfig(),
-                           spatial_lr_scale=3.0, rasterizer="tiled",
+    step = make_train_step(mode, OptimizationConfig(), EventConfig(),
+                           spatial_lr_scale=extent, rasterizer="tiled",
                            instance_cap=icap)
     (after, metrics), launches = count_launches(
         lambda: step(grown, data, *idx, bg))
+    renders = 3 if mode.startswith("event") else 1
     for k, n in launches.items():
-        check(n == 3, f"{k}: {n} launches in the step after densify")
+        check(n == renders, f"{k}: {n} launches in the step after densify")
     check(math.isfinite(float(metrics["loss"])), "non-finite loss after densify")
     for f in ("xyz", "scaling", "opacity"):
         check(bool(torch.isfinite(getattr(after.params, f)).all()),
               f"non-finite {f} after densify")
-    print(f"densify with growth: {alive} -> {alive_after} alive, capacity "
+    print(f"densify with growth ({mode}): {alive} -> {alive_after} alive, capacity "
           f"{capacity} -> {grown.params.capacity}, {densify_ms:.1f} ms host "
           f"clock; next step at instance cap {icap}: launches {launches}, "
           f"loss {float(metrics['loss']):.6f}")
@@ -2185,6 +2208,170 @@ def fused_path(root: str, dev):
           f"last loss {float(last.group(1)):.6f}; {smi}")
 
 
+def scale_kernel_rows(state, data, icap, dev):
+    """Phase 14b: at the 2M-slot maxcap state, every kernel of the path
+    against its plain version at the step's main view (camera 1), at the
+    tolerances phases 4 and 7 hold them to, and each kernel's graph ms and
+    bound there.  Returns {kernel: the scale columns of its JSON row}."""
+    import torch
+
+    from event3dgs_tpu_torch.models import activated
+    from event3dgs_tpu_torch.ops.projection import project_gaussians
+    from event3dgs_tpu_torch.ops.render import gaussian_colors
+    from event3dgs_tpu_torch.tools.kernel_timing import bound_ms, graph_ms
+
+    what = f"phase 14, {SCALE_CAPACITY} slots, main view"
+    cam = data.cameras[1]
+    act = activated(state.params)
+    with torch.no_grad():
+        proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
+                                 opacities=act.opacities)
+        colors = gaussian_colors(3, act.features, act.means3d,
+                                 cam.camera_center)
+    v = view_kernels(what, proj, colors, act.opacities, icap, dev,
+                     backward=True)
+    out = {}
+    for name, (call, _) in v.calls.items():
+        ms = graph_ms(call)
+        bound, by = bound_ms(*v.bounds[name])
+        out[name] = {"gaussians": state.params.capacity,
+                     "instance_cap": icap, "max_abs_err": v.errs[name],
+                     "graph_ms": ms, "bound_ms": bound, "bound_by": by}
+        print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
+              f"({by}), {ms / bound:.2f}x")
+    return out
+
+
+def scale_path(dev):
+    """Phase 14: the port at the JAX package's scale through
+    ``tools/scale.py``.  Returns (the scale columns of each kernel's JSON
+    row, the launches of the 2M run)."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import binning, sort_tiles
+    from event3dgs_tpu_torch.tools import scale
+    from event3dgs_tpu_torch.tools.kernel_timing import graph_ms
+    from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
+
+    smi = card()
+    # 14a: scale.maxcap at 2M, eager then graphed, each on its own scene
+    iters = scale.MAXCAP_ITERS
+    rec, launches = count_launches(lambda: scale.run_scene(
+        "maxcap", SCALE_CAPACITY, iters, SCALE_FUSED, False, WIDTH, HEIGHT,
+        dev))
+    check(rec["status"] == "ok", f"phase 14: maxcap at {SCALE_CAPACITY}: {rec}")
+    want = 3 * (1 + iters) + 3 * (WARMUP_STEPS + 1)
+    for k, n in launches.items():
+        check(n == want, f"phase 14: {k} launched {n} times, not {want} "
+              f"(eager {1 + iters} steps, graphed warm-up and capture)")
+    e, gr = rec["eager"], rec["graphed"]
+    check(math.isfinite(e["loss"]) and rec["same_loss"],
+          f"phase 14: eager loss {e['loss']} vs graphed {gr['loss']}")
+    check(gr["replays"] == 1 + iters, f"phase 14: {gr['replays']} replays")
+    print(f"phase 14: maxcap {SCALE_CAPACITY} slots, state "
+          f"{rec['state_gib']:.3f} GiB, instance cap {rec['instance_cap']} "
+          f"({rec['instances_per_splat']:.3f}/splat); eager "
+          f"{e['ms_per_step']:.3f} ms per step (first {e['first_step_s']:.2f} "
+          f"s), peak {e['peak_mib']:.1f} MiB; graphed {gr['ms_per_step']:.3f} "
+          f"ms per step host, {gr['device_ms_per_replay']:.4f} device ms per "
+          f"replay, capture {gr['capture_ms']:.1f} ms, peak "
+          f"{gr['peak_mib']:.1f} MiB, reserved by the fused steps "
+          f"{gr['reserved_mib']:.1f} MiB; loss {e['loss']:.6f} in both; "
+          f"launches {launches}; {smi}")
+
+    # 14b: each kernel of the path at 2M against its plain version
+    state, data = scale.maxcap_scene(SCALE_CAPACITY, WIDTH, HEIGHT, dev)
+    rows = scale_kernel_rows(state, data, rec["instance_cap"], dev)
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    del state, data
+    scale.release(dev)
+
+    # 14c: the look-back and the counting sort at the ceiling's sizes
+    n = CEILING_BLOCKS * binning.OFFSETS_TILE + 1000
+    tables = scale.depth_offsets_case(n, device=dev)
+    cap = 1 << 26
+    want = binning.depth_order_plain(tables, cap)
+    live = -(-min(int(want.offsets[-1]), cap) // sort_tiles.SEGMENT)
+    for _ in range(2):
+        got = binning.depth_order_kernel(tables, cap)
+        check(torch.equal(got.order, want.order)
+              and torch.equal(got.offsets, want.offsets)
+              and torch.equal(got.seg_rank[:live], want.seg_rank[:live]),
+              f"phase 14: the depth offsets kernel over {n} ranks differs "
+              "from its plain version")
+    check(int(tables.lookback.abs().sum()) == 0, "phase 14: the look-back "
+          "state was left set")
+    offsets_ms = graph_ms(lambda: binning.depth_order_kernel(tables, cap))
+    del tables, want, got
+    tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT)
+    nt = tiles_x * tiles_y
+    m = CEILING_SLOTS + 5
+    ids, gauss, n_live = scale.counting_sort_case(m, nt, device=dev)
+    want = sort_tiles.counting_sort_plain(ids, gauss, n_live, nt, 1 << 24)
+    got = sort_tiles.counting_sort_kernel(ids, gauss, n_live, nt, 1 << 24)
+    for field, k, p in zip(got._fields, got, want):
+        check(torch.equal(k, p), f"phase 14: the counting sort over {m} "
+              f"slots: {field} differs from its plain version")
+    check(torch.equal(sort_tiles.tile_histogram_kernel(ids, nt, n_live),
+                      want.counts)
+          and torch.equal(sort_tiles.stable_tile_rank_kernel(
+              ids, n_live, nt, want.offsets, m), want.dest),
+          f"phase 14: K5 or K6 alone over {m} slots differs")
+    sort_ms = graph_ms(lambda: sort_tiles.counting_sort_kernel(
+        ids, gauss, n_live, nt, 1 << 24))
+    del ids, gauss, want, got
+    scale.release(dev)
+    print(f"phase 14: depth offsets kernel over {n} ranks "
+          f"({-(-n // binning.OFFSETS_TILE)} look-back blocks) bit-equal to "
+          f"its plain version twice, state left cleared, {offsets_ms:.4f} "
+          f"graph ms with the argsort; counting sort (K5 + K6) over {m} slots "
+          f"bit-equal, K5 and K6 alone too, {sort_ms:.4f} graph ms; {smi}")
+
+    # 14d: scale.train --densify --fused_steps 10 at 1,048,576 slots
+    t0 = time.perf_counter()
+    scene = scale.train_scene(SCALE_TRAIN_CAPACITY, True, SCALE_TRUE_POINTS,
+                              scale.TRAIN_VIEWS, WIDTH, HEIGHT, dev)
+    scene_s = time.perf_counter() - t0
+    (trec, res), tl = count_launches(lambda: scale.run_train(
+        SCALE_TRAIN_ITERS, True, SCALE_FUSED, scene=scene, device=dev))
+    check(trec["status"] == "ok", f"phase 14: train: losses finite "
+          f"{trec['finite']}, decreasing {trec['decreasing']}")
+    check(trec["instance_overflow"] == 0, f"phase 14: train: instance cap "
+          f"{trec['instance_cap']} overflows by {trec['instance_overflow']}")
+    check([it for it, _ in trec["alive"]] == [100, 150],
+          f"phase 14: train densified at {trec['alive']}")
+    per_capture = WARMUP_STEPS + 1  # one render per rgb-mode step
+    for k, c in tl.items():
+        check(c == per_capture * trec["captures"], f"phase 14: train: {k} "
+              f"launched {c} times in {trec['captures']} captures")
+    eager, eres = scale.run_train(SCALE_TRAIN_EAGER, True, 1, scene=scene,
+                                  device=dev)
+    h, he = np.asarray(res.history), np.asarray(eres.history)
+    check(np.array_equal(h[:SCALE_TRAIN_EAGER], he), "phase 14: train: the "
+          f"first {SCALE_TRAIN_EAGER} losses differ from the eager loop's by "
+          f"{np.abs(h[:SCALE_TRAIN_EAGER] - he).max():.3g}")
+    print(f"phase 14: train --densify --fused_steps {SCALE_FUSED}, "
+          f"{SCALE_TRAIN_ITERS} iterations at {trec['capacity_start']} slots "
+          f"(scene {scene_s:.1f} s): alive {trec['alive_start']} -> "
+          f"{trec['alive']} -> {trec['alive_end']}, capacity "
+          f"{trec['capacity_end']}, {trec['it_s']:.3f} it/s "
+          f"({trec['pixels_s']:.1f} pixels/s), {trec['captures']} captures "
+          f"({', '.join(f'{c:.1f}' for c in trec['capture_ms'])} ms), loss "
+          f"curve {[round(v, 5) for v in trec['loss_curve']]}, instance cap "
+          f"{trec['instance_cap']} without overflow; the first "
+          f"{SCALE_TRAIN_EAGER} losses equal to the eager loop's bit for "
+          f"bit ({eager['it_s']:.3f} it/s eager); launches {tl}; {smi}")
+    del eres
+    # densify with capacity growth at ~1M: the trained state, threshold 0
+    densify_growth(res.state, scene[1], (3, 3, 4),
+                   torch.zeros(3, device=dev), mode="rgb",
+                   extent=scale.TRAIN_EXTENT)
+    del scene, res
+    scale.release(dev)
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -2215,15 +2402,18 @@ def main() -> int:
         _, train_rows, per_step = train_kernels(dev)
         probe_rows = probe_path(dev)
         fused_path(root, dev)
+        scale_rows, scale_launches = scale_path(dev)
         # last: after its NCCL job and profiled run, the profiler's
         # device times of K2 and K3 (phases 7-8) came out too low
         sharded_launches = sharded_path(root, dev)
     rows.update(train_rows)
     print(f"launches: cli.render {render_launches}; cli.train "
           f"{train_launches}; train_loop_sharded {sharded_launches}; one "
-          f"event step {per_step}")
+          f"event step {per_step}; phase 14's {SCALE_CAPACITY}-slot run "
+          f"{scale_launches}")
     for name, row in rows.items():
         row["launches"] = train_launches[name]
+        row["scale"] = scale_rows[name]
     rows.update(probe_rows)
 
     print(card())

@@ -11,6 +11,16 @@ at a time.  Numerics follow the upstream 3DGS conventions:
 - compositing stops per pixel once transmittance would drop below 1e-4
   (the triggering Gaussian is not composited);
 - a Gaussian only touches pixels whose tile lies in its 3σ tile rect.
+
+Each chunk is recomputed in the backward pass instead of keeping its
+[H·W, chunk] intermediates (:class:`RematChunk`, the JAX package's
+per-chunk remat): without it a render of millions of Gaussians keeps
+hundreds of GB for the backward.
+The chunk's products (``cumprod`` and ``prod`` over 1 - α, never 0 since
+α ≤ 0.99) take their gradients from the formula PyTorch's own backward
+takes when no input is zero; PyTorch's asks the host whether one is (an
+``.item()``), which a CUDA graph's capture cannot hold
+(``train/fused.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +52,95 @@ def rasterize_reference_partials(proj: ProjectedGaussians, colors, opacities,
     return rgb.reshape(height, width, 3), logt.reshape(height, width)
 
 
+class NonzeroCumprod(torch.autograd.Function):
+    """``torch.cumprod(x, dim=1)`` of an ``x`` with no zero, whose backward
+    reads nothing on the host: ``reversed_cumsum(out · grad) / x``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(1).cumsum(1).flip(1).div(x)
+
+
+class NonzeroProd(torch.autograd.Function):
+    """``torch.prod(x, dim=1)`` of an ``x`` with no zero, whose backward
+    reads nothing on the host: ``grad · (out / x)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.prod(x, dim=1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad[:, None] * (out[:, None] / x)
+
+
+def _composite_chunk(rgb, T, m2d, con, rad, c_opa, c_rgb, pxf, pyf, ptx,
+                     pty):
+    """One chunk of Gaussians composited over every pixel: the new
+    (rgb [P, 3], T [P])."""
+    mx, my = m2d[None, :, 0], m2d[None, :, 1]
+    dx = mx - pxf[:, None]  # [P, K]
+    dy = my - pyf[:, None]
+    in_rect = (
+        (ptx >= torch.floor((mx - rad) / TILE_W))
+        & (ptx < torch.floor((mx + rad + TILE_W - 1) / TILE_W))
+        & (pty >= torch.floor((my - rad) / TILE_H))
+        & (pty < torch.floor((my + rad + TILE_H - 1) / TILE_H))
+    )
+    power = (-0.5 * (con[None, :, 0] * dx * dx + con[None, :, 2] * dy * dy)
+             - con[None, :, 1] * dx * dy)
+    alpha = torch.clamp(c_opa[None, :] * torch.exp(power), max=ALPHA_MAX)
+    zero = torch.zeros_like(alpha)
+    alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN) | ~in_rect,
+                        zero, alpha)
+    # the Gaussian that would push T below T_EPS, and all behind it, are
+    # dropped (a mask: no gradient flows through it)
+    with torch.no_grad():
+        T_incl = T[:, None] * torch.cumprod(1.0 - alpha, dim=1)
+        stopped = torch.cumsum((T_incl < T_EPS).to(alpha.dtype), dim=1) > 0
+    alpha = torch.where(stopped, zero, alpha)
+    one_minus = 1.0 - alpha
+    T_excl = torch.cat(
+        [torch.ones_like(T)[:, None], NonzeroCumprod.apply(one_minus[:, :-1])],
+        dim=1,
+    )
+    w = alpha * T[:, None] * T_excl
+    return rgb + w @ c_rgb, T * NonzeroProd.apply(one_minus)
+
+
+class RematChunk(torch.autograd.Function):
+    """:func:`_composite_chunk` that keeps only its inputs for the backward
+    pass and computes the chunk again there (JAX's ``remat``): a chunk's
+    [H·W, chunk] intermediates live for one chunk at a time."""
+
+    @staticmethod
+    def forward(ctx, *inputs):
+        ctx.save_for_backward(*inputs)
+        return _composite_chunk(*inputs)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_t):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+            out = _composite_chunk(*xs)
+            wrt = [x for x, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, (g_rgb, g_t),
+                                             allow_unused=True))
+        return tuple(next(grads) if n else None for n in need)
+
+
 def _composite_all(proj, colors, opacities, width, height, chunk):
     """Depth-sort + composite: ([P, 3] rgb, [P] transmittance), P = H·W."""
     n = proj.mean2d.shape[0]
@@ -61,35 +160,10 @@ def _composite_all(proj, colors, opacities, width, height, chunk):
 
     rgb = torch.zeros(npix, 3, device=dev)
     T = torch.ones(npix, device=dev)
+    pixels = (pxf, pyf, ptx, pty)
     for c0 in range(0, n, chunk):
-        m2d, con = mean2d[c0:c0 + chunk], conic[c0:c0 + chunk]
-        rad, c_opa, c_rgb = radius[c0:c0 + chunk], opa[c0:c0 + chunk], col[c0:c0 + chunk]
-        mx, my = m2d[None, :, 0], m2d[None, :, 1]
-        dx = mx - pxf[:, None]  # [P, K]
-        dy = my - pyf[:, None]
-        in_rect = (
-            (ptx >= torch.floor((mx - rad) / TILE_W))
-            & (ptx < torch.floor((mx + rad + TILE_W - 1) / TILE_W))
-            & (pty >= torch.floor((my - rad) / TILE_H))
-            & (pty < torch.floor((my + rad + TILE_H - 1) / TILE_H))
-        )
-        power = (-0.5 * (con[None, :, 0] * dx * dx + con[None, :, 2] * dy * dy)
-                 - con[None, :, 1] * dx * dy)
-        alpha = torch.clamp(c_opa[None, :] * torch.exp(power), max=ALPHA_MAX)
-        zero = torch.zeros_like(alpha)
-        alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN) | ~in_rect,
-                            zero, alpha)
-        # the Gaussian that would push T below T_EPS, and all behind it,
-        # are dropped
-        T_incl = T[:, None] * torch.cumprod(1.0 - alpha, dim=1)
-        stopped = torch.cumsum((T_incl < T_EPS).to(alpha.dtype), dim=1) > 0
-        alpha = torch.where(stopped, zero, alpha)
-        one_minus = 1.0 - alpha
-        T_excl = torch.cat(
-            [torch.ones_like(T)[:, None], torch.cumprod(one_minus[:, :-1], dim=1)],
-            dim=1,
-        )
-        w = alpha * T[:, None] * T_excl
-        rgb = rgb + w @ c_rgb
-        T = T * torch.prod(one_minus, dim=1)
+        part = (mean2d[c0:c0 + chunk], conic[c0:c0 + chunk],
+                radius[c0:c0 + chunk], opa[c0:c0 + chunk],
+                col[c0:c0 + chunk])
+        rgb, T = RematChunk.apply(rgb, T, *part, *pixels)
     return rgb, T

@@ -622,7 +622,7 @@ class Probes:
             nt = self.render_view().k4_args[-1] if v.count_rows else 0
             occ = kernels.occupancy(v.source, "e3d_expand_occupancy", nt,
                                     defines=v.defines)
-        prof = kt.device_profile(call, CALLS)
+        prof = kt.device_profile(call, CALLS, expect=(function,))
         if function not in prof:
             raise RuntimeError(f"{v.label}: the profiler saw no {function}")
         row = {"variant": v.name, "defines": list(v.defines), "what": v.what,
@@ -679,7 +679,7 @@ class Probes:
         }
         rows = []
         for name, (call, function, work) in timed.items():
-            prof = kt.device_profile(call, CALLS)
+            prof = kt.device_profile(call, CALLS, expect=(function,))
             if function not in prof:
                 raise RuntimeError(f"{name}: the profiler saw no {function}")
             bound, by = kt.bound_ms(*work)

@@ -17,8 +17,12 @@ kernel and in all (``torch.profiler``, 20 calls), the device kernels per
 call, the event time per call (CUDA events over 50 calls, the host's
 enqueue included) and a digest of the ``Binning``, which must agree
 between trees; before them, what ``-Xptxas -v`` reported for the tree's
-K1, K2 and K4 (registers, spill bytes, shared memory).  The last lines are
-the card's name and power limit and a table of the runs.
+K1, K2 and K4 (registers, spill bytes, shared memory).  After them, one
+line for ``bench.py``'s event train step on the reference rasterizer at a
+small size (8,192 Gaussians, 64×48): ms per step (CUDA events over 10
+steps of one state) and peak memory, with the loss's bits as its digest.
+The last lines are the card's name and power limit and a table of the
+runs.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from pathlib import Path
 import numpy as np
 
 VIEWS = (("render", 0, 800_768), ("train", 1, 428_032))
+# the reference rasterizer's step: Gaussians, width, height
+REFERENCE_STEP = (8_192, 64, 48)
 N_GAUSSIANS = 100_000
 WIDTH, HEIGHT = 1920, 1080
 
@@ -108,6 +114,42 @@ def segment_sums_bytes(live: int, slots: int, n: int) -> int:
     """Bytes K3 must move: the live rows, the slots' destinations, the
     offsets and order, the [N, 9] sums."""
     return live * 9 * 4 + slots * 4 + (n + 1) * 4 + n * 4 + n * 9 * 4
+
+
+def path_bounds(n: int, cap: int, offsets, live: int, pairs,
+                num_tiles: int, width: int, height: int) -> dict:
+    """(bytes, (FP32, SFU) operations) that each kernel of one view's path
+    must at least move and do on this run's inputs, for :func:`bound_ms`:
+    ``n`` Gaussians, instance cap ``cap``, the depth offsets ``offsets``
+    [N+1], ``live`` instances after the cull, the compositing ``pairs``
+    by kind (``rasterize_tiled._composite_plain``), ``num_tiles`` tiles."""
+    from event3dgs_tpu_torch.ops.rasterize_tiled import NGRAD
+    from event3dgs_tpu_torch.ops.sort_tiles import segments
+
+    capped = min(int(offsets[-1]), cap)
+    return {
+        # per Gaussian 33 bytes read, 52 written; at least 60 FP32 and 7
+        # SFU operations (a log, two square roots, four divisions)
+        "K4 gaussian_tables": (n * (33 + 52), (60 * n, 7 * n)),
+        # per rank the argsort's int64 and its count read, the int32 order
+        # and its offset written; a rank per segment
+        "K4 depth_offsets": (n * (8 + 4 + 4 + 4) + 4 + segments(cap) * 4,
+                             (0, 0)),
+        # per live rank its 48-byte table row, order entry and offset; 8
+        # bytes per slot; each live segment's count row
+        "K4 expand_instances": (expansion_bytes(offsets, cap, num_tiles),
+                                (0, 0)),
+        "K5 tile_histogram": (capped * 4 + num_tiles * 4, (0, 0)),
+        "K6 stable_tile_rank": (capped * 4 + num_tiles * 4 + cap * 4, (0, 0)),
+        "K1 composite_forward": (
+            composite_bytes(live, n, num_tiles, width, height),
+            pair_ops(pairs, K1_PAIR_OPS)),
+        "K2 composite_backward": (
+            composite_bytes(live, n, num_tiles, width, height, backward=True),
+            pair_ops(pairs, K2_PAIR_OPS)),
+        "K3 segment_sums": (segment_sums_bytes(live, capped, n),
+                            (live * NGRAD, 0)),
+    }
 
 
 def ptxas_report(log: str, kernel: str) -> dict:
@@ -231,26 +273,122 @@ def kernel_name(key: str) -> str:
     return m.group(1).split("::")[-1] if m else key
 
 
-def device_profile(fn, calls: int = 20) -> dict[str, tuple[float, float]]:
+def dot_nodes(dot: str) -> list[tuple[str, str]]:
+    """(kind, function) of each node of a CUDA graph's DOT dump
+    (``cudaGraphDebugDotPrint``): kind ``kernel`` with the function's name
+    as :func:`kernel_name` gives it (a mangled name decoded to its last
+    component), ``memset``, ``memcpy`` or ``other`` with an empty name."""
+    # a node's line starts with its name and "["; an edge's with "name ->"
+    starts = [m.start() for m in
+              re.finditer(r'^"graph_\d+_node_\d+"\s*\[', dot, re.MULTILINE)]
+    nodes = []
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        text = dot[a:b]
+        if re.search(r"\bMEMSET\b", text):
+            nodes.append(("memset", ""))
+        elif re.search(r"\bMEMCPY\b", text):
+            nodes.append(("memcpy", ""))
+        elif re.search(r"\bKERNEL\b|\\?<\\?<\\?<", text):
+            nodes.append(("kernel", dot_kernel_name(text)))
+        else:
+            nodes.append(("other", ""))
+    return nodes
+
+
+def dot_kernel_name(text: str) -> str:
+    """The function of a kernel node's DOT text: the last component of a
+    mangled name (``_Z20segment_count_kernelPKi...`` → segment_count_kernel,
+    ``_ZN2at6native...`` → its innermost name), else of the first
+    demangled signature ``name<...>(...)`` or launch ``name<<<...``."""
+    m = re.search(r"\b_Z(N?)\d", text)
+    if m:
+        rest, parts = text[m.end() - 1:], []
+        while d := re.match(r"\d+", rest):
+            k = int(d.group())
+            parts.append(rest[d.end():d.end() + k])
+            rest = rest[d.end() + k:]
+            if not m.group(1):
+                break
+        return parts[-1]
+    m = (re.search(r"([A-Za-z_][\w:]*)\s*(?:<[^()]*>)?\s*\(", text)
+         or re.search(r"([A-Za-z_][\w:]*)\s*\\?<\\?<\\?<", text))
+    return m.group(1).split("::")[-1] if m else text.strip()[:60]
+
+
+def graph_dot(fn) -> str:
+    """One call of ``fn`` (after one warm-up call) captured in a CUDA graph
+    that is never instantiated, as DOT text (``cuGraphDebugDotPrint`` of
+    libcuda, verbose)."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphDebugDotPrint.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_char_p, ctypes.c_uint]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "graph.dot"
+        rc = libcuda.cuGraphDebugDotPrint(graph.raw_cuda_graph(),
+                                          str(path).encode(), 1)
+        if rc != 0:
+            raise RuntimeError(f"cuGraphDebugDotPrint returned {rc}")
+        return path.read_text(errors="replace")
+
+
+def graph_kernels(fn) -> dict[str, int]:
+    """{function: nodes} of one call of ``fn`` in its CUDA graph
+    (:func:`graph_dot`), memsets, copies and other nodes under
+    ``"memset"``, ``"memcpy"`` and ``"other"``: which device work a call
+    enqueues, read from the graph itself, which misses no launch (unlike
+    the profiler late in a long process: :func:`per_launch_ms`)."""
+    dot = graph_dot(fn)
+    out: dict[str, int] = {}
+    for kind, name in dot_nodes(dot):
+        key = name if kind == "kernel" else kind
+        out[key] = out.get(key, 0) + 1
+    if not out:
+        raise RuntimeError(f"graph_kernels: no node in the graph's DOT dump "
+                           f"({len(dot)} bytes: {dot[:200]!r})")
+    return out
+
+
+def device_profile(fn, calls: int = 20, expect=(),
+                   sessions: int = 3) -> dict[str, tuple[float, float]]:
     """{device kernel name: (self device ms per call, launches per call)}
-    over ``calls`` calls of ``fn`` after one warm-up call (torch.profiler)."""
+    over ``calls`` calls of ``fn`` after one warm-up call (torch.profiler).
+    Late in a long process the profiler may see only some of the launches,
+    or none (:func:`per_launch_ms`): a session that saw none of a function
+    in ``expect`` is made again, up to ``sessions`` in all, and the last
+    is returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out: dict[str, tuple[float, float]] = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = out.get(kernel_name(e.key), (0.0, 0.0))
-            out[kernel_name(e.key)] = (ms + us / 1e3 / calls, n + e.count / calls)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out: dict[str, tuple[float, float]] = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                ms, n = out.get(kernel_name(e.key), (0.0, 0.0))
+                out[kernel_name(e.key)] = (ms + us / 1e3 / calls,
+                                           n + e.count / calls)
+        if all(f in out for f in expect):
+            break
     return out
 
 
@@ -305,6 +443,32 @@ def worker(tree: str) -> None:
             "device_ops": sum(v[1] for v in prof.values()),
             "event_ms": cuda_ms(call, 50),
         }), flush=True)
+    print(json.dumps({"tree": tree, **reference_step(dev)}), flush=True)
+
+
+def reference_step(dev) -> dict:
+    """``bench.py``'s event train step (views 1, 1 → 2) on the reference
+    rasterizer at ``REFERENCE_STEP``'s size: its ms per step over 10 steps
+    of one state (CUDA events), peak memory, and the loss's bits."""
+    import torch
+
+    from event3dgs_tpu_torch.train.step import make_train_step
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    n, width, height = REFERENCE_STEP
+    state, data, _ = bench_state(dev, n, width, height)
+    step = make_train_step("event", OptimizationConfig(), EventConfig(),
+                           spatial_lr_scale=3.0, rasterizer="reference")
+    bg = torch.zeros(3, device=dev)
+    _, m = step(state, data, 1, 1, 2, bg)
+    loss = m["loss"].detach().float().cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, data, 1, 1, 2, bg), 10)
+    return {"step": "event, reference rasterizer", "gaussians": n,
+            "width": width, "height": height,
+            "digest": zlib.crc32(loss.tobytes()), "event_ms": ms,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
 
 
 def main(argv=None) -> int:
@@ -315,7 +479,7 @@ def main(argv=None) -> int:
     if args.worker:
         worker(args.worker)
         return 0
-    rows = []
+    rows, steps = [], []
     for tree in args.trees:
         tree = str(Path(tree).resolve())
         out = subprocess.run([sys.executable, __file__, "--trees", tree,
@@ -328,18 +492,30 @@ def main(argv=None) -> int:
             print(line)
             if line.startswith("{") and "view" in json.loads(line):
                 rows.append(json.loads(line))
+            elif line.startswith("{") and "step" in json.loads(line):
+                steps.append(json.loads(line))
     for view, _, _ in VIEWS:
         digests = {r["digest"] for r in rows if r["view"] == view}
         if len(digests) != 1:
             print(f"kernel_timing: the trees' outputs differ at the {view} view",
                   file=sys.stderr)
             return 1
+    if len({r["digest"] for r in steps}) != 1:
+        print("kernel_timing: the trees' reference steps differ in loss",
+              file=sys.stderr)
+        return 1
     print(card())
     print("view    run tree                              device us  ops  event ms")
     for k, r in enumerate(rows):
         print(f"{r['view']:7s} {k // len(VIEWS) + 1:3d} {r['tree'][-32:]:32s} "
               f"{r['device_us_total']:10.3f} {r['device_ops']:4.0f} "
               f"{r['event_ms']:9.4f}")
+    n, width, height = REFERENCE_STEP
+    print(f"event step, reference rasterizer, {n} Gaussians at "
+          f"{width}x{height}: run tree  ms per step  peak MiB")
+    for k, r in enumerate(steps):
+        print(f"{k + 1:3d} {r['tree'][-32:]:32s} {r['event_ms']:10.3f} "
+              f"{r['peak_mib']:9.1f}")
     return 0
 
 

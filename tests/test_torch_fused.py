@@ -12,6 +12,11 @@
   across the iteration where the SH degree steps up, with a black and a
   random background.
 - :func:`next_event` against the chunk planner of the JAX loop.
+- The reference rasterizer's capture-safe compositing (its chunk products
+  take no host read in their backward, each chunk is recomputed in the
+  backward pass): the products' gradients equal PyTorch's own, the
+  oracle's gradients over several chunks match the JAX oracle's, and the
+  port's fused event loop on it matches the JAX fused loop.
 
 On the CPU the fused loop runs the graph-ready step eagerly through the
 same row table that a CUDA graph replays on a card
@@ -23,14 +28,26 @@ import dataclasses
 import inspect
 import textwrap
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import event3dgs_tpu.train.loop as jloop
+from event3dgs_tpu.ops.projection import ProjectedGaussians as JProjected
+from event3dgs_tpu.ops.rasterize_reference import (
+    rasterize_reference_partials as jref_partials,
+)
 from event3dgs_tpu.train import train_loop as jtrain_loop
 from event3dgs_tpu.utils.config import OptimizationConfig as JOptCfg
 from event3dgs_tpu.utils.config import TrainConfig as JTrainConfig
+from event3dgs_tpu_torch.ops.rasterize_reference import (
+    NonzeroCumprod,
+    NonzeroProd,
+    rasterize_reference_partials,
+)
+from event3dgs_tpu_torch.ops.projection import ProjectedGaussians
 from event3dgs_tpu_torch.train import make_train_step, train_loop
 from event3dgs_tpu_torch.train.fused import FusedSteps
 from event3dgs_tpu_torch.train.loop import (
@@ -191,3 +208,100 @@ def test_next_event_matches_jax_chunk_planner(mode, saves):
     assert set(range(10, iters + 1, 10)) <= set(ends)
     assert {cfg.optimization.densify_from_iter, 600, 15_000} <= set(ends)
     assert all(b - a <= 8 for a, b in zip([0] + ends, ends))
+
+
+@pytest.mark.parametrize("fn", ["cumprod", "prod"])
+def test_reference_chunk_products_take_pytorchs_gradients(fn):
+    """The oracle's products over 1 - α (never 0: α ≤ 0.99) give PyTorch's
+    own gradients bit for bit: its backward takes the same formula when no
+    input is zero, after reading that on the host."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.uniform(0.01, 1.0, (64, 33)), dtype=torch.float32)
+    up = torch.tensor(rng.normal(size=(64, 33) if fn == "cumprod" else 64),
+                      dtype=torch.float32)
+    ours = {"cumprod": NonzeroCumprod, "prod": NonzeroProd}[fn]
+    stock = {"cumprod": lambda t: torch.cumprod(t, dim=1),
+             "prod": lambda t: torch.prod(t, dim=1)}[fn]
+    a = x.clone().requires_grad_(True)
+    b = x.clone().requires_grad_(True)
+    out_a, out_b = ours.apply(a), stock(b)
+    assert torch.equal(out_a, out_b)
+    (ga,) = torch.autograd.grad(out_a, a, up)
+    (gb,) = torch.autograd.grad(out_b, b, up)
+    assert torch.equal(ga, gb)
+
+
+def test_reference_oracle_gradients_match_jax_across_chunks():
+    """The oracle's partials and their gradients (colors, opacities, means,
+    conics) against the JAX oracle's with chunks of 16 over 90 Gaussians,
+    so each chunk is recomputed in the backward pass and carries the next
+    chunk's start: images at the JAX suite's atol 2e-5 / rtol 1e-4,
+    gradients at its max-normalised atol 2e-4."""
+    rng = np.random.default_rng(8)
+    n, w, h = 90, 40, 36
+    mean2d = rng.uniform([-4, -4], [w + 4, h + 4], (n, 2)).astype(np.float32)
+    sig = rng.uniform(1.0, 6.0, (n, 2))
+    rho = rng.uniform(-0.6, 0.6, n)
+    cov = np.stack([sig[:, 0] ** 2, rho * sig[:, 0] * sig[:, 1],
+                    sig[:, 1] ** 2], 1)
+    det = cov[:, 0] * cov[:, 2] - cov[:, 1] ** 2
+    conic = np.stack([cov[:, 2], -cov[:, 1], cov[:, 0]], 1) / det[:, None]
+    depth = rng.uniform(1.0, 5.0, n).astype(np.float32)
+    radius = (3.0 * sig.max(1)).astype(np.float32)
+    valid = rng.uniform(size=n) > 0.1
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    opac = rng.uniform(0.2, 0.99, n).astype(np.float32)
+    up_rgb = rng.normal(size=(h, w, 3)).astype(np.float32)
+    up_logt = rng.normal(size=(h, w)).astype(np.float32)
+    conic = conic.astype(np.float32)
+
+    def jloss(m2d, con, col, opa):
+        proj = JProjected(mean2d=m2d, depth=jnp.asarray(depth), conic=con,
+                          radius=jnp.asarray(radius), valid=jnp.asarray(valid))
+        rgb, logt = jref_partials(proj, col, opa, w, h, chunk=16)
+        return jnp.sum(rgb * up_rgb) + jnp.sum(logt * up_logt), (rgb, logt)
+
+    jgrads, (jrgb, jlogt) = jax.grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (mean2d, conic, colors, opac)))
+    leaves = [torch.tensor(a, requires_grad=True)
+              for a in (mean2d, conic, colors, opac)]
+    proj = ProjectedGaussians(mean2d=leaves[0], depth=torch.tensor(depth),
+                              conic=leaves[1], radius=torch.tensor(radius),
+                              valid=torch.tensor(valid))
+    rgb, logt = rasterize_reference_partials(proj, leaves[2], leaves[3], w,
+                                             h, chunk=16)
+    loss = (rgb * torch.tensor(up_rgb)).sum() + (logt * torch.tensor(up_logt)).sum()
+    tgrads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(rgb.detach().numpy(), np.asarray(jrgb),
+                               atol=2e-5, rtol=1e-4)
+    np.testing.assert_allclose(np.exp(logt.detach().numpy()),
+                               np.exp(np.asarray(jlogt)), atol=2e-6)
+    for name, t, j in zip(("mean2d", "conic", "colors", "opacity"), tgrads,
+                          jgrads):
+        j = np.asarray(j)
+        scale = max(np.abs(j).max(), 1e-12)
+        np.testing.assert_allclose(t.numpy() / scale, j / scale, atol=2e-4,
+                                   err_msg=name)
+
+
+def test_event_fused_loop_on_the_reference_rasterizer_matches_jax(scene):
+    """The capture-safe oracle in the port's fused event loop (8 steps a
+    chunk) against the JAX package's fused event loop: 12 iterations at
+    the fused-loop tolerances."""
+    js, ts = states(scene, seed=24)
+    jd, td = scene_data(scene)
+    kw = dict(densify_from_iter=10_000, densify_until_iter=0)
+    jcfg = JTrainConfig(optimization=JOptCfg(**kw))
+    tcfg = TrainConfig(optimization=OptimizationConfig(**kw))
+    for cfg in (jcfg, tcfg):
+        cfg.pipeline.rasterizer = "reference"
+        cfg.pipeline.fused_steps = 8
+    jr = jtrain_loop(js, jd, jcfg, "event", scene.extent, iterations=12)
+    tr = train_loop(ts, td, tcfg, "event", scene.extent, iterations=12)
+    np.testing.assert_allclose(tr.history, jr.history, **LOSS_TOL)
+    for f in ("xyz", "opacity", "scaling"):
+        np.testing.assert_allclose(getattr(tr.state.params, f).numpy(),
+                                   np.asarray(getattr(jr.state.params, f)),
+                                   atol=PARAM_ATOL, err_msg=f)
+    np.testing.assert_allclose(tr.state.contrast.numpy(),
+                               np.asarray(jr.state.contrast), **LOSS_TOL)

@@ -442,6 +442,25 @@ def test_counting_sort_edge_cases_match_plain_versions(case):
 
 
 @pytest.mark.gpu
+def test_graph_of_the_counting_sort_holds_its_three_functions():
+    """One call of the fused counting sort captured in a CUDA graph holds
+    one node of each of its CUDA functions and nothing else, as
+    ``kernel_timing.graph_kernels`` reads the CUDA graph's DOT dump."""
+    need_card()
+    from event3dgs_tpu_torch.tools.kernel_timing import graph_kernels
+
+    ids, n_live, n_bins = SORT_CASES["bins_8160"]()
+    m = ids.shape[0]
+    gauss = torch.randperm(m, generator=torch.Generator().manual_seed(m))
+    ids, gauss = ids.cuda(), gauss.to(torch.int32).cuda()
+    live = torch.tensor([n_live], dtype=torch.int32, device="cuda")
+    nodes = graph_kernels(lambda: sort_tiles.counting_sort_kernel(
+        ids, gauss, live, n_bins, -1))
+    assert nodes == {"segment_count_kernel": 1, "scan_kernel": 1,
+                     "rank_kernel": 1}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SCENES) + sorted(HARD_SCENES))
 def test_whole_binning_matches_plain_version(name):
     """The kernel path's ``Binning`` (the table kernel, the depth offsets
@@ -882,6 +901,124 @@ def test_graph_cache_reuses_a_graph_until_the_step_is_rebuilt():
     np.testing.assert_allclose(rebuilt.run(rows), losses, rtol=2e-5, atol=1e-6)
     cache.clear()
     assert rebuilt.graph is None
+
+
+# every train mode's graph beside the event mode's above: (mode, rasterizer)
+GRAPH_MODES = [("rgb", "tiled"), ("gray", "tiled"), ("event_deblur", "tiled"),
+               ("event", "reference")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,rasterizer", GRAPH_MODES,
+                         ids=[f"{m}-{r}" for m, r in GRAPH_MODES])
+def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
+    """``fused_steps`` 8 against the eager loop in each train mode the
+    event test above leaves out: 20 iterations with one densify at 10 that
+    grows the capacity (captured at 0 and again after 10).  Losses, final
+    parameters, contrast and alive slots equal bit for bit; the kernels
+    launch in the warm-up steps and the captures only (the reference
+    rasterizer launches none)."""
+    from event3dgs_tpu_torch.train import train_loop
+    from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
+    from event3dgs_tpu_torch.train.loop import TrainCallbacks
+    from event3dgs_tpu_torch.utils.config import OptimizationConfig, TrainConfig
+
+    need_card()
+    state, data, extent = graph_scene()
+    if mode == "event_deblur":  # blurry captures that differ from the views
+        data = data._replace(blurry_images=data.images.flip(0).contiguous())
+    opt = OptimizationConfig(densify_from_iter=2, densification_interval=10,
+                             densify_until_iter=15, densify_grad_threshold=0.0)
+    ws = wrappers_by_name()
+    runs = {}
+    for fused in (1, 8):
+        cfg = TrainConfig(optimization=opt)
+        cfg.pipeline.fused_steps = fused
+        cfg.pipeline.rasterizer = rasterizer
+        events = []
+        cb = TrainCallbacks(on_metrics=lambda it, m: events.append((it, m)),
+                            log_every=10)
+        for w in ws.values():
+            w.launches = 0
+        res = train_loop(state, data, cfg, mode, extent, iterations=20,
+                         callbacks=cb)
+        runs[fused] = res, events, {k: w.launches for k, w in ws.items()}
+    (r1, e1, n1), (r8, e8, n8) = runs[1], runs[8]
+    assert [it for it, m in e1 if "capacity" in m] == [10]
+    assert [it for it, m in e8 if "graph_capture_ms" in m] == [0, 10]
+    renders = 3 if mode.startswith("event") else 1
+    tiled = rasterizer == "tiled"
+    assert n1 == dict.fromkeys(ws, 20 * renders if tiled else 0)
+    assert n8 == dict.fromkeys(
+        ws, 2 * (WARMUP_STEPS + 1) * renders if tiled else 0)
+    assert np.array_equal(np.asarray(r8.history), np.asarray(r1.history))
+    assert np.isfinite(r1.history).all()
+    for f in ("xyz", "features_dc", "features_rest", "opacity", "scaling",
+              "rotation", "alive"):
+        assert torch.equal(getattr(r8.state.params, f),
+                           getattr(r1.state.params, f)), f
+    assert torch.equal(r8.state.contrast, r1.state.contrast)
+    assert int(r8.state.step) == int(r1.state.step) == 20
+
+
+def wrappers_by_name():
+    """Every kernel's launch wrapper, by name (as ``chip_smoke.py``)."""
+    return {
+        "K1": rt.composite_forward_kernel,
+        "K2": rt.composite_backward_kernel,
+        "K3": segscan.segment_sums_kernel,
+        "table": binning.gaussian_tables_kernel,
+        "depth_offsets": binning.depth_order_kernel,
+        "K4": expand.expand_instances_kernel,
+        "K5": sort_tiles.tile_histogram_kernel,
+        "K6": sort_tiles.stable_tile_rank_kernel,
+    }
+
+
+@pytest.mark.gpu
+def test_depth_offsets_kernel_at_ceiling_size():
+    """The depth offsets kernel's decoupled look-back over 8,192 + 1
+    blocks of 2,048 ranks (16.8M Gaussians, far more blocks than the card
+    holds at once), twice (the kernel clears its state for the next call):
+    order, offsets and every live segment's first rank bit-equal to the
+    plain version."""
+    need_card()
+    from event3dgs_tpu_torch.tools.scale import depth_offsets_case
+
+    n = 8192 * binning.OFFSETS_TILE + 1000
+    tables = depth_offsets_case(n)
+    cap = 1 << 26
+    want = binning.depth_order_plain(tables, cap)
+    total = int(want.offsets[-1])
+    live = -(-min(total, cap) // sort_tiles.SEGMENT)
+    for _ in range(2):
+        got = binning.depth_order_kernel(tables, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got.order, want.order)
+        assert torch.equal(got.offsets, want.offsets)
+        assert torch.equal(got.seg_rank[:live], want.seg_rank[:live])
+    assert int(tables.lookback.abs().sum()) == 0  # left cleared
+
+
+@pytest.mark.gpu
+def test_counting_sort_at_ceiling_size():
+    """K5 + K6 (the fused counting sort, and K5 and K6 alone) over 32M + 5
+    instance slots at a 1080p tile grid, a quarter of them past the live
+    count or dropped: bit-equal to the plain versions."""
+    from event3dgs_tpu_torch.tools.scale import counting_sort_case
+
+    need_card()
+    nt = 60 * 34  # 1920×1080 in 32-px tiles
+    m = (1 << 25) + 5
+    ids, gauss, n_live = counting_sort_case(m, nt)
+    want = sort_tiles.counting_sort_plain(ids, gauss, n_live, nt, 1 << 24)
+    got = sort_tiles.counting_sort_kernel(ids, gauss, n_live, nt, 1 << 24)
+    for field, k, p in zip(got._fields, got, want):
+        assert torch.equal(k, p), field
+    assert torch.equal(sort_tiles.tile_histogram_kernel(ids, nt, n_live),
+                       want.counts)
+    assert torch.equal(sort_tiles.stable_tile_rank_kernel(
+        ids, n_live, nt, want.offsets, m), want.dest)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

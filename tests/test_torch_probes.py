@@ -359,6 +359,121 @@ def test_bound_arithmetic():
     assert kt.segment_sums_bytes(10, 12, 4) == 360 + 48 + 20 + 16 + 144
 
 
+def test_path_bounds_of_one_view():
+    """Each kernel of a view's path: its (bytes, operations), the live
+    slots capped at the instance cap."""
+    from event3dgs_tpu_torch.ops.sort_tiles import SEGMENT, segments
+
+    offsets = torch.tensor([0, 3, 3, 10, 12], dtype=torch.int32)
+    pairs = [10, 20, 30]
+    b = kt.path_bounds(4, 10, offsets, 6, pairs, 2, 8, 2)
+    assert set(b) == {"K1 composite_forward", "K2 composite_backward",
+                      "K3 segment_sums", "K4 gaussian_tables",
+                      "K4 depth_offsets", "K4 expand_instances",
+                      "K5 tile_histogram", "K6 stable_tile_rank"}
+    assert b["K4 gaussian_tables"] == (4 * 85, (240, 28))
+    assert b["K4 depth_offsets"] == (4 * 20 + 4 + segments(10) * 4, (0, 0))
+    # ranks 0 and 2 start under the cap (rank 1 is empty, rank 3 at it)
+    assert b["K4 expand_instances"] == (2 * 56 + 80 + -(-10 // SEGMENT) * 8,
+                                        (0, 0))
+    assert b["K5 tile_histogram"] == (10 * 4 + 8, (0, 0))
+    assert b["K6 stable_tile_rank"] == (10 * 4 + 8 + 40, (0, 0))
+    assert b["K1 composite_forward"] == (
+        kt.composite_bytes(6, 4, 2, 8, 2), kt.pair_ops(pairs, kt.K1_PAIR_OPS))
+    assert b["K2 composite_backward"] == (
+        kt.composite_bytes(6, 4, 2, 8, 2, backward=True),
+        kt.pair_ops(pairs, kt.K2_PAIR_OPS))
+    assert b["K3 segment_sums"] == (kt.segment_sums_bytes(6, 10, 4),
+                                    (6 * 9, 0))
+
+
+# an excerpt of a CUDA graph DOT dump of a captured binning
+# (cuGraphDebugDotPrint, verbose; NVIDIA H100 80GB HBM3, CUDA 12.8): a
+# kernel of ours in an anonymous namespace, a copy, one of PyTorch's
+# kernels, a memset, a CUB template kernel, and the edges
+DOT = r"""digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_0"[style="bold" shape="record" label="{KERNEL
+| {ID | 0 (topoId: 4) | _ZN41_GLOBAL__N__ab4e71e4_9_expand_cu_488286f321gaussian_table_kernelEPKfS1_S1_PKbS1_S1_iiifP4int4P6float4PfPyi\<\<\<391,256,0\>\>\>}
+| {{node handle | func handle} | {0x0000000013DD0DC0 | 0x0000000012D30EE0}}
+| {cooperative | 0}
+}"];
+
+"graph_1_node_1"[style="solid" shape="record" label="{
+MEMCPY
+| {{ID | node handle} | {1 (topoId: 3) | 0x0000000013DD1528}}
+| {Extent | {WidthInBytes | Height | Depth} | {400000 | 1 | 1}}
+}"];
+
+"graph_1_node_2"[style="bold" shape="record" label="{KERNEL
+| {ID | 2 (topoId: 2) | _ZN2at6native46_GLOBAL__N__e17e1519_13_SortStable_cu_f7bb90a127fill_reverse_indices_kernelEPliNS_4cuda6detail10IntDividerIjEE\<\<\<98,1024,0\>\>\>}
+}"];
+
+"graph_1_node_3"[style="solid" style="solid" shape="record" label="{MEMSET
+| {{ID | node handle | dptr | pitch | value | elementSize | width | height} | {3 (topoId: 1) | 0x0000000013DD23F8 | 0x00007F35AE1BFA00 | 0 | 0 | 1 | 16 | 1}}}"];
+
+"graph_1_node_4"[style="bold" shape="record" label="{KERNEL
+| {ID | 4 (topoId: 0) | _ZN14at_cuda_detail3cub30DeviceRadixSortHistogramKernelINS0_21DeviceRadixSortPolicyIfN2at4cuda3cub6detail10OpaqueTypeILi8EEEyE9Policy900ELb0EfyNS0_6detail21identity_decomposer_tEEEvPT2_PKT1_SD_iiT3_\<\<\<2112,128,0\>\>\>}
+}"];
+
+"graph_1_node_5"[style="bold" shape="record" label="{KERNEL
+| {ID | 5 (topoId: 0) | _ZN46_GLOBAL__N__8710cfb3_13_sort_tiles_cu_c76d93de11rank_kernelEPKiS1_iS1_iiS1_S1_S1_PiiiS2_S2_S2_\<\<\<209,256,8160\>\>\>}
+}"];
+
+"graph_1_node_0" -> "graph_1_node_1" [headlabel=0];
+"graph_1_node_1" -> "graph_1_node_2" [headlabel=0];
+"graph_1_node_2" -> "graph_1_node_3" [headlabel=0];
+"graph_1_node_3" -> "graph_1_node_4" [headlabel=0];
+"graph_1_node_4" -> "graph_1_node_5" [headlabel=0];
+}
+}
+"""
+
+
+def test_dot_nodes_of_a_cuda_graph_dump():
+    """Each node of a CUDA graph's DOT dump, in order, with its kind and
+    its kernel's function; the edges are no nodes."""
+    assert kt.dot_nodes(DOT) == [
+        ("kernel", "gaussian_table_kernel"), ("memcpy", ""),
+        ("kernel", "fill_reverse_indices_kernel"), ("memset", ""),
+        ("kernel", "DeviceRadixSortHistogramKernel"),
+        ("kernel", "rank_kernel")]
+    assert kt.dot_nodes("digraph dot {\n}\n") == []
+
+
+@pytest.mark.parametrize("text, name", [
+    ("_Z20segment_count_kernelPKiS0_iPi", "segment_count_kernel"),
+    ("| {ID | 0 | _ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11"
+     "FillFunctorIfEEEEviT0_T1_\\<\\<\\<2,128,0\\>\\>\\>}",
+     "vectorized_elementwise_kernel"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float> >(int, at::native::FillFunctor<float>)",
+     "vectorized_elementwise_kernel"),
+    ("segment_sums_kernel(float const*, int)", "segment_sums_kernel"),
+    ("| scan_kernel\\<\\<\\<1,256\\>\\>\\>}", "scan_kernel"),
+])
+def test_dot_kernel_name(text, name):
+    """A kernel node's function, from a mangled name (plain or nested) or
+    a demangled signature or launch."""
+    assert kt.dot_kernel_name(text) == name
+
+
+def test_graph_kernels_counts_the_nodes(monkeypatch):
+    """{function: nodes} of a call's graph, memsets and copies by kind; a
+    dump without a node is refused."""
+    calls = []
+    monkeypatch.setattr(kt, "graph_dot", lambda fn: calls.append(fn) or DOT)
+    assert kt.graph_kernels(print) == {
+        "gaussian_table_kernel": 1, "memcpy": 1,
+        "fill_reverse_indices_kernel": 1, "memset": 1,
+        "DeviceRadixSortHistogramKernel": 1, "rank_kernel": 1}
+    assert calls == [print]
+    monkeypatch.setattr(kt, "graph_dot", lambda fn: "digraph dot {\n}\n")
+    with pytest.raises(RuntimeError, match="no node"):
+        kt.graph_kernels(print)
+
+
 def test_bench_scene_is_bench_pys():
     rng = np.random.default_rng(0)
     means = np.c_[rng.uniform(-3, 3, 50), rng.uniform(-1.8, 1.8, 50),
