@@ -52,7 +52,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    ``torch.use_deterministic_algorithms`` giving bit-identical parameters.
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
-   profile one step, and time K2 and K3 as in phase 5.  Then densify
+   profile one step, and time K2 and K3 as in phase 5; K3 also over the
+   rows put into expansion order beforehand and, through ``dest``, in
+   each of its two orders of work (``ops/segscan.py``), each bit-equal to
+   K3 as the path calls it, with their graph ms.  Then densify
    the timed state with capacity growth and run one more step at a
    re-measured instance cap (3 launches of each kernel, finite loss).
 
@@ -150,7 +153,7 @@ Phases (any failed check exits non-zero; nothing is caught):
    4 and 7's tolerances (the table and depth offsets kernels, K4, K5, K6,
    the counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal) and its
-   graph ms beside its bound.  The depth offsets kernel over 8,192 + 1
+   graph ms beside its bound, K3 in its orders as in phase 8.  The depth offsets kernel over 8,192 + 1
    look-back blocks (16.8M ranks, twice, its state left cleared) and the
    counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
    bit-equal to their plain versions.  ``train --densify --fused_steps
@@ -688,6 +691,47 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
                            HEIGHT),
         bk=bk, tk=tk, n_live=n_live, nt=nt, live=live, pairs=pairs,
         k2_args=k2_args, rows_k=rows_k)
+
+
+def k3_in_order(what, bk, rows_k):
+    """K3 over the rows put into expansion order beforehand and read
+    through an identity ``dest`` (zero rows where an instance was
+    dropped), and K3 through ``dest`` in each of its two orders of work
+    (``ops/segscan.py``), each held bit-equal to K3 as the path calls it:
+    their graph ms (the gap between the first and the path's call is what
+    the gather costs), and ``torch.segment_reduce``'s ms over the ordered
+    rows."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import segscan
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        cuda_ms,
+        graph_ms,
+        k3_inputs,
+    )
+
+    via_dest, args, (head, lengths) = k3_inputs(bk, rows_k)
+    want = rt.gaussian_grads(bk, rows_k)
+    calls = {"in_order": lambda: segscan.segment_sums_kernel(*args),
+             "rank_order": lambda: segscan.segment_sums_kernel(
+                 *via_dest, by_output=False),
+             "output_order": lambda: segscan.segment_sums_kernel(
+                 *via_dest, by_output=True)}
+    out = {}
+    for key, call in calls.items():
+        check(torch.equal(call(), want),
+              f"{what}: K3 ({key.replace('_', ' ')}) differs from K3 as the "
+              "path calls it")
+        out[f"graph_ms_{key}"] = graph_ms(call)
+    out["library_ms_in_order"] = cuda_ms(
+        lambda: torch.segment_reduce(head, "sum", lengths=lengths), 20)
+    print(f"{what}: K3 bit-equal over rows already in expansion order "
+          f"(identity dest) {out['graph_ms_in_order']:.4f} graph ms, in rank "
+          f"order {out['graph_ms_rank_order']:.4f}, in output order "
+          f"{out['graph_ms_output_order']:.4f}; torch.segment_reduce over "
+          f"the ordered rows {out['library_ms_in_order']:.4f} ms")
+    return out
 
 
 def wrappers():
@@ -1615,9 +1659,9 @@ def train_kernels(dev):
     import torch
 
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors
+    from event3dgs_tpu_torch.tools.kernel_timing import k3_inputs
     from event3dgs_tpu_torch.train.step import make_loss_and_grads, make_train_step
     from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
 
@@ -1715,12 +1759,7 @@ def train_kernels(dev):
                  top=15)
 
     b, rows_k = v.bk, v.rows_k
-    n_exp = min(int(b.offsets[-1]), icap)
-    rows_pad = torch.cat([rows_k, rows_k.new_zeros(1, rt.NGRAD)])
-    dest = b.dest[:n_exp].long()
-    gathered = rows_pad[torch.where(dest < icap, dest, icap)]
-    off = torch.clamp(b.offsets.long(), max=icap)
-    lengths = off[1:] - off[:-1]
+    _, _, (gathered, lengths) = k3_inputs(b, rows_k)
     timings = {
         "K2 composite_backward": (*v.calls["K2 composite_backward"], None, 20),
         "K3 segment_sums": (
@@ -1734,6 +1773,7 @@ def train_kernels(dev):
     }
     errs = {k: v.errs[k] for k in timings}
     rows = kernel_rows(timings, v.bounds, meta, errs)
+    rows["K3 segment_sums"].update(k3_in_order("main view", b, rows_k))
     composite_report("K2 composite_backward", rows["K2 composite_backward"],
                      v.pairs, v.bounds["K2 composite_backward"][0],
                      "rasterize_bwd", "e3d_composite_backward_occupancy")
@@ -2239,6 +2279,7 @@ def scale_kernel_rows(state, data, icap, dev):
                      "graph_ms": ms, "bound_ms": bound, "bound_by": by}
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
               f"({by}), {ms / bound:.2f}x")
+    out["K3 segment_sums"].update(k3_in_order(what, v.bk, v.rows_k))
     return out
 
 

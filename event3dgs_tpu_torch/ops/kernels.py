@@ -103,6 +103,15 @@ SIGNATURES = {
         # rows, n_rows, width, dest, starts, ends, n_seg, limit, order, out,
         # stream
         "e3d_segment_sums": [_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+        # rows (9 floats each), n_rows, dest, starts, ends, n_seg, limit,
+        # order, out, [n_seg, 2] int32 range scratch, stream
+        "e3d_segment_sums_by_output": [_P, _I, _P, _P, _P, _I, _I, _P, _P,
+                                       _P, _P],
+        # only in the build with E3D_K3_BALANCED (tools/kernel_timing.py):
+        # rows (9 floats each), n_rows, dest, starts, ends, n_seg, limit,
+        # order, out, int32 scratch, its length, stream
+        "e3d_segment_sums_balanced": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                                      _I, _P],
     },
     "probes": {
         # x, capacity (blocks of 1,024 floats), n (a device int), partials

@@ -6,9 +6,17 @@ gradient is the sum of the rows of its instances, which are contiguous in
 expansion (depth-rank) order.  The JAX package gathers the rows into
 expansion order, runs a Pallas exclusive prefix scan over all rows, takes
 two boundary gathers and a difference, then scatters by rank.  The port
-sums each segment directly (``csrc/segsum.cu``): one thread per
-(segment, column) adds its rows in expansion order, reading row ``e``
-through ``dest[e]`` and writing segment ``s`` to ``order[s]``.
+sums each segment directly (``csrc/segsum.cu``), in one of two orders.
+In rank order one thread per (segment, column) adds its rows in expansion
+order, reading row ``e`` through ``dest[e]`` and writing segment ``s`` to
+``order[s]``: one launch, but each 36-byte output row lands at a random
+place, which past the card's L2 costs a read and a merge of its two
+part-written 32-byte sectors.  In output order (rows of 9 floats) a first
+launch writes each segment's clipped range to row ``order[s]`` of a
+table, then one owner thread per output row adds its rows in expansion
+order and each block writes its output rows whole.  The wrapper takes
+output order where the sums outgrow :data:`BY_OUTPUT_L2` of the L2
+(:func:`by_output_order`).
 
 Each segment's rounding error is eps·|segment| instead of the scan's
 eps·|prefix| (the weakness the JAX module names), and the sums repeat bit
@@ -21,6 +29,19 @@ from __future__ import annotations
 import torch
 
 from event3dgs_tpu_torch.ops import kernels
+
+
+# the share of the card's L2 past which the [N, 9] sums are taken in output
+# order (tools/kernel_timing.py --k3 times both orders by size: on an H100
+# the output order wins from 300k-350k Gaussians, 11-13 MB of sums, where
+# the rows, dest and sums of the rank order outgrow the L2)
+BY_OUTPUT_L2 = 0.2
+
+
+def by_output_order(width: int, n_seg: int, l2_bytes: int) -> bool:
+    """Whether K3 takes its sums in output order: rows of 9 floats whose
+    [n_seg, 9] float32 sums outgrow :data:`BY_OUTPUT_L2` of ``l2_bytes``."""
+    return width == 9 and n_seg * width * 4 > BY_OUTPUT_L2 * l2_bytes
 
 
 def _bounds(starts, ends, limit: int):
@@ -48,8 +69,10 @@ def segment_sums_plain(rows, starts, ends, limit: int, dest, order):
     return out
 
 
-def segment_sums_kernel(rows, starts, ends, limit: int, dest, order):
-    """Launch K3 (``csrc/segsum.cu``) on CUDA tensors."""
+def segment_sums_kernel(rows, starts, ends, limit: int, dest, order,
+                        by_output: bool | None = None):
+    """Launch K3 (``csrc/segsum.cu``) on CUDA tensors, in output order
+    where ``by_output`` says so (None: :func:`by_output_order`)."""
     n_rows, width = rows.shape
     n_seg = starts.shape[0]
     kernels.check(rows, torch.float32, "rows")
@@ -59,12 +82,27 @@ def segment_sums_kernel(rows, starts, ends, limit: int, dest, order):
     kernels.check(order, torch.int32, "order", (n_seg,))
     if dest.shape[0] < limit:
         raise ValueError(f"dest: {dest.shape[0]} entries < limit {limit}")
+    if by_output is None:
+        by_output = by_output_order(width, n_seg, torch.cuda.get_device_properties(
+            rows.device).L2_cache_size)
+    elif by_output and width != 9:
+        raise ValueError(f"output order takes rows of 9 floats, not {width}")
     out = torch.empty(n_seg, width, dtype=torch.float32, device=rows.device)
-    kernels.launch(
-        "segsum", "e3d_segment_sums",
-        rows.data_ptr(), n_rows, width, dest.data_ptr(), starts.data_ptr(),
-        ends.data_ptr(), n_seg, limit, order.data_ptr(), out.data_ptr(),
-    )
+    if by_output:
+        ranges = torch.empty(n_seg, 2, dtype=torch.int32, device=rows.device)
+        kernels.launch(
+            "segsum", "e3d_segment_sums_by_output",
+            rows.data_ptr(), n_rows, dest.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), n_seg, limit, order.data_ptr(), out.data_ptr(),
+            ranges.data_ptr(),
+        )
+    else:
+        kernels.launch(
+            "segsum", "e3d_segment_sums",
+            rows.data_ptr(), n_rows, width, dest.data_ptr(),
+            starts.data_ptr(), ends.data_ptr(), n_seg, limit,
+            order.data_ptr(), out.data_ptr(),
+        )
     segment_sums_kernel.launches += 1
     return out
 

@@ -21,8 +21,27 @@ K1, K2 and K4 (registers, spill bytes, shared memory).  After them, one
 line for ``bench.py``'s event train step on the reference rasterizer at a
 small size (8,192 Gaussians, 64×48): ms per step (CUDA events over 10
 steps of one state) and peak memory, with the loss's bits as its digest.
-The last lines are the card's name and power limit and a table of the
-runs.
+Then K3 (``segment_sums_kernel``) at the train step's main view and at
+``tools/scale.py``'s 2,097,152-slot maxcap view (camera 1, its measured
+cap): graph ms over seeded rows read through the binning's ``dest``, as
+the rasterizer hands them over, and over the same rows put into expansion
+order beforehand with an identity ``dest`` (the gap is what the gather
+costs), ``torch.segment_reduce`` over the ordered rows, and a digest of
+the sums; on a tree whose K3 has two orders of work, also each order
+forced, and its timing-only build balanced by instances.  Last,
+``GRAPHED_STEPS`` replays of the graphed event step
+(``train/fused.FusedSteps``) at ``bench.py``'s state and at the 2M state:
+the device ms per replay and a digest of the losses, parameters and
+contrast, which must agree between trees.  The last lines are the card's
+name and power limit and tables of the runs.
+
+    python3 event3dgs_tpu_torch/tools/kernel_timing.py --k3
+
+times this tree's K3 in both orders of work (``ops/segscan.py``): alone
+over seeded segments at ``K3_SWEEP`` sizes, from 100k to 4M Gaussians
+(the basis of ``segscan.BY_OUTPUT_L2``), and inside the graphed event
+step at ``bench.py``'s state and at the 2M state, the step captured once
+with each order and the two graphs replayed in turns.
 """
 
 from __future__ import annotations
@@ -65,6 +84,19 @@ COMPOSITED = 2  # index of the composited pairs in the tables and counts
 PTXAS_KERNELS = (("rasterize_fwd", "composite_forward_kernel"),
                  ("rasterize_bwd", "composite_backward_kernel"),
                  ("expand", "expand_kernel"))
+# K3's timing-only build with one owner per segment in rank order and warps
+# balanced by instances, and the segments + instances of one of its warps
+# (csrc/segsum.cu)
+K3_BALANCED = ("E3D_K3_BALANCED",)
+K3_BALANCED_ITEMS = 64
+# Gaussians (segments) of the K3 sweep
+K3_SWEEP = (100_000, 250_000, 300_000, 350_000, 400_000, 450_000, 500_000,
+            750_000, 1_000_000, 1_500_000, 2_097_152, 4_194_304)
+K3_STEP_ROUNDS = 10  # replays of each capture in the K3 step comparison
+# the 2M-slot maxcap state of tools/scale.py (chip_smoke phase 14)
+SCALE_SLOTS = 2_097_152
+K3_SEED = 5  # K3's timing rows (its time does not depend on their values)
+GRAPHED_STEPS = 3  # graphed event steps the trees compare, after one
 
 
 def pair_ops(pairs, table, kinds=(COMPOSITED,)):
@@ -402,6 +434,254 @@ def per_launch_ms(prof, functions) -> float:
     return sum(prof[f][0] / prof[f][1] for f in functions)
 
 
+def scale_view(dev, slots: int = SCALE_SLOTS):
+    """``tools/scale.py``'s maxcap state at ``slots``: (state, data, its
+    measured instance cap)."""
+    from event3dgs_tpu_torch.tools import scale
+    from event3dgs_tpu_torch.train.loop import measure_instance_cap
+
+    state, data = scale.maxcap_scene(slots, WIDTH, HEIGHT, dev)
+    return state, data, measure_instance_cap(state.params, data.cameras)
+
+
+def main_view_binning(state, data, icap):
+    """The Binning of the step's main view (camera 1) of ``state`` at the
+    instance cap ``icap``."""
+    import torch
+
+    from event3dgs_tpu_torch.models import activated
+    from event3dgs_tpu_torch.ops import binning
+    from event3dgs_tpu_torch.ops.projection import project_gaussians
+
+    cam = data.cameras[1]
+    act = activated(state.params)
+    with torch.no_grad():
+        proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
+                                 opacities=act.opacities)
+        return binning.bin_gaussians(
+            proj.mean2d, proj.depth, proj.radius, proj.valid, cam.width,
+            cam.height, icap, opacities=act.opacities, conic=proj.conic)
+
+
+def k3_inputs(b, rows):
+    """K3's arguments at the Binning ``b`` for the slot rows ``rows``: the
+    rows read through ``b.dest``, as the rasterizer hands them over; the
+    same rows put into expansion order (zero where an instance was
+    dropped) with an identity ``dest``; and, for ``torch.segment_reduce``,
+    the ordered rows of the segments and their lengths."""
+    import torch
+
+    limit, n_rows = b.dest.shape[0], rows.shape[0]
+    d = b.dest.long()
+    ordered = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])[
+        torch.where((d >= 0) & (d < n_rows), d, n_rows)]
+    ident = torch.arange(limit, dtype=torch.int32, device=d.device)
+    starts, ends = b.offsets[:-1], b.offsets[1:]
+    off = torch.clamp(b.offsets.long(), max=limit)
+    return ((rows, starts, ends, limit, b.dest, b.order),
+            (ordered, starts, ends, limit, ident, b.order),
+            (ordered[:int(off[-1])], off[1:] - off[:-1]))
+
+
+def k3_timing(b, what: str) -> dict:
+    """K3 at the Binning ``b``: graph ms through ``dest`` and over rows in
+    expansion order, ``torch.segment_reduce``'s ms over those rows, its
+    bound, whether the two calls and the plain version agree bit for bit,
+    and a digest of the sums."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import segscan
+
+    g = torch.Generator().manual_seed(K3_SEED)
+    via_dest, ordered, (rows, lengths) = k3_inputs(
+        b, torch.randn(b.dest.shape[0], 9, generator=g).to(b.dest.device))
+    out = segscan.segment_sums_kernel(*via_dest)
+    same = (torch.equal(out, segscan.segment_sums_kernel(*ordered))
+            and torch.equal(out, segscan.segment_sums_plain(*via_dest)))
+    n, limit = b.offsets.shape[0] - 1, b.dest.shape[0]
+    live = int(b.tile_counts.sum())
+    bound, by = bound_ms(segment_sums_bytes(
+        live, min(int(b.offsets[-1]), limit), n), (live * 9, 0))
+    rec = {"k3": what, "segments": n, "slots": limit,
+           "instances": min(int(b.offsets[-1]), limit), "live": live,
+           "graph_ms_dest": graph_ms(
+               lambda: segscan.segment_sums_kernel(*via_dest)),
+           "graph_ms_expansion_order": graph_ms(
+               lambda: segscan.segment_sums_kernel(*ordered)),
+           "library_ms": cuda_ms(
+               lambda: torch.segment_reduce(rows, "sum", lengths=lengths),
+               20),
+           "bound_ms": bound, "bound_by": by,
+           "digest": zlib.crc32(out.cpu().numpy().tobytes())}
+    if hasattr(segscan, "by_output_order"):  # a tree with both orders
+        for key, by_output in (("rank", False), ("output", True)):
+            call = lambda: segscan.segment_sums_kernel(*via_dest,
+                                                       by_output=by_output)
+            rec[f"graph_ms_{key}_order"] = graph_ms(call)
+            same = same and torch.equal(call(), out)
+    balanced = k3_balanced(via_dest, out)  # None: a tree without the build
+    if balanced is not None:
+        rec["balanced_graph_ms_dest"], balanced_same = balanced
+        same = same and balanced_same
+    rec["equal"] = same
+    return rec
+
+
+def k3_balanced(args, want):
+    """K3's timing-only build with one owner per segment in rank order and
+    warps balanced by instances (``E3D_K3_BALANCED``) on ``args`` (rows of
+    9 floats through ``dest``): (its graph ms, whether its sums equal
+    ``want`` bit for bit); None where this tree's source has no such
+    build."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import kernels
+
+    if "E3D_K3_BALANCED" not in kernels.sources("segsum")[0].read_text():
+        return None
+    kernels.build([("segsum", K3_BALANCED)])
+    rows, starts, ends, limit, dest, order = args
+    n_seg = starts.shape[0]
+    scratch = torch.empty(-(-(n_seg + limit) // K3_BALANCED_ITEMS) + 2,
+                          dtype=torch.int32, device=rows.device)
+
+    def call():
+        out = torch.empty(n_seg, 9, dtype=torch.float32, device=rows.device)
+        kernels.launch("segsum", "e3d_segment_sums_balanced",
+                       rows.data_ptr(), rows.shape[0], dest.data_ptr(),
+                       starts.data_ptr(), ends.data_ptr(), n_seg, limit,
+                       order.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                       scratch.shape[0], defines=K3_BALANCED)
+        return out
+
+    return graph_ms(call), torch.equal(call(), want)
+
+
+def sweep_segments(n_seg: int, dev, seed: int = K3_SEED):
+    """K3's arguments for ``n_seg`` Gaussians shaped like the 2M-slot
+    step's main view: 86.5 % of the segments with Poisson(1.5) instances,
+    the rest empty and last; twice as many slots, their rows in a random
+    (tile) order, past the instances the drop value; ``order`` a random
+    permutation."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    live = int(n_seg * 0.865)
+    lens = torch.zeros(n_seg, device=dev)
+    lens[:live] = torch.poisson(torch.full((live,), 1.5, device=dev),
+                                generator=g)
+    offsets = torch.zeros(n_seg + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(lens, 0).to(torch.int32)
+    total = int(offsets[-1])
+    slots = max(2 * n_seg, total)
+    dest = torch.full((slots,), slots, dtype=torch.int32, device=dev)
+    dest[:total] = torch.randperm(slots, generator=g, device=dev)[
+        :total].to(torch.int32)
+    order = torch.randperm(n_seg, generator=g, device=dev).to(torch.int32)
+    rows = torch.randn(slots, 9, generator=g, device=dev)
+    return rows, offsets[:-1], offsets[1:], slots, dest, order
+
+
+def k3_sweep(dev, sizes=K3_SWEEP) -> list[dict]:
+    """This tree's K3 in rank and in output order at each size of
+    ``sizes`` (:func:`sweep_segments`): graph ms of each, the sums' MB
+    against the card's L2, and whether both equal the plain version."""
+    import torch
+
+    from event3dgs_tpu_torch.ops import segscan
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    out = []
+    for n in sizes:
+        args = sweep_segments(n, dev)
+        want = segscan.segment_sums_plain(*args)
+        rec = {"k3_sweep": n, "sums_mb": n * 36 / 1e6, "l2_mb": l2 / 1e6,
+               "auto": "output" if segscan.by_output_order(9, n, l2)
+               else "rank"}
+        for key, by_output in (("rank", False), ("output", True)):
+            call = lambda: segscan.segment_sums_kernel(*args,
+                                                       by_output=by_output)
+            rec[f"graph_ms_{key}_order"] = graph_ms(call)
+            rec[f"equal_{key}"] = torch.equal(call(), want)
+        out.append(rec)
+        print(json.dumps(rec), flush=True)
+        del args, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def k3_step_orders(state, data, icap, dev, what: str,
+                   rounds: int = K3_STEP_ROUNDS) -> dict:
+    """The graphed event step (views 1, 1 → 2) captured twice from
+    ``state``, with K3 in rank order and in output order
+    (``segscan.BY_OUTPUT_L2`` set while each captures), the two graphs
+    replayed in turns, ``rounds`` each: the device ms of each replay (CUDA
+    events) and whether the two runs' losses agree bit for bit."""
+    from unittest import mock
+
+    import torch
+
+    from event3dgs_tpu_torch.ops import segscan
+    from event3dgs_tpu_torch.train.fused import FusedSteps
+    from event3dgs_tpu_torch.train.step import GraphTrainStep
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    runs = {}
+    for key, share in (("rank", float("inf")), ("output", 0.0)):
+        step = GraphTrainStep("event", OptimizationConfig(), EventConfig(),
+                              spatial_lr_scale=3.0, rasterizer="tiled",
+                              instance_cap=icap)
+        with mock.patch.object(segscan, "BY_OUTPUT_L2", share):
+            runner = FusedSteps(step, state, data, 1)
+        runner.run(torch.from_numpy(step.row(int(state.step) + 1, (1, 1, 2),
+                                             np.zeros(3))[None]))
+        runs[key] = (runner, [])
+    for _ in range(rounds):
+        for runner, ms in runs.values():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            runner.cursor.zero_()  # the table's one row again
+            start.record()
+            runner.graph.replay()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+    rec = {"k3_step": what, "instance_cap": icap, "rounds": rounds}
+    for key, (runner, ms) in runs.items():
+        rec[f"replay_ms_{key}_order"] = ms
+        rec[f"median_ms_{key}_order"] = float(np.median(ms))
+        rec[f"digest_{key}"] = state_digest(runner.state)
+        runner.release()
+    rec["equal"] = rec["digest_rank"] == rec["digest_output"]
+    return rec
+
+
+def state_digest(state, digest: int = 0) -> int:
+    """A digest of the train state's parameters and contrast."""
+    p = state.params
+    for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+              "opacity"):
+        digest = zlib.crc32(getattr(p, f).cpu().numpy().tobytes(), digest)
+    return zlib.crc32(state.contrast.cpu().numpy().tobytes(), digest)
+
+
+def graphed_digest(state, data, icap, dev, what: str,
+                   steps: int = GRAPHED_STEPS) -> dict:
+    """``steps`` graphed event steps after one (``tools/scale.py``'s
+    ``graphed_steps``: views 1, 1 → 2) from ``state``, which they consume:
+    the losses, the device ms per replay, and a digest of the losses, the
+    parameters and the contrast."""
+    from event3dgs_tpu_torch.tools import scale
+
+    runner, rec = scale.graphed_steps([state], data, icap, steps, steps, dev)
+    digest = state_digest(runner.state, zlib.crc32(
+        np.asarray(rec["losses"], np.float32).tobytes()))
+    runner.release()
+    return {"graphed": what, "instance_cap": icap, "losses": rec["losses"],
+            "device_ms_per_replay": rec["device_ms_per_replay"],
+            "digest": digest}
+
+
 def worker(tree: str) -> None:
     sys.path.insert(0, tree)
     import torch
@@ -422,6 +702,7 @@ def worker(tree: str) -> None:
     opacities = f(opac)
     fields = ("inst_gauss", "tile_offsets", "tile_counts", "dest", "overflow",
               "offsets", "order")
+    binnings = {}
     for view, i, cap in VIEWS:
         cam = bench_camera(i, WIDTH, HEIGHT, dev)
         proj = project_gaussians(f(means), f(scales), f(rots), cam,
@@ -429,7 +710,7 @@ def worker(tree: str) -> None:
         call = lambda: binning.bin_gaussians(
             proj.mean2d, proj.depth, proj.radius, proj.valid, WIDTH, HEIGHT,
             cap, opacities=opacities, conic=proj.conic)
-        out = call()
+        out = binnings[view] = call()
         digest = 0
         for field in fields:
             digest = zlib.crc32(getattr(out, field).cpu().numpy().tobytes(),
@@ -444,6 +725,20 @@ def worker(tree: str) -> None:
             "event_ms": cuda_ms(call, 50),
         }), flush=True)
     print(json.dumps({"tree": tree, **reference_step(dev)}), flush=True)
+    print(json.dumps({"tree": tree, **k3_timing(binnings["train"], "100k")}),
+          flush=True)
+    del binnings
+    state, data, icap = bench_state(dev)
+    print(json.dumps({"tree": tree, **graphed_digest(state, data, icap, dev,
+                                                     "100k")}), flush=True)
+    del state, data
+    state, data, icap = scale_view(dev)
+    b = main_view_binning(state, data, icap)
+    print(json.dumps({"tree": tree, **k3_timing(b, "2M")}), flush=True)
+    del b
+    torch.cuda.empty_cache()
+    print(json.dumps({"tree": tree, **graphed_digest(state, data, icap, dev,
+                                                     "2M")}), flush=True)
 
 
 def reference_step(dev) -> dict:
@@ -473,13 +768,54 @@ def reference_step(dev) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--trees", nargs="+", required=True)
+    parser.add_argument("--trees", nargs="+")
+    parser.add_argument("--k3", action="store_true",
+                        help="time this tree's K3 in both orders, alone by "
+                        "size and in the graphed step")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker:
         worker(args.worker)
         return 0
-    rows, steps = [], []
+    if args.k3:
+        sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+        import torch
+
+        if not torch.cuda.is_available():
+            sys.exit("kernel_timing: needs a CUDA card")
+        dev = torch.device("cuda")
+        recs = k3_sweep(dev)
+        steps = []
+        for what, make in (("100k", lambda: bench_state(dev)),
+                           ("2M", lambda: scale_view(dev))):
+            state, data, icap = make()
+            steps.append(k3_step_orders(state, data, icap, dev, what))
+            print(json.dumps(steps[-1]), flush=True)
+            del state, data
+            torch.cuda.empty_cache()
+        print(card())
+        print("Gaussians  sums MB  graph ms: rank order  output order  "
+              "wrapper takes  equal")
+        for r in recs:
+            print(f"{r['k3_sweep']:9d} {r['sums_mb']:8.1f} "
+                  f"{r['graph_ms_rank_order']:20.4f} "
+                  f"{r['graph_ms_output_order']:13.4f} {r['auto']:>14s}  "
+                  f"{r['equal_rank'] and r['equal_output']}")
+        print(f"graphed event step, K3 in each order, {K3_STEP_ROUNDS} "
+              "replays each in turns: median device ms per replay "
+              "(min-max)")
+        for r in steps:
+            cols = "  ".join(
+                f"{key} order {r[f'median_ms_{key}_order']:.4f} "
+                f"({min(r[f'replay_ms_{key}_order']):.4f}-"
+                f"{max(r[f'replay_ms_{key}_order']):.4f})"
+                for key in ("rank", "output"))
+            print(f"{r['k3_step']:5s} {cols}  equal {r['equal']}")
+        ok = all(r["equal_rank"] and r["equal_output"] for r in recs)
+        return 0 if ok and all(r["equal"] for r in steps) else 1
+    if not args.trees:
+        parser.error("give --trees or --k3")
+    rows, steps, k3, graphed = [], [], [], []
     for tree in args.trees:
         tree = str(Path(tree).resolve())
         out = subprocess.run([sys.executable, __file__, "--trees", tree,
@@ -490,10 +826,11 @@ def main(argv=None) -> int:
             return 1
         for line in out.stdout.splitlines():
             print(line)
-            if line.startswith("{") and "view" in json.loads(line):
-                rows.append(json.loads(line))
-            elif line.startswith("{") and "step" in json.loads(line):
-                steps.append(json.loads(line))
+            rec = json.loads(line) if line.startswith("{") else {}
+            for key, runs in (("view", rows), ("step", steps), ("k3", k3),
+                              ("graphed", graphed)):
+                if key in rec:
+                    runs.append(rec)
     for view, _, _ in VIEWS:
         digests = {r["digest"] for r in rows if r["view"] == view}
         if len(digests) != 1:
@@ -503,6 +840,16 @@ def main(argv=None) -> int:
     if len({r["digest"] for r in steps}) != 1:
         print("kernel_timing: the trees' reference steps differ in loss",
               file=sys.stderr)
+        return 1
+    for key, runs in (("k3", k3), ("graphed", graphed)):
+        for what in {r[key] for r in runs}:
+            if len({r["digest"] for r in runs if r[key] == what}) != 1:
+                print(f"kernel_timing: the trees differ in {key} at {what}",
+                      file=sys.stderr)
+                return 1
+    if not all(r["equal"] for r in k3):
+        print("kernel_timing: K3 through dest, over ordered rows and its "
+              "plain version differ", file=sys.stderr)
         return 1
     print(card())
     print("view    run tree                              device us  ops  event ms")
@@ -516,6 +863,22 @@ def main(argv=None) -> int:
     for k, r in enumerate(steps):
         print(f"{k + 1:3d} {r['tree'][-32:]:32s} {r['event_ms']:10.3f} "
               f"{r['peak_mib']:9.1f}")
+    print("K3  run tree                             graph ms: via dest  "
+          "rows in order  rank order  output order  balanced build  "
+          "segment_reduce ms  bound ms")
+    opt = lambda r, key, w: f"{'-' if key not in r else f'{r[key]:.4f}':>{w}s}"
+    for k, r in enumerate(k3):
+        print(f"{r['k3']:4s}{k // 2 + 1:3d} {r['tree'][-32:]:32s} "
+              f"{r['graph_ms_dest']:18.4f} {r['graph_ms_expansion_order']:14.4f} "
+              f"{opt(r, 'graph_ms_rank_order', 11)} "
+              f"{opt(r, 'graph_ms_output_order', 13)} "
+              f"{opt(r, 'balanced_graph_ms_dest', 15)} "
+              f"{r['library_ms']:18.4f} {r['bound_ms']:9.4f}")
+    print(f"graphed event step ({GRAPHED_STEPS} replays after one): run tree"
+          "  device ms per replay  losses")
+    for k, r in enumerate(graphed):
+        print(f"{r['graphed']:4s}{k // 2 + 1:3d} {r['tree'][-32:]:32s} "
+              f"{r['device_ms_per_replay']:10.4f} {r['losses']}")
     return 0
 
 

@@ -709,6 +709,83 @@ def test_segment_sum_kernel_on_random_rows(n_seg, n_rows, width):
                            segscan.segment_sums_plain(*args, *index))
 
 
+def long_tailed_segments(n_seg, n_empty, slots, seed=0):
+    """K3's inputs at the shape of the 2M-slot step: ``n_seg`` contiguous
+    segments of Poisson(1.2) rows, one in a hundred with a Zipf tail of up
+    to 5,000 more, the last ``n_empty`` empty (culled Gaussians sort
+    last); ``dest`` [slots] the instances' rows, a permutation of the
+    ``slots`` rows with a tenth dropped past them; ``order`` a
+    permutation."""
+    rng = np.random.default_rng(seed)
+    n_live = n_seg - n_empty
+    lens = rng.poisson(1.2, n_live)
+    tail = rng.random(n_live) < 0.01
+    lens[tail] += np.minimum(rng.zipf(1.8, int(tail.sum())), 5000)
+    lens = np.r_[lens, np.zeros(n_empty, np.int64)]
+    offsets = np.r_[0, np.cumsum(lens)].astype(np.int32)
+    total = int(offsets[-1])
+    assert total <= slots
+    # one entry per slot, as the counting sort's: past the instances and
+    # for a tenth of them the drop value
+    dest = np.full(slots, slots, np.int32)
+    dest[:total] = rng.permutation(slots)[:total]
+    dest[:total][rng.random(total) < 0.1] = slots
+    order = rng.permutation(n_seg).astype(np.int32)
+    rows = (rng.standard_normal((slots, 9), np.float32) * 10)
+    cuda = lambda a: torch.from_numpy(a).cuda()
+    off = cuda(offsets)
+    return (cuda(rows), off[:-1], off[1:], slots, cuda(dest), cuda(order))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("by_output", [None, False, True],
+                         ids=["wrapper", "rank_order", "output_order"])
+def test_segment_sum_kernel_at_2m_size(by_output):
+    """K3 bit-equal to its plain version at the 2M-slot step's shape:
+    2,097,152 segments, about 2.6M instances over 4,127,744 slots with
+    long-tailed lengths (up to 5,000) and the trailing segments empty; in
+    the order the wrapper picks there (output order) and in each order."""
+    need_card()
+    args = long_tailed_segments(2_097_152, 197_152, 4_127_744)
+    n_inst = int(args[2][-1])
+    assert 2_300_000 < n_inst < 2_900_000
+    before = segscan.segment_sums_kernel.launches
+    if by_output is None:
+        assert segscan.by_output_order(9, 2_097_152, torch.cuda.get_device_properties(
+            0).L2_cache_size)
+        got = segscan.segment_sums(*args)
+    else:
+        got = segscan.segment_sums_kernel(*args, by_output=by_output)
+    assert segscan.segment_sums_kernel.launches == before + 1
+    assert torch.equal(got, segscan.segment_sums_plain(*args))
+    assert not got[args[5][-197_152:].long()].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("by_output", [False, True],
+                         ids=["rank_order", "output_order"])
+def test_segment_sum_kernel_in_a_cuda_graph(by_output):
+    """K3 captured in a CUDA graph, in each order: each replay equals the
+    plain version on the rows its static buffer holds at that time."""
+    need_card()
+    args = long_tailed_segments(60_000, 5_000, 120_000, seed=1)
+    rows = args[0]
+    segscan.segment_sums_kernel(*args, by_output=by_output)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segscan.segment_sums_kernel(*args, by_output=by_output)
+    g = torch.Generator().manual_seed(3)
+    for k in range(3):
+        if k:
+            rows.copy_(torch.randn(rows.shape, generator=g))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, segscan.segment_sums_plain(*args))
+    graph.reset()
+
+
 @pytest.mark.gpu
 def test_tiled_gradients_on_card_match_cpu():
     """The autograd path (binning + K1 forward, K2 + K3 backward) on the

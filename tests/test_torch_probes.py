@@ -2,7 +2,8 @@
 catalogue of K1 and K4 builds and how `ops/kernels.py` names and
 compiles them, K1's stop statistics against a loop over pixels, the event
 step's cumulative stages against the port's own functions, the plain
-dynamic-grid sum, the bound arithmetic of ``tools/kernel_timing.py`` and
+dynamic-grid sum, the bound arithmetic of ``tools/kernel_timing.py``, the
+replay split's grouping and stage markers (``tools/step_split.py``) and
 the command line.  Imports no JAX."""
 
 import hashlib
@@ -13,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from event3dgs_tpu_torch.ops import binning, kernels
+from event3dgs_tpu_torch.ops import binning, kernels, segscan
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 from event3dgs_tpu_torch.tools import kernel_probes as kp
 from event3dgs_tpu_torch.tools import kernel_timing as kt
+from event3dgs_tpu_torch.tools import step_split as ss
 from test_torch_kernels import scene
 
 torch.set_num_threads(1)
@@ -387,6 +389,108 @@ def test_path_bounds_of_one_view():
                                     (6 * 9, 0))
 
 
+# a replay's device work in the order it ran, as replay_kernels lists it:
+# (name, µs), the marker kernels where stage_markers put them
+M = ss.MARKER
+REPLAY = [
+    ("Memcpy HtoD (Pageable -> Device)", 1.0),
+    ("index_select_kernel", 2.0),
+    (M, 0.5), ("vectorized_elementwise_kernel", 3.0), ("reduce_kernel", 4.0),
+    (M, 0.5), ("elementwise_kernel", 1.5),
+    (M, 0.5), ("vectorized_elementwise_kernel", 5.0),
+    (M, 0.5),
+    (M, 0.5), ("gaussian_table_kernel", 6.0),
+    ("DeviceRadixSortOnesweepKernel", 7.0),
+    ("DeviceRadixSortHistogramKernel", 1.0), ("depth_offsets_kernel", 2.0),
+    ("expand_kernel", 3.0), ("segment_count_kernel", 1.0),
+    ("scan_kernel", 1.0), ("rank_kernel", 2.0), ("fill_kernel", 0.25),
+    ("composite_forward_kernel", 30.0),
+    (M, 0.5),
+    (M, 0.5), ("conv2d_kernel", 9.0), (M, 0.5),
+    (M, 0.5), ("reduce_kernel", 2.0),
+    (M, 0.5), ("composite_backward_kernel", 50.0),
+    ("segment_sums_kernel", 4.0), ("ranges_kernel", 1.0),
+    ("row_sums_kernel", 2.0), ("DeviceRadixSortOnesweepKernel", 0.75),
+    (M, 0.5), ("vectorized_elementwise_kernel", 2.5),
+    (M, 0.5), ("elementwise_kernel", 3.5),
+    (M, 0.5), ("multi_tensor_apply_kernel", 8.0), (M, 0.5),
+    (M, 0.5), ("vectorized_elementwise_kernel", 1.25), (M, 0.5),
+    ("Memcpy DtoH (Device -> Pageable)", 1.0),
+]
+MARKS = ["projection fwd", "other", "SH fwd", "other", "rasterizer fwd",
+         "other", "loss fwd", "other", "loss bwd", "rasterizer bwd",
+         "SH bwd", "projection bwd", "Adam fwd", "other",
+         "densify stats fwd", "other"]
+
+
+def test_replay_split_groups_a_fixed_kernel_list():
+    """The replay split on a fixed list of kernel names: the port's own
+    kernels by name wherever they run, the sort kernels as the binning's
+    argsort only inside the rasterizer's forward, the rest by the stage
+    the last marker names, ``other`` before the first; markers left out."""
+    labelled = ss.stage_labels(REPLAY, MARKS)
+    assert len(labelled) == len(REPLAY) - len(MARKS)
+    assert labelled[0] == ("Memcpy HtoD (Pageable -> Device)", 1.0, "other")
+    totals = ss.split_totals(labelled)
+    assert list(totals) == list(ss.SPLIT_ORDER)
+    want = {"K1": [30.0, 1], "K2": [50.0, 1], "K3": [4.0 + 1.0 + 2.0, 3],
+            "binning kernels": [15.0, 6], "argsort": [8.0, 2],
+            "projection forward": [7.0, 2], "projection backward": [3.5, 1],
+            "SH forward": [5.0, 1], "SH backward": [2.5, 1],
+            "rasterizer, other": [0.25 + 0.75, 2], "loss": [9.0 + 2.0, 2],
+            "Adam": [8.0, 1], "densify stats": [1.25, 1],
+            "other": [1.0 + 2.0 + 1.5 + 1.0, 4]}
+    assert totals == want
+    assert sum(k for _, k in totals.values()) == len(labelled)
+    assert ss.split_group("composite_forward_kernel", "SH bwd") == "K1"
+    assert ss.split_group("DeviceRadixSortOnesweepKernel", "loss fwd") == "loss"
+    assert ss.split_group("spin", "nowhere") == "other"
+    with pytest.raises(ValueError, match="marker kernels"):
+        ss.stage_labels(REPLAY, MARKS[:-1])
+
+
+def test_stage_markers_mark_each_stage_of_an_eager_step(monkeypatch):
+    """On the CPU, with the marker kernel replaced by a record of its
+    labels: one eager step of ``GraphTrainStep`` under ``stage_markers``
+    marks the start of each stage forward and backward, and leaving the
+    block restores the step's functions."""
+    import importlib
+
+    from event3dgs_tpu_torch.train import step as step_mod
+    from event3dgs_tpu_torch.train.fused import FusedSteps
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    render = importlib.import_module("event3dgs_tpu_torch.ops.render")
+    seen = []
+    monkeypatch.setattr(ss, "_marker", seen.append)
+    state, data, icap = kt.bench_state("cpu", 300, 64, 48)
+    step = step_mod.GraphTrainStep("event", OptimizationConfig(),
+                                   EventConfig(), spatial_lr_scale=3.0,
+                                   rasterizer="tiled", instance_cap=icap)
+    before = [getattr(render, n) for n in ("project_gaussians",
+                                           "gaussian_colors",
+                                           "rasterize_tiled_partials")]
+    runner = FusedSteps(step, state, data, 1)
+    row = torch.from_numpy(step.row(1, (1, 1, 2), np.zeros(3))[None])
+    with ss.stage_markers([]):
+        loss = runner.run(row)[0]
+    assert np.isfinite(loss)
+    assert [getattr(render, n) for n in ("project_gaussians",
+                                         "gaussian_colors",
+                                         "rasterize_tiled_partials")] == before
+    starts = [m for m in seen if m != "other"]
+    for label in ("projection", "SH", "rasterizer"):  # three renders
+        assert starts.count(f"{label} fwd") == 3
+        assert starts.count(f"{label} bwd") == 3
+    assert starts.count("loss fwd") == starts.count("loss bwd") == 1
+    assert starts.count("Adam fwd") == 2  # the Gaussians and the contrast
+    assert starts.count("densify stats fwd") == 1
+    fwd = starts.index("loss fwd")
+    assert all(m.endswith("fwd") for m in starts[:fwd])
+    assert starts[fwd + 1] == "loss bwd"
+    assert starts[-3:] == ["Adam fwd", "Adam fwd", "densify stats fwd"]
+
+
 # an excerpt of a CUDA graph DOT dump of a captured binning
 # (cuGraphDebugDotPrint, verbose; NVIDIA H100 80GB HBM3, CUDA 12.8): a
 # kernel of ours in an anonymous namespace, a copy, one of PyTorch's
@@ -520,3 +624,22 @@ def test_clock_imbalance_of_hand_made_blocks(monkeypatch):
     assert got["under_full_wave_share"] == 0.75
     assert got["mean_running_share"] == (2 * 10 + 30) / (40 * 2)
     assert got["tail_share"] == 0.75
+
+
+def test_k3_sweep_segments_have_the_2m_views_shape():
+    """The K3 sweep's seeded inputs: contiguous ranges, the last 13.5 %
+    empty, twice as many slots as segments, each instance's slot distinct
+    and the slots past the instances the drop value, ``order`` a
+    permutation; and K3's plain version sums them."""
+    rows, starts, ends, slots, dest, order = kt.sweep_segments(
+        2000, torch.device("cpu"))
+    assert torch.equal(starts[1:], ends[:-1]) and int(starts[0]) == 0
+    assert not (ends - starts)[1730:].any() and (ends - starts)[:1730].any()
+    total = int(ends[-1])
+    assert slots == 4000 == rows.shape[0] == dest.shape[0]
+    assert len(set(dest[:total].tolist())) == total
+    assert int(dest[:total].max()) < slots and (dest[total:] == slots).all()
+    assert torch.equal(torch.sort(order).values,
+                       torch.arange(2000, dtype=torch.int32))
+    out = segscan.segment_sums(rows, starts, ends, slots, dest, order)
+    assert out.shape == (2000, 9) and not out[order[1730:].long()].any()
