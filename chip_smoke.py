@@ -15,10 +15,12 @@ Phases (any failed check exits non-zero; nothing is caught):
    four 1920×1080 views at ``bench.py``'s four camera poses.
 3. Render the train views through the entry point
    (``event3dgs_tpu_torch.cli.render.main``) and check that each kernel of
-   the path (the binning's table and depth offsets kernels, K1, K4, K5,
-   K6) launched once per view and that the PNGs exist.
+   the path (the forward preprocess, the binning's table and depth offsets
+   kernels, K1, K4, K5, K6) launched once per view and that the PNGs
+   exist.
 4. Hold each render kernel against its plain PyTorch version at the shapes
-   of view 0 (the table kernel, the depth offsets kernel, K4 with its count
+   of view 0 (the forward preprocess bit for bit: mean2d, depth, conic,
+   radius, valid and colours; the table kernel, the depth offsets kernel, K4 with its count
    rows, K5, K6, the fused counting sort with and without K4's rows and
    the whole ``Binning`` exactly, K1 within 1e-5), one full view of the
    kernel path against the all-plain path, and the kernel path against the
@@ -37,14 +39,18 @@ Phases (any failed check exits non-zero; nothing is caught):
    --gray --event`` for 6 iterations with densification at 3 and 6
    (threshold 0, so both passes clone and split every Gaussian and the
    instance cap is re-measured), then ``cli.render`` on the saved PLY (the
-   train and test sets).  Every kernel (K1-K6 and the binning's table and
-   depth offsets kernels) must launch 3 times per step, the alive count must
-   grow and the loss must be finite.
+   train and test sets).  Every kernel (the preprocess forward and
+   backward, K1-K6 and the binning's table and depth offsets kernels) must
+   launch 3 times per step, the forward preprocess once more per
+   instance-cap probe (``train/loop.probe_instance_count``, counted), the
+   alive count must grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
-   cap): K1's stop index, K2's rows (1e-5 of the max) and K3 (bit-equal)
-   against their plain versions on the main view, and K2 run twice giving
-   bit-identical rows; the table kernel, the depth offsets kernel, K4, K5,
+   cap): the forward preprocess (bit-equal), the backward preprocess on
+   seeded upstream gradients (2e-4 of each gradient's max, bit-identical
+   run twice), K1's stop index, K2's rows (1e-5 of the max) and K3
+   (bit-equal) against their plain versions on the main view, and K2 run
+   twice giving bit-identical rows; the table kernel, the depth offsets kernel, K4, K5,
    K6, the fused counting sort and the whole ``Binning`` there exactly (and
    the counting sort and the binning's device kernels timed); one step's
    gradients, kernel path against the
@@ -69,7 +75,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    (``results.json``, ``per_view.json``); ``cli.render --depth --point
    --blurrySpeed 1 --export_transforms --skip_test``: 8 depth, 8 point and
    7 blurry images and the transforms, each render kernel launched
-   8 + 8 + 7·18 times; ``point_depth_map`` launching no kernel; a blurry
+   8 + 8 + 7·18 times, the forward preprocess 8 more for the point maps;
+   ``point_depth_map`` launching the forward preprocess alone; a blurry
    frame timed alone; an SH degree 4 render of ``bench.py``'s scene, kernel
    path against the all-plain path within 1e-5.  Each part prints its wall
    time with the card's name and power limit.
@@ -150,7 +157,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    loss from both, state GiB, instance cap, ms per step, device ms per
    replay, capture ms, peak and reserved memory.  At that state's main view
    (camera 1) each kernel of the path against its plain version at phases
-   4 and 7's tolerances (the table and depth offsets kernels, K4, K5, K6,
+   4 and 7's tolerances (the preprocess forward and backward, the table
+   and depth offsets kernels, K4, K5, K6,
    the counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal) and its
    graph ms beside its bound, K3 in its orders as in phase 8.  The depth offsets kernel over 8,192 + 1
@@ -222,6 +230,10 @@ EARLIER_K2_PAIR_OPS = ((10, 0), (12, 1), (53, 4))
 EARLIER_MS = {"K1 composite_forward": "0.596-0.603",
               "K2 composite_backward": "1.242-1.253"}
 CUDA_BASELINE_PIX_S = 30e6  # bench.py's yardstick for vs_baseline
+# the JAX code the preprocess kernels replace: the projection and the SH
+# colours, which XLA fuses (no Pallas kernel)
+PREPROCESS_REPLACES = ", ".join(("event3dgs_tpu/ops/projection.py:51",
+                                 "event3dgs_tpu/ops/render.py:49"))
 # bench.py times 5 steps; a 50-step window separates a noisy host from
 # stalls, and its median and spread are printed beside bench.py's mean
 STEP_ITERS = 50
@@ -429,6 +441,8 @@ def profile_view(fn, what: str = "one view", top: int = 12):
 # device_ms; K5 and K6 share the count and scan of csrc/sort_tiles.cu; the
 # table and depth offsets kernels build K4's inputs (csrc/expand.cu)
 KERNEL_FUNCTIONS = {
+    "preprocess_forward": ("preprocess_forward_kernel",),
+    "preprocess_backward": ("preprocess_backward_kernel",),
     "K1 composite_forward": ("composite_forward_kernel",),
     "K2 composite_backward": ("composite_backward_kernel",),
     "K3 segment_sums": ("segment_sums_kernel",),
@@ -575,6 +589,85 @@ def check_binning(what, bk, bp):
                   "overflow", "offsets", "order"):
         check(torch.equal(getattr(bk, field), getattr(bp, field)),
               f"{what}: the binning's {field} differs from the plain path's")
+
+
+def bits_differ(a, b) -> int:
+    """How far two tensors of one shape differ: 0 where they are equal bit
+    for bit, else the most units in the last place between two float32
+    values (2**31 where a sign or a NaN differs), 1 for other types."""
+    import torch
+
+    if a.dtype != torch.float32:
+        return int(not torch.equal(a, b))
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    if torch.equal(ia, ib):
+        return 0
+    same = (torch.sign(a) == torch.sign(b)) & ~torch.isnan(a) & ~torch.isnan(b)
+    if not bool(same[ia != ib].all()):
+        return 2 ** 31
+    return int((ia - ib).abs().max())
+
+
+def preprocess_check(what, act, cam, backward=False):
+    """The forward preprocess kernel against its plain version at one view
+    of the activated Gaussians ``act`` (SH degree 3): mean2d, depth, conic,
+    radius, valid and colours bit-equal.  With ``backward``, the backward
+    kernel on seeded upstream gradients, strided as the rasterizer hands
+    them over (slices of an [N, 9] tensor): each gradient within 2e-4 of
+    its max, and bit-identical when run twice.  Returns a namespace:
+    ``proj`` and ``colors`` (the kernel's), ``errs``, ``calls`` {kernel:
+    (its call, its plain version's)}."""
+    import types
+
+    import torch
+
+    from event3dgs_tpu_torch.ops import preprocess as pre
+
+    args = (act.means3d, act.scales, act.rotations, cam, 1.0, act.opacities,
+            act.features, 3)
+    with torch.no_grad():
+        pk, ck = pre.preprocess_forward_kernel(*args)
+        pp, cp = pre.preprocess_forward_plain(*args)
+    ulps = {f: bits_differ(a, b) for f, a, b in zip(
+        (*pk._fields, "colors"), (*pk, ck), (*pp, cp))}
+    check(not any(ulps.values()), f"{what}: the forward preprocess kernel "
+          f"differs from its plain version (ulps by output: {ulps})")
+    n_valid = int(pk.valid.sum())
+    errs = {"preprocess_forward": 0.0}
+    calls = {"preprocess_forward": (
+        lambda: pre.preprocess_forward_kernel(*args),
+        lambda: pre.preprocess_forward_plain(*args))}
+    text = (f"forward preprocess bit-equal to its plain version ({n_valid} "
+            f"of {pk.valid.numel()} valid)")
+    if backward:
+        g = torch.Generator().manual_seed(11)
+        rows = (torch.rand(pk.valid.numel(), 9, generator=g) - 0.5).to(
+            act.means3d.device)
+        bargs = (act.means3d, act.scales, act.rotations, cam, pk.valid,
+                 rows[:, 0:2], rows[:, 2:5], rows[:, 6:9], 1.0, act.features,
+                 3)
+        gk = pre.preprocess_backward_kernel(*bargs)
+        gp = pre.preprocess_backward_plain(*bargs)
+        worst, err = 0.0, 0.0
+        for name, a, b in zip(("means", "scales", "rotations", "features"),
+                              gk, gp):
+            top = b.abs().max().item()
+            e = (a - b).abs().max().item()
+            check(bool(torch.isfinite(a).all()) and e <= 2e-4 * top,
+                  f"{what}: the backward preprocess kernel's {name} gradient "
+                  f"differs from its plain version by {e:.3g} (max {top:.3g})")
+            worst, err = max(worst, e / max(top, 1e-30)), max(err, e)
+        again = pre.preprocess_backward_kernel(*bargs)
+        check(all(torch.equal(a, b) for a, b in zip(gk, again)),
+              f"{what}: the backward preprocess kernel run twice differs")
+        errs["preprocess_backward"] = err
+        calls["preprocess_backward"] = (
+            lambda: pre.preprocess_backward_kernel(*bargs),
+            lambda: pre.preprocess_backward_plain(*bargs))
+        text += (f"; backward within {worst:.3g} of each gradient's max, "
+                 "bit-identical run twice")
+    print(f"{what}: {text}")
+    return types.SimpleNamespace(proj=pk, colors=ck, errs=errs, calls=calls)
 
 
 def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
@@ -737,9 +830,12 @@ def k3_in_order(what, bk, rows_k):
 def wrappers():
     """Every kernel's launch wrapper, by name."""
     from event3dgs_tpu_torch.ops import binning, expand, segscan, sort_tiles
+    from event3dgs_tpu_torch.ops import preprocess as pre
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 
     return {
+        "preprocess_forward": pre.preprocess_forward_kernel,
+        "preprocess_backward": pre.preprocess_backward_kernel,
         "K1 composite_forward": rt.composite_forward_kernel,
         "K2 composite_backward": rt.composite_backward_kernel,
         "K3 segment_sums": segscan.segment_sums_kernel,
@@ -751,18 +847,45 @@ def wrappers():
     }
 
 
+# the count beside the kernels' of the instance-cap probes
+# (train/loop.probe_instance_count), each one forward preprocess launch
+PROBES = "instance-cap probes"
+# the kernels that run only in a backward pass
+BACKWARD = ("preprocess_backward", "K2 composite_backward", "K3 segment_sums")
+
+
 def count_launches(fn):
     """Run ``fn`` with every launch count set to 0; return (its result, the
-    counts it left)."""
+    counts it left, and under ``PROBES`` the instance-cap probes it ran)."""
     import torch
+
+    from event3dgs_tpu_torch.train import loop
 
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
+    loop.probe_instance_count.calls = 0
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: w.launches for k, w in ws.items()}
+    return out, {**{k: w.launches for k, w in ws.items()},
+                 PROBES: loop.probe_instance_count.calls}
+
+
+def check_launches(what, launches, renders, backward, projections=0):
+    """Each kernel launched once per render, the backward kernels once per
+    differentiated render (``backward``), and the forward preprocess once
+    more per instance-cap probe and per projection outside a render
+    (``projections``)."""
+    for k, n in launches.items():
+        if k == PROBES:
+            continue
+        want = backward if k in BACKWARD else renders
+        if k == "preprocess_forward":
+            want += launches[PROBES] + projections
+        check(n == want, f"{what}: {k} launched {n} times, not {want} "
+              f"({renders} renders, {backward} backward, "
+              f"{launches[PROBES]} instance-cap probes)")
 
 
 def run_cli(main, args):
@@ -777,11 +900,11 @@ def run_cli(main, args):
     return rc, launches, log.getvalue()
 
 
-def check_render_launches(what, launches, renders):
-    """Each render kernel launched once per render; K2 and K3 never."""
-    for k, n in launches.items():
-        want = 0 if k[:2] in ("K2", "K3") else renders
-        check(n == want, f"{what}: {k} launched {n} times for {renders} renders")
+def check_render_launches(what, launches, renders, projections=0):
+    """Each render kernel launched once per render (the forward preprocess
+    once more per projection outside a render); the backward kernels
+    never."""
+    check_launches(what, launches, renders, 0, projections)
 
 
 def render_path(root: str, dev):
@@ -796,7 +919,7 @@ def render_path(root: str, dev):
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.rasterize_reference import rasterize_reference
-    from event3dgs_tpu_torch.ops.render import gaussian_colors, render
+    from event3dgs_tpu_torch.ops.render import render
 
     # 2. generate ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -831,11 +954,12 @@ def render_path(root: str, dev):
                               device=dev)
     cam = cams[0]
     act = activated(params)
-    proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
-                             opacities=act.opacities)
-    colors = gaussian_colors(3, act.features, act.means3d, cam.camera_center)
+    pre = preprocess_check("view 0", act, cam)
+    proj, colors = pre.proj, pre.colors
     v = view_kernels("view 0", proj, colors, act.opacities,
                      rt.default_instance_cap(N_GAUSSIANS), dev)
+    v.errs.update(pre.errs)
+    v.calls.update(pre.calls)
 
     bg = torch.zeros(3, device=dev)
     view = (act.means3d, act.features, act.opacities, act.scales,
@@ -895,6 +1019,9 @@ def render_path(root: str, dev):
                       20 if name.startswith("K1") else 50)
                for name in v.calls}
     meta = {
+        # XLA's fusions of the JAX projection and SH colours (no Pallas
+        # kernel there)
+        "preprocess_forward": ("preprocess.cu", PREPROCESS_REPLACES),
         "K1 composite_forward": ("rasterize_fwd.cu", "event3dgs_tpu/ops/rasterize_tiled.py:296"),
         # the table and depth offsets kernels replace the XLA code that
         # feeds K4 in the JAX binning
@@ -1003,9 +1130,8 @@ def train_path(root: str):
     check(rc == 0, "cli.train failed")
     print(f"cli.train: {TRAIN_ITERS} iterations in {train_s:.2f} s (scene "
           f"load, init and PLY/checkpoint IO included); launches {launches}")
-    for k, n in launches.items():
-        check(n == 3 * TRAIN_ITERS,
-              f"{k} launched {n} times in {TRAIN_ITERS} event steps")
+    check_launches(f"cli.train, {TRAIN_ITERS} event steps", launches,
+                   3 * TRAIN_ITERS, 3 * TRAIN_ITERS)
     last = re.search(r"last loss (\S+)", log)
     check(last is not None and math.isfinite(float(last.group(1))),
           "no finite loss reported")
@@ -1167,7 +1293,8 @@ def evaluation_path(root: str, model: str, dev):
     check(rc == 0, "cli.render --depth --point --blurrySpeed 1 failed")
     blurry = (TRAIN_VIEWS - 1) * BLUR_STEPS
     check_render_launches("cli.render products", launches,
-                          TRAIN_VIEWS + TRAIN_VIEWS + blurry)
+                          TRAIN_VIEWS + TRAIN_VIEWS + blurry,
+                          projections=TRAIN_VIEWS)  # the point maps
     base = os.path.join(model, "train", f"ours_{TRAIN_ITERS}")
     for sub, want in (("depth", TRAIN_VIEWS), ("point", TRAIN_VIEWS),
                       ("blurry", TRAIN_VIEWS - 1)):
@@ -1180,13 +1307,14 @@ def evaluation_path(root: str, model: str, dev):
           f"and {TRAIN_VIEWS} point maps in {products_s:.2f} s wall; launches "
           f"{launches}; {smi}")
 
-    # the point path alone launches no kernel (on phase 2's model: the
-    # trained one has no Gaussian above the 0.8 opacity threshold yet)
+    # the point path alone launches the forward preprocess and no other
+    # kernel (on phase 2's model: the trained one has no Gaussian above the
+    # 0.8 opacity threshold yet)
     _, _, bench_params = load_trained_model(os.path.join(root, "model"), -1, dev)
     view0 = make_camera(np.eye(3), np.zeros(3), 1.2, 0.75, WIDTH, HEIGHT,
                         device=dev)
     depth, launches = count_launches(lambda: point_depth_map(bench_params, view0))
-    check(not any(launches.values()), f"point_depth_map launched {launches}")
+    check_render_launches("point_depth_map", launches, 0, projections=1)
     check(bool(torch.isfinite(depth).any()), "point_depth_map found no point")
     # a blurry frame timed alone, on the trained model
     _, _, params = load_trained_model(model, -1, dev)
@@ -1201,8 +1329,9 @@ def evaluation_path(root: str, model: str, dev):
     blur_ms = (time.perf_counter() - t0) / frames * 1e3
     print(f"blurry set: {blur_ms:.1f} ms per {WIDTH}x{HEIGHT} frame "
           f"({BLUR_STEPS} renders, camera set-up and PNG write; host clock, "
-          f"{frames} frames); point_depth_map of bench.py's view 0: no kernel "
-          f"launch, {int(torch.isfinite(depth).sum())} pixels hit; {smi}")
+          f"{frames} frames); point_depth_map of bench.py's view 0: one "
+          f"forward preprocess launch, {int(torch.isfinite(depth).sum())} "
+          f"pixels hit; {smi}")
     sh_degree_4(dev)
 
 
@@ -1500,9 +1629,8 @@ def sharded_path(root: str, dev):
             train_loop_sharded, state, data, cfg, mode, extent, mesh)
         for what, launches in (("train_loop", p_launches),
                                ("train_loop_sharded", s_launches)):
-            for k, n in launches.items():
-                check(n == 3 * TRAIN_ITERS,
-                      f"{what}: {k} launched {n} times in {TRAIN_ITERS} event steps")
+            check_launches(f"{what}, {TRAIN_ITERS} event steps", launches,
+                           3 * TRAIN_ITERS, 3 * TRAIN_ITERS)
         hp, hs = plain.history, sharded.history
         check(len(hs) == len(hp) == TRAIN_ITERS and all(
             math.isfinite(b) and abs(a - b) <= 1e-5 * abs(b) for a, b in zip(hs, hp)),
@@ -1659,8 +1787,6 @@ def train_kernels(dev):
     import torch
 
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops.projection import project_gaussians
-    from event3dgs_tpu_torch.ops.render import gaussian_colors
     from event3dgs_tpu_torch.tools.kernel_timing import k3_inputs
     from event3dgs_tpu_torch.train.step import make_loss_and_grads, make_train_step
     from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
@@ -1675,12 +1801,11 @@ def train_kernels(dev):
     # 7. every kernel of the main view's path against its plain version
     cam = data.cameras[idx[0]]
     act = activated(state.params)
-    with torch.no_grad():
-        proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
-                                 opacities=act.opacities)
-        colors = gaussian_colors(3, act.features, act.means3d, cam.camera_center)
-    v = view_kernels("main view", proj, colors, act.opacities, icap, dev,
-                     backward=True)
+    pre = preprocess_check("main view", act, cam, backward=True)
+    v = view_kernels("main view", pre.proj, pre.colors, act.opacities, icap,
+                     dev, backward=True)
+    v.errs.update(pre.errs)
+    v.calls.update(pre.calls)
 
     # one step's gradients: kernel path against the all-plain path
     grads = {}
@@ -1722,8 +1847,7 @@ def train_kernels(dev):
 
     # 8. timing: bench.py's event step ---------------------------------------
     (st, _), per_step = count_launches(lambda: step(state, data, *idx, bg))
-    for k, n in per_step.items():
-        check(n == 3, f"{k}: {n} launches in one event step")
+    check_launches("one event step", per_step, 3, 3)
     for _ in range(WARMUP_STEPS):
         st, _ = step(st, data, *idx, bg)
     torch.cuda.synchronize()
@@ -1761,12 +1885,14 @@ def train_kernels(dev):
     b, rows_k = v.bk, v.rows_k
     _, _, (gathered, lengths) = k3_inputs(b, rows_k)
     timings = {
+        "preprocess_backward": (*v.calls["preprocess_backward"], None, 50),
         "K2 composite_backward": (*v.calls["K2 composite_backward"], None, 20),
         "K3 segment_sums": (
             *v.calls["K3 segment_sums"],
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
     }
     meta = {
+        "preprocess_backward": ("preprocess.cu", PREPROCESS_REPLACES),
         "K2 composite_backward": ("rasterize_bwd.cu",
                                   "event3dgs_tpu/ops/rasterize_tiled.py:386"),
         "K3 segment_sums": ("segsum.cu", "event3dgs_tpu/ops/segscan.py:46"),
@@ -1818,8 +1944,7 @@ def densify_growth(state, data, idx, bg, mode="event", extent=3.0):
     (after, metrics), launches = count_launches(
         lambda: step(grown, data, *idx, bg))
     renders = 3 if mode.startswith("event") else 1
-    for k, n in launches.items():
-        check(n == renders, f"{k}: {n} launches in the step after densify")
+    check_launches("the step after densify", launches, renders, renders)
     check(math.isfinite(float(metrics["loss"])), "non-finite loss after densify")
     for f in ("xyz", "scaling", "opacity"):
         check(bool(torch.isfinite(getattr(after.params, f)).all()),
@@ -2117,13 +2242,11 @@ def fused_path(root: str, dev):
     (r1, n1, t1, _, peak1, _), (rf, nf, tf, ef, peakf, made) = (
         runs[1], runs[FUSED_STEPS])
     loss_err, param_err = check_same_run("fused_steps 10", r1, rf)
-    for k, n in n1.items():
-        check(n == 3 * FUSED_ITERS, f"eager loop: {k} launched {n} times")
+    check_launches("eager loop", n1, 3 * FUSED_ITERS, 3 * FUSED_ITERS)
     captures = [m["graph_capture_ms"] for _, m in ef if "graph_capture_ms" in m]
     check(len(captures) == len(made) == 1, f"{len(captures)} graphs captured")
-    for k, n in nf.items():
-        check(n == per_capture, f"fused loop: {k} launched {n} times, not "
-              f"{per_capture} (warm-up and capture only)")
+    # warm-up and capture only
+    check_launches("fused loop", nf, per_capture, per_capture)
     replays = sum(e.replays for e in made)
     check(replays == FUSED_ITERS, f"{replays} replays for {FUSED_ITERS} steps")
     print(f"phase 13: losses of fused_steps {FUSED_STEPS} vs 1 max |diff| "
@@ -2199,9 +2322,8 @@ def fused_path(root: str, dev):
     want = [0] + sorted(set(grown) | set(rebuilt))
     check(recaptured == want and len(made) == len(want),
           f"graphs captured at {recaptured}, not {want}")
-    for k, n in sn5.items():
-        check(n == len(want) * per_capture,
-              f"graph swap: {k} launched {n} times")
+    check_launches("graph swap", sn5, len(want) * per_capture,
+                   len(want) * per_capture)
     swap_err, _ = check_same_run("graph swap", s1, s5)
     print(f"phase 13: graph swap, capacity {N_GAUSSIANS} -> "
           f"{s5.state.params.capacity} (grown at {grown}), instance cap "
@@ -2233,9 +2355,8 @@ def fused_path(root: str, dev):
     check(n_graphs == 1 + len(swapped),
           f"cli.train --fused_steps 3: {n_graphs} captures, capacity or cap "
           f"changed after {sorted(swapped)}")
-    for k, n in launches.items():
-        check(n == per_capture * n_graphs,
-              f"cli.train --fused_steps 3: {k} launched {n} times")
+    check_launches("cli.train --fused_steps 3", launches,
+                   per_capture * n_graphs, per_capture * n_graphs)
     alive = [int(n) for n in re.findall(r"num_alive=(\d+)", log)]
     ck = lambda m: np.load(os.path.join(m, f"chkpnt{TRAIN_ITERS}.npz"))
     eager_alive = int(ck(os.path.join(root, "trained"))["params/alive"].sum())
@@ -2252,33 +2373,36 @@ def scale_kernel_rows(state, data, icap, dev):
     """Phase 14b: at the 2M-slot maxcap state, every kernel of the path
     against its plain version at the step's main view (camera 1), at the
     tolerances phases 4 and 7 hold them to, and each kernel's graph ms and
-    bound there.  Returns {kernel: the scale columns of its JSON row}."""
-    import torch
-
+    bound there (the preprocess kernels' plain ms too, by CUDA events).
+    Returns {kernel: the scale columns of its JSON row}."""
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops.projection import project_gaussians
-    from event3dgs_tpu_torch.ops.render import gaussian_colors
-    from event3dgs_tpu_torch.tools.kernel_timing import bound_ms, graph_ms
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        bound_ms,
+        cuda_ms,
+        graph_ms,
+    )
 
     what = f"phase 14, {SCALE_CAPACITY} slots, main view"
     cam = data.cameras[1]
     act = activated(state.params)
-    with torch.no_grad():
-        proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
-                                 opacities=act.opacities)
-        colors = gaussian_colors(3, act.features, act.means3d,
-                                 cam.camera_center)
-    v = view_kernels(what, proj, colors, act.opacities, icap, dev,
+    pre = preprocess_check(what, act, cam, backward=True)
+    v = view_kernels(what, pre.proj, pre.colors, act.opacities, icap, dev,
                      backward=True)
+    v.errs.update(pre.errs)
+    v.calls.update(pre.calls)
     out = {}
-    for name, (call, _) in v.calls.items():
+    for name, (call, plain) in v.calls.items():
         ms = graph_ms(call)
         bound, by = bound_ms(*v.bounds[name])
         out[name] = {"gaussians": state.params.capacity,
                      "instance_cap": icap, "max_abs_err": v.errs[name],
                      "graph_ms": ms, "bound_ms": bound, "bound_by": by}
+        plain_txt = ""
+        if name in pre.calls:
+            out[name]["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+            plain_txt = f", plain {out[name]['plain_ms']:.4f} ms"
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
-              f"({by}), {ms / bound:.2f}x")
+              f"({by}), {ms / bound:.2f}x{plain_txt}")
     out["K3 segment_sums"].update(k3_in_order(what, v.bk, v.rows_k))
     return out
 
@@ -2302,9 +2426,8 @@ def scale_path(dev):
         dev))
     check(rec["status"] == "ok", f"phase 14: maxcap at {SCALE_CAPACITY}: {rec}")
     want = 3 * (1 + iters) + 3 * (WARMUP_STEPS + 1)
-    for k, n in launches.items():
-        check(n == want, f"phase 14: {k} launched {n} times, not {want} "
-              f"(eager {1 + iters} steps, graphed warm-up and capture)")
+    # eager 1 + iters steps, graphed warm-up and capture
+    check_launches("phase 14", launches, want, want)
     e, gr = rec["eager"], rec["graphed"]
     check(math.isfinite(e["loss"]) and rec["same_loss"],
           f"phase 14: eager loss {e['loss']} vs graphed {gr['loss']}")
@@ -2383,9 +2506,9 @@ def scale_path(dev):
     check([it for it, _ in trec["alive"]] == [100, 150],
           f"phase 14: train densified at {trec['alive']}")
     per_capture = WARMUP_STEPS + 1  # one render per rgb-mode step
-    for k, c in tl.items():
-        check(c == per_capture * trec["captures"], f"phase 14: train: {k} "
-              f"launched {c} times in {trec['captures']} captures")
+    check_launches(f"phase 14: train, {trec['captures']} captures", tl,
+                   per_capture * trec["captures"],
+                   per_capture * trec["captures"])
     eager, eres = scale.run_train(SCALE_TRAIN_EAGER, True, 1, scene=scene,
                                   device=dev)
     h, he = np.asarray(res.history), np.asarray(eres.history)

@@ -37,9 +37,9 @@
 //      exclusive prefix of the count rows over the segments, in place, and
 //      the column total: the tile's count (K5's histogram).
 //   3. rank_kernel: one block per segment.  Each thread loads its run of
-//      ITEMS consecutive ids with 16-byte loads, and the segment's Gaussians
-//      are staged in shared memory with 16-byte loads, so no later step
-//      waits on a global load.  Meanwhile the block builds, in shared
+//      ITEMS consecutive ids with 16-byte loads, and ITEMS of the segment's
+//      Gaussians, striped and each bounded by the segment's length, for
+//      shared memory, so no later step waits on a global load.  Meanwhile the block builds, in shared
 //      memory, each tile's first slot for this segment: the tile's offset
 //      (the exclusive prefix of counts over the tiles, recomputed by every
 //      block from the 4 * n_bins bytes of counts; block 0 writes it out as
@@ -55,7 +55,7 @@
 //      The sort leaves the items striped (item k of thread t at sorted
 //      position k * RANK_THREADS + t), so a warp's stores of the Gaussians
 //      into the lists fall on consecutive slots; dest goes through shared
-//      memory by index and out with 16-byte stores.  The block also fills
+//      memory by index and out coalesced.  The block also fills
 //      its part of the lists' tail [live total, n_ids).
 // No unordered atomic decides a rank, so the order is stable and a rerun
 // repeats bit for bit.
@@ -96,8 +96,6 @@ constexpr int RANK_STATIC_LIMIT = 48 * 1024;  // bytes of RankShared, at most
 constexpr int SCAN_TILES = 32;      // tiles per scan block (threadIdx.x)
 constexpr int SCAN_GROUPS = 32;     // segment groups per scan block (threadIdx.y)
 static_assert(ITEMS % 4 == 0, "a rank thread loads its ids as int4");
-static_assert(SEGMENT / 4 % RANK_THREADS == 0, "int4 copies of a segment");
-constexpr int VECS = SEGMENT / 4 / RANK_THREADS;  // int4 per thread a segment
 constexpr unsigned FULL = 0xffffffffu;
 // a rank item is (tile << INDEX_BITS) | index in the segment: the sort moves
 // one word per item and sorts only the tile's bits
@@ -316,12 +314,16 @@ rank_kernel(const int* __restrict__ ids, const int* __restrict__ gauss,
     load_tiles(offsets_in != nullptr ? offsets_in : counts, 0, n_bins, cnt);
     load_tiles(row, 0, n_bins, rw);
   }
-  const bool whole = len == SEGMENT && aligned16(gauss + start);
-  int4 g[VECS];
-  if (live && inst != nullptr && whole) {
-    const int4* src = reinterpret_cast<const int4*>(gauss + start);
+  // the segment's Gaussians, striped, each load bounded by len.  16-byte
+  // loads of the whole segment behind a len == SEGMENT test ran at a live
+  // half segment as built for sm_90a (nvcc 12.9: ptxas took the test from
+  // the predicate output of the VIMNMX that computes len) and read 4 KB
+  // past the end of gauss.
+  int gv[ITEMS];
 #pragma unroll
-    for (int q = 0; q < VECS; ++q) g[q] = __ldg(src + q * RANK_THREADS + tid);
+  for (int k = 0; k < ITEMS; ++k) {
+    const int j = k * RANK_THREADS + tid;
+    gv[k] = live && inst != nullptr && j < len ? __ldg(gauss + start + j) : 0;
   }
 
   unsigned key[ITEMS];
@@ -331,14 +333,9 @@ rank_kernel(const int* __restrict__ ids, const int* __restrict__ gauss,
       key[k] = (unsigned)as_tile(v[k], first + k, n_live, n_bins) << INDEX_BITS
                | (tid * ITEMS + k);
     }
-    if (inst != nullptr && whole) {
-      int4* dst = reinterpret_cast<int4*>(sh.gauss);
+    if (inst != nullptr) {
 #pragma unroll
-      for (int q = 0; q < VECS; ++q) dst[q * RANK_THREADS + tid] = g[q];
-    } else if (inst != nullptr) {
-      for (int j = tid; j < len; j += RANK_THREADS) {
-        sh.gauss[j] = gauss[start + j];
-      }
+      for (int k = 0; k < ITEMS; ++k) sh.gauss[k * RANK_THREADS + tid] = gv[k];
     }
   }
   int total = 0;  // the live total, where the lists end
@@ -391,17 +388,9 @@ rank_kernel(const int* __restrict__ ids, const int* __restrict__ gauss,
       sh.u.xch[idx[k]] = d;  // padding past n_ids lands past len, unread
     }
     __syncthreads();
-    if (len == SEGMENT && aligned16(dest + start)) {
-      const int4* src = reinterpret_cast<const int4*>(sh.u.xch);
-      int4* dst = reinterpret_cast<int4*>(dest + start);
-#pragma unroll
-      for (int q = 0; q < VECS; ++q) {
-        dst[q * RANK_THREADS + tid] = src[q * RANK_THREADS + tid];
-      }
-    } else {
-      for (int j = tid; j < len; j += RANK_THREADS) {
-        dest[start + j] = sh.u.xch[j];
-      }
+    // element by element, bounded by len, as the Gaussians' loads
+    for (int j = tid; j < len; j += RANK_THREADS) {
+      dest[start + j] = sh.u.xch[j];
     }
   } else {
     for (int j = tid; j < len; j += RANK_THREADS) dest[start + j] = drop_dest;

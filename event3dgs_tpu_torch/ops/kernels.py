@@ -16,7 +16,8 @@ digest and the library's name, so each variant is its own cached library;
 with no macros the digest and the name are the shipping library's.
 Nothing on the render or training path passes macros.
 
-``-fmad=false`` is part of the build: the table kernel's rects and cull
+``-fmad=false`` is part of the build: the preprocess forward kernel's
+projection and colours, the table kernel's rects and cull
 data, the expansion kernel's ellipse cull and the compositing kernels'
 alpha must round like their plain PyTorch versions, which run one rounding per operation, and the backward kernel
 must skip exactly the (pixel, instance) pairs the forward kernel skipped.
@@ -43,7 +44,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # source name → {C function: argtypes}; every function returns an int
@@ -51,6 +52,24 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # the ``*_occupancy`` ones write (registers per thread, resident blocks per
 # SM) of their kernel
 SIGNATURES = {
+    "preprocess": {
+        # means, scales, rotations, opacities (or null), features (or
+        # null), K, SH degree (-1: no features), world_view, full_proj,
+        # camera_center, tan_fovx, tan_fovy, n, width, height,
+        # scaling_modifier, mean2d_out, depth_out, conic_out, radius_out,
+        # valid_out, colors_out (or null), stream
+        "e3d_preprocess_forward": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                                   _P],
+        # means, scales, rotations, valid, features (or null), K, SH degree,
+        # world_view, full_proj, camera_center, tan_fovx, tan_fovy, n,
+        # width, height, scaling_modifier, then the gradients of mean2d,
+        # conic and colors (each pointer or null, row stride), g_means_out,
+        # g_scales_out, g_rotations_out, g_features_out (or null), stream
+        "e3d_preprocess_backward": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
+                                    _P, _P, _I, _I, _I, _F, _P, _I, _P, _I,
+                                    _P, _I, _P, _P, _P, _P, _P],
+    },
     "expand": {
         # mean2d, conic (or null), radius, valid, opacity (or null), depth,
         # n, tiles_x, tiles_y, rect_out, cull_out, key_out, lookback state

@@ -3,7 +3,10 @@
 Counterpart of ``event3dgs_tpu/ops/projection.py``: the same component-wise
 math over flat [N] vectors (standard 3DGS forward conventions: local affine
 Jacobian, +0.3 screen-space dilation, 3σ radius from the largest
-eigenvalue), as plain tensor code on the camera's device.
+eigenvalue), as plain tensor code on the camera's device.  This is the
+plain version of the forward kernel of ``ops/preprocess.py``, which repeats
+its operations in their order; the quaternion's norm is summed in index
+order (:func:`row_norm`) so that the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -33,6 +36,32 @@ class ProjectedGaussians(NamedTuple):
 def ndc2pix(v, size):
     """NDC [-1, 1] → continuous pixel coordinate, 3DGS convention."""
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def row_norm(x: torch.Tensor) -> torch.Tensor:
+    """[N, 1] Euclidean norms of the rows of ``x`` [N, k], the squares
+    summed in index order (``torch.linalg.norm`` leaves its order to the
+    reduction kernel)."""
+    sq = x[:, 0] * x[:, 0]
+    for k in range(1, x.shape[1]):
+        sq = sq + x[:, k] * x[:, k]
+    return torch.sqrt(sq)[:, None]
+
+
+def rotation_entries(qw, qx, qy, qz):
+    """The rotation matrix of a unit quaternion as nine [N] entries, rows
+    of three (reference `general_utils.py:78-99`)."""
+    return (
+        (1.0 - 2.0 * (qy * qy + qz * qz),
+         2.0 * (qx * qy - qw * qz),
+         2.0 * (qx * qz + qw * qy)),
+        (2.0 * (qx * qy + qw * qz),
+         1.0 - 2.0 * (qx * qx + qz * qz),
+         2.0 * (qy * qz - qw * qx)),
+        (2.0 * (qx * qz - qw * qy),
+         2.0 * (qy * qz + qw * qx),
+         1.0 - 2.0 * (qx * qx + qy * qy)),
+    )
 
 
 def project_gaussians(
@@ -96,19 +125,8 @@ def project_gaussians(
     u_ = [au * W[i, 0] + bu * W[i, 2] for i in range(3)]
     v_ = [av * W[i, 1] + bv * W[i, 2] for i in range(3)]
 
-    qn = rotations / torch.linalg.norm(rotations, dim=-1, keepdim=True)
-    qw, qx, qy, qz = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
-    R9 = (
-        (1.0 - 2.0 * (qy * qy + qz * qz),
-         2.0 * (qx * qy - qw * qz),
-         2.0 * (qx * qz + qw * qy)),
-        (2.0 * (qx * qy + qw * qz),
-         1.0 - 2.0 * (qx * qx + qz * qz),
-         2.0 * (qy * qz - qw * qx)),
-        (2.0 * (qx * qz - qw * qy),
-         2.0 * (qy * qz + qw * qx),
-         1.0 - 2.0 * (qx * qx + qy * qy)),
-    )
+    qn = rotations / row_norm(rotations)
+    R9 = rotation_entries(qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3])
     s_ = [scales[:, j] * scaling_modifier for j in range(3)]
     wu = [s_[j] * sum(u_[i] * R9[i][j] for i in range(3)) for j in range(3)]
     wv = [s_[j] * sum(v_[i] * R9[i][j] for i in range(3)) for j in range(3)]

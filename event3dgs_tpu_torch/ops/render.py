@@ -7,7 +7,10 @@ images are [H, W, 3] channel-last like the JAX package's.  Everything is
 differentiable in the Gaussian parameters; a zero ``mean2d_tap`` with
 ``requires_grad`` added to the projected means collects the screen-space
 mean gradient that densification reads (the reference's
-``screenspace_points.grad``).
+``screenspace_points.grad``).  The projection and the SH colours run as
+one forward and one backward kernel on the card
+(:func:`~event3dgs_tpu_torch.ops.preprocess.preprocess`);
+:func:`gaussian_colors` is their plain version's colour half.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ from typing import NamedTuple
 import torch
 
 from event3dgs_tpu_torch.core.camera import Camera
-from event3dgs_tpu_torch.core.sh import eval_sh
-from event3dgs_tpu_torch.ops.projection import project_gaussians
+from event3dgs_tpu_torch.core.sh import sh_basis
+from event3dgs_tpu_torch.ops.preprocess import preprocess
+from event3dgs_tpu_torch.ops.projection import row_norm
 from event3dgs_tpu_torch.ops.rasterize_reference import (
     rasterize_reference_partials,
 )
@@ -43,26 +47,29 @@ class RenderPartials(NamedTuple):
 
 def gaussian_colors(sh_degree: int, features, means3d, camera_center):
     """View-dependent RGB from [N, K, 3] coefficient-major SH features:
-    ``max(eval_sh + 0.5, 0)`` (reference `__init__.py:76-81`)."""
+    ``max(eval_sh + 0.5, 0)`` (reference `__init__.py:76-81`).  The
+    direction's norm and the sum over the coefficients are taken in index
+    order, as the forward kernel of ``ops/preprocess.py`` takes them."""
     dirs = means3d - camera_center[None, :]
-    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
-    # eval_sh consumes channel-major [..., C, K]
-    rgb = eval_sh(sh_degree, features.transpose(-1, -2), dirs)
+    dirs = dirs / row_norm(dirs)
+    basis = sh_basis(sh_degree, dirs)
+    rgb = features[:, 0, :] * basis[:, 0, None]
+    for k in range(1, basis.shape[-1]):
+        rgb = rgb + features[:, k, :] * basis[:, k, None]
     return torch.clamp(rgb + 0.5, min=0.0)
 
 
 def _partials(means3d, features, opacities, scales, rotations, camera,
               sh_degree, scaling_modifier, mean2d_tap, override_colors,
               rasterizer, instance_cap, plain=False):
-    proj = project_gaussians(means3d, scales, rotations, camera,
-                             scaling_modifier=scaling_modifier,
-                             opacities=opacities)
+    proj, colors = preprocess(
+        means3d, scales, rotations, camera, scaling_modifier=scaling_modifier,
+        opacities=opacities,
+        features=features if override_colors is None else None,
+        sh_degree=sh_degree, plain=plain)
     if mean2d_tap is not None:
         proj = proj._replace(mean2d=proj.mean2d + mean2d_tap)
-    if override_colors is None:
-        colors = gaussian_colors(sh_degree, features, means3d,
-                                 camera.camera_center)
-    else:
+    if override_colors is not None:
         colors = override_colors
     if rasterizer == "tiled":
         rgb, logt = rasterize_tiled_partials(
@@ -104,8 +111,9 @@ def render(
             mean gradient densification reads.
         rasterizer: "reference" (slow oracle) or "tiled" (the kernels).
         instance_cap: tiled rasterizer's instance budget (None: default).
-        plain: run the plain versions of the tiled rasterizer's kernels on
-            CUDA tensors too (for holding the kernels against them).
+        plain: run the plain versions of the preprocess and tiled
+            rasterizer kernels on CUDA tensors too (for holding the kernels
+            against them).
     """
     rgb, logt, proj = _partials(
         means3d, features, opacities, scales, rotations, camera, sh_degree,

@@ -9,7 +9,8 @@ keep C/K rows per rank and are never gathered), and the view-space splats
 are exchanged per view:
 
 1. Each rank projects its Gaussians for every view of its ``gauss`` group
-   (K small projections) and packs the per-splat raster inputs (mean2d,
+   (K small projections, the preprocess kernels of ``ops/preprocess.py``
+   on the card) and packs the per-splat raster inputs (mean2d,
    depth, conic, radius, valid, color) into one [K, C/K, 11] tensor.
 2. One all_to_all over the group turns "my Gaussians, all views" into "all
    Gaussians, my view": the received chunks stack by source rank, i.e. in
@@ -34,10 +35,10 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from event3dgs_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
+from event3dgs_tpu_torch.ops.preprocess import preprocess
+from event3dgs_tpu_torch.ops.projection import ProjectedGaussians
 from event3dgs_tpu_torch.ops.rasterize_reference import rasterize_reference_partials
 from event3dgs_tpu_torch.ops.rasterize_tiled import rasterize_tiled_partials
-from event3dgs_tpu_torch.ops.render import gaussian_colors
 from event3dgs_tpu_torch.parallel.collectives import all_gather, all_to_all
 
 
@@ -77,11 +78,10 @@ def render_view_exchange(
     packs, radii_l, vis_l = [], [], []
     for j, view in enumerate(view_ids):
         cam_j = cameras[int(view)]
-        proj = project_gaussians(means3d, scales, rotations, cam_j,
-                                 opacities=opacities)
+        proj, colors = preprocess(means3d, scales, rotations, cam_j,
+                                  opacities=opacities, features=features,
+                                  sh_degree=sh_degree)
         mean2d = proj.mean2d if taps is None else proj.mean2d + taps[j]
-        colors = gaussian_colors(sh_degree, features, means3d,
-                                 cam_j.camera_center)
         packs.append(torch.cat([
             mean2d,  # 0:2
             proj.depth.detach()[:, None],  # 2

@@ -148,18 +148,56 @@ def segment_sums_bytes(live: int, slots: int, n: int) -> int:
     return live * 9 * 4 + slots * 4 + (n + 1) * 4 + n * 4 + n * 9 * 4
 
 
+def preprocess_bytes(n: int, coeffs: int, sh_degree: int,
+                     backward: bool = False) -> int:
+    """Bytes the preprocess forward (or backward) kernel must move for
+    ``n`` Gaussians whose features are [N, coeffs, 3] at ``sh_degree``:
+    the forward reads the means, scales, quaternions, opacities and the
+    coefficients the degree uses, and writes mean2d, depth, conic, radius,
+    valid (one byte) and the colours; the backward reads the means, scales,
+    quaternions, valid, the used coefficients and the gradients of mean2d,
+    conic and colours, and writes the gradients of the means, scales,
+    quaternions and of all the features.  The camera's 148 bytes are left
+    out."""
+    used = (sh_degree + 1) ** 2 * 12
+    if not backward:
+        return n * (12 + 12 + 16 + 4 + used + 8 + 4 + 12 + 4 + 1 + 12)
+    return n * (12 + 12 + 16 + 1 + used + 8 + 12 + 12
+                + 12 + 12 + 16 + coeffs * 12)
+
+
+def preprocess_ops(n: int, sh_degree: int, backward: bool = False):
+    """(FP32, SFU) operations the preprocess forward (or backward) kernel
+    does at least for ``n`` Gaussians, counted from ``csrc/preprocess.cu``
+    and rounded down: the projection about 170 FP32 and 12 SFU operations
+    (6 divisions, 4 square roots, 2 reciprocals), the colours 6 per used
+    coefficient and 4 SFU (a square root, 3 divisions); the backward about
+    twice the projection's and 12 per coefficient, and 8 SFU more."""
+    coeffs = (sh_degree + 1) ** 2
+    if not backward:
+        return (n * (170 + 6 * coeffs), n * 16)
+    return (n * (2 * 170 + 12 * coeffs), n * 24)
+
+
 def path_bounds(n: int, cap: int, offsets, live: int, pairs,
-                num_tiles: int, width: int, height: int) -> dict:
+                num_tiles: int, width: int, height: int, coeffs: int = 16,
+                sh_degree: int = 3) -> dict:
     """(bytes, (FP32, SFU) operations) that each kernel of one view's path
     must at least move and do on this run's inputs, for :func:`bound_ms`:
-    ``n`` Gaussians, instance cap ``cap``, the depth offsets ``offsets``
-    [N+1], ``live`` instances after the cull, the compositing ``pairs``
-    by kind (``rasterize_tiled._composite_plain``), ``num_tiles`` tiles."""
+    ``n`` Gaussians with [N, coeffs, 3] features at ``sh_degree``,
+    instance cap ``cap``, the depth offsets ``offsets`` [N+1], ``live``
+    instances after the cull, the compositing ``pairs`` by kind
+    (``rasterize_tiled._composite_plain``), ``num_tiles`` tiles."""
     from event3dgs_tpu_torch.ops.rasterize_tiled import NGRAD
     from event3dgs_tpu_torch.ops.sort_tiles import segments
 
     capped = min(int(offsets[-1]), cap)
     return {
+        "preprocess_forward": (preprocess_bytes(n, coeffs, sh_degree),
+                               preprocess_ops(n, sh_degree)),
+        "preprocess_backward": (
+            preprocess_bytes(n, coeffs, sh_degree, backward=True),
+            preprocess_ops(n, sh_degree, backward=True)),
         # per Gaussian 33 bytes read, 52 written; at least 60 FP32 and 7
         # SFU operations (a log, two square roots, four divisions)
         "K4 gaussian_tables": (n * (33 + 52), (60 * n, 7 * n)),

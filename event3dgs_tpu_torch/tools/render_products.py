@@ -29,7 +29,7 @@ from event3dgs_tpu_torch.events.simulate import (
     simulate_event_camera,
 )
 from event3dgs_tpu_torch.models import activated
-from event3dgs_tpu_torch.ops.projection import project_gaussians
+from event3dgs_tpu_torch.ops.preprocess import preprocess
 from event3dgs_tpu_torch.ops.render import render, render_depth
 from event3dgs_tpu_torch.utils.image_io import save_image
 
@@ -142,8 +142,8 @@ def point_depth_map(params, cam: Camera, opacity_threshold=0.8) -> torch.Tensor:
     the cast defined for coordinates outside the int range).
     """
     act = activated(params)
-    proj = project_gaussians(act.means3d, act.scales, act.rotations, cam,
-                             opacities=act.opacities)
+    proj, _ = preprocess(act.means3d, act.scales, act.rotations, cam,
+                         opacities=act.opacities)
     keep = proj.valid & (act.opacities > opacity_threshold)
     dist = torch.linalg.norm(act.means3d - cam.camera_center[None], dim=-1)
     xi = torch.clamp(proj.mean2d[:, 0], 0, cam.width - 1).to(torch.int64)

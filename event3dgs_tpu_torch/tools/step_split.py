@@ -7,19 +7,23 @@ captures the event train step (``train/step.GraphTrainStep`` in
 Gaussians, 1080p, 4 cameras) and at ``tools/scale.py``'s 2,097,152-slot
 maxcap state, profiles one replay of each (``torch.profiler``) and adds up
 the device time of its kernels by group (:func:`split_group`): K1, K2, K3,
-the binning's kernels, its ``argsort``, the projection and the SH colours
-forward and backward, the rasterizer's other work, the loss, Adam, the
-densify stats and the rest.  One JSON line per state, then the card's name
-and power limit and a table.
+the binning's kernels, its ``argsort``, the preprocess kernels (projection
+and SH colours, ``csrc/preprocess.cu``) forward and backward, the sums of
+the three renders' feature gradients, the rasterizer's other work, the
+loss, Adam, the densify stats and the rest.  One JSON line per state,
+then the card's name and power limit and a table.
 
 A graph's replay runs no Python, so the stages are told apart by marker
 kernels (``torch.cuda._sleep(0)``) that this tool alone adds while it
 captures: :class:`stage_markers` wraps the step's stage functions so that
 each marks where it begins and ends, forward and backward (identity
 autograd nodes around its inputs and outputs mark the backward), and
-notes each marker's label.  The markers' own time is printed apart.  A
-step captured with them is for timing only: their identity nodes may
-change the order in which autograd adds a tensor's gradients.
+notes each marker's label.  The features a render takes pass through a
+marker of their own on the way back, so the sum autograd takes of the
+three renders' [N, K, 3] feature gradients is a group of its own.  The
+markers' own time is printed apart.  A step captured with them is for
+timing only: their identity nodes may change the order in which autograd
+adds a tensor's gradients.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ SPLIT_FUNCTIONS = {
     "K1": ("composite_forward_kernel",),
     "K2": ("composite_backward_kernel",),
     "K3": ("segment_sums_kernel", "ranges_kernel", "row_sums_kernel"),
+    "preprocess forward": ("preprocess_forward_kernel",),
+    "preprocess backward": ("preprocess_backward_kernel",),
     "binning kernels": ("gaussian_table_kernel", "depth_offsets_kernel",
                         "expand_kernel", "segment_count_kernel",
                         "scan_kernel", "rank_kernel"),
@@ -53,10 +59,9 @@ SPLIT_FUNCTIONS = {
 # the replay split's groups of the other kernels, by the stage that
 # launched them (stage_markers' labels); unlisted labels are "other"
 STAGE_GROUPS = {
-    "projection fwd": "projection forward",
-    "projection bwd": "projection backward",
-    "SH fwd": "SH forward",
-    "SH bwd": "SH backward",
+    "preprocess fwd": "preprocess, other",
+    "preprocess bwd": "preprocess, other",
+    "feature sums": "feature gradient sums",
     "rasterizer fwd": "rasterizer, other",
     "rasterizer bwd": "rasterizer, other",
     "loss fwd": "loss",
@@ -65,9 +70,9 @@ STAGE_GROUPS = {
     "densify stats fwd": "densify stats",
 }
 SPLIT_ORDER = ("K1", "K2", "K3", "binning kernels", "argsort",
-               "projection forward", "projection backward", "SH forward",
-               "SH backward", "rasterizer, other", "loss", "Adam",
-               "densify stats", "other")
+               "preprocess forward", "preprocess backward",
+               "preprocess, other", "feature gradient sums",
+               "rasterizer, other", "loss", "Adam", "densify stats", "other")
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
@@ -176,8 +181,11 @@ def _staged(label: str, fn):
     def staged(*args, **kw):
         _marker(f"{label} fwd")
         # backward: the stage's backward has ended where these inputs'
-        # gradients are ready
+        # gradients are ready; the features' gradient is then added to the
+        # other renders' (autograd's sum, the next kernel on the stream)
         args = tuple(_marked(a, "other") for a in args)
+        kw = {k: _marked(a, "feature sums") if k == "features" else a
+              for k, a in kw.items()}
         out = fn(*args, **kw)
         out = _marked(out, f"{label} bwd")  # backward: the stage's begins
         _marker("other")
@@ -186,8 +194,7 @@ def _staged(label: str, fn):
 
 
 # (module, attribute, stage) that stage_markers wraps
-STAGES = (("event3dgs_tpu_torch.ops.render", "project_gaussians", "projection"),
-          ("event3dgs_tpu_torch.ops.render", "gaussian_colors", "SH"),
+STAGES = (("event3dgs_tpu_torch.ops.render", "preprocess", "preprocess"),
           ("event3dgs_tpu_torch.ops.render", "rasterize_tiled_partials",
            "rasterizer"),
           ("event3dgs_tpu_torch.train.step", "event_total_loss", "loss"),

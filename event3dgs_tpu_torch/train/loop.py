@@ -43,7 +43,7 @@ import torch
 
 from event3dgs_tpu_torch.models.gaussians import activated
 from event3dgs_tpu_torch.ops.binning import count_instances, suggest_instance_cap
-from event3dgs_tpu_torch.ops.projection import project_gaussians
+from event3dgs_tpu_torch.ops.preprocess import preprocess
 from event3dgs_tpu_torch.train.fused import GraphCache
 from event3dgs_tpu_torch.train.state import (
     SceneData,
@@ -87,13 +87,21 @@ class TrainResult:
 @torch.no_grad()
 def probe_instance_count(params, camera) -> int:
     """(tile, gaussian) instances of one view: the counting half of the
-    binning, used to size the tiled rasterizer's instance budget."""
+    binning, used to size the tiled rasterizer's instance budget.  The
+    projection is the render's (the forward kernel on the card), so the
+    cap is sized from the radii the render bins.  Each call adds one to
+    ``probe_instance_count.calls``, read beside the kernels' launch counts:
+    a probe launches the forward preprocess once."""
+    probe_instance_count.calls += 1
     act = activated(params)
-    proj = project_gaussians(act.means3d, act.scales, act.rotations, camera,
-                             opacities=act.opacities)
+    proj, _ = preprocess(act.means3d, act.scales, act.rotations, camera,
+                         opacities=act.opacities)
     return int(count_instances(proj.mean2d, proj.radius, proj.valid,
                                camera.width, camera.height, conic=proj.conic,
                                opacities=act.opacities))
+
+
+probe_instance_count.calls = 0
 
 
 def measure_instance_cap(params, cameras, probe_views=8,

@@ -173,8 +173,9 @@ def make_loss_and_grads(
         (state, data, idx_main, idx_now, idx_next, bg) →
             (loss, aux, {"params": dict, "contrast": [], "tap": [C, 2]})
 
-    ``plain`` runs the plain versions of the tiled rasterizer's kernels on
-    CUDA tensors (for holding the kernel path against them).
+    ``plain`` runs the plain versions of the preprocess and tiled
+    rasterizer kernels on CUDA tensors (for holding the kernel path against
+    them).
     """
     views_fn = _views_loss_and_grads(mode, event_cfg, lambda_dssim,
                                      max_sh_degree, rasterizer, instance_cap,

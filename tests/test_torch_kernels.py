@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1-K6 and the binning's table kernel) against
-their plain PyTorch versions, the wrappers' dispatch rules, and the event
-frames accumulated on the card against the CPU's.
+"""The port's CUDA kernels (the preprocess forward and backward, K1-K6 and
+the binning's table kernel) against their plain PyTorch versions, the
+wrappers' dispatch rules, and the event frames accumulated on the card
+against the CPU's.
 
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and without JAX it runs on its own:
@@ -11,6 +12,8 @@ Tests marked ``gpu`` need a CUDA card and skip without one; the others run
 anywhere.
 """
 
+import ctypes
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -23,6 +26,7 @@ import torch
 from event3dgs_tpu_torch.core import make_camera
 from event3dgs_tpu_torch.models import activated, params_from_numpy
 from event3dgs_tpu_torch.ops import binning, expand, kernels, segscan, sort_tiles
+from event3dgs_tpu_torch.ops import preprocess as pre
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 from event3dgs_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from event3dgs_tpu_torch.ops.render import render
@@ -30,9 +34,10 @@ from event3dgs_tpu_torch.ops.render import render
 torch.set_num_threads(1)
 
 
-def scene(n, seed, w, h, spread=1.2, z=(2.0, 6.0), scale=(0.03, 0.25),
-          ratio=1.0, opacity=(0.2, 0.95), device="cpu"):
-    """Random Gaussians in front of an identity camera, projected."""
+def scene_inputs(n, seed, w, h, spread=1.2, z=(2.0, 6.0), scale=(0.03, 0.25),
+                 ratio=1.0, opacity=(0.2, 0.95), device="cpu"):
+    """Random Gaussians in front of an identity camera: (means, scales,
+    rotations, opacities, colors, camera)."""
     rng = np.random.default_rng(seed)
     means = np.c_[rng.uniform(-spread, spread, n),
                   rng.uniform(-spread * 0.4, spread * 0.4, n), rng.uniform(*z, n)]
@@ -43,8 +48,15 @@ def scene(n, seed, w, h, spread=1.2, z=(2.0, 6.0), scale=(0.03, 0.25),
     colors = rng.uniform(0.0, 1.0, (n, 3))
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     cam = make_camera(np.eye(3), np.zeros(3), 1.0, 0.8, w, h, device=device)
-    proj = project_gaussians(f(means), f(scales), f(rots), cam, opacities=f(opac))
-    return proj, f(colors), f(opac), w, h
+    return f(means), f(scales), f(rots), f(opac), f(colors), cam
+
+
+def scene(n, seed, w, h, device="cpu", **kw):
+    """Random Gaussians in front of an identity camera, projected."""
+    means, scales, rots, opac, colors, cam = scene_inputs(n, seed, w, h,
+                                                          device=device, **kw)
+    proj = project_gaussians(means, scales, rots, cam, opacities=opac)
+    return proj, colors, opac, w, h
 
 
 # the binning and rasterizer scenes of the JAX suite, plus one wide frame
@@ -101,6 +113,113 @@ HARD_SCENES = {
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernel vs plain version)")
+
+
+# the edge cases of preprocess_scene: a share of the Gaussians each
+EDGE_CASES = ("behind the near plane", "off-screen", "past the fov clamp",
+              "covariance overflow", "dead slot", "colour clamped at 0",
+              "opacity below 1/255")
+
+
+def preprocess_arrays(n, seed, w=256, h=144, sh_degree=3, coeffs=None,
+                      edge=False, overflow=1e20):
+    """Seeded inputs of the preprocess as float64 numpy arrays: means,
+    scales, rotations (not normalised), opacities, [N, K, 3] features, and
+    the camera's pose (R, t), fields of view and size.  A random pose, or
+    with ``edge`` the identity pose and about an eighth of the Gaussians in
+    each of ``EDGE_CASES`` (the covariance's overflow from scales of
+    ``overflow``), and the first one at the camera centre (its direction
+    0/0)."""
+    rng = np.random.default_rng(seed)
+    k = coeffs or (sh_degree + 1) ** 2
+    means = np.c_[rng.uniform(-1.5, 1.5, n), rng.uniform(-0.8, 0.8, n),
+                  rng.uniform(1.0, 8.0, n)]
+    scales = np.exp(rng.uniform(np.log(0.01), np.log(0.3), (n, 3)))
+    rots = rng.normal(size=(n, 4)) * rng.uniform(0.2, 5.0, (n, 1))
+    opac = rng.uniform(0.05, 1.0, n)
+    feats = rng.normal(0.0, 0.3, (n, k, 3))
+    fov = (1.0, 0.7)
+    if edge:
+        R, t = np.eye(3), np.zeros(3)
+        case = rng.integers(0, len(EDGE_CASES) + 1, n)  # 0: none
+        sign = rng.choice([-1.0, 1.0], n)
+        z = means[:, 2]
+        tan_x = np.tan(fov[0] / 2)
+        for j, name in enumerate(EDGE_CASES, start=1):
+            sel = case == j
+            if name == "behind the near plane":
+                means[sel, 2] = rng.uniform(-2.0, 0.2, sel.sum())
+            elif name == "off-screen":
+                means[sel, 0] = sign[sel] * z[sel] * rng.uniform(1.0, 6.0, sel.sum())
+            elif name == "past the fov clamp":  # large: some reach the image
+                means[sel, 2] = rng.uniform(1.0, 3.0, sel.sum())
+                means[sel, 0] = (sign[sel] * means[sel, 2] * tan_x * 1.3
+                                 * rng.uniform(1.01, 1.4, sel.sum()))
+                scales[sel] = rng.uniform(0.3, 0.8, (sel.sum(), 3))
+            elif name == "covariance overflow":
+                scales[sel] = overflow
+            elif name == "dead slot":
+                opac[sel] = 0.0
+            elif name == "colour clamped at 0":
+                feats[sel, 0, :] = -4.0
+            elif name == "opacity below 1/255":
+                opac[sel] = 1e-3
+        if n:
+            means[0] = 0.0  # the camera centre
+    else:
+        q = rng.normal(size=4) * [4, 0.2, 0.2, 0.2]
+        q /= np.linalg.norm(q)
+        qw, qx, qy, qz = q
+        R = np.array([
+            [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz),
+             2 * (qx * qz + qw * qy)],
+            [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz),
+             2 * (qy * qz - qw * qx)],
+            [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx),
+             1 - 2 * (qx * qx + qy * qy)]])
+        t = rng.uniform(-0.3, 0.3, 3)
+    return dict(means=means, scales=scales, rots=rots, opac=opac,
+                feats=feats, R=R, t=t, fov=fov, w=w, h=h)
+
+
+def preprocess_scene(n, seed, w=256, h=144, sh_degree=3, coeffs=None,
+                     edge=False, device="cpu", dtype=torch.float32):
+    """:func:`preprocess_arrays` as tensors of ``dtype`` on ``device``:
+    (means, scales, rotations, opacities, features, camera)."""
+    a = preprocess_arrays(n, seed, w, h, sh_degree, coeffs, edge,
+                          overflow=1e20 if dtype == torch.float32 else 1e200)
+    cam = make_camera(a["R"], a["t"], *a["fov"], w, h, device=device)
+    if dtype != torch.float32:
+        cam = dataclasses.replace(cam, **{
+            fld: getattr(cam, fld).to(dtype) for fld in (
+                "world_view", "full_proj", "camera_center", "tan_fovx",
+                "tan_fovy")})
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return (f(a["means"]), f(a["scales"]), f(a["rots"]), f(a["opac"]),
+            f(a["feats"]), cam)
+
+
+def assert_bits_equal(got, want, what=""):
+    """Equal bit for bit (a NaN where the other has one)."""
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if got.dtype != torch.float32:
+        assert torch.equal(got, want), what
+        return
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32)), what
+
+
+# the forward kernel's cases: (N, seed, SH degree, edge, scaling modifier,
+# with opacities, with features)
+PREPROCESS_FWD = [
+    (257, 0, 3, False, 1.0, True, True), (257, 1, 3, True, 1.0, True, True),
+    (255, 2, 0, True, 0.6, True, True), (1, 3, 1, False, 1.0, True, True),
+    (0, 4, 3, False, 1.0, True, True), (3000, 5, 2, True, 1.0, False, True),
+    (3000, 6, 4, True, 0.6, True, True), (3000, 7, 3, True, 1.0, True, False),
+    (100_000, 8, 3, False, 1.0, True, True),
+]
 
 
 class ExpansionCase(NamedTuple):
@@ -994,8 +1113,9 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
     grows the capacity (captured at 0 and again after 10).  Losses, final
     parameters, contrast and alive slots equal bit for bit; the kernels
     launch in the warm-up steps and the captures only (the reference
-    rasterizer launches none)."""
-    from event3dgs_tpu_torch.train import train_loop
+    rasterizer launches none of K1-K6, the preprocess kernels as the tiled
+    one does); the forward preprocess also in each instance-cap probe."""
+    from event3dgs_tpu_torch.train import loop, train_loop
     from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
     from event3dgs_tpu_torch.train.loop import TrainCallbacks
     from event3dgs_tpu_torch.utils.config import OptimizationConfig, TrainConfig
@@ -1017,17 +1137,23 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
                             log_every=10)
         for w in ws.values():
             w.launches = 0
+        loop.probe_instance_count.calls = 0
         res = train_loop(state, data, cfg, mode, extent, iterations=20,
                          callbacks=cb)
-        runs[fused] = res, events, {k: w.launches for k, w in ws.items()}
-    (r1, e1, n1), (r8, e8, n8) = runs[1], runs[8]
+        runs[fused] = (res, events, {k: w.launches for k, w in ws.items()},
+                       loop.probe_instance_count.calls)
+    (r1, e1, n1, p1), (r8, e8, n8, p8) = runs[1], runs[8]
     assert [it for it, m in e1 if "capacity" in m] == [10]
     assert [it for it, m in e8 if "graph_capture_ms" in m] == [0, 10]
     renders = 3 if mode.startswith("event") else 1
     tiled = rasterizer == "tiled"
-    assert n1 == dict.fromkeys(ws, 20 * renders if tiled else 0)
-    assert n8 == dict.fromkeys(
-        ws, 2 * (WARMUP_STEPS + 1) * renders if tiled else 0)
+    assert (p1 > 0) == (p8 > 0) == tiled
+    for n, steps, p in ((n1, 20, p1), (n8, 2 * (WARMUP_STEPS + 1), p8)):
+        want = dict.fromkeys(ws, steps * renders if tiled else 0)
+        # the preprocess kernels run under either rasterizer
+        want["preprocess_fwd"] = steps * renders + p
+        want["preprocess_bwd"] = steps * renders
+        assert n == want
     assert np.array_equal(np.asarray(r8.history), np.asarray(r1.history))
     assert np.isfinite(r1.history).all()
     for f in ("xyz", "features_dc", "features_rest", "opacity", "scaling",
@@ -1041,6 +1167,8 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
 def wrappers_by_name():
     """Every kernel's launch wrapper, by name (as ``chip_smoke.py``)."""
     return {
+        "preprocess_fwd": pre.preprocess_forward_kernel,
+        "preprocess_bwd": pre.preprocess_backward_kernel,
         "K1": rt.composite_forward_kernel,
         "K2": rt.composite_backward_kernel,
         "K3": segscan.segment_sums_kernel,
@@ -1050,6 +1178,262 @@ def wrappers_by_name():
         "K5": sort_tiles.tile_histogram_kernel,
         "K6": sort_tiles.stable_tile_rank_kernel,
     }
+
+
+def preprocess_args(case, device):
+    """The forward preprocess's arguments for a ``PREPROCESS_FWD`` case."""
+    n, seed, deg, edge, smod, with_opac, with_feats = case
+    means, scales, rots, opac, feats, cam = preprocess_scene(
+        n, seed, sh_degree=deg, edge=edge, device=device)
+    return (means, scales, rots, cam, smod, opac if with_opac else None,
+            feats if with_feats else None, deg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PREPROCESS_FWD, ids=str)
+def test_preprocess_forward_kernel_matches_plain_version(case):
+    """mean2d, depth, conic, radius, valid and colours bit-equal to the
+    plain version's (the kernel repeats its operations in their order),
+    over SH degrees 0-4, a scaling modifier, with and without opacities
+    and features, and the edge cases of ``preprocess_scene``."""
+    need_card()
+    args = preprocess_args(case, "cuda")
+    before = pre.preprocess_forward_kernel.launches
+    pk, ck = pre.preprocess_forward(*args)
+    assert pre.preprocess_forward_kernel.launches == before + 1
+    pp, cp = pre.preprocess_forward_plain(*args)
+    for field, k, p in zip(pk._fields, pk, pp):
+        assert_bits_equal(k, p, field)
+    assert (ck is None) == (cp is None) == (args[6] is None)
+    if ck is not None:
+        assert_bits_equal(ck, cp, "colors")
+    if case[3]:
+        assert 0 < int(pk.valid.sum()) < case[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_preprocess_forward_kernel_on_the_rasterizer_scenes(name):
+    """The rasterizer suite's scenes through the forward kernel: radius and
+    valid (the binning's rects) and every other output bit-equal."""
+    need_card()
+    means, scales, rots, opac, _, cam = scene_inputs(**SCENES[name],
+                                                     device="cuda")
+    pk, _ = pre.preprocess_forward_kernel(means, scales, rots, cam,
+                                          opacities=opac)
+    pp, _ = pre.preprocess_forward_plain(means, scales, rots, cam,
+                                         opacities=opac)
+    for field, k, p in zip(pk._fields, pk, pp):
+        assert_bits_equal(k, p, field)
+
+
+def backward_case(args, seed):
+    """The backward preprocess's arguments on a forward case's inputs:
+    the forward's valid and seeded gradients of mean2d, conic and colours,
+    slices of an [N, 9] tensor as the rasterizer's K3 hands them over."""
+    means, scales, rots, cam, smod, opac, feats, deg = args
+    valid = pre.preprocess_forward_plain(*args)[0].valid
+    g = torch.Generator().manual_seed(seed)
+    rows = (torch.rand(means.shape[0], 9, generator=g) - 0.5).to(means.device)
+    return (means, scales, rots, cam, valid, rows[:, 0:2], rows[:, 2:5],
+            rows[:, 6:9] if feats is not None else None, smod, feats, deg)
+
+
+def assert_backward_close(got, want, valid, atol=2e-4):
+    """Each gradient within ``atol`` of its max (tests/test_rasterize_tiled
+    .py's normalisation), finite, and exactly zero for the Gaussians that
+    are not ``valid``."""
+    for name, a, b in zip(("means", "scales", "rotations", "features"),
+                          got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        if not b.numel():
+            continue
+        scale = b.abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=atol, rtol=0,
+                                   msg=name)
+        assert not a[~valid].any(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PREPROCESS_FWD, ids=str)
+def test_preprocess_backward_kernel_matches_plain_version(case):
+    """The backward kernel against the analytic plain backward, within 2e-4
+    of each gradient's max, zero for the Gaussians that are not valid, and
+    bit-identical when launched twice."""
+    need_card()
+    bargs = backward_case(preprocess_args(case, "cuda"), case[1])
+    before = pre.preprocess_backward_kernel.launches
+    gk = pre.preprocess_backward(*bargs)
+    assert pre.preprocess_backward_kernel.launches == before + 1
+    assert_backward_close(gk, pre.preprocess_backward_plain(*bargs), bargs[4])
+    again = pre.preprocess_backward_kernel(*bargs)
+    for a, b in zip(gk, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_preprocess_backward_kernel_at_2m_slots():
+    """At ``tools/scale.py``'s 2,097,152-slot maxcap state (its main view,
+    camera 1): the backward kernel against the plain backward, within 2e-4
+    of each gradient's max, and bit-identical run twice; the forward
+    bit-equal."""
+    need_card()
+    from event3dgs_tpu_torch.tools.scale import maxcap_scene
+
+    state, data = maxcap_scene(2_097_152, 1920, 1080, "cuda")
+    act = activated(state.params)
+    args = (act.means3d, act.scales, act.rotations, data.cameras[1], 1.0,
+            act.opacities, act.features, 3)
+    pk, ck = pre.preprocess_forward_kernel(*args)
+    pp, cp = pre.preprocess_forward_plain(*args)
+    for field, k, p in zip((*pk._fields, "colors"), (*pk, ck), (*pp, cp)):
+        assert_bits_equal(k, p, field)
+    bargs = backward_case(args, 3)
+    gk = pre.preprocess_backward_kernel(*bargs)
+    assert_backward_close(gk, pre.preprocess_backward_plain(*bargs), bargs[4])
+    assert all(torch.equal(a, b) for a, b in zip(
+        gk, pre.preprocess_backward_kernel(*bargs)))
+
+
+@pytest.mark.gpu
+def test_preprocess_kernels_in_a_cuda_graph():
+    """Both kernels captured in a CUDA graph with a camera picked on the
+    device (``train/step.take``): each replay after the pick moves to
+    another view equals the eager launches at that view bit for bit."""
+    need_card()
+    from event3dgs_tpu_torch.core.camera import stack_cameras
+    from event3dgs_tpu_torch.train.step import take
+
+    means, scales, rots, opac, feats, cam0 = preprocess_scene(
+        3000, 9, device="cuda")
+    cams = stack_cameras([cam0] + [make_camera(
+        np.eye(3), np.array([0.1 * i, 0.0, -0.2 * i]), 1.0, 0.7, 256, 144,
+        device="cuda") for i in (1, 2)])
+    index = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rows = torch.rand(3000, 9, device="cuda") - 0.5
+
+    def both(cam):
+        proj, colors = pre.preprocess_forward_kernel(
+            means, scales, rots, cam, 0.8, opac, feats, 3)
+        grads = pre.preprocess_backward_kernel(
+            means, scales, rots, cam, proj.valid, rows[:, 0:2], rows[:, 2:5],
+            rows[:, 6:9], 0.8, feats, 3)
+        return (*proj, colors, *grads)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        both(take(cams, index))  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both(take(cams, index))
+    for view in (2, 0, 1):
+        index.fill_(view)
+        graph.replay()
+        for a, b in zip(out, both(cams[view])):
+            assert_bits_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kernel_step_losses_match_the_plain_step():
+    """On ``bench.py``'s scene (4,000 Gaussians with random rotations and
+    anisotropic scales, 8 views at 160×96), at each of ten successive
+    event-step states (advanced by the kernel path's step): the kernel
+    path's loss within 1e-5 relative of the plain path's (``plain=True``:
+    the preprocess and K1-K6 in plain PyTorch) from the same state, and its
+    gradients within 2e-4 of each field's max."""
+    from event3dgs_tpu_torch.tools.kernel_timing import bench_state
+    from event3dgs_tpu_torch.train.step import (
+        make_loss_and_grads,
+        make_train_step,
+    )
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    need_card()
+    state, data, cap = bench_state("cuda", 4000, 160, 96, views=8)
+    extent = 3.0  # bench.py's spatial_lr_scale
+    bg = torch.zeros(3, device="cuda")
+    ev = EventConfig()
+    grads = {plain: make_loss_and_grads("event", ev, ev.event_lambda_dssim,
+                                        rasterizer="tiled", instance_cap=cap,
+                                        plain=plain)
+             for plain in (False, True)}
+    step = make_train_step("event", OptimizationConfig(), ev,
+                           spatial_lr_scale=extent, rasterizer="tiled",
+                           instance_cap=cap)
+    for i in range(10):
+        v = 1 + i % 6
+        (lk, _, gk), (lp, _, gp) = (grads[p](state, data, v, v, v + 1, bg)
+                                    for p in (False, True))
+        assert torch.isfinite(lk) and abs(float(lk) - float(lp)) <= \
+            1e-5 * abs(float(lp)), (i, float(lk), float(lp))
+        for name in gk["params"]:
+            a, b = gk["params"][name], gp["params"][name]
+            scale = b.abs().max().clamp(min=1e-30)
+            torch.testing.assert_close(a / scale, b / scale, atol=2e-4,
+                                       rtol=0, msg=f"step {i}: {name}")
+        state, _ = step(state, data, v, v, v + 1, bg)
+
+
+@pytest.mark.gpu
+def test_kernel_steps_chained_match_the_plain_steps(monkeypatch, capsys):
+    """Ten event steps chained on ``bench.py``'s scene (as above), on the
+    kernel path and on the plain path (``make_train_step`` built over
+    ``plain=True`` grads), each from its own last state.  Chained, the
+    training itself moves a loss further than 1e-5 relative from a one-ulp
+    change of the start state, so each step's loss is held within 1e-5
+    relative of the plain path's plus the spread of three plain runs whose
+    start has its means, rotations or opacities one ulp up.  Prints each
+    run's relative difference by step."""
+    import dataclasses
+    import functools
+
+    from event3dgs_tpu_torch.tools.kernel_timing import bench_state
+    from event3dgs_tpu_torch.train import step as step_mod
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    need_card()
+    state0, data, cap = bench_state("cuda", 4000, 160, 96, views=8)
+    bg = torch.zeros(3, device="cuda")
+
+    def build():
+        return step_mod.make_train_step(
+            "event", OptimizationConfig(), EventConfig(), spatial_lr_scale=3.0,
+            rasterizer="tiled", instance_cap=cap)
+
+    def nudged(field):
+        x = getattr(state0.params, field)
+        return state0.replace(params=dataclasses.replace(
+            state0.params, **{field: torch.nextafter(x, x + 1)}))
+
+    def chain(step, state):
+        losses = []
+        for i in range(10):
+            v = 1 + i % 6
+            state, metrics = step(state, data, v, v, v + 1, bg)
+            losses.append(float(metrics["loss"]))
+        return np.asarray(losses)
+
+    kernel = chain(build(), state0)
+    with monkeypatch.context() as m:
+        m.setattr(step_mod, "_views_loss_and_grads", functools.partial(
+            step_mod._views_loss_and_grads, plain=True))
+        plain_step = build()
+    plain = chain(plain_step, state0)
+    moved = {f: np.abs(chain(plain_step, nudged(f)) - plain)
+             for f in ("xyz", "rotation", "opacity")}
+    spread = np.max(list(moved.values()), axis=0)
+    with capsys.disabled():
+        for name, d in (("kernel", np.abs(kernel - plain)), *moved.items()):
+            print(f"chained steps, {name}: |loss - plain's| / plain's by "
+                  f"step {(d / np.abs(plain)).tolist()}")
+    assert np.isfinite(kernel).all()
+    assert (np.abs(kernel - plain) <= 1e-5 * np.abs(plain) + spread).all(), \
+        (kernel.tolist(), plain.tolist(), spread.tolist())
 
 
 @pytest.mark.gpu
@@ -1075,6 +1459,137 @@ def test_depth_offsets_kernel_at_ceiling_size():
         assert torch.equal(got.offsets, want.offsets)
         assert torch.equal(got.seg_rank[:live], want.seg_rank[:live])
     assert int(tables.lookback.abs().sum()) == 0  # left cleared
+
+
+class _MemProp(ctypes.Structure):  # CUmemAllocationProp
+    _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                ("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("win32", ctypes.c_void_p), ("compression", ctypes.c_ubyte),
+                ("rdma", ctypes.c_ubyte), ("usage", ctypes.c_ushort),
+                ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _MemAccess(ctypes.Structure):  # CUmemAccessDesc
+    _fields_ = [("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("flags", ctypes.c_int)]
+
+
+class _DeviceArray:  # a torch view of device memory torch did not allocate
+    def __init__(self, ptr, n):
+        self.__cuda_array_interface__ = {
+            "shape": (n,), "typestr": "<i4", "data": (ptr, False),
+            "version": 3, "strides": None}
+
+
+class GuardedBuffers:
+    """Int32 device buffers that each end where their mapping ends: each
+    lies at the end of a granule mapped by ``cuMemCreate`` and ``cuMemMap``
+    (libcuda), and the next granule of its reserved range is left unmapped,
+    so a kernel's read or write past its end faults
+    (``cudaErrorIllegalAddress``) wherever it lands.  The cached allocator's
+    tensors usually have mapped memory after them."""
+
+    def __init__(self):
+        cu = ctypes.CDLL("libcuda.so.1")
+        u64, size = ctypes.c_uint64, ctypes.c_size_t
+        for fn, args in (
+                ("cuMemGetAllocationGranularity",
+                 [ctypes.POINTER(size), ctypes.POINTER(_MemProp), ctypes.c_int]),
+                ("cuMemAddressReserve",
+                 [ctypes.POINTER(u64), size, size, u64, u64]),
+                ("cuMemCreate",
+                 [ctypes.POINTER(u64), size, ctypes.POINTER(_MemProp), u64]),
+                ("cuMemMap", [u64, size, size, u64, u64]),
+                ("cuMemSetAccess",
+                 [u64, size, ctypes.POINTER(_MemAccess), size]),
+                ("cuMemUnmap", [u64, size]), ("cuMemRelease", [u64]),
+                ("cuMemAddressFree", [u64, size])):
+            getattr(cu, fn).argtypes = args
+        self.cu = cu
+        dev = torch.cuda.current_device()
+        self.prop = _MemProp(type=1, loc_type=1, loc_id=dev)  # pinned, device
+        self.access = _MemAccess(loc_type=1, loc_id=dev, flags=3)  # rw
+        gran = ctypes.c_size_t()
+        self.call("cuMemGetAllocationGranularity", ctypes.byref(gran),
+                  ctypes.byref(self.prop), 0)
+        self.gran = gran.value
+        self.held = []  # (range start, range bytes, mapped bytes, handle)
+
+    def call(self, fn, *args):
+        rc = getattr(self.cu, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn} returned CUresult {rc}")
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (int32) copied to the end of a mapping of its own."""
+        nbytes = max(t.numel(), 1) * 4
+        mapped = -(-nbytes // self.gran) * self.gran
+        base, handle = ctypes.c_uint64(), ctypes.c_uint64()
+        self.call("cuMemAddressReserve", ctypes.byref(base),
+                  mapped + self.gran, 0, 0, 0)
+        self.call("cuMemCreate", ctypes.byref(handle), mapped,
+                  ctypes.byref(self.prop), 0)
+        self.call("cuMemMap", base.value, mapped, 0, handle.value, 0)
+        self.call("cuMemSetAccess", base.value, mapped,
+                  ctypes.byref(self.access), 1)
+        self.held.append((base.value, mapped + self.gran, mapped,
+                          handle.value))
+        out = torch.as_tensor(_DeviceArray(
+            base.value + mapped - nbytes, nbytes // 4), device="cuda")
+        out.copy_(t.reshape(-1).to(device="cuda", dtype=torch.int32))
+        return out
+
+    def release(self):
+        torch.cuda.synchronize()
+        for base, span, mapped, handle in self.held:
+            self.call("cuMemUnmap", base, mapped)
+            self.call("cuMemRelease", handle)
+            self.call("cuMemAddressFree", base, span)
+        self.held = []
+
+
+# (instances, live count): the last segment of 2,048 ids half full (1,024)
+# and live, past the slots or within them; and whole segments only
+HALF_SEGMENTS = [(1024, 6024), (1024, 700), (3072, 8072), (3072, 2500),
+                 (4096, 9096), (4096, 3000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,live", HALF_SEGMENTS, ids=str)
+def test_counting_sort_keeps_a_live_half_segment_in_bounds(m, live):
+    """The fused counting sort with every input and output at the end of a
+    mapping of its own (``GuardedBuffers``), so that an access past any of
+    them faults: no fault, and the outputs equal the plain version's.  The
+    cases put the last segment at half its 2,048 ids, live, with more or
+    fewer live instances than slots.  (A rank kernel that staged the
+    Gaussians with 16-byte loads of the whole segment behind a
+    ``len == SEGMENT`` test read past ``gauss`` here as built for sm_90a.)"""
+    need_card()
+    nt, n = 920, 20_000
+    g = torch.Generator().manual_seed(m + live)
+    ids = torch.randint(0, nt + 1, (m,), generator=g, dtype=torch.int32)
+    gauss = torch.randint(0, n, (m,), generator=g, dtype=torch.int32)
+    n_live = torch.tensor([live], dtype=torch.int32)
+    want = sort_tiles.counting_sort_plain(ids, gauss, n_live, nt, n)
+    mem = GuardedBuffers()
+    try:
+        dev = {f: mem.copy(t) for f, t in (
+            ("ids", ids), ("gauss", gauss), ("n_live", n_live),
+            ("base", torch.zeros(sort_tiles.segments(m) * nt)),
+            ("counts", torch.zeros(nt)), ("offsets", torch.zeros(nt)),
+            ("dest", torch.zeros(m)), ("inst", torch.zeros(m)),
+            ("overflow", torch.zeros(1)))}
+        kernels.launch(
+            "sort_tiles", "e3d_counting_sort", dev["ids"].data_ptr(),
+            dev["gauss"].data_ptr(), m, dev["n_live"].data_ptr(), nt, n, 0,
+            *(dev[f].data_ptr() for f in (
+                "base", "counts", "offsets", "dest", "inst", "overflow")))
+        torch.cuda.synchronize()
+        for field in ("counts", "offsets", "dest", "inst", "overflow"):
+            got = dev[field].cpu().reshape(getattr(want, field).shape)
+            assert torch.equal(got, getattr(want, field)), field
+    finally:
+        mem.release()
 
 
 @pytest.mark.gpu
@@ -1129,10 +1644,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(h, w, 3), img, img, img.to(torch.int32), 8),
         lambda: segscan.segment_sums_kernel(rows, ids, ids, 8, ids, ids),
     ]
+    means, scales, rots, opac3, feats, cam = preprocess_scene(20, 0)
+    calls += [
+        lambda: pre.preprocess_forward_kernel(means, scales, rots, cam, 1.0,
+                                              opac3, feats, 3),
+        lambda: pre.preprocess_backward_kernel(
+            means, scales, rots, cam, torch.ones(20, dtype=torch.bool),
+            means[:, :2], means, means, 1.0, feats, 3),
+    ]
     wrappers = [binning.gaussian_tables_kernel, binning.depth_order_kernel,
                 expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
                 sort_tiles.stable_tile_rank_kernel, rt.composite_forward_kernel,
-                rt.composite_backward_kernel, segscan.segment_sums_kernel]
+                rt.composite_backward_kernel, segscan.segment_sums_kernel,
+                pre.preprocess_forward_kernel, pre.preprocess_backward_kernel]
     counts = [k.launches for k in wrappers]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -1143,12 +1667,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_cpu_dispatch_takes_the_plain_versions():
     proj, colors, opac, w, h = scene(n=80, seed=1, w=96, h=64)
     wrappers = (rt.composite_forward_kernel, rt.composite_backward_kernel,
-                segscan.segment_sums_kernel)
+                segscan.segment_sums_kernel, pre.preprocess_forward_kernel,
+                pre.preprocess_backward_kernel)
     before = [k.launches for k in wrappers]
     colors.requires_grad_(True)
     img = rt.rasterize_tiled(proj, colors, opac, torch.zeros(3), w, h)
     assert img.shape == (h, w, 3) and torch.isfinite(img).all()
     (g,) = torch.autograd.grad(img.sum(), [colors])
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    means, scales, rots, opac, feats, cam = preprocess_scene(80, 1, 96, 64)
+    feats.requires_grad_(True)
+    out = render(means, feats, opac, scales, rots, cam, torch.zeros(3),
+                 sh_degree=3, rasterizer="tiled")
+    (g,) = torch.autograd.grad(out.image.sum(), [feats])
     assert torch.isfinite(g).all() and g.abs().sum() > 0
     assert [k.launches for k in wrappers] == before
 

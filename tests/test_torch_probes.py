@@ -372,7 +372,15 @@ def test_path_bounds_of_one_view():
     assert set(b) == {"K1 composite_forward", "K2 composite_backward",
                       "K3 segment_sums", "K4 gaussian_tables",
                       "K4 depth_offsets", "K4 expand_instances",
-                      "K5 tile_histogram", "K6 stable_tile_rank"}
+                      "K5 tile_histogram", "K6 stable_tile_rank",
+                      "preprocess_forward", "preprocess_backward"}
+    # SH degree 3 over 16 coefficients: 236 bytes read and 41 written a
+    # Gaussian forward, 265 read and 232 written backward
+    assert b["preprocess_forward"] == (4 * 277, (4 * 266, 4 * 16))
+    assert b["preprocess_backward"] == (4 * 497, (4 * 532, 4 * 24))
+    assert kt.path_bounds(4, 10, offsets, 6, pairs, 2, 8, 2, coeffs=25,
+                          sh_degree=1)["preprocess_backward"][0] == (
+        4 * (12 + 12 + 16 + 1 + 48 + 32 + 40 + 300))
     assert b["K4 gaussian_tables"] == (4 * 85, (240, 28))
     assert b["K4 depth_offsets"] == (4 * 20 + 4 + segments(10) * 4, (0, 0))
     # ranks 0 and 2 start under the cap (rank 1 is empty, rank 3 at it)
@@ -395,9 +403,7 @@ M = ss.MARKER
 REPLAY = [
     ("Memcpy HtoD (Pageable -> Device)", 1.0),
     ("index_select_kernel", 2.0),
-    (M, 0.5), ("vectorized_elementwise_kernel", 3.0), ("reduce_kernel", 4.0),
-    (M, 0.5), ("elementwise_kernel", 1.5),
-    (M, 0.5), ("vectorized_elementwise_kernel", 5.0),
+    (M, 0.5), ("preprocess_forward_kernel", 3.0), ("fill_kernel", 4.0),
     (M, 0.5),
     (M, 0.5), ("gaussian_table_kernel", 6.0),
     ("DeviceRadixSortOnesweepKernel", 7.0),
@@ -411,16 +417,18 @@ REPLAY = [
     (M, 0.5), ("composite_backward_kernel", 50.0),
     ("segment_sums_kernel", 4.0), ("ranges_kernel", 1.0),
     ("row_sums_kernel", 2.0), ("DeviceRadixSortOnesweepKernel", 0.75),
+    (M, 0.5), ("preprocess_backward_kernel", 5.0),
+    ("elementwise_kernel", 1.5),
     (M, 0.5), ("vectorized_elementwise_kernel", 2.5),
     (M, 0.5), ("elementwise_kernel", 3.5),
     (M, 0.5), ("multi_tensor_apply_kernel", 8.0), (M, 0.5),
     (M, 0.5), ("vectorized_elementwise_kernel", 1.25), (M, 0.5),
     ("Memcpy DtoH (Device -> Pageable)", 1.0),
 ]
-MARKS = ["projection fwd", "other", "SH fwd", "other", "rasterizer fwd",
-         "other", "loss fwd", "other", "loss bwd", "rasterizer bwd",
-         "SH bwd", "projection bwd", "Adam fwd", "other",
-         "densify stats fwd", "other"]
+MARKS = ["preprocess fwd", "other", "rasterizer fwd", "other", "loss fwd",
+         "other", "loss bwd", "rasterizer bwd", "preprocess bwd",
+         "feature sums", "other", "Adam fwd", "other", "densify stats fwd",
+         "other"]
 
 
 def test_replay_split_groups_a_fixed_kernel_list():
@@ -435,14 +443,17 @@ def test_replay_split_groups_a_fixed_kernel_list():
     assert list(totals) == list(ss.SPLIT_ORDER)
     want = {"K1": [30.0, 1], "K2": [50.0, 1], "K3": [4.0 + 1.0 + 2.0, 3],
             "binning kernels": [15.0, 6], "argsort": [8.0, 2],
-            "projection forward": [7.0, 2], "projection backward": [3.5, 1],
-            "SH forward": [5.0, 1], "SH backward": [2.5, 1],
+            "preprocess forward": [3.0, 1], "preprocess backward": [5.0, 1],
+            "preprocess, other": [4.0 + 1.5, 2],
+            "feature gradient sums": [2.5, 1],
             "rasterizer, other": [0.25 + 0.75, 2], "loss": [9.0 + 2.0, 2],
             "Adam": [8.0, 1], "densify stats": [1.25, 1],
-            "other": [1.0 + 2.0 + 1.5 + 1.0, 4]}
+            "other": [1.0 + 2.0 + 3.5 + 1.0, 4]}
     assert totals == want
     assert sum(k for _, k in totals.values()) == len(labelled)
-    assert ss.split_group("composite_forward_kernel", "SH bwd") == "K1"
+    assert ss.split_group("composite_forward_kernel", "loss bwd") == "K1"
+    assert ss.split_group("preprocess_backward_kernel", "other") == \
+        "preprocess backward"
     assert ss.split_group("DeviceRadixSortOnesweepKernel", "loss fwd") == "loss"
     assert ss.split_group("spin", "nowhere") == "other"
     with pytest.raises(ValueError, match="marker kernels"):
@@ -467,21 +478,20 @@ def test_stage_markers_mark_each_stage_of_an_eager_step(monkeypatch):
     step = step_mod.GraphTrainStep("event", OptimizationConfig(),
                                    EventConfig(), spatial_lr_scale=3.0,
                                    rasterizer="tiled", instance_cap=icap)
-    before = [getattr(render, n) for n in ("project_gaussians",
-                                           "gaussian_colors",
+    before = [getattr(render, n) for n in ("preprocess",
                                            "rasterize_tiled_partials")]
     runner = FusedSteps(step, state, data, 1)
     row = torch.from_numpy(step.row(1, (1, 1, 2), np.zeros(3))[None])
     with ss.stage_markers([]):
         loss = runner.run(row)[0]
     assert np.isfinite(loss)
-    assert [getattr(render, n) for n in ("project_gaussians",
-                                         "gaussian_colors",
+    assert [getattr(render, n) for n in ("preprocess",
                                          "rasterize_tiled_partials")] == before
     starts = [m for m in seen if m != "other"]
-    for label in ("projection", "SH", "rasterizer"):  # three renders
+    for label in ("preprocess", "rasterizer"):  # three renders
         assert starts.count(f"{label} fwd") == 3
         assert starts.count(f"{label} bwd") == 3
+    assert starts.count("feature sums") == 3
     assert starts.count("loss fwd") == starts.count("loss bwd") == 1
     assert starts.count("Adam fwd") == 2  # the Gaussians and the contrast
     assert starts.count("densify stats fwd") == 1
