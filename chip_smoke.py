@@ -41,7 +41,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    instance cap is re-measured), then ``cli.render`` on the saved PLY (the
    train and test sets).  Every kernel (the preprocess forward and
    backward, K1-K6 and the binning's table and depth offsets kernels) must
-   launch 3 times per step, the forward preprocess once more per
+   launch 3 times per step and the Adam kernel once (the six leaves and the
+   contrast in one launch), the forward preprocess once more per
    instance-cap probe (``train/loop.probe_instance_count``, counted), the
    alive count must grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
@@ -55,10 +56,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    the counting sort and the binning's device kernels timed); one step's
    gradients, kernel path against the
    all-plain path (2e-4 of each field's max); the same step twice under
-   ``torch.use_deterministic_algorithms`` giving bit-identical parameters.
+   ``torch.use_deterministic_algorithms`` giving bit-identical parameters;
+   the Adam kernel (``csrc/adam.cu``) on the next step's update of that
+   state, two chained updates out of place and in place, bit-equal to its
+   plain version.
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
-   profile one step, and time K2 and K3 as in phase 5; K3 also over the
+   profile one step, and time K2, K3 and the Adam kernel (its yardstick
+   ``torch._fused_adam_``, one call per learning rate) as in phase 5; K3
+   also over the
    rows put into expansion order beforehand and, through ``dest``, in
    each of its two orders of work (``ops/segscan.py``), each bit-equal to
    K3 as the path calls it, with their graph ms.  Then densify
@@ -142,8 +148,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    ms per step and ``bench.py``'s pixels/s of both loops over iterations
    11-60, the device ms per replayed step (CUDA events around 10 replays,
    5 windows), the peak memory of both loops and what the fused steps
-   reserve.  Then a graph swap: 12 iterations densifying at 5 and 10 with
-   capacity growth (the instance cap re-measured upward), captured again
+   reserve.  One step's CUDA graph read back (``graph_kernels``) holds the
+   Adam kernel once; the Adam kernel captured in a CUDA graph at the
+   trained state equals its plain version bit for bit.  Then a graph
+   swap: 12 iterations densifying at 5 and 10 with capacity growth (the instance cap re-measured upward), captured again
    after each, against the eager loop; and ``cli.train --fused_steps 3``
    on phase 6's scene as phase 6 runs it, ending with phase 6's alive
    count and launching the kernels in its captures only.
@@ -153,16 +161,17 @@ Phases (any failed check exits non-zero; nothing is caught):
    2,097,152 slots (the JAX package's largest working point), the event
    step eager (1 + 3 steps) and graphed (``fused_steps`` 10: warm-up,
    capture, 1 + 3 replays), each on the scene built anew; every kernel
-   launched 3 × 4 + 3 × 3 times with the counts set to 0 before, the same
-   loss from both, state GiB, instance cap, ms per step, device ms per
-   replay, capture ms, peak and reserved memory.  At that state's main view
-   (camera 1) each kernel of the path against its plain version at phases
-   4 and 7's tolerances (the preprocess forward and backward, the table
-   and depth offsets kernels, K4, K5, K6,
-   the counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
-   stop index equal, K2 within 1e-5 of the max, K3 bit-equal) and its
-   graph ms beside its bound, K3 in its orders as in phase 8.  The depth offsets kernel over 8,192 + 1
-   look-back blocks (16.8M ranks, twice, its state left cleared) and the
+   launched 3 × 4 + 3 × 3 times (Adam 4 + 3) with the counts set to 0
+   before, the same loss from both, state GiB, instance cap, ms per step,
+   device ms per replay, capture ms, peak and reserved memory.  At that
+   state's main view (camera 1) each kernel of the path against its plain
+   version at phases 4 and 7's tolerances (the preprocess forward and
+   backward, the table and depth offsets kernels, K4, K5, K6, the
+   counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
+   stop index equal, K2 within 1e-5 of the max, K3 bit-equal, the Adam
+   kernel bit-equal, also in a CUDA graph) and its graph ms beside its
+   bound, K3 in its orders as in phase 8.  The depth offsets kernel over
+   8,192 + 1 look-back blocks (16.8M ranks, twice, its state left cleared) and the
    counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
    bit-equal to their plain versions.  ``train --densify --fused_steps
    10`` at 1,048,576 slots (12 1080p views of a 100k-point world), cut
@@ -234,6 +243,9 @@ CUDA_BASELINE_PIX_S = 30e6  # bench.py's yardstick for vs_baseline
 # colours, which XLA fuses (no Pallas kernel)
 PREPROCESS_REPLACES = ", ".join(("event3dgs_tpu/ops/projection.py:51",
                                  "event3dgs_tpu/ops/render.py:49"))
+# the JAX code the Adam kernel replaces: adam_update, which XLA fuses inside
+# the jitted train step (no Pallas kernel)
+ADAM_REPLACES = "event3dgs_tpu/models/optimizer.py:39"
 # bench.py times 5 steps; a 50-step window separates a noisy host from
 # stalls, and its median and spread are printed beside bench.py's mean
 STEP_ITERS = 50
@@ -451,6 +463,7 @@ KERNEL_FUNCTIONS = {
     "K4 expand_instances": ("expand_kernel",),
     "K5 tile_histogram": ("segment_count_kernel", "scan_kernel"),
     "K6 stable_tile_rank": ("segment_count_kernel", "scan_kernel", "rank_kernel"),
+    "adam_update": ("adam_update_kernel",),
 }
 SORT_FUNCTIONS = KERNEL_FUNCTIONS["K6 stable_tile_rank"]
 
@@ -827,8 +840,115 @@ def k3_in_order(what, bk, rows_k):
     return out
 
 
+def adam_groups(state, data, idx, bg, icap, step, lr_on_device=False):
+    """The two Adam groups of an event step of ``state`` (the six leaves,
+    the contrast) with the kernel path's gradients at views ``idx`` and
+    the learning rates of iteration ``step``; with ``lr_on_device`` the
+    position rate a one-element tensor on the card, as the graphed step
+    reads it from its row table."""
+    import torch
+
+    from event3dgs_tpu_torch.models import trainable_dict
+    from event3dgs_tpu_torch.models.optimizer import AdamGroup
+    from event3dgs_tpu_torch.train.step import _lr_tree, make_loss_and_grads
+    from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
+
+    ev = EventConfig()
+    fn = make_loss_and_grads("event", ev, ev.event_lambda_dssim,
+                             rasterizer="tiled", instance_cap=icap)
+    _, _, grads = fn(state, data, *idx, bg)
+    lrs = _lr_tree(OptimizationConfig(), step, state.spatial_lr_scale)
+    if lr_on_device:
+        lrs["xyz"] = torch.tensor([lrs["xyz"]], device=bg.device)
+    return [AdamGroup(trainable_dict(state.params), grads["params"],
+                      state.opt_state, lrs),
+            AdamGroup(state.contrast, grads["contrast"], state.contrast_opt,
+                      ev.contrast_lr)]
+
+
+def adam_tensors(results) -> list:
+    """Every tensor of [(params, AdamState)], in order."""
+    from event3dgs_tpu_torch.models.optimizer import leaves
+
+    return [t for params, st in results
+            for tree in (params, st.mu, st.nu, st.count)
+            for t in leaves(tree)]
+
+
+def adam_copy(groups) -> list:
+    """The groups with their parameters and states copied (gradients and
+    rates shared), and the (params, AdamState) to write into them."""
+    from event3dgs_tpu_torch.models.optimizer import AdamGroup, AdamState
+
+    clone = lambda t: ({k: v.clone() for k, v in t.items()}
+                       if isinstance(t, dict) else t.clone())
+    copies = [AdamGroup(clone(g.params), g.grads, AdamState(
+        clone(g.state.mu), clone(g.state.nu), g.state.count.clone()), g.lr)
+        for g in groups]
+    return copies, [(g.params, g.state) for g in copies]
+
+
+def adam_check(what, groups, graphed=False):
+    """The Adam kernel (``csrc/adam.cu``) against its plain version on a
+    train step's ``groups``, bit for bit: two chained updates out of place,
+    and two in place on copies of the state, replays of a CUDA graph of
+    the in-place call with ``graphed``.  Returns (the largest difference,
+    the in-place call on copies, the plain version's call)."""
+    import torch
+
+    from event3dgs_tpu_torch.models import optimizer as opt
+
+    def chained(update, gs):
+        for _ in range(2):
+            res = update(gs)
+            gs = [opt.AdamGroup(p, g.grads, s, g.lr)
+                  for (p, s), g in zip(res, gs)]
+        return res
+
+    want = chained(lambda gs: [opt.adam_update_plain(*g) for g in gs], groups)
+    got = {"out of place": chained(opt.adam_update_kernel, groups)}
+    live, out = adam_copy(groups)
+    if graphed:
+        warm, warm_out = adam_copy(groups)
+        opt.adam_update_kernel(warm, out=warm_out)  # any lazy set-up
+        del warm, warm_out
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            opt.adam_update_kernel(live, out=out)
+        for _ in range(2):
+            graph.replay()
+        got["in a CUDA graph"] = out
+    else:
+        for _ in range(2):
+            opt.adam_update_kernel(live, out=out)
+        got["in place"] = out
+    torch.cuda.synchronize()
+    err = 0.0
+    for how, res in got.items():
+        for a, b in zip(adam_tensors(res), adam_tensors(want), strict=True):
+            ulps = bits_differ(a, b)
+            check(ulps == 0, f"{what}: the Adam kernel ({how}) differs from "
+                  f"its plain version by {ulps} ulps")
+            err = max(err, (a.double() - b.double()).abs().max().item())
+    floats = adam_floats(groups)
+    print(f"{what}: Adam kernel {', '.join(got)} bit-equal to its plain "
+          f"version over two chained updates ({floats} floats, counts "
+          f"{int(groups[0].state.count)} -> {int(want[0][1].count)})")
+    timed, timed_out = adam_copy(groups)
+    return (err, lambda: opt.adam_update_kernel(timed, out=timed_out),
+            lambda: [opt.adam_update_plain(*g) for g in groups])
+
+
+def adam_floats(groups) -> int:
+    """The floats the Adam update of ``groups`` updates."""
+    from event3dgs_tpu_torch.models.optimizer import leaves
+
+    return sum(t.numel() for g in groups for t in leaves(g.params))
+
+
 def wrappers():
     """Every kernel's launch wrapper, by name."""
+    from event3dgs_tpu_torch.models import optimizer as opt
     from event3dgs_tpu_torch.ops import binning, expand, segscan, sort_tiles
     from event3dgs_tpu_torch.ops import preprocess as pre
     from event3dgs_tpu_torch.ops import rasterize_tiled as rt
@@ -844,6 +964,7 @@ def wrappers():
         "K4 expand_instances": expand.expand_instances_kernel,
         "K5 tile_histogram": sort_tiles.tile_histogram_kernel,
         "K6 stable_tile_rank": sort_tiles.stable_tile_rank_kernel,
+        ADAM: opt.adam_update_kernel,
     }
 
 
@@ -852,6 +973,8 @@ def wrappers():
 PROBES = "instance-cap probes"
 # the kernels that run only in a backward pass
 BACKWARD = ("preprocess_backward", "K2 composite_backward", "K3 segment_sums")
+# the kernel that runs once per train step (both Adam groups in one launch)
+ADAM = "adam_update"
 
 
 def count_launches(fn):
@@ -872,19 +995,21 @@ def count_launches(fn):
                  PROBES: loop.probe_instance_count.calls}
 
 
-def check_launches(what, launches, renders, backward, projections=0):
+def check_launches(what, launches, renders, backward, projections=0,
+                   steps=0):
     """Each kernel launched once per render, the backward kernels once per
-    differentiated render (``backward``), and the forward preprocess once
-    more per instance-cap probe and per projection outside a render
+    differentiated render (``backward``), the Adam kernel once per train
+    step (``steps``), and the forward preprocess once more per
+    instance-cap probe and per projection outside a render
     (``projections``)."""
     for k, n in launches.items():
         if k == PROBES:
             continue
-        want = backward if k in BACKWARD else renders
+        want = steps if k == ADAM else backward if k in BACKWARD else renders
         if k == "preprocess_forward":
             want += launches[PROBES] + projections
         check(n == want, f"{what}: {k} launched {n} times, not {want} "
-              f"({renders} renders, {backward} backward, "
+              f"({renders} renders, {backward} backward, {steps} steps, "
               f"{launches[PROBES]} instance-cap probes)")
 
 
@@ -902,8 +1027,8 @@ def run_cli(main, args):
 
 def check_render_launches(what, launches, renders, projections=0):
     """Each render kernel launched once per render (the forward preprocess
-    once more per projection outside a render); the backward kernels
-    never."""
+    once more per projection outside a render); the backward kernels and
+    Adam never."""
     check_launches(what, launches, renders, 0, projections)
 
 
@@ -1131,7 +1256,7 @@ def train_path(root: str):
     print(f"cli.train: {TRAIN_ITERS} iterations in {train_s:.2f} s (scene "
           f"load, init and PLY/checkpoint IO included); launches {launches}")
     check_launches(f"cli.train, {TRAIN_ITERS} event steps", launches,
-                   3 * TRAIN_ITERS, 3 * TRAIN_ITERS)
+                   3 * TRAIN_ITERS, 3 * TRAIN_ITERS, steps=TRAIN_ITERS)
     last = re.search(r"last loss (\S+)", log)
     check(last is not None and math.isfinite(float(last.group(1))),
           "no finite loss reported")
@@ -1630,7 +1755,8 @@ def sharded_path(root: str, dev):
         for what, launches in (("train_loop", p_launches),
                                ("train_loop_sharded", s_launches)):
             check_launches(f"{what}, {TRAIN_ITERS} event steps", launches,
-                           3 * TRAIN_ITERS, 3 * TRAIN_ITERS)
+                           3 * TRAIN_ITERS, 3 * TRAIN_ITERS,
+                           steps=TRAIN_ITERS)
         hp, hs = plain.history, sharded.history
         check(len(hs) == len(hp) == TRAIN_ITERS and all(
             math.isfinite(b) and abs(a - b) <= 1e-5 * abs(b) for a, b in zip(hs, hp)),
@@ -1787,7 +1913,11 @@ def train_kernels(dev):
     import torch
 
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.tools.kernel_timing import k3_inputs
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        adam_bound,
+        fused_adam_call,
+        k3_inputs,
+    )
     from event3dgs_tpu_torch.train.step import make_loss_and_grads, make_train_step
     from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
 
@@ -1844,10 +1974,14 @@ def train_kernels(dev):
           and torch.equal(s1.contrast, s2.contrast), "step not repeatable")
     print("one event step run twice under use_deterministic_algorithms: "
           "bit-identical parameters, contrast and stats")
+    # the Adam kernel at the next step's update of that state (count 1,
+    # moments set)
+    adam = adam_groups(s1, data, idx, bg, icap, 2)
+    adam_err, *adam_calls = adam_check("phase 7, the step after one", adam)
 
     # 8. timing: bench.py's event step ---------------------------------------
     (st, _), per_step = count_launches(lambda: step(state, data, *idx, bg))
-    check_launches("one event step", per_step, 3, 3)
+    check_launches("one event step", per_step, 3, 3, steps=1)
     for _ in range(WARMUP_STEPS):
         st, _ = step(st, data, *idx, bg)
     torch.cuda.synchronize()
@@ -1884,18 +2018,22 @@ def train_kernels(dev):
 
     b, rows_k = v.bk, v.rows_k
     _, _, (gathered, lengths) = k3_inputs(b, rows_k)
+    v.errs[ADAM] = adam_err
+    v.bounds[ADAM] = adam_bound(adam_floats(adam))
     timings = {
         "preprocess_backward": (*v.calls["preprocess_backward"], None, 50),
         "K2 composite_backward": (*v.calls["K2 composite_backward"], None, 20),
         "K3 segment_sums": (
             *v.calls["K3 segment_sums"],
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
+        ADAM: (*adam_calls, fused_adam_call(adam), 50),
     }
     meta = {
         "preprocess_backward": ("preprocess.cu", PREPROCESS_REPLACES),
         "K2 composite_backward": ("rasterize_bwd.cu",
                                   "event3dgs_tpu/ops/rasterize_tiled.py:386"),
         "K3 segment_sums": ("segsum.cu", "event3dgs_tpu/ops/segscan.py:46"),
+        ADAM: ("adam.cu", ADAM_REPLACES),
     }
     errs = {k: v.errs[k] for k in timings}
     rows = kernel_rows(timings, v.bounds, meta, errs)
@@ -1911,8 +2049,8 @@ def densify_growth(state, data, idx, bg, mode="event", extent=3.0):
     """Densify the timed state with capacity growth (its 100k slots are all
     alive, so any candidate grows them), then one step of ``mode`` at a
     re-measured instance cap: every kernel launches once per render (3 in
-    the event modes) and the loss is finite.  Threshold 0 makes every alive
-    Gaussian a candidate: the event pair's coverage is 1 on bench.py's
+    the event modes), Adam once, and the loss is finite.  Threshold 0
+    makes every alive Gaussian a candidate: the event pair's coverage is 1 on bench.py's
     random images, so the main view's gradient, the densify statistic, is
     exactly 0.  ``extent``: the scene extent and ``spatial_lr_scale``
     (bench.py's 3.0)."""
@@ -1944,7 +2082,8 @@ def densify_growth(state, data, idx, bg, mode="event", extent=3.0):
     (after, metrics), launches = count_launches(
         lambda: step(grown, data, *idx, bg))
     renders = 3 if mode.startswith("event") else 1
-    check_launches("the step after densify", launches, renders, renders)
+    check_launches("the step after densify", launches, renders, renders,
+                   steps=1)
     check(math.isfinite(float(metrics["loss"])), "non-finite loss after densify")
     for f in ("xyz", "scaling", "opacity"):
         check(bool(torch.isfinite(getattr(after.params, f)).all()),
@@ -2242,11 +2381,13 @@ def fused_path(root: str, dev):
     (r1, n1, t1, _, peak1, _), (rf, nf, tf, ef, peakf, made) = (
         runs[1], runs[FUSED_STEPS])
     loss_err, param_err = check_same_run("fused_steps 10", r1, rf)
-    check_launches("eager loop", n1, 3 * FUSED_ITERS, 3 * FUSED_ITERS)
+    check_launches("eager loop", n1, 3 * FUSED_ITERS, 3 * FUSED_ITERS,
+                   steps=FUSED_ITERS)
     captures = [m["graph_capture_ms"] for _, m in ef if "graph_capture_ms" in m]
     check(len(captures) == len(made) == 1, f"{len(captures)} graphs captured")
     # warm-up and capture only
-    check_launches("fused loop", nf, per_capture, per_capture)
+    check_launches("fused loop", nf, per_capture, per_capture,
+                   steps=WARMUP_STEPS + 1)
     replays = sum(e.replays for e in made)
     check(replays == FUSED_ITERS, f"{replays} replays for {FUSED_ITERS} steps")
     print(f"phase 13: losses of fused_steps {FUSED_STEPS} vs 1 max |diff| "
@@ -2294,7 +2435,22 @@ def fused_path(root: str, dev):
         replay_ms.append(start.elapsed_time(end) / FUSED_STEPS)
     check(bool(torch.isfinite(runner.slots.history).all()),
           "non-finite loss in a timed replay")
+    # what one captured step holds: the Adam kernel once, and no copy of a
+    # parameter or moment back into the state after it (only the densify
+    # stats and the metrics are copied)
+    nodes = kernel_timing.graph_kernels(
+        lambda: (runner.cursor.zero_(), runner._call()))
+    check(nodes.get("adam_update_kernel") == 1,
+          f"phase 13: {nodes.get('adam_update_kernel')} Adam kernels in one "
+          "captured step")
+    print(f"phase 13: one captured step holds {sum(nodes.values())} nodes: "
+          f"{nodes.get('adam_update_kernel')} Adam kernel, "
+          f"{nodes.get('memcpy', 0)} copies, {nodes.get('memset', 0)} memsets")
     runner.release()
+    # the Adam kernel in a CUDA graph at the trained state (count 60)
+    adam_check("phase 13, after the fused loop", adam_groups(
+        rf.state, data, (2, 2, 3), torch.zeros(3, device=dev), icap,
+        FUSED_ITERS + 1, lr_on_device=True), graphed=True)
     q = np.percentile(replay_ms, [0, 50, 100])
     print(f"phase 13: device time per replayed step (CUDA events around "
           f"{FUSED_STEPS} replays, 5 windows): median {q[1]:.4f} ms, min "
@@ -2323,7 +2479,8 @@ def fused_path(root: str, dev):
     check(recaptured == want and len(made) == len(want),
           f"graphs captured at {recaptured}, not {want}")
     check_launches("graph swap", sn5, len(want) * per_capture,
-                   len(want) * per_capture)
+                   len(want) * per_capture,
+                   steps=len(want) * (WARMUP_STEPS + 1))
     swap_err, _ = check_same_run("graph swap", s1, s5)
     print(f"phase 13: graph swap, capacity {N_GAUSSIANS} -> "
           f"{s5.state.params.capacity} (grown at {grown}), instance cap "
@@ -2356,7 +2513,8 @@ def fused_path(root: str, dev):
           f"cli.train --fused_steps 3: {n_graphs} captures, capacity or cap "
           f"changed after {sorted(swapped)}")
     check_launches("cli.train --fused_steps 3", launches,
-                   per_capture * n_graphs, per_capture * n_graphs)
+                   per_capture * n_graphs, per_capture * n_graphs,
+                   steps=(WARMUP_STEPS + 1) * n_graphs)
     alive = [int(n) for n in re.findall(r"num_alive=(\d+)", log)]
     ck = lambda m: np.load(os.path.join(m, f"chkpnt{TRAIN_ITERS}.npz"))
     eager_alive = int(ck(os.path.join(root, "trained"))["params/alive"].sum())
@@ -2373,12 +2531,18 @@ def scale_kernel_rows(state, data, icap, dev):
     """Phase 14b: at the 2M-slot maxcap state, every kernel of the path
     against its plain version at the step's main view (camera 1), at the
     tolerances phases 4 and 7 hold them to, and each kernel's graph ms and
-    bound there (the preprocess kernels' plain ms too, by CUDA events).
+    bound there (the preprocess kernels' plain ms too, by CUDA events);
+    the Adam kernel on the step's update there (bit for bit, also in a
+    CUDA graph), its plain version's ms and ``torch._fused_adam_``'s.
     Returns {kernel: the scale columns of its JSON row}."""
+    import torch
+
     from event3dgs_tpu_torch.models import activated
     from event3dgs_tpu_torch.tools.kernel_timing import (
+        adam_bound,
         bound_ms,
         cuda_ms,
+        fused_adam_call,
         graph_ms,
     )
 
@@ -2404,6 +2568,18 @@ def scale_kernel_rows(state, data, icap, dev):
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
               f"({by}), {ms / bound:.2f}x{plain_txt}")
     out["K3 segment_sums"].update(k3_in_order(what, v.bk, v.rows_k))
+    adam = adam_groups(state, data, (1, 1, 2),
+                       torch.zeros(3, device=dev), icap, 1)
+    err, kern, plain = adam_check(what, adam, graphed=True)
+    ms = graph_ms(kern)
+    bound, by = bound_ms(*adam_bound(adam_floats(adam)))
+    out[ADAM] = {"gaussians": state.params.capacity, "instance_cap": icap,
+                 "max_abs_err": err, "graph_ms": ms, "bound_ms": bound,
+                 "bound_by": by, "plain_ms": cuda_ms(plain, 2, warmup=1),
+                 "library_ms": cuda_ms(fused_adam_call(adam), 20)}
+    print(f"{what}: {ADAM} {ms:.4f} graph ms, bound {bound:.4f} ms ({by}), "
+          f"{ms / bound:.2f}x, plain {out[ADAM]['plain_ms']:.4f} ms, "
+          f"torch._fused_adam_ {out[ADAM]['library_ms']:.4f} ms")
     return out
 
 
@@ -2427,7 +2603,8 @@ def scale_path(dev):
     check(rec["status"] == "ok", f"phase 14: maxcap at {SCALE_CAPACITY}: {rec}")
     want = 3 * (1 + iters) + 3 * (WARMUP_STEPS + 1)
     # eager 1 + iters steps, graphed warm-up and capture
-    check_launches("phase 14", launches, want, want)
+    check_launches("phase 14", launches, want, want,
+                   steps=1 + iters + WARMUP_STEPS + 1)
     e, gr = rec["eager"], rec["graphed"]
     check(math.isfinite(e["loss"]) and rec["same_loss"],
           f"phase 14: eager loss {e['loss']} vs graphed {gr['loss']}")
@@ -2508,7 +2685,8 @@ def scale_path(dev):
     per_capture = WARMUP_STEPS + 1  # one render per rgb-mode step
     check_launches(f"phase 14: train, {trec['captures']} captures", tl,
                    per_capture * trec["captures"],
-                   per_capture * trec["captures"])
+                   per_capture * trec["captures"],
+                   steps=per_capture * trec["captures"])
     eager, eres = scale.run_train(SCALE_TRAIN_EAGER, True, 1, scene=scene,
                                   device=dev)
     h, he = np.asarray(res.history), np.asarray(eres.history)

@@ -19,7 +19,8 @@ Nothing on the render or training path passes macros.
 ``-fmad=false`` is part of the build: the preprocess forward kernel's
 projection and colours, the table kernel's rects and cull
 data, the expansion kernel's ellipse cull and the compositing kernels'
-alpha must round like their plain PyTorch versions, which run one rounding per operation, and the backward kernel
+alpha and the Adam update must round like their plain PyTorch versions,
+which run one rounding per operation, and the backward kernel
 must skip exactly the (pixel, instance) pairs the forward kernel skipped.
 A kernel fuses a product into a sum only where it says so (``__fmaf_rn``
 in the backward kernel's gradient sums).
@@ -131,6 +132,13 @@ SIGNATURES = {
         # order, out, int32 scratch, its length, stream
         "e3d_segment_sums_balanced": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                                       _I, _P],
+    },
+    "adam": {
+        # per segment 9 pointers (p, g, m, v, p_out, m_out, v_out, lr or
+        # null, count), per segment 3 int64 (floats, row width, g's row
+        # stride), per segment the float learning rate, segments, b1,
+        # 1 - b1, b2, 1 - b2, eps, stream
+        "e3d_adam_update": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _P],
     },
     "probes": {
         # x, capacity (blocks of 1,024 floats), n (a device int), partials

@@ -63,7 +63,7 @@ from event3dgs_tpu_torch.models.gaussians import (
     trainable_dict,
     with_trainable,
 )
-from event3dgs_tpu_torch.models.optimizer import adam_update
+from event3dgs_tpu_torch.models.optimizer import AdamGroup, adam_update_groups
 from event3dgs_tpu_torch.ops.render import render_partials
 from event3dgs_tpu_torch.parallel.collectives import gather, ordered_sum
 from event3dgs_tpu_torch.parallel.compose import merge_depth_partials, view_depth_ranks
@@ -306,14 +306,17 @@ def make_sharded_train_step(
                 loss_total = loss_d
 
             lrs = _lr_tree(opt_cfg, step, spatial_lr_scale)
-            new_tree, new_opt = adam_update(trainable_dict(params), g_params,
-                                            state.opt_state, lrs)
+            groups = [AdamGroup(trainable_dict(params), g_params,
+                                state.opt_state, lrs)]
             if mode.startswith("event"):
-                new_contrast, new_copt = adam_update(
-                    state.contrast, g_contrast, state.contrast_opt,
-                    event_cfg.contrast_lr)
-            else:
-                new_contrast, new_copt = state.contrast, state.contrast_opt
+                groups.append(AdamGroup(state.contrast, g_contrast,
+                                        state.contrast_opt,
+                                        event_cfg.contrast_lr))
+            updated = adam_update_groups(groups)  # one launch on a card
+            new_tree, new_opt = updated[0]
+            new_contrast, new_copt = (
+                updated[1] if len(updated) > 1
+                else (state.contrast, state.contrast_opt))
             new_stats = DensifyStats(
                 grad_accum=state.stats.grad_accum + acc,
                 denom=state.stats.denom + den,

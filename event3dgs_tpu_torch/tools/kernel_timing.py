@@ -179,6 +179,51 @@ def preprocess_ops(n: int, sh_degree: int, backward: bool = False):
     return (n * (2 * 170 + 12 * coeffs), n * 24)
 
 
+# the Adam update (csrc/adam.cu) per float: p, g, m and v read, p, m and
+# v written (1,652 bytes a slot at SH degree 3, 59 floats); 6 products, 3
+# sums and a difference on the FP32 lanes, 3 divisions and a square root
+# counted as one SFU operation each
+ADAM_BYTES_PER_FLOAT = (4 + 3) * 4
+ADAM_OPS_PER_FLOAT = (10, 4)
+
+
+def adam_bound(floats: int):
+    """(bytes, (FP32, SFU) operations) that the Adam update of ``floats``
+    floats must move and do, for :func:`bound_ms`."""
+    return (floats * ADAM_BYTES_PER_FLOAT,
+            (floats * ADAM_OPS_PER_FLOAT[0], floats * ADAM_OPS_PER_FLOAT[1]))
+
+
+def fused_adam_call(groups, b1: float = 0.9, b2: float = 0.999,
+                    eps: float = 1e-15):
+    """The timing yardstick of the Adam kernel: a callable that runs
+    ``torch._fused_adam_`` (the kernel of ``torch.optim.Adam(fused=True)``)
+    over copies of the groups' parameters, gradients (made contiguous) and
+    moments, one call per learning rate.  Its rounding differs from the
+    JAX package's update, so the port never runs it."""
+    import torch
+
+    from event3dgs_tpu_torch.models.optimizer import AdamGroup, group_leaves
+
+    by_lr: dict[float, list] = {}
+    for grp in groups:
+        params, grads, state, lrs = AdamGroup(*grp)
+        for p, g, m, v, *_, lr in group_leaves(params, grads, state, lrs,
+                                                params, state):
+            by_lr.setdefault(float(lr), []).append(
+                (p.clone(), g.contiguous(), m.clone(), v.clone(),
+                 torch.ones((), dtype=torch.float32, device=p.device)))
+    lists = {lr: [list(x) for x in zip(*ts)] for lr, ts in by_lr.items()}
+
+    def call():
+        for lr, (ps, gs, ms, vs, steps) in lists.items():
+            torch._fused_adam_(ps, gs, ms, vs, [], steps, lr=lr, beta1=b1,
+                               beta2=b2, weight_decay=0.0, eps=eps,
+                               amsgrad=False, maximize=False)
+
+    return call
+
+
 def path_bounds(n: int, cap: int, offsets, live: int, pairs,
                 num_tiles: int, width: int, height: int, coeffs: int = 16,
                 sh_degree: int = 3) -> dict:

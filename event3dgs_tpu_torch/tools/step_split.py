@@ -10,7 +10,9 @@ the device time of its kernels by group (:func:`split_group`): K1, K2, K3,
 the binning's kernels, its ``argsort``, the preprocess kernels (projection
 and SH colours, ``csrc/preprocess.cu``) forward and backward, the sums of
 the three renders' feature gradients, the rasterizer's other work, the
-loss, Adam, the densify stats and the rest.  One JSON line per state,
+loss, Adam (its kernel, ``csrc/adam.cu``, and the step counts'
+increments), the densify stats, the copies outside the stages and the
+rest.  One JSON line per state,
 then the card's name and power limit and a table.
 
 A graph's replay runs no Python, so the stages are told apart by marker
@@ -52,6 +54,7 @@ SPLIT_FUNCTIONS = {
     "K3": ("segment_sums_kernel", "ranges_kernel", "row_sums_kernel"),
     "preprocess forward": ("preprocess_forward_kernel",),
     "preprocess backward": ("preprocess_backward_kernel",),
+    "Adam": ("adam_update_kernel",),
     "binning kernels": ("gaussian_table_kernel", "depth_offsets_kernel",
                         "expand_kernel", "segment_count_kernel",
                         "scan_kernel", "rank_kernel"),
@@ -72,7 +75,8 @@ STAGE_GROUPS = {
 SPLIT_ORDER = ("K1", "K2", "K3", "binning kernels", "argsort",
                "preprocess forward", "preprocess backward",
                "preprocess, other", "feature gradient sums",
-               "rasterizer, other", "loss", "Adam", "densify stats", "other")
+               "rasterizer, other", "loss", "Adam", "densify stats",
+               "other, copies", "other")
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
@@ -80,13 +84,18 @@ def split_group(name: str, stage: str) -> str:
     """The replay split's group of a device kernel ``name`` (as
     :func:`kernel_name` gives it) that the stage ``stage`` launched: the
     port's own kernels by name, the binning's ``argsort`` by its sort
-    kernels inside the rasterizer's forward, the rest by stage."""
+    kernels inside the rasterizer's forward, the rest by stage; outside
+    the stages the copies (``Memcpy ...``: the state copied back after the
+    step) apart from the other kernels."""
     for group, functions in SPLIT_FUNCTIONS.items():
         if name in functions:
             return group
     if stage == "rasterizer fwd" and "sort" in name.lower():
         return "argsort"
-    return STAGE_GROUPS.get(stage, "other")
+    group = STAGE_GROUPS.get(stage, "other")
+    if group == "other" and name.lower().startswith("memcpy"):
+        return "other, copies"
+    return group
 
 
 def stage_labels(kernels, marks, marker: str = MARKER):
@@ -198,7 +207,7 @@ STAGES = (("event3dgs_tpu_torch.ops.render", "preprocess", "preprocess"),
           ("event3dgs_tpu_torch.ops.render", "rasterize_tiled_partials",
            "rasterizer"),
           ("event3dgs_tpu_torch.train.step", "event_total_loss", "loss"),
-          ("event3dgs_tpu_torch.train.step", "adam_update", "Adam"),
+          ("event3dgs_tpu_torch.train.step", "adam_update_groups", "Adam"),
           ("event3dgs_tpu_torch.train.step", "update_stats", "densify stats"))
 
 

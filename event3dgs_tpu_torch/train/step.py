@@ -50,7 +50,7 @@ from event3dgs_tpu_torch.models.gaussians import (
     trainable_dict,
     with_trainable,
 )
-from event3dgs_tpu_torch.models.optimizer import adam_update
+from event3dgs_tpu_torch.models.optimizer import AdamGroup, adam_update_groups
 from event3dgs_tpu_torch.ops.render import render
 from event3dgs_tpu_torch.train.state import (
     SceneData,
@@ -253,17 +253,22 @@ def _lambda_dssim(mode: str, opt_cfg: OptimizationConfig,
 
 
 def _updated(state: TrainState, mode: str, event_cfg: EventConfig, loss, aux,
-             grads, lrs, cam_main: Camera):
+             grads, lrs, cam_main: Camera, in_place: bool = False):
     """The state after a step's Adam updates and densify stats (its
-    counter unchanged), and the step's metrics."""
-    new_tree, new_opt = adam_update(trainable_dict(state.params),
-                                    grads["params"], state.opt_state, lrs)
+    counter unchanged), and the step's metrics.  The parameters, the
+    contrast and their moments and counts are new tensors, or with
+    ``in_place`` ``state``'s own, written in place."""
+    groups = [AdamGroup(trainable_dict(state.params), grads["params"],
+                        state.opt_state, lrs)]
     if mode.startswith("event"):  # learnable contrast (`train.py:210-212`)
-        new_contrast, new_copt = adam_update(
-            state.contrast, grads["contrast"], state.contrast_opt,
-            event_cfg.contrast_lr)
-    else:
-        new_contrast, new_copt = state.contrast, state.contrast_opt
+        groups.append(AdamGroup(state.contrast, grads["contrast"],
+                                state.contrast_opt, event_cfg.contrast_lr))
+    # one launch for both groups on a card
+    out = [(g.params, g.state) for g in groups] if in_place else None
+    updated = adam_update_groups(groups, out=out)
+    new_tree, new_opt = updated[0]
+    new_contrast, new_copt = (updated[1] if len(updated) > 1
+                              else (state.contrast, state.contrast_opt))
     # the (0.5W, 0.5H) scale matches the reference CUDA backward's
     # NDC-Jacobian pre-scaling (see update_stats)
     new_stats = update_stats(
@@ -344,7 +349,8 @@ class GraphTrainStep:
     background, the position learning rate and the SH coefficient mask, so
     nothing the step reads changes its address or asks the host.  It writes
     the new parameters, Adam state, contrast and densify stats in place into
-    ``state`` (its host counter ``state.step`` is the caller's to advance),
+    ``state`` (Adam writes its tensors itself; its host counter
+    ``state.step`` is the caller's to advance),
     the loss into ``slots.history[cursor]`` and the metrics into
     ``slots.metrics``, then advances ``cursor``.  From the same state and
     inputs it computes what :func:`make_train_step`'s step computes.
@@ -385,9 +391,15 @@ class GraphTrainStep:
                            pick=take)
         loss, aux, grads = self.grads_fn(state, views, r[3:6], r[7:])
         lrs = dict(self.lrs, xyz=r[6:7])
+        # Adam writes the parameters, the contrast and their moments in
+        # place: after torch.autograd.grad has returned, nothing of the step
+        # reads the old values (step_inputs' leaves share their storage, and
+        # the renders' outputs that the stats and metrics read are computed)
         new_state, metrics = _updated(state, self.mode, self.event_cfg, loss,
-                                      aux, grads, lrs, views.cam_main)
+                                      aux, grads, lrs, views.cam_main,
+                                      in_place=True)
         with torch.no_grad():
+            # copies only the stats: the rest is already state's own
             for f in ("params", "opt_state", "contrast", "contrast_opt",
                       "stats"):
                 copy_tree_(getattr(state, f), getattr(new_state, f))

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the preprocess forward and backward, K1-K6 and
-the binning's table kernel) against their plain PyTorch versions, the
+"""The port's CUDA kernels (the preprocess forward and backward, K1-K6, the
+binning's table kernel and the Adam update) against their plain PyTorch
+versions, the
 wrappers' dispatch rules, and the event frames accumulated on the card
 against the CPU's.
 
@@ -25,6 +26,7 @@ import torch
 
 from event3dgs_tpu_torch.core import make_camera
 from event3dgs_tpu_torch.models import activated, params_from_numpy
+from event3dgs_tpu_torch.models import optimizer as opt
 from event3dgs_tpu_torch.ops import binning, expand, kernels, segscan, sort_tiles
 from event3dgs_tpu_torch.ops import preprocess as pre
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
@@ -1114,7 +1116,8 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
     parameters, contrast and alive slots equal bit for bit; the kernels
     launch in the warm-up steps and the captures only (the reference
     rasterizer launches none of K1-K6, the preprocess kernels as the tiled
-    one does); the forward preprocess also in each instance-cap probe."""
+    one does, the Adam kernel once a step in every mode); the forward
+    preprocess also in each instance-cap probe."""
     from event3dgs_tpu_torch.train import loop, train_loop
     from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
     from event3dgs_tpu_torch.train.loop import TrainCallbacks
@@ -1153,6 +1156,7 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
         # the preprocess kernels run under either rasterizer
         want["preprocess_fwd"] = steps * renders + p
         want["preprocess_bwd"] = steps * renders
+        want["adam"] = steps  # both groups in one launch a step
         assert n == want
     assert np.array_equal(np.asarray(r8.history), np.asarray(r1.history))
     assert np.isfinite(r1.history).all()
@@ -1177,6 +1181,7 @@ def wrappers_by_name():
         "K4": expand.expand_instances_kernel,
         "K5": sort_tiles.tile_histogram_kernel,
         "K6": sort_tiles.stable_tile_rank_kernel,
+        "adam": opt.adam_update_kernel,
     }
 
 
@@ -1336,6 +1341,179 @@ def test_preprocess_kernels_in_a_cuda_graph():
         graph.replay()
         for a, b in zip(out, both(cams[view])):
             assert_bits_equal(a, b)
+
+
+# the train state's trainable leaves: (name, trailing shape); the feature
+# gradients are slices of one [C, 16, 3] gradient, as autograd gives them
+ADAM_LEAVES = (("xyz", (3,)), ("features_dc", (1, 3)),
+               ("features_rest", (15, 3)), ("scaling", (3,)),
+               ("rotation", (4,)), ("opacity", (1,)))
+ADAM_LRS = {"xyz": 1.6e-4 * 3.0, "features_dc": 0.0025,
+            "features_rest": 0.0025 / 20.0, "opacity": 0.05,
+            "scaling": 0.005, "rotation": 0.001}
+# 99,991 slots: no multiple of the kernel's 1,024 floats a block of chunks
+ADAM_SLOTS = (100_000, 2_097_152, 99_991)
+ADAM_COUNTS = (1, 2, 10, 1_000, 30_000)  # the count after the increment
+
+
+def adam_values(gen, shape, device, kind):
+    """Seeded values of one Adam tensor: parameters, first moments, second
+    moments (some exactly 0) or gradients over 23 decades (some exactly
+    0, some whose squares are subnormal)."""
+    x = torch.randn(shape, generator=gen, device=device)
+    if kind == "p":
+        return x
+    if kind == "m":
+        return x * 1e-3
+    if kind == "v":
+        return (x * 1e-3) ** 2 * (torch.rand(shape, generator=gen,
+                                             device=device) > 0.05)
+    scale = 10.0 ** torch.empty(shape, device=device).uniform_(
+        -22.0, 1.0, generator=gen)
+    return x * scale * (torch.rand(shape, generator=gen, device=device) > 0.02)
+
+
+def adam_groups(slots, seed, device, lr_on_device=False):
+    """A train step's two Adam groups at ``slots`` slots: the six leaves
+    (the position rate a one-element device tensor with ``lr_on_device``)
+    and the contrast."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = lambda k: (slots, *dict(ADAM_LEAVES)[k])
+    params = {k: adam_values(gen, shape(k), device, "p")
+              for k, _ in ADAM_LEAVES}
+    feats = adam_values(gen, (slots, 16, 3), device, "g")
+    grads = {k: adam_values(gen, shape(k), device, "g")
+             for k, _ in ADAM_LEAVES}
+    grads["features_dc"], grads["features_rest"] = feats[:, :1], feats[:, 1:]
+    state = opt.AdamState(
+        mu={k: adam_values(gen, shape(k), device, "m") for k in params},
+        nu={k: adam_values(gen, shape(k), device, "v") for k in params},
+        count=torch.zeros((), dtype=torch.int32, device=device))
+    lrs = dict(ADAM_LRS)
+    if lr_on_device:
+        lrs["xyz"] = torch.tensor([lrs["xyz"]], device=device)
+    contrast = opt.AdamGroup(
+        torch.tensor(0.17, device=device), torch.tensor(-3e-4, device=device),
+        opt.AdamState(torch.tensor(1e-4, device=device),
+                      torch.tensor(2e-8, device=device),
+                      torch.zeros((), dtype=torch.int32, device=device)),
+        0.001)
+    return [opt.AdamGroup(params, grads, state, lrs), contrast]
+
+
+def adam_tensors(results) -> list:
+    """Every tensor of [(params, AdamState)], in order."""
+    out = []
+    for params, state in results:
+        for tree in (params, state.mu, state.nu, state.count):
+            out += list(tree.values()) if isinstance(tree, dict) else [tree]
+    return out
+
+
+def adam_clone(groups) -> list:
+    """The groups with their parameters and states copied (the gradients
+    and rates shared)."""
+    clone = lambda t: ({k: v.clone() for k, v in t.items()}
+                       if isinstance(t, dict) else t.clone())
+    return [opt.AdamGroup(clone(g.params), g.grads, opt.AdamState(
+        clone(g.state.mu), clone(g.state.nu), g.state.count.clone()), g.lr)
+        for g in groups]
+
+
+def assert_adam_equal(got, want):
+    for a, b in zip(adam_tensors(got), adam_tensors(want), strict=True):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots", ADAM_SLOTS)
+@pytest.mark.parametrize("in_place", [False, True],
+                         ids=["out_of_place", "in_place"])
+@pytest.mark.parametrize("lr_on_device", [False, True],
+                         ids=["lr_float", "lr_pointer"])
+def test_adam_kernel_matches_plain_version(slots, in_place, lr_on_device):
+    """The two groups of a train step in one launch against
+    ``adam_update_plain`` of each, bit for bit, at each of ADAM_COUNTS: out
+    of place (the inputs untouched) or in place (the same addresses), the
+    position rate a float or read from a device tensor."""
+    need_card()
+    groups = adam_groups(slots, slots % 97, "cuda", lr_on_device)
+    for count in ADAM_COUNTS:
+        for g in groups:
+            g.state.count.fill_(count - 1)
+        want = [opt.adam_update_plain(*g) for g in groups]
+        launches = opt.adam_update_kernel.launches
+        if in_place:
+            work = adam_clone(groups)
+            out = [(g.params, g.state) for g in work]
+            ptrs = [t.data_ptr() for t in adam_tensors(out)]
+            got = opt.adam_update_groups(work, out=out)
+            assert [t.data_ptr() for t in adam_tensors(got)] == ptrs
+        else:
+            before = adam_clone(groups)
+            got = opt.adam_update_groups(groups)
+            assert_adam_equal([(g.params, g.state) for g in groups],
+                              [(g.params, g.state) for g in before])
+        assert opt.adam_update_kernel.launches == launches + 1
+        assert_adam_equal(got, want)
+        assert int(got[0][1].count) == int(got[1][1].count) == count
+
+
+@pytest.mark.gpu
+def test_adam_kernel_bias_corrections_at_every_count():
+    """The kernel's float32 ``powf`` of the step count against PyTorch's
+    ``pow`` for every count from 1 to 30,000 (the default run's length):
+    64 floats a count with p = 0 and a rate of 1, so each output is
+    (m'/c1) / (sqrt(v'/c2) + eps) and a c1 or c2 one ulp off moves it.
+    Eight counts a launch, each its own group and count; the plain version
+    takes all counts at once as a column of counts."""
+    need_card()
+    n, width = 30_000, 64
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = torch.zeros(n, width, device="cuda")
+    g, m, v = (adam_values(gen, (n, width), "cuda", k) for k in "gmv")
+    counts = torch.arange(n, dtype=torch.int32, device="cuda")
+    outs = [torch.empty_like(p) for _ in range(3)]
+    new_counts = torch.empty_like(counts)
+    for i0 in range(0, n, opt.MAX_SEGMENTS):
+        rows = range(i0, min(i0 + opt.MAX_SEGMENTS, n))
+        opt.adam_update_kernel(
+            [(p[i], g[i], opt.AdamState(m[i], v[i], counts[i]), 1.0)
+             for i in rows],
+            out=[(outs[0][i], opt.AdamState(outs[1][i], outs[2][i],
+                                            new_counts[i])) for i in rows])
+    want_p, want_s = opt.adam_update_plain(
+        p, g, opt.AdamState(m, v, counts[:, None]), 1.0)
+    assert torch.equal(new_counts, counts + 1)
+    for a, b in zip(outs, (want_p, want_s.mu, want_s.nu)):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_adam_kernel_in_a_cuda_graph():
+    """The in-place update of both groups captured once, the position rate
+    read from a device tensor: each replay, with the rate changed before
+    it, equals ``adam_update_plain`` on the state just before it bit for
+    bit, and the counts advance."""
+    need_card()
+    live = adam_clone(adam_groups(100_000, 5, "cuda", lr_on_device=True))
+    out = [(g.params, g.state) for g in live]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        opt.adam_update_groups(live, out=out)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.adam_update_groups(live, out=out)
+    lr = live[0].lr["xyz"]
+    for k, rate in enumerate((1e-3, 2e-5, 7e-4)):
+        lr.fill_(rate)
+        before = adam_clone(live)
+        want = [opt.adam_update_plain(*g) for g in before]
+        graph.replay()
+        assert_adam_equal(out, want)
+        assert int(live[0].state.count) == int(live[1].state.count) == k + 2
 
 
 @pytest.mark.gpu
@@ -1652,23 +1830,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             means, scales, rots, cam, torch.ones(20, dtype=torch.bool),
             means[:, :2], means, means, 1.0, feats, 3),
     ]
+    groups = adam_groups(20, 0, "cpu")
+    calls += [lambda: opt.adam_update_kernel(groups),
+              lambda: opt.adam_update_kernel(
+                  groups, out=[(g.params, g.state) for g in groups])]
     wrappers = [binning.gaussian_tables_kernel, binning.depth_order_kernel,
                 expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
                 sort_tiles.stable_tile_rank_kernel, rt.composite_forward_kernel,
                 rt.composite_backward_kernel, segscan.segment_sums_kernel,
-                pre.preprocess_forward_kernel, pre.preprocess_backward_kernel]
+                pre.preprocess_forward_kernel, pre.preprocess_backward_kernel,
+                opt.adam_update_kernel]
     counts = [k.launches for k in wrappers]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
     assert counts == [k.launches for k in wrappers]
+    # a refused in-place update leaves the state's counts as they were
+    assert all(int(g.state.count) == 0 for g in groups)
 
 
 def test_cpu_dispatch_takes_the_plain_versions():
     proj, colors, opac, w, h = scene(n=80, seed=1, w=96, h=64)
     wrappers = (rt.composite_forward_kernel, rt.composite_backward_kernel,
                 segscan.segment_sums_kernel, pre.preprocess_forward_kernel,
-                pre.preprocess_backward_kernel)
+                pre.preprocess_backward_kernel, opt.adam_update_kernel)
     before = [k.launches for k in wrappers]
     colors.requires_grad_(True)
     img = rt.rasterize_tiled(proj, colors, opac, torch.zeros(3), w, h)
@@ -1681,6 +1866,9 @@ def test_cpu_dispatch_takes_the_plain_versions():
                  sh_degree=3, rasterizer="tiled")
     (g,) = torch.autograd.grad(out.image.sum(), [feats])
     assert torch.isfinite(g).all() and g.abs().sum() > 0
+    groups = adam_groups(30, 1, "cpu")
+    got = opt.adam_update_groups(groups)
+    assert_adam_equal(got, [opt.adam_update_plain(*g) for g in groups])
     assert [k.launches for k in wrappers] == before
 
 

@@ -435,7 +435,8 @@ def test_replay_split_groups_a_fixed_kernel_list():
     """The replay split on a fixed list of kernel names: the port's own
     kernels by name wherever they run, the sort kernels as the binning's
     argsort only inside the rasterizer's forward, the rest by the stage
-    the last marker names, ``other`` before the first; markers left out."""
+    the last marker names, ``other`` before the first, the copies there
+    apart; markers left out."""
     labelled = ss.stage_labels(REPLAY, MARKS)
     assert len(labelled) == len(REPLAY) - len(MARKS)
     assert labelled[0] == ("Memcpy HtoD (Pageable -> Device)", 1.0, "other")
@@ -448,7 +449,7 @@ def test_replay_split_groups_a_fixed_kernel_list():
             "feature gradient sums": [2.5, 1],
             "rasterizer, other": [0.25 + 0.75, 2], "loss": [9.0 + 2.0, 2],
             "Adam": [8.0, 1], "densify stats": [1.25, 1],
-            "other": [1.0 + 2.0 + 3.5 + 1.0, 4]}
+            "other, copies": [1.0 + 1.0, 2], "other": [2.0 + 3.5, 2]}
     assert totals == want
     assert sum(k for _, k in totals.values()) == len(labelled)
     assert ss.split_group("composite_forward_kernel", "loss bwd") == "K1"
@@ -456,6 +457,11 @@ def test_replay_split_groups_a_fixed_kernel_list():
         "preprocess backward"
     assert ss.split_group("DeviceRadixSortOnesweepKernel", "loss fwd") == "loss"
     assert ss.split_group("spin", "nowhere") == "other"
+    assert ss.split_group("adam_update_kernel", "other") == "Adam"
+    assert ss.split_group("Memcpy DtoD (Device -> Device)", "other") == \
+        "other, copies"
+    assert ss.split_group("Memcpy DtoD (Device -> Device)", "loss fwd") == \
+        "loss"
     with pytest.raises(ValueError, match="marker kernels"):
         ss.stage_labels(REPLAY, MARKS[:-1])
 
@@ -493,12 +499,12 @@ def test_stage_markers_mark_each_stage_of_an_eager_step(monkeypatch):
         assert starts.count(f"{label} bwd") == 3
     assert starts.count("feature sums") == 3
     assert starts.count("loss fwd") == starts.count("loss bwd") == 1
-    assert starts.count("Adam fwd") == 2  # the Gaussians and the contrast
+    assert starts.count("Adam fwd") == 1  # the Gaussians and contrast
     assert starts.count("densify stats fwd") == 1
     fwd = starts.index("loss fwd")
     assert all(m.endswith("fwd") for m in starts[:fwd])
     assert starts[fwd + 1] == "loss bwd"
-    assert starts[-3:] == ["Adam fwd", "Adam fwd", "densify stats fwd"]
+    assert starts[-2:] == ["Adam fwd", "densify stats fwd"]
 
 
 # an excerpt of a CUDA graph DOT dump of a captured binning
