@@ -41,8 +41,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    instance cap is re-measured), then ``cli.render`` on the saved PLY (the
    train and test sets).  Every kernel (the preprocess forward and
    backward, K1-K6 and the binning's table and depth offsets kernels) must
-   launch 3 times per step and the Adam kernel once (the six leaves and the
-   contrast in one launch), the forward preprocess once more per
+   launch 3 times per step, the Adam kernel once (the six leaves and the
+   contrast in one launch) and the loss kernels once each (forward and
+   backward, ``csrc/loss.cu``), the forward preprocess once more per
    instance-cap probe (``train/loop.probe_instance_count``, counted), the
    alive count must grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
@@ -59,11 +60,18 @@ Phases (any failed check exits non-zero; nothing is caught):
    ``torch.use_deterministic_algorithms`` giving bit-identical parameters;
    the Adam kernel (``csrc/adam.cu``) on the next step's update of that
    state, two chained updates out of place and in place, bit-equal to its
-   plain version.
+   plain version; the two loss kernels (``csrc/loss.cu``) on the step's
+   three 1080p renders and GT images, in event and event_deblur mode,
+   against their plain versions (the coverage and the image gradients bit
+   for bit, the loss, its parts and the contrast's gradient within rtol
+   1e-5; the plain backward bit-equal to autograd's; two runs
+   bit-identical).
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
-   profile one step, and time K2, K3 and the Adam kernel (its yardstick
-   ``torch._fused_adam_``, one call per learning rate) as in phase 5; K3
+   profile one step, and time K2, K3, the Adam kernel (its yardstick
+   ``torch._fused_adam_``, one call per learning rate) and the loss
+   kernels (no yardstick: no one PyTorch call computes the loss) as in
+   phase 5; K3
    also over the
    rows put into expansion order beforehand and, through ``dest``, in
    each of its two orders of work (``ops/segscan.py``), each bit-equal to
@@ -149,8 +157,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    11-60, the device ms per replayed step (CUDA events around 10 replays,
    5 windows), the peak memory of both loops and what the fused steps
    reserve.  One step's CUDA graph read back (``graph_kernels``) holds the
-   Adam kernel once; the Adam kernel captured in a CUDA graph at the
-   trained state equals its plain version bit for bit.  Then a graph
+   Adam kernel and each loss kernel once; the Adam kernel captured in a
+   CUDA graph at the trained state equals its plain version bit for bit,
+   and so do the loss kernels as phase 7 holds them, replayed from a
+   graph.  Then a graph
    swap: 12 iterations densifying at 5 and 10 with capacity growth (the instance cap re-measured upward), captured again
    after each, against the eager loop; and ``cli.train --fused_steps 3``
    on phase 6's scene as phase 6 runs it, ending with phase 6's alive
@@ -161,7 +171,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    2,097,152 slots (the JAX package's largest working point), the event
    step eager (1 + 3 steps) and graphed (``fused_steps`` 10: warm-up,
    capture, 1 + 3 replays), each on the scene built anew; every kernel
-   launched 3 × 4 + 3 × 3 times (Adam 4 + 3) with the counts set to 0
+   launched 3 × 4 + 3 × 3 times (Adam and the loss kernels 4 + 3) with the
+   counts set to 0
    before, the same loss from both, state GiB, instance cap, ms per step,
    device ms per replay, capture ms, peak and reserved memory.  At that
    state's main view (camera 1) each kernel of the path against its plain
@@ -169,8 +180,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    backward, the table and depth offsets kernels, K4, K5, K6, the
    counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal, the Adam
-   kernel bit-equal, also in a CUDA graph) and its graph ms beside its
-   bound, K3 in its orders as in phase 8.  The depth offsets kernel over
+   kernel bit-equal, also in a CUDA graph, the loss kernels as in phase 7,
+   in a CUDA graph) and its graph ms beside its bound, K3 in its orders as
+   in phase 8.  The depth offsets kernel over
    8,192 + 1 look-back blocks (16.8M ranks, twice, its state left cleared) and the
    counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
    bit-equal to their plain versions.  ``train --densify --fused_steps
@@ -246,6 +258,10 @@ PREPROCESS_REPLACES = ", ".join(("event3dgs_tpu/ops/projection.py:51",
 # the JAX code the Adam kernel replaces: adam_update, which XLA fuses inside
 # the jitted train step (no Pallas kernel)
 ADAM_REPLACES = "event3dgs_tpu/models/optimizer.py:39"
+# the JAX code the loss kernels replace: event_mixture_loss and deblur_mix,
+# which XLA fuses inside the jitted train step (no Pallas kernel)
+LOSS_REPLACES = ", ".join(("event3dgs_tpu/losses/event.py:68",
+                           "event3dgs_tpu/losses/modes.py:59"))
 # bench.py times 5 steps; a 50-step window separates a noisy host from
 # stalls, and its median and spread are printed beside bench.py's mean
 STEP_ITERS = 50
@@ -464,6 +480,8 @@ KERNEL_FUNCTIONS = {
     "K5 tile_histogram": ("segment_count_kernel", "scan_kernel"),
     "K6 stable_tile_rank": ("segment_count_kernel", "scan_kernel", "rank_kernel"),
     "adam_update": ("adam_update_kernel",),
+    "event_loss_forward": ("event_loss_forward_kernel",),
+    "event_loss_backward": ("event_loss_backward_kernel",),
 }
 SORT_FUNCTIONS = KERNEL_FUNCTIONS["K6 stable_tile_rank"]
 
@@ -946,8 +964,141 @@ def adam_floats(groups) -> int:
     return sum(t.numel() for g in groups for t in leaves(g.params))
 
 
+def loss_views(state, data, idx, bg, icap):
+    """What an event step at views ``idx`` (main, now, next) gives its loss:
+    (the three 1080p renders of ``state`` through the kernel path, now,
+    next, main, no gradient; the GT images of the event pair and of the
+    main view; the contrast [], effective as identity), and a blurry
+    capture for event_deblur: the GT image of the view after the main."""
+    import torch
+
+    from event3dgs_tpu_torch.models import activated
+    from event3dgs_tpu_torch.ops.render import render
+
+    act = activated(state.params)
+    cams = (data.event_cameras[idx[1]], data.event_cameras[idx[2]],
+            data.cameras[idx[0]])
+    with torch.no_grad():
+        renders = [render(act.means3d, act.features, act.opacities,
+                          act.scales, act.rotations, cam, bg, sh_degree=3,
+                          rasterizer="tiled", instance_cap=icap).image
+                   for cam in cams]
+    gts = (data.event_images[idx[1]], data.event_images[idx[2]],
+           data.images[idx[0]])
+    blurry = data.images[(idx[0] + 1) % data.images.shape[0]]
+    return (*renders, *gts), state.contrast, blurry
+
+
+def loss_check(what, images, contrast, blurry, graphed=False):
+    """Both loss kernels (``csrc/loss.cu``) against their plain versions on
+    an event step's renders and GT images (``loss_views``), in event and
+    event_deblur mode (with ``blurry``): the coverage and the three image
+    gradients bit for bit, the loss, its parts and the contrast's gradient
+    within rtol 1e-5; the plain backward against autograd of the plain
+    forward bit for bit; the kernels called twice (or, with ``graphed``,
+    captured once in a CUDA graph and replayed twice) giving the same bits.
+    Returns ({kernel: largest |kernel - plain|}, {kernel: (the kernel's
+    call, its plain version's)} in event mode, {kernel: its bound's
+    (bytes, operations)})."""
+    import torch
+
+    from event3dgs_tpu_torch.losses import event as ev
+    from event3dgs_tpu_torch.tools.kernel_timing import loss_bound
+    from event3dgs_tpu_torch.utils.config import EventConfig
+
+    cfg = EventConfig()
+    grad = torch.ones((), device=contrast.device)
+    errs = dict.fromkeys(LOSS, 0.0)
+    worst = lambda a, b: (a.double() - b.double()).abs().max().item()
+    close = lambda a, b: abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+    for mode, blur in (("event", None), ("event_deblur", blurry)):
+        kw = dict(gt_contrast=cfg.gt_contrast, event_weight=cfg.event_weight,
+                  blurry_main=blur, blur_alpha=cfg.blur_alpha)
+
+        def both():
+            loss, aux = ev.event_loss_forward_kernel(*images, contrast, **kw)
+            return (loss, aux, *ev.event_loss_backward_kernel(
+                grad, *images, contrast, aux[2], **kw))
+
+        if graphed:
+            both()  # any lazy set-up
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = both()
+            runs = []
+            for _ in range(2):
+                graph.replay()
+                runs.append([t.clone() for t in out])
+        else:
+            runs = [both() for _ in range(2)]
+        torch.cuda.synchronize()
+        loss, aux, *got = runs[0]
+        for a, b in zip(runs[0], runs[1]):
+            check(bits_differ(a, b) == 0, f"{what} ({mode}): a loss kernel "
+                  "gave other bits the second time")
+        want_loss, want_aux = ev.event_mixture_loss_plain(*images, contrast,
+                                                          **kw)
+        check(bits_differ(aux[2], want_aux["coverage"]) == 0,
+              f"{what} ({mode}): coverage {float(aux[2])} vs "
+              f"{float(want_aux['coverage'])}")
+        for i, k in enumerate(ev.AUX):
+            if k in want_aux:
+                check(close(aux[i], want_aux[k]), f"{what} ({mode}): {k} "
+                      f"{float(aux[i])} vs {float(want_aux[k])}")
+        check(close(loss, want_loss), f"{what} ({mode}): loss {float(loss)} "
+              f"vs {float(want_loss)}")
+        want = ev.event_loss_backward_plain(grad, *images, contrast,
+                                            want_aux["coverage"], **kw)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (*images[:3], contrast)]
+        auto_loss, _ = ev.event_mixture_loss_plain(*leaves[:3], *images[3:],
+                                                   leaves[3], **kw)
+        auto = torch.autograd.grad(auto_loss, leaves)
+        for k, a, b, c in zip(("now", "next", "main"), got, want, auto):
+            ulps = bits_differ(a, b)
+            check(ulps == 0, f"{what} ({mode}): d render_{k} differs from "
+                  f"the plain backward by {ulps} ulps")
+            ulps = bits_differ(b, c)
+            check(ulps == 0, f"{what} ({mode}): the plain backward's d "
+                  f"render_{k} differs from autograd's by {ulps} ulps")
+        check(close(got[3], want[3]) and close(want[3], auto[3]),
+              f"{what} ({mode}): d contrast {float(got[3])}, plain "
+              f"{float(want[3])}, autograd {float(auto[3])}")
+        errs[LOSS[0]] = max(errs[LOSS[0]], worst(loss, want_loss),
+                            worst(aux[:3], torch.stack(
+                                [want_aux[k] for k in ev.AUX[:3]])))
+        errs[LOSS[1]] = max([errs[LOSS[1]]] + [worst(a, b)
+                                               for a, b in zip(got, want)])
+        print(f"{what} ({mode}): loss kernels vs plain: loss "
+              f"{float(loss):.7f} / {float(want_loss):.7f}, coverage "
+              f"{float(aux[2]):.6f} bit-equal, image gradients bit-equal "
+              f"(and the plain backward to autograd's), d contrast "
+              f"{float(got[3]):.7g} / {float(want[3]):.7g}; "
+              f"{'two replays of a CUDA graph' if graphed else 'two runs'} "
+              "bit-identical")
+    kw = dict(gt_contrast=cfg.gt_contrast, event_weight=cfg.event_weight)
+    _, aux = ev.event_loss_forward_kernel(*images, contrast, **kw)
+    coverage = aux[2]
+    calls = {
+        LOSS[0]: (lambda: ev.event_loss_forward_kernel(*images, contrast, **kw),
+                  lambda: ev.event_mixture_loss_plain(*images, contrast,
+                                                      **kw)),
+        LOSS[1]: (lambda: ev.event_loss_backward_kernel(
+            grad, *images, contrast, coverage, **kw),
+            lambda: ev.event_loss_backward_plain(grad, *images, contrast,
+                                                 coverage, **kw)),
+    }
+    pixels = images[0].numel() // 3
+    channels = [t.shape[-1] for t in images[3:]]
+    bounds = {k: loss_bound(pixels, channels, backward=k == LOSS[1])
+              for k in LOSS}
+    return errs, calls, bounds
+
+
 def wrappers():
     """Every kernel's launch wrapper, by name."""
+    from event3dgs_tpu_torch.losses import event as ev
     from event3dgs_tpu_torch.models import optimizer as opt
     from event3dgs_tpu_torch.ops import binning, expand, segscan, sort_tiles
     from event3dgs_tpu_torch.ops import preprocess as pre
@@ -965,6 +1116,8 @@ def wrappers():
         "K5 tile_histogram": sort_tiles.tile_histogram_kernel,
         "K6 stable_tile_rank": sort_tiles.stable_tile_rank_kernel,
         ADAM: opt.adam_update_kernel,
+        LOSS[0]: ev.event_loss_forward_kernel,
+        LOSS[1]: ev.event_loss_backward_kernel,
     }
 
 
@@ -975,6 +1128,8 @@ PROBES = "instance-cap probes"
 BACKWARD = ("preprocess_backward", "K2 composite_backward", "K3 segment_sums")
 # the kernel that runs once per train step (both Adam groups in one launch)
 ADAM = "adam_update"
+# the kernels that run once per event-mode train step (forward, backward)
+LOSS = ("event_loss_forward", "event_loss_backward")
 
 
 def count_launches(fn):
@@ -996,16 +1151,18 @@ def count_launches(fn):
 
 
 def check_launches(what, launches, renders, backward, projections=0,
-                   steps=0):
+                   steps=0, event=True):
     """Each kernel launched once per render, the backward kernels once per
     differentiated render (``backward``), the Adam kernel once per train
-    step (``steps``), and the forward preprocess once more per
-    instance-cap probe and per projection outside a render
+    step (``steps``), the loss kernels once per train step of an event mode
+    (``event``: the steps' mode is one), and the forward preprocess once
+    more per instance-cap probe and per projection outside a render
     (``projections``)."""
     for k, n in launches.items():
         if k == PROBES:
             continue
-        want = steps if k == ADAM else backward if k in BACKWARD else renders
+        want = (steps if k == ADAM else (steps if event else 0) if k in LOSS
+                else backward if k in BACKWARD else renders)
         if k == "preprocess_forward":
             want += launches[PROBES] + projections
         check(n == want, f"{what}: {k} launched {n} times, not {want} "
@@ -1909,7 +2066,8 @@ def bench_state(dev):
 
 def train_kernels(dev):
     """Phases 7-8 at bench.py's training configuration.  Returns (errors,
-    rows of K2 and K3, launches per step)."""
+    rows of the backward kernels, Adam's and the loss kernels', launches
+    per step)."""
     import torch
 
     from event3dgs_tpu_torch.models import activated
@@ -1978,6 +2136,9 @@ def train_kernels(dev):
     # moments set)
     adam = adam_groups(s1, data, idx, bg, icap, 2)
     adam_err, *adam_calls = adam_check("phase 7, the step after one", adam)
+    # the loss kernels on the step's three 1080p renders
+    loss_errs, loss_calls, loss_bounds = loss_check(
+        "phase 7, the step's renders", *loss_views(state, data, idx, bg, icap))
 
     # 8. timing: bench.py's event step ---------------------------------------
     (st, _), per_step = count_launches(lambda: step(state, data, *idx, bg))
@@ -2020,6 +2181,8 @@ def train_kernels(dev):
     _, _, (gathered, lengths) = k3_inputs(b, rows_k)
     v.errs[ADAM] = adam_err
     v.bounds[ADAM] = adam_bound(adam_floats(adam))
+    v.errs.update(loss_errs)
+    v.bounds.update(loss_bounds)
     timings = {
         "preprocess_backward": (*v.calls["preprocess_backward"], None, 50),
         "K2 composite_backward": (*v.calls["K2 composite_backward"], None, 20),
@@ -2027,6 +2190,8 @@ def train_kernels(dev):
             *v.calls["K3 segment_sums"],
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
         ADAM: (*adam_calls, fused_adam_call(adam), 50),
+        # no single PyTorch call computes the loss: no yardstick
+        **{k: (*loss_calls[k], None, 50) for k in LOSS},
     }
     meta = {
         "preprocess_backward": ("preprocess.cu", PREPROCESS_REPLACES),
@@ -2034,6 +2199,7 @@ def train_kernels(dev):
                                   "event3dgs_tpu/ops/rasterize_tiled.py:386"),
         "K3 segment_sums": ("segsum.cu", "event3dgs_tpu/ops/segscan.py:46"),
         ADAM: ("adam.cu", ADAM_REPLACES),
+        **{k: ("loss.cu", LOSS_REPLACES) for k in LOSS},
     }
     errs = {k: v.errs[k] for k in timings}
     rows = kernel_rows(timings, v.bounds, meta, errs)
@@ -2083,7 +2249,7 @@ def densify_growth(state, data, idx, bg, mode="event", extent=3.0):
         lambda: step(grown, data, *idx, bg))
     renders = 3 if mode.startswith("event") else 1
     check_launches("the step after densify", launches, renders, renders,
-                   steps=1)
+                   steps=1, event=mode.startswith("event"))
     check(math.isfinite(float(metrics["loss"])), "non-finite loss after densify")
     for f in ("xyz", "scaling", "opacity"):
         check(bool(torch.isfinite(getattr(after.params, f)).all()),
@@ -2440,17 +2606,23 @@ def fused_path(root: str, dev):
     # stats and the metrics are copied)
     nodes = kernel_timing.graph_kernels(
         lambda: (runner.cursor.zero_(), runner._call()))
-    check(nodes.get("adam_update_kernel") == 1,
-          f"phase 13: {nodes.get('adam_update_kernel')} Adam kernels in one "
-          "captured step")
+    for fn in ("adam_update_kernel", *(KERNEL_FUNCTIONS[k][0] for k in LOSS)):
+        check(nodes.get(fn) == 1, f"phase 13: {nodes.get(fn)} {fn} in one "
+              "captured step")
     print(f"phase 13: one captured step holds {sum(nodes.values())} nodes: "
           f"{nodes.get('adam_update_kernel')} Adam kernel, "
+          f"{nodes.get('event_loss_forward_kernel')} + "
+          f"{nodes.get('event_loss_backward_kernel')} loss kernels, "
           f"{nodes.get('memcpy', 0)} copies, {nodes.get('memset', 0)} memsets")
     runner.release()
     # the Adam kernel in a CUDA graph at the trained state (count 60)
     adam_check("phase 13, after the fused loop", adam_groups(
         rf.state, data, (2, 2, 3), torch.zeros(3, device=dev), icap,
         FUSED_ITERS + 1, lr_on_device=True), graphed=True)
+    # the loss kernels in a CUDA graph at the trained state
+    loss_check("phase 13, after the fused loop", *loss_views(
+        rf.state, data, (2, 2, 3), torch.zeros(3, device=dev), icap),
+        graphed=True)
     q = np.percentile(replay_ms, [0, 50, 100])
     print(f"phase 13: device time per replayed step (CUDA events around "
           f"{FUSED_STEPS} replays, 5 windows): median {q[1]:.4f} ms, min "
@@ -2533,7 +2705,9 @@ def scale_kernel_rows(state, data, icap, dev):
     tolerances phases 4 and 7 hold them to, and each kernel's graph ms and
     bound there (the preprocess kernels' plain ms too, by CUDA events);
     the Adam kernel on the step's update there (bit for bit, also in a
-    CUDA graph), its plain version's ms and ``torch._fused_adam_``'s.
+    CUDA graph), its plain version's ms and ``torch._fused_adam_``'s; the
+    loss kernels on the step's renders there (``loss_check`` in a CUDA
+    graph), with their graph ms, bounds and plain versions' ms.
     Returns {kernel: the scale columns of its JSON row}."""
     import torch
 
@@ -2580,6 +2754,18 @@ def scale_kernel_rows(state, data, icap, dev):
     print(f"{what}: {ADAM} {ms:.4f} graph ms, bound {bound:.4f} ms ({by}), "
           f"{ms / bound:.2f}x, plain {out[ADAM]['plain_ms']:.4f} ms, "
           f"torch._fused_adam_ {out[ADAM]['library_ms']:.4f} ms")
+    errs, calls, bounds = loss_check(what, *loss_views(
+        state, data, (1, 1, 2), torch.zeros(3, device=dev), icap),
+        graphed=True)
+    for k in LOSS:
+        ms = graph_ms(calls[k][0])
+        bound, by = bound_ms(*bounds[k])
+        out[k] = {"gaussians": state.params.capacity, "instance_cap": icap,
+                  "max_abs_err": errs[k], "graph_ms": ms, "bound_ms": bound,
+                  "bound_by": by, "plain_ms": cuda_ms(calls[k][1], 2,
+                                                      warmup=1)}
+        print(f"{what}: {k} {ms:.4f} graph ms, bound {bound:.4f} ms ({by}), "
+              f"{ms / bound:.2f}x, plain {out[k]['plain_ms']:.4f} ms")
     return out
 
 
@@ -2686,7 +2872,7 @@ def scale_path(dev):
     check_launches(f"phase 14: train, {trec['captures']} captures", tl,
                    per_capture * trec["captures"],
                    per_capture * trec["captures"],
-                   steps=per_capture * trec["captures"])
+                   steps=per_capture * trec["captures"], event=False)
     eager, eres = scale.run_train(SCALE_TRAIN_EAGER, True, 1, scene=scene,
                                   device=dev)
     h, he = np.asarray(res.history), np.asarray(eres.history)

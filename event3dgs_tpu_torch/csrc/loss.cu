@@ -1,0 +1,603 @@
+// The event-mode training loss, forward and backward: one kernel each way.
+//
+// Replaces no Pallas kernel.  In the JAX package `event_mixture_loss`
+// (event3dgs_tpu/losses/event.py:68-104) and, in event_deblur mode,
+// `deblur_mix` (event3dgs_tpu/losses/modes.py:59-63) run inside the jitted
+// train step, where XLA fuses them into a few elementwise passes and
+// reductions.  In plain PyTorch the same loss is some 30 launches forward
+// and 30 backward, most of them writing a full-size 1080p temporary.  Here
+// it is one launch each way, reading each image once.
+//
+// Per pixel p of P (the renders now, next and main [P, 3]; the GT images
+// [P, 1] or [P, 3], a one-channel image broadcast as PyTorch broadcasts it):
+//
+//   L(x)   = (x0*w0 + x2*w2) + x1*w1   (x*w).sum(-1): PyTorch's CUDA
+//            reduction over 3 contiguous values, two lanes: (x0 + x2) + x1
+//   A_now  = L(now) + eps              A_next = L(next) + eps
+//   d      = log(A_next) - log(A_now)  img = d / c
+//   gd     = (log(L(gt_next) + eps) - log(L(gt_now) + eps)) * (1/gt_contrast)
+//   r      = img - gd
+//
+// L of a one-channel image is the image itself.  c is the contrast, a 0-d
+// device tensor: PyTorch divides by it with a true division.  gt_contrast
+// is a Python float: PyTorch's CUDA division by a host scalar is a product
+// with its float32 reciprocal, made on the host.  Per value v of the
+// [P, 3] renders: r_main = main - gt_main, r_blur = main - blurry.
+//
+// Forward: the sums of |r|, |r_main| and |r_blur| and the count of gd != 0,
+// then, as torch.mean on the card (a sum times the float32 1/N):
+//
+//   event_l1 = Σ|r|·(1/P)   intensity_l1 = Σ|r_main|·(1/3P)
+//   coverage = count·(1/P)  blur_l1 = Σ|r_blur|·(1/3P)
+//   loss     = (event_l1·w)·coverage + (intensity_l1·(1-w))·(1-coverage)
+//   event_deblur: loss = loss·(1-α) + blur_l1·α
+//
+// Backward: autograd's chain of the plain version, operation by operation.
+// From the device scalars (the loss's gradient G, the coverage, c):
+//
+//   G_base  = G·(1-α) in event_deblur, else G
+//   g_event = ((G_base·coverage)·w)·(1/P)       (mean backward: 1/N on the card)
+//   g_int   = ((G_base·(1-coverage))·(1-w))·(1/3P)
+//   g_blur  = (G·α)·(1/3P)
+//
+// and per pixel: g_r = g_event·sgn(r) (sgn 0 at a tie, as torch.sgn),
+// g_d = g_r / c, d now = ((-g_d) / A_now)·w_k, d next = (g_d / A_next)·w_k,
+// d main = g_int·sgn(r_main) [+ g_blur·sgn(r_blur)], and the contrast's
+// term (-g_r)·((d / c) / c), summed over the pixels.
+//
+// Every product, quotient, sum and difference is an explicit
+// round-to-nearest intrinsic in that order, so nothing fuses into an FMA
+// whatever the flags, and the image gradients equal the plain version's
+// bit for bit.  The constants (w_k, eps, 1/gt_contrast, w, 1-w, α, 1-α,
+// 1/P, 1/3P) come rounded to float32 from the host, as PyTorch rounds a
+// Python float.  `logf` is the CUDA math library's, as PyTorch's `log`.
+//
+// The sums: each thread adds its pixels' terms in double, a block adds its
+// threads' in a fixed tree, and the last block to finish (a counter of its
+// own in device memory, set back to 0 by that block) adds the blocks'
+// partials in block order.  The grid is fixed by the card and P, so the
+// same inputs give the same bits in every run.  No host read, no host copy:
+// the constants go by value in the kernel's parameters, so a CUDA graph
+// captures the launch whole.  Two launches of one of these kernels must
+// not run at once (on two streams): they would share its counter.
+//
+// Bound: bytes.  The forward reads the three renders and the GT images
+// once (6 × 24.9 MB at 1080p with three-channel GT); the backward reads
+// them again and writes the three image gradients (9 × 24.9 MB).  Four
+// pixels are three 16-byte loads of a three-channel image (one of a
+// one-channel one) where every pointer is 16-byte aligned; a ragged last
+// chunk, or an unaligned image, is read a float at a time.
+
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int PIX = 4;          // pixels a chunk
+constexpr int N_SUMS = 4;       // forward partials: |r|, |r_main|, |r_blur|, count
+constexpr int N_CONSTS = 11;    // floats of Consts, in its order
+
+struct Consts {
+  float w[3];       // the LUV L weights
+  float eps;        // LOG_EPS
+  float gt_inv;     // 1 / gt_contrast
+  float event_w;    // w
+  float intens_w;   // 1 - w
+  float blur_a;     // α
+  float base_w;     // 1 - α
+  float inv_pix;    // 1 / P
+  float inv_vals;   // 1 / 3P
+};
+static_assert(sizeof(Consts) == N_CONSTS * sizeof(float), "Consts' floats");
+
+struct Images {
+  const float* now;
+  const float* next;
+  const float* main_img;
+  const float* gt_now;
+  const float* gt_next;
+  const float* gt_main;
+  const float* blurry;  // null: event mode
+  int ch_gt_now, ch_gt_next, ch_gt_main, ch_blurry;  // 1 or 3
+  long long pixels;
+  long long chunks;
+  int vec;  // every image 16-byte aligned
+};
+
+__device__ unsigned int forward_arrivals = 0;
+__device__ unsigned int backward_arrivals = 0;
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// pixels [p0, p0 + n) of an image of `ch` channels as [PIX][3], a
+// one-channel image repeated over the three (PyTorch's broadcast); pixels
+// past n read as 0
+__device__ __forceinline__ void load3(const float* __restrict__ x, int ch,
+                                      long long p0, int n, bool vec,
+                                      float (&v)[PIX][3]) {
+  const float* src = x + p0 * ch;
+  if (ch == 3) {
+    if (vec && n == PIX) {
+      const float4 a = ld4(src), b = ld4(src + 4), c = ld4(src + 8);
+      v[0][0] = a.x; v[0][1] = a.y; v[0][2] = a.z;
+      v[1][0] = a.w; v[1][1] = b.x; v[1][2] = b.y;
+      v[2][0] = b.z; v[2][1] = b.w; v[2][2] = c.x;
+      v[3][0] = c.y; v[3][1] = c.z; v[3][2] = c.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) v[j][k] = j < n ? src[3 * j + k] : 0.0f;
+      }
+    }
+  } else {
+    float s[PIX];
+    if (vec && n == PIX) {
+      const float4 a = ld4(src);
+      s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) s[j] = j < n ? src[j] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[j][k] = s[j];
+    }
+  }
+}
+
+// [PIX][3] into pixels [p0, p0 + n) of a three-channel image
+__device__ __forceinline__ void store3(float* __restrict__ x, long long p0,
+                                       int n, bool vec,
+                                       const float (&v)[PIX][3]) {
+  float* dst = x + p0 * 3;
+  if (vec && n == PIX) {
+    st4(dst, v[0][0], v[0][1], v[0][2], v[1][0]);
+    st4(dst + 4, v[1][1], v[1][2], v[2][0], v[2][1]);
+    st4(dst + 8, v[2][2], v[3][0], v[3][1], v[3][2]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (j < n) dst[3 * j + k] = v[j][k];
+      }
+    }
+  }
+}
+
+// (x * w).sum(-1) of one pixel, in PyTorch's CUDA order
+__device__ __forceinline__ float luv_l(const float (&x)[3], const Consts& k) {
+  const float p0 = __fmul_rn(x[0], k.w[0]);
+  const float p1 = __fmul_rn(x[1], k.w[1]);
+  const float p2 = __fmul_rn(x[2], k.w[2]);
+  return __fadd_rn(__fadd_rn(p0, p2), p1);
+}
+
+// the L channel of pixels [p0, p0 + n) of a GT image: the image itself
+// where it has one channel
+__device__ __forceinline__ void load_l(const float* __restrict__ x, int ch,
+                                       long long p0, int n, bool vec,
+                                       const Consts& k, float (&l)[PIX]) {
+  float v[PIX][3];
+  load3(x, ch, p0, n, vec, v);
+#pragma unroll
+  for (int j = 0; j < PIX; ++j) l[j] = ch == 3 ? luv_l(v[j], k) : v[j][0];
+}
+
+// torch.sgn of a float: 1, -1, or 0 at 0 and NaN
+__device__ __forceinline__ float sgn(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+struct EventPixel {
+  float a_now, a_next;  // L + eps of the rendered pair
+  float img;            // the rendered log difference over c
+  float r;              // img - gd
+  bool fired;           // gd != 0
+};
+
+__device__ __forceinline__ EventPixel event_pixel(const float (&now)[3],
+                                                  const float (&next)[3],
+                                                  float l_gt_now,
+                                                  float l_gt_next, float c,
+                                                  const Consts& k) {
+  EventPixel e;
+  e.a_now = __fadd_rn(luv_l(now, k), k.eps);
+  e.a_next = __fadd_rn(luv_l(next, k), k.eps);
+  e.img = __fdiv_rn(__fsub_rn(logf(e.a_next), logf(e.a_now)), c);
+  const float gd = __fmul_rn(
+      __fsub_rn(logf(__fadd_rn(l_gt_next, k.eps)),
+                logf(__fadd_rn(l_gt_now, k.eps))),
+      k.gt_inv);
+  e.r = __fsub_rn(e.img, gd);
+  e.fired = gd != 0.0f;
+  return e;
+}
+
+// v summed over the block in a fixed tree; the sums land in thread 0's v
+template <int N>
+__device__ __forceinline__ void block_sum(double (&v)[N]) {
+  __shared__ double warp_sums[WARPS][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v[i] += __shfl_down_sync(0xffffffffu, v[i], o);
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) warp_sums[warp][i] = v[i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      double s = warp_sums[0][i];
+      for (int w = 1; w < WARPS; ++w) s += warp_sums[w][i];
+      v[i] = s;
+    }
+  }
+  __syncthreads();  // warp_sums free for the next call
+}
+
+// the block's sums (in thread 0's v) into its partials row; true in every
+// thread of the last block to get here, which then reads all the rows
+template <int N>
+__device__ __forceinline__ bool arrive(const double (&v)[N],
+                                       double* __restrict__ partials,
+                                       unsigned int* arrivals) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) partials[blockIdx.x * N + i] = v[i];
+    __threadfence();  // the row is visible before the block counts in
+    last = atomicAdd(arrivals, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// the partials rows summed in block order (in thread 0's v)
+template <int N>
+__device__ __forceinline__ void total(const double* __restrict__ partials,
+                                      double (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = 0.0;
+  for (int b = threadIdx.x; b < gridDim.x; b += THREADS) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] += __ldcg(&partials[b * N + i]);
+  }
+  block_sum<N>(v);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    event_loss_forward_kernel(const Images im, const Consts k,
+                              const float* __restrict__ contrast,
+                              double* __restrict__ partials,
+                              float* __restrict__ loss_out,
+                              float* __restrict__ aux_out) {
+  const float c = *contrast;
+  const bool vec = im.vec;
+  double s_event = 0.0, s_main = 0.0, s_blur = 0.0;
+  int fired = 0;
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long q = static_cast<long long>(blockIdx.x) * THREADS +
+                     threadIdx.x;
+       q < im.chunks; q += step) {
+    const long long p0 = q * PIX;
+    const int n = static_cast<int>(min(static_cast<long long>(PIX),
+                                       im.pixels - p0));
+    {
+      float now[PIX][3], next[PIX][3], l_now[PIX], l_next[PIX];
+      load3(im.now, 3, p0, n, vec, now);
+      load3(im.next, 3, p0, n, vec, next);
+      load_l(im.gt_now, im.ch_gt_now, p0, n, vec, k, l_now);
+      load_l(im.gt_next, im.ch_gt_next, p0, n, vec, k, l_next);
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+        if (j < n) {
+          const EventPixel e =
+              event_pixel(now[j], next[j], l_now[j], l_next[j], c, k);
+          s_event += static_cast<double>(fabsf(e.r));
+          fired += e.fired;
+        }
+      }
+    }
+    float m[PIX][3], g[PIX][3];
+    load3(im.main_img, 3, p0, n, vec, m);
+    load3(im.gt_main, im.ch_gt_main, p0, n, vec, g);
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        if (j < n) s_main += fabsf(__fsub_rn(m[j][ch], g[j][ch]));
+      }
+    }
+    if (im.blurry != nullptr) {
+      load3(im.blurry, im.ch_blurry, p0, n, vec, g);
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          if (j < n) s_blur += fabsf(__fsub_rn(m[j][ch], g[j][ch]));
+        }
+      }
+    }
+  }
+  double v[N_SUMS] = {s_event, s_main, s_blur, static_cast<double>(fired)};
+  block_sum<N_SUMS>(v);
+  if (!arrive<N_SUMS>(v, partials, &forward_arrivals)) return;
+  total<N_SUMS>(partials, v);
+  if (threadIdx.x != 0) return;
+  const float event_l1 = __fmul_rn(__double2float_rn(v[0]), k.inv_pix);
+  const float intensity_l1 = __fmul_rn(__double2float_rn(v[1]), k.inv_vals);
+  const float coverage = __fmul_rn(__double2float_rn(v[3]), k.inv_pix);
+  float loss = __fadd_rn(
+      __fmul_rn(__fmul_rn(event_l1, k.event_w), coverage),
+      __fmul_rn(__fmul_rn(intensity_l1, k.intens_w),
+                __fsub_rn(1.0f, coverage)));
+  float blur_l1 = 0.0f;
+  if (im.blurry != nullptr) {
+    blur_l1 = __fmul_rn(__double2float_rn(v[2]), k.inv_vals);
+    loss = __fadd_rn(__fmul_rn(loss, k.base_w), __fmul_rn(blur_l1, k.blur_a));
+  }
+  *loss_out = loss;
+  aux_out[0] = event_l1;
+  aux_out[1] = intensity_l1;
+  aux_out[2] = coverage;
+  aux_out[3] = blur_l1;
+  forward_arrivals = 0;  // every block has counted in
+}
+
+__global__ void __launch_bounds__(THREADS)
+    event_loss_backward_kernel(const Images im, const Consts k,
+                               const float* __restrict__ contrast,
+                               const float* __restrict__ grad,
+                               const float* __restrict__ coverage_ptr,
+                               double* __restrict__ partials,
+                               float* __restrict__ g_now,
+                               float* __restrict__ g_next,
+                               float* __restrict__ g_main,
+                               float* __restrict__ g_contrast) {
+  const float c = *contrast;
+  const float coverage = *coverage_ptr;
+  const bool vec = im.vec;
+  const bool deblur = im.blurry != nullptr;
+  // the scalar prefix, in autograd's order
+  const float g = *grad;
+  const float g_base = deblur ? __fmul_rn(g, k.base_w) : g;
+  const float g_event = __fmul_rn(
+      __fmul_rn(__fmul_rn(g_base, coverage), k.event_w), k.inv_pix);
+  const float g_int = __fmul_rn(
+      __fmul_rn(__fmul_rn(g_base, __fsub_rn(1.0f, coverage)), k.intens_w),
+      k.inv_vals);
+  const float g_blur = deblur ? __fmul_rn(__fmul_rn(g, k.blur_a), k.inv_vals)
+                              : 0.0f;
+  double s_c = 0.0;
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  for (long long q = static_cast<long long>(blockIdx.x) * THREADS +
+                     threadIdx.x;
+       q < im.chunks; q += step) {
+    const long long p0 = q * PIX;
+    const int n = static_cast<int>(min(static_cast<long long>(PIX),
+                                       im.pixels - p0));
+    {
+      float now[PIX][3], next[PIX][3], l_now[PIX], l_next[PIX];
+      load3(im.now, 3, p0, n, vec, now);
+      load3(im.next, 3, p0, n, vec, next);
+      load_l(im.gt_now, im.ch_gt_now, p0, n, vec, k, l_now);
+      load_l(im.gt_next, im.ch_gt_next, p0, n, vec, k, l_next);
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+        if (j < n) {
+          const EventPixel e =
+              event_pixel(now[j], next[j], l_now[j], l_next[j], c, k);
+          const float g_r = __fmul_rn(g_event, sgn(e.r));
+          const float g_d = __fdiv_rn(g_r, c);
+          const float g_a_now = __fdiv_rn(-g_d, e.a_now);
+          const float g_a_next = __fdiv_rn(g_d, e.a_next);
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            now[j][ch] = __fmul_rn(g_a_now, k.w[ch]);
+            next[j][ch] = __fmul_rn(g_a_next, k.w[ch]);
+          }
+          s_c += static_cast<double>(__fmul_rn(-g_r, __fdiv_rn(e.img, c)));
+        }
+      }
+      store3(g_now, p0, n, vec, now);
+      store3(g_next, p0, n, vec, next);
+    }
+    float m[PIX][3], gt[PIX][3], out[PIX][3];
+    load3(im.main_img, 3, p0, n, vec, m);
+    load3(im.gt_main, im.ch_gt_main, p0, n, vec, gt);
+#pragma unroll
+    for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        out[j][ch] = __fmul_rn(g_int, sgn(__fsub_rn(m[j][ch], gt[j][ch])));
+      }
+    }
+    if (deblur) {
+      load3(im.blurry, im.ch_blurry, p0, n, vec, gt);
+#pragma unroll
+      for (int j = 0; j < PIX; ++j) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          out[j][ch] = __fadd_rn(
+              out[j][ch],
+              __fmul_rn(g_blur, sgn(__fsub_rn(m[j][ch], gt[j][ch]))));
+        }
+      }
+    }
+    store3(g_main, p0, n, vec, out);
+  }
+  double v[1] = {s_c};
+  block_sum<1>(v);
+  if (!arrive<1>(v, partials, &backward_arrivals)) return;
+  total<1>(partials, v);
+  if (threadIdx.x != 0) return;
+  *g_contrast = __double2float_rn(v[0]);
+  backward_arrivals = 0;  // every block has counted in
+}
+
+// the kernels' logf over n floats: a hook for the card test that holds it
+// against PyTorch's torch.log (it runs on no path)
+__global__ void logf_kernel(const float* __restrict__ x, float* __restrict__ y,
+                            long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS +
+                      threadIdx.x;
+  if (i < n) y[i] = logf(x[i]);
+}
+
+bool aligned(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// the launch's images, or false if a channel count is not 1 or 3
+bool images(const void* now, const void* next, const void* main_img,
+            const void* gt_now, const void* gt_next, const void* gt_main,
+            const void* blurry, const int* channels, int pixels,
+            Images& im) {
+  im.now = static_cast<const float*>(now);
+  im.next = static_cast<const float*>(next);
+  im.main_img = static_cast<const float*>(main_img);
+  im.gt_now = static_cast<const float*>(gt_now);
+  im.gt_next = static_cast<const float*>(gt_next);
+  im.gt_main = static_cast<const float*>(gt_main);
+  im.blurry = static_cast<const float*>(blurry);
+  im.ch_gt_now = channels[0];
+  im.ch_gt_next = channels[1];
+  im.ch_gt_main = channels[2];
+  im.ch_blurry = channels[3];
+  for (int i = 0; i < 4; ++i) {
+    if (channels[i] != 1 && channels[i] != 3) return false;
+  }
+  im.pixels = pixels;
+  im.chunks = (static_cast<long long>(pixels) + PIX - 1) / PIX;
+  im.vec = aligned(now) && aligned(next) && aligned(main_img) &&
+           aligned(gt_now) && aligned(gt_next) && aligned(gt_main) &&
+           (blurry == nullptr || aligned(blurry));
+  return pixels >= 1;
+}
+
+Consts consts(const float* c) {
+  Consts k;
+  k.w[0] = c[0];
+  k.w[1] = c[1];
+  k.w[2] = c[2];
+  k.eps = c[3];
+  k.gt_inv = c[4];
+  k.event_w = c[5];
+  k.intens_w = c[6];
+  k.blur_a = c[7];
+  k.base_w = c[8];
+  k.inv_pix = c[9];
+  k.inv_vals = c[10];
+  return k;
+}
+
+// a grid the card holds at once, at most max_blocks (the partials' rows):
+// a grid-stride loop's blocks all do the same work
+template <typename Kernel>
+cudaError_t grid(Kernel kernel, long long chunks, int max_blocks,
+                 int& blocks) {
+  int device = 0, sms = 0, resident = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      THREADS, 0);
+  if (err != cudaSuccess) return err;
+  long long b = (chunks + THREADS - 1) / THREADS;
+  b = b < static_cast<long long>(sms) * resident
+          ? b : static_cast<long long>(sms) * resident;
+  b = b < max_blocks ? b : max_blocks;
+  blocks = static_cast<int>(b < 1 ? 1 : b);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// now, next, main ([P, 3]), gt_now, gt_next, gt_main (and blurry or null)
+// ([P, 1 or 3]), their 4 channel counts, P, the N_CONSTS constants, the
+// contrast (a device float), the partials scratch (max_blocks rows of
+// N_SUMS doubles), the loss (a device float) and 4 device floats
+// event_l1, intensity_l1, coverage, blur_l1 (0 without blurry).
+extern "C" int e3d_event_loss_forward(
+    const void* now, const void* next, const void* main_img, const void* gt_now,
+    const void* gt_next, const void* gt_main, const void* blurry,
+    const int* channels, int pixels, const float* constants,
+    const void* contrast, void* partials, int max_blocks, void* loss_out,
+    void* aux_out, cudaStream_t stream) {
+  Images im;
+  if (!images(now, next, main_img, gt_now, gt_next, gt_main, blurry, channels,
+              pixels, im) || max_blocks < 1) {
+    return cudaErrorInvalidValue;
+  }
+  int blocks = 0;
+  cudaError_t err = grid(event_loss_forward_kernel, im.chunks, max_blocks,
+                         blocks);
+  if (err != cudaSuccess) return err;
+  event_loss_forward_kernel<<<blocks, THREADS, 0, stream>>>(
+      im, consts(constants), static_cast<const float*>(contrast),
+      static_cast<double*>(partials), static_cast<float*>(loss_out),
+      static_cast<float*>(aux_out));
+  return cudaGetLastError();
+}
+
+// the forward's images, channel counts, P and constants, the contrast, the
+// loss's gradient and the forward's coverage (device floats), the partials
+// scratch (max_blocks doubles), the three [P, 3] image gradients and the
+// contrast's (a device float).
+extern "C" int e3d_event_loss_backward(
+    const void* now, const void* next, const void* main_img, const void* gt_now,
+    const void* gt_next, const void* gt_main, const void* blurry,
+    const int* channels, int pixels, const float* constants,
+    const void* contrast, const void* grad, const void* coverage,
+    void* partials,
+    int max_blocks, void* g_now, void* g_next, void* g_main,
+    void* g_contrast, cudaStream_t stream) {
+  Images im;
+  if (!images(now, next, main_img, gt_now, gt_next, gt_main, blurry, channels,
+              pixels, im) || max_blocks < 1 || !aligned(g_now) ||
+      !aligned(g_next) || !aligned(g_main)) {
+    return cudaErrorInvalidValue;
+  }
+  int blocks = 0;
+  cudaError_t err = grid(event_loss_backward_kernel, im.chunks, max_blocks,
+                         blocks);
+  if (err != cudaSuccess) return err;
+  event_loss_backward_kernel<<<blocks, THREADS, 0, stream>>>(
+      im, consts(constants), static_cast<const float*>(contrast),
+      static_cast<const float*>(grad), static_cast<const float*>(coverage),
+      static_cast<double*>(partials), static_cast<float*>(g_now),
+      static_cast<float*>(g_next), static_cast<float*>(g_main),
+      static_cast<float*>(g_contrast));
+  return cudaGetLastError();
+}
+
+// x, y (n device floats), n: y = logf(x) as the loss kernels compute it
+extern "C" int e3d_event_loss_logf(const void* x, void* y, long long n,
+                                   cudaStream_t stream) {
+  if (n < 1) return n == 0 ? cudaSuccess : cudaErrorInvalidValue;
+  const long long blocks = (n + THREADS - 1) / THREADS;
+  logf_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), n);
+  return cudaGetLastError();
+}

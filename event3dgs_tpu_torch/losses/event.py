@@ -9,7 +9,14 @@ computed from event-derived ground-truth intensity pairs.  The contrast of
 the rendered pair is a learnable scalar optimized jointly (reference
 `train.py:71-72,165-196`; loss formula `utils/loss_utils.py:234-249`).
 
-The variants after :func:`event_mixture_loss` are the reference's
+:func:`event_mixture_loss`, the training loss of the event modes, runs on a
+card as two hand-written kernels (``csrc/loss.cu``) behind one autograd
+Function, :class:`EventLoss`: :func:`event_loss_forward_kernel` and
+:func:`event_loss_backward_kernel`, whose plain versions are
+:func:`event_mixture_loss_plain` and :func:`event_loss_backward_plain`.
+CPU tensors take the plain forward and autograd's backward.
+
+The variants after :func:`event_loss_backward_plain` are the reference's
 experimental event losses, which no training mode calls.  They keep the
 JAX package's static shapes where those decide the result: the first
 ``max_points`` hits in stable order, masked (not dropped) invalid points,
@@ -18,15 +25,20 @@ JAX package's static shapes where those decide the result: the first
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from event3dgs_tpu_torch.losses.basic import (
+    _LUV_WEIGHTS,
     l1_loss,
     rgb_to_grayscale,
     rgb_to_luv_l,
 )
+from event3dgs_tpu_torch.ops import kernels
+from event3dgs_tpu_torch.utils.device import constant
 
 LOG_EPS = 1e-8  # epsilon inside the logs (`loss_utils.py:243`)
 
@@ -65,10 +77,20 @@ def event_log_diff(image, image_next, contrast) -> torch.Tensor:
     return (torch.log(l2 + LOG_EPS) - torch.log(l1 + LOG_EPS)) / contrast
 
 
-def event_mixture_loss(render_now, render_next, render_main, gt_now, gt_next,
-                       gt_main, contrast, gt_contrast: float = 0.17,
-                       event_weight: float = 0.9):
-    """The event-mode training loss (reference `train.py:165-196`).
+def deblur_mix(loss, render_main, gt_blurry, blur_alpha: float = 0.5):
+    """Deblur mode: ``(1-α)·loss + α·L1(render, blurry)``
+    (`train.py:197-203`)."""
+    ll1 = l1_loss(render_main, gt_blurry)
+    return (1.0 - blur_alpha) * loss + blur_alpha * ll1, {"blur_l1": ll1}
+
+
+def event_mixture_loss_plain(render_now, render_next, render_main, gt_now,
+                             gt_next, gt_main, contrast,
+                             gt_contrast: float = 0.17,
+                             event_weight: float = 0.9, blurry_main=None,
+                             blur_alpha: float = 0.5):
+    """The event-mode training loss (reference `train.py:165-196`) in plain
+    PyTorch, differentiated by autograd.
 
     ``loss1``: L1 between the rendered pair's log-diff (learnable C) and the
     GT pair's log-diff (fixed C); ``loss2``: L1 between the main render and
@@ -76,7 +98,9 @@ def event_mixture_loss(render_now, render_next, render_main, gt_now, gt_next,
 
         loss = w·loss1·coverage + (1-w)·loss2·(1-coverage)
 
-    Returns (loss, aux dict with event_l1 / intensity_l1 / coverage).
+    With ``blurry_main`` (event_deblur mode) the loss is :func:`deblur_mix`'s
+    of it.  Returns (loss, aux dict with event_l1 / intensity_l1 / coverage
+    [/ blur_l1]).
     """
     img_diff = event_log_diff(render_now, render_next, contrast)
     gt_diff = event_log_diff(gt_now, gt_next, gt_contrast)
@@ -85,8 +109,224 @@ def event_mixture_loss(render_now, render_next, render_main, gt_now, gt_next,
     coverage = torch.mean((gt_diff != 0.0).to(img_diff.dtype))
     loss = event_weight * loss1 * coverage + (1.0 - event_weight) * loss2 * (
         1.0 - coverage)
-    return loss, {"event_l1": loss1, "intensity_l1": loss2,
-                  "coverage": coverage}
+    aux = {"event_l1": loss1, "intensity_l1": loss2, "coverage": coverage}
+    if blurry_main is None:
+        return loss, aux
+    loss, blur = deblur_mix(loss, render_main, blurry_main, blur_alpha)
+    return loss, {**aux, **blur}
+
+
+def event_loss_backward_plain(grad, render_now, render_next, render_main,
+                              gt_now, gt_next, gt_main, contrast, coverage,
+                              gt_contrast: float = 0.17,
+                              event_weight: float = 0.9, blurry_main=None,
+                              blur_alpha: float = 0.5):
+    """The backward kernel's plain version: the gradients of
+    :func:`event_mixture_loss_plain`'s loss times ``grad`` (a 0-d tensor)
+    with respect to the three renders and the contrast (a tensor; the
+    forward's ``coverage`` is given) → (d render_now, d render_next,
+    d render_main, d contrast).
+
+    Autograd's chain written out, one PyTorch op for each of its own in its
+    order (a mean's backward divides by the count, an abs's multiplies by
+    ``sgn``, 0 at a tie), so the image gradients equal autograd's bit for
+    bit on either device; the contrast's is a sum over the pixels.
+    """
+    w = constant(_LUV_WEIGHTS, render_now.dtype, render_now.device)
+    base = grad if blurry_main is None else grad * (1.0 - blur_alpha)
+    a_now = rgb_to_luv_l(render_now) + LOG_EPS
+    a_next = rgb_to_luv_l(render_next) + LOG_EPS
+    d = torch.log(a_next) - torch.log(a_now)
+    r = d / contrast - event_log_diff(gt_now, gt_next, gt_contrast)
+    g_r = base * coverage * event_weight / r.numel() * torch.sgn(r)
+    g_d = g_r / contrast
+    g_now = -g_d / a_now * w
+    g_next = g_d / a_next * w
+    g_c = (-g_r * (d / contrast / contrast)).sum().reshape(contrast.shape)
+    r_main = render_main - gt_main
+    g_main = (base * (1.0 - coverage) * (1.0 - event_weight) / r_main.numel()
+              * torch.sgn(r_main))
+    if blurry_main is not None:
+        r_blur = render_main - blurry_main
+        g_main = g_main + (grad * blur_alpha / r_blur.numel()
+                           * torch.sgn(r_blur))
+    return g_now, g_next, g_main, g_c
+
+
+# the loss kernels' outputs beside the loss, in order (blur_l1 is 0 in event
+# mode)
+AUX = ("event_l1", "intensity_l1", "coverage", "blur_l1")
+# rows of the loss kernels' partials scratch: the most blocks of their grid
+LOSS_BLOCKS = 2048
+
+
+def loss_constants(pixels: int, gt_contrast: float, event_weight: float,
+                   blur_alpha: float):
+    """The loss kernels' constants, 11 float32 on the host: the LUV weights,
+    ``LOG_EPS``, 1/gt_contrast, w, 1-w, α, 1-α, 1/P and 1/3P, each rounded
+    as PyTorch rounds a Python float, the reciprocals as its CUDA division
+    by a host scalar and its mean make them (1.0f / float32(x))."""
+    f = np.float32
+    values = [*(f(x) for x in _LUV_WEIGHTS), f(LOG_EPS),
+              f(1) / f(gt_contrast), f(event_weight), f(1.0 - event_weight),
+              f(blur_alpha), f(1.0 - blur_alpha), f(1) / f(pixels),
+              f(1) / f(3 * pixels)]
+    return (ctypes.c_float * len(values))(*values)
+
+
+def _loss_launch(render_now, render_next, render_main, gt_now, gt_next,
+                 gt_main, contrast, blurry_main, gt_contrast, event_weight,
+                 blur_alpha) -> tuple:
+    """The loss kernels' leading arguments (images, channel counts, P,
+    constants, contrast) after the checks; the counts and the constants
+    are host arrays, which ctypes passes by address."""
+    shape = render_now.shape
+    if len(shape) < 2 or shape[-1] != 3:
+        raise ValueError(f"render_now: expected [..., 3], got {tuple(shape)}")
+    for t, what in ((render_now, "render_now"), (render_next, "render_next"),
+                    (render_main, "render_main")):
+        kernels.check(t, torch.float32, what, shape)
+    gts = [(gt_now, "gt_now"), (gt_next, "gt_next"), (gt_main, "gt_main")]
+    if blurry_main is not None:
+        gts.append((blurry_main, "blurry_main"))
+    channels = []
+    for t, what in gts:
+        kernels.check(t, torch.float32, what)
+        if tuple(t.shape[:-1]) != tuple(shape[:-1]) or t.shape[-1] not in (1, 3):
+            raise ValueError(f"{what}: expected {tuple(shape[:-1])} + (1 or "
+                             f"3,), got {tuple(t.shape)}")
+        channels.append(t.shape[-1])
+    kernels.check(contrast, torch.float32, "contrast")
+    if contrast.numel() != 1:
+        raise ValueError(f"contrast: expected one value, got "
+                         f"{tuple(contrast.shape)}")
+    pixels = render_now.numel() // 3
+    if not 0 < pixels < 2**31:
+        raise ValueError(f"{pixels} pixels: expected 1 to 2**31 - 1")
+    ptrs = [t.data_ptr() for t in (render_now, render_next, render_main,
+                                   gt_now, gt_next, gt_main)]
+    ptrs.append(None if blurry_main is None else blurry_main.data_ptr())
+    counts = (ctypes.c_int * 4)(*channels, *([1] * (4 - len(channels))))
+    consts = loss_constants(pixels, gt_contrast, event_weight, blur_alpha)
+    return (*ptrs, counts, pixels, consts, contrast.data_ptr())
+
+
+def event_loss_forward_kernel(render_now, render_next, render_main, gt_now,
+                              gt_next, gt_main, contrast,
+                              gt_contrast: float = 0.17,
+                              event_weight: float = 0.9, blurry_main=None,
+                              blur_alpha: float = 0.5):
+    """Launch the forward kernel (``csrc/loss.cu``) on CUDA tensors (the
+    arguments of :func:`event_mixture_loss_plain`; the renders [..., 3],
+    the GT images [..., 1 or 3], the contrast one float) → (the loss [],
+    [4] of ``AUX``)."""
+    args = _loss_launch(render_now, render_next, render_main, gt_now,
+                        gt_next, gt_main, contrast, blurry_main, gt_contrast,
+                        event_weight, blur_alpha)
+    dev = render_now.device
+    partials = torch.empty(LOSS_BLOCKS, 4, dtype=torch.float64, device=dev)
+    loss = torch.empty((), device=dev)
+    aux = torch.empty(len(AUX), device=dev)
+    kernels.launch("loss", "e3d_event_loss_forward", *args,
+                   partials.data_ptr(), LOSS_BLOCKS, loss.data_ptr(),
+                   aux.data_ptr())
+    event_loss_forward_kernel.launches += 1
+    return loss, aux
+
+
+event_loss_forward_kernel.launches = 0
+
+
+def event_loss_backward_kernel(grad, render_now, render_next, render_main,
+                               gt_now, gt_next, gt_main, contrast, coverage,
+                               gt_contrast: float = 0.17,
+                               event_weight: float = 0.9, blurry_main=None,
+                               blur_alpha: float = 0.5):
+    """Launch the backward kernel (``csrc/loss.cu``) on CUDA tensors (the
+    arguments of :func:`event_loss_backward_plain`; ``grad`` and
+    ``coverage`` 0-d) → (d render_now, d render_next, d render_main,
+    d contrast)."""
+    args = _loss_launch(render_now, render_next, render_main, gt_now,
+                        gt_next, gt_main, contrast, blurry_main, gt_contrast,
+                        event_weight, blur_alpha)
+    kernels.check(grad, torch.float32, "grad", ())
+    kernels.check(coverage, torch.float32, "coverage", ())
+    dev = render_now.device
+    partials = torch.empty(LOSS_BLOCKS, dtype=torch.float64, device=dev)
+    out = [torch.empty_like(t) for t in (render_now, render_next,
+                                         render_main, contrast)]
+    kernels.launch("loss", "e3d_event_loss_backward", *args,
+                   grad.data_ptr(), coverage.data_ptr(), partials.data_ptr(),
+                   LOSS_BLOCKS, *(t.data_ptr() for t in out))
+    event_loss_backward_kernel.launches += 1
+    return tuple(out)
+
+
+event_loss_backward_kernel.launches = 0
+
+
+class EventLoss(torch.autograd.Function):
+    """The event-mode loss on a card, forward and backward one kernel each.
+
+    ``forward(render_now, render_next, render_main, gt_now, gt_next,
+    gt_main, blurry_main, contrast, settings)`` with ``settings``
+    (gt_contrast, event_weight, blur_alpha) → (loss, [4] of ``AUX``, not
+    differentiable); gradients flow to the three renders and the contrast,
+    none to the GT images.
+    """
+
+    @staticmethod
+    def forward(ctx, render_now, render_next, render_main, gt_now, gt_next,
+                gt_main, blurry_main, contrast, settings):
+        gt_contrast, event_weight, blur_alpha = settings
+        images = (render_now, render_next, render_main, gt_now, gt_next,
+                  gt_main)
+        loss, aux = event_loss_forward_kernel(
+            *images, contrast, gt_contrast, event_weight, blurry_main,
+            blur_alpha)
+        ctx.mark_non_differentiable(aux)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*images, blurry_main, contrast, aux)
+        ctx.settings = settings
+        return loss, aux
+
+    @staticmethod
+    def backward(ctx, g_loss, g_aux):
+        if g_loss is None:
+            return (None,) * 9
+        *images, blurry_main, contrast, aux = ctx.saved_tensors
+        gt_contrast, event_weight, blur_alpha = ctx.settings
+        g_now, g_next, g_main, g_c = event_loss_backward_kernel(
+            g_loss, *images, contrast, aux[2], gt_contrast,
+            event_weight, blurry_main, blur_alpha)
+        return g_now, g_next, g_main, None, None, None, None, g_c, None
+
+
+def event_mixture_loss(render_now, render_next, render_main, gt_now, gt_next,
+                       gt_main, contrast, gt_contrast: float = 0.17,
+                       event_weight: float = 0.9, blurry_main=None,
+                       blur_alpha: float = 0.5, plain: bool = False):
+    """The event-mode training loss (reference `train.py:165-196`; in
+    event_deblur mode, with ``blurry_main``, :func:`deblur_mix`'s of it,
+    `train.py:197-203`) → (loss, aux dict with event_l1 / intensity_l1 /
+    coverage [/ blur_l1]).
+
+    For CUDA tensors the two kernels of :class:`EventLoss`; for CPU tensors,
+    or with ``plain``, :func:`event_mixture_loss_plain` under autograd.
+    """
+    if render_now.device.type == "cpu" or plain:
+        return event_mixture_loss_plain(
+            render_now, render_next, render_main, gt_now, gt_next, gt_main,
+            contrast, gt_contrast, event_weight, blurry_main, blur_alpha)
+    images = [t.contiguous() for t in (render_now, render_next, render_main,
+                                       gt_now, gt_next, gt_main)]
+    if blurry_main is not None:
+        blurry_main = blurry_main.contiguous()
+    loss, aux = EventLoss.apply(*images, blurry_main, contrast,
+                                (float(gt_contrast), float(event_weight),
+                                 float(blur_alpha)))
+    names = AUX if blurry_main is not None else AUX[:3]
+    return loss, {k: aux[i] for i, k in enumerate(names)}
 
 
 def thresholded_event_l1(network_output, gt, thresh: float = 0.5):

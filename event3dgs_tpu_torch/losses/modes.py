@@ -1,12 +1,17 @@
 """Per-training-mode total losses (counterpart of
 ``event3dgs_tpu/losses/modes.py``): vanilla RGB, grayscale, event (with
 the learnable contrast) and the event-assisted deblur mix
-(`train.py:149-296`).  All take channel-last images."""
+(`train.py:149-296`).  All take channel-last images.  :func:`deblur_mix`
+lives beside the event loss (``losses/event.py``), which folds it into its
+kernels in event_deblur mode."""
 
 from __future__ import annotations
 
 from event3dgs_tpu_torch.losses.basic import l1_loss, l1_loss_gray, ssim, ssim_gray
-from event3dgs_tpu_torch.losses.event import event_mixture_loss
+from event3dgs_tpu_torch.losses.event import deblur_mix, event_mixture_loss
+
+__all__ = ["rgb_total_loss", "gray_total_loss", "event_total_loss",
+           "deblur_mix"]
 
 
 def rgb_total_loss(render, gt, lambda_dssim: float = 0.2):
@@ -29,16 +34,15 @@ def gray_total_loss(render, gt, lambda_dssim: float = 0.2):
 
 def event_total_loss(render_now, render_next, render_main, gt_now, gt_next,
                      gt_main, contrast, gt_contrast: float = 0.17,
-                     event_weight: float = 0.9):
-    """Event mode (`train.py:149-196`; λ_dssim is forced to 0 there)."""
+                     event_weight: float = 0.9, blurry_main=None,
+                     blur_alpha: float = 0.5, plain: bool = False):
+    """Event mode (`train.py:149-196`; λ_dssim is forced to 0 there); with
+    ``blurry_main``, event_deblur mode: :func:`deblur_mix` of it with
+    ``blur_alpha`` (`train.py:197-203`), in the same two kernels on a card
+    (``plain``: the plain version there too)."""
     return event_mixture_loss(render_now, render_next, render_main, gt_now,
                               gt_next, gt_main, contrast,
                               gt_contrast=gt_contrast,
-                              event_weight=event_weight)
-
-
-def deblur_mix(loss, render_main, gt_blurry, blur_alpha: float = 0.5):
-    """Deblur mode: ``(1-α)·loss + α·L1(render, blurry)``
-    (`train.py:197-203`)."""
-    ll1 = l1_loss(render_main, gt_blurry)
-    return (1.0 - blur_alpha) * loss + blur_alpha * ll1, {"blur_l1": ll1}
+                              event_weight=event_weight,
+                              blurry_main=blurry_main, blur_alpha=blur_alpha,
+                              plain=plain)

@@ -17,11 +17,12 @@ with no macros the digest and the name are the shipping library's.
 Nothing on the render or training path passes macros.
 
 ``-fmad=false`` is part of the build: the preprocess forward kernel's
-projection and colours, the table kernel's rects and cull
-data, the expansion kernel's ellipse cull and the compositing kernels'
-alpha and the Adam update must round like their plain PyTorch versions,
-which run one rounding per operation, and the backward kernel
-must skip exactly the (pixel, instance) pairs the forward kernel skipped.
+projection and colours, the table kernel's rects and cull data, the
+expansion kernel's ellipse cull, the compositing kernels' alpha, the Adam
+update and the event loss's image gradients and event count must round
+like their plain PyTorch versions, which run one rounding per operation,
+and the backward kernel must skip exactly the (pixel, instance) pairs the
+forward kernel skipped.
 A kernel fuses a product into a sum only where it says so (``__fmaf_rn``
 in the backward kernel's gradient sums).
 """
@@ -45,7 +46,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 
 # source name → {C function: argtypes}; every function returns an int
@@ -139,6 +140,21 @@ SIGNATURES = {
         # stride), per segment the float learning rate, segments, b1,
         # 1 - b1, b2, 1 - b2, eps, stream
         "e3d_adam_update": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _P],
+    },
+    "loss": {
+        # now, next, main ([P, 3]), gt_now, gt_next, gt_main, blurry (or
+        # null) ([P, 1 or 3]), their channel counts (4 host ints), P, the
+        # constants (11 host floats: losses/event.loss_constants), contrast,
+        # partials scratch, its rows, loss_out, aux_out (4 floats), stream
+        "e3d_event_loss_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                   _P, _P, _I, _P, _P, _P],
+        # the forward's images, channel counts, P and constants, contrast,
+        # the loss's gradient, the forward's coverage, partials scratch, its
+        # rows, g_now, g_next, g_main, g_contrast, stream
+        "e3d_event_loss_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                    _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+        # x, y, n: the kernels' logf (for a card test), stream
+        "e3d_event_loss_logf": [_P, _P, _L, _P],
     },
     "probes": {
         # x, capacity (blocks of 1,024 floats), n (a device int), partials

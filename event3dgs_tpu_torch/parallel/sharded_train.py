@@ -52,7 +52,6 @@ import torch
 
 from event3dgs_tpu_torch.losses.event import effective_contrast
 from event3dgs_tpu_torch.losses.modes import (
-    deblur_mix,
     event_total_loss,
     gray_total_loss,
     rgb_total_loss,
@@ -206,10 +205,10 @@ def make_sharded_train_step(
                 effective_contrast(contrast,
                                    event_cfg.contrast_parameterization),
                 gt_contrast=event_cfg.gt_contrast,
-                event_weight=event_cfg.event_weight)
-            if mode == "event_deblur":
-                loss, _ = deblur_mix(loss, img_main, data.blurry_images[im],
-                                     event_cfg.blur_alpha)
+                event_weight=event_cfg.event_weight,
+                blurry_main=(data.blurry_images[im]
+                             if mode == "event_deblur" else None),
+                blur_alpha=event_cfg.blur_alpha)
         return loss, radii, vis
 
     def train_step(state: TrainState, data: SceneData, idx_main, idx_now,

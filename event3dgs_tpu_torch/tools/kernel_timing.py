@@ -194,6 +194,31 @@ def adam_bound(floats: int):
             (floats * ADAM_OPS_PER_FLOAT[0], floats * ADAM_OPS_PER_FLOAT[1]))
 
 
+# the event loss (csrc/loss.cu) per pixel, (FP32, SFU) operations counted
+# from the source, a logf or a division as one SFU operation and nothing
+# more (so the bound stays a lower bound), by kernel (backward or not);
+# each three-channel image of the GT pair adds its L channel, event_deblur
+# the blurry image's L1
+LOSS_PIXEL_OPS = {False: (25, 5), True: (33, 9)}
+LOSS_GT_L_OPS = 5
+LOSS_DEBLUR_OPS = {False: 6, True: 9}
+
+
+def loss_bound(pixels: int, channels, backward: bool = False):
+    """(bytes, (FP32, SFU) operations) that one event loss kernel must move
+    and do at ``pixels`` pixels, for :func:`bound_ms`: the three renders (3
+    floats a pixel) and the GT images of ``channels`` (gt_now, gt_next,
+    gt_main[, blurry]: 1 or 3 each) read once, the scalars read and
+    written, and in the backward the three image gradients written."""
+    deblur = len(channels) > 3
+    floats = 9 + sum(channels) + (9 if backward else 0)
+    scalars = 4 * (4 if backward else 6)  # c, grad, coverage, dc / c, 5 out
+    fp32, sfu = LOSS_PIXEL_OPS[backward]
+    fp32 += LOSS_GT_L_OPS * sum(c == 3 for c in channels[:2])
+    fp32 += LOSS_DEBLUR_OPS[backward] if deblur else 0
+    return 4 * floats * pixels + scalars, (fp32 * pixels, sfu * pixels)
+
+
 def fused_adam_call(groups, b1: float = 0.9, b2: float = 0.999,
                     eps: float = 1e-15):
     """The timing yardstick of the Adam kernel: a callable that runs

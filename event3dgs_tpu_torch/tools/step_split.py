@@ -10,8 +10,8 @@ the device time of its kernels by group (:func:`split_group`): K1, K2, K3,
 the binning's kernels, its ``argsort``, the preprocess kernels (projection
 and SH colours, ``csrc/preprocess.cu``) forward and backward, the sums of
 the three renders' feature gradients, the rasterizer's other work, the
-loss, Adam (its kernel, ``csrc/adam.cu``, and the step counts'
-increments), the densify stats, the copies outside the stages and the
+loss (its two kernels, ``csrc/loss.cu``), Adam (its kernel,
+``csrc/adam.cu``, and the step counts' increments), the densify stats, the copies outside the stages and the
 rest.  One JSON line per state,
 then the card's name and power limit and a table.
 
@@ -55,6 +55,7 @@ SPLIT_FUNCTIONS = {
     "preprocess forward": ("preprocess_forward_kernel",),
     "preprocess backward": ("preprocess_backward_kernel",),
     "Adam": ("adam_update_kernel",),
+    "loss": ("event_loss_forward_kernel", "event_loss_backward_kernel"),
     "binning kernels": ("gaussian_table_kernel", "depth_offsets_kernel",
                         "expand_kernel", "segment_count_kernel",
                         "scan_kernel", "rank_kernel"),

@@ -35,7 +35,6 @@ from event3dgs_tpu_torch.core.camera import Camera
 from event3dgs_tpu_torch.core.schedules import exponential_lr
 from event3dgs_tpu_torch.losses.event import effective_contrast
 from event3dgs_tpu_torch.losses.modes import (
-    deblur_mix,
     event_total_loss,
     gray_total_loss,
     rgb_total_loss,
@@ -173,8 +172,8 @@ def make_loss_and_grads(
         (state, data, idx_main, idx_now, idx_next, bg) →
             (loss, aux, {"params": dict, "contrast": [], "tap": [C, 2]})
 
-    ``plain`` runs the plain versions of the preprocess and tiled
-    rasterizer kernels on CUDA tensors (for holding the kernel path against
+    ``plain`` runs the plain versions of the preprocess, tiled rasterizer
+    and loss kernels on CUDA tensors (for holding the kernel path against
     them).
     """
     views_fn = _views_loss_and_grads(mode, event_cfg, lambda_dssim,
@@ -212,7 +211,7 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
         elif mode == "gray":
             loss, aux = gray_total_loss(out_main.image, views.gt_main,
                                         lambda_dssim)
-        else:  # event / event_deblur
+        else:  # event / event_deblur (the blurry capture in the latter)
             out_now = render_view(views.cam_now)
             out_next = render_view(views.cam_next)
             loss, aux = event_total_loss(
@@ -222,12 +221,9 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
                                    event_cfg.contrast_parameterization),
                 gt_contrast=event_cfg.gt_contrast,
                 event_weight=event_cfg.event_weight,
+                blurry_main=views.blurry_main,
+                blur_alpha=event_cfg.blur_alpha, plain=plain,
             )
-            if mode == "event_deblur":
-                loss, blur_aux = deblur_mix(loss, out_main.image,
-                                            views.blurry_main,
-                                            event_cfg.blur_alpha)
-                aux.update(blur_aux)
         aux["radii"] = out_main.radii
         aux["visibility"] = out_main.visibility
 

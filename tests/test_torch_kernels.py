@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the preprocess forward and backward, K1-K6, the
-binning's table kernel and the Adam update) against their plain PyTorch
-versions, the
+binning's table kernel, the Adam update and the event loss forward and
+backward) against their plain PyTorch versions, the
 wrappers' dispatch rules, and the event frames accumulated on the card
 against the CPU's.
 
@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from event3dgs_tpu_torch.core import make_camera
+from event3dgs_tpu_torch.losses import event as ev_loss
 from event3dgs_tpu_torch.models import activated, params_from_numpy
 from event3dgs_tpu_torch.models import optimizer as opt
 from event3dgs_tpu_torch.ops import binning, expand, kernels, segscan, sort_tiles
@@ -1116,8 +1117,9 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
     parameters, contrast and alive slots equal bit for bit; the kernels
     launch in the warm-up steps and the captures only (the reference
     rasterizer launches none of K1-K6, the preprocess kernels as the tiled
-    one does, the Adam kernel once a step in every mode); the forward
-    preprocess also in each instance-cap probe."""
+    one does, the Adam kernel once a step in every mode, the loss kernels
+    once a step in the event modes); the forward preprocess also in each
+    instance-cap probe."""
     from event3dgs_tpu_torch.train import loop, train_loop
     from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
     from event3dgs_tpu_torch.train.loop import TrainCallbacks
@@ -1157,6 +1159,9 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
         want["preprocess_fwd"] = steps * renders + p
         want["preprocess_bwd"] = steps * renders
         want["adam"] = steps  # both groups in one launch a step
+        # the loss kernels in the event modes, whatever the rasterizer
+        want["loss_fwd"] = want["loss_bwd"] = (
+            steps if mode.startswith("event") else 0)
         assert n == want
     assert np.array_equal(np.asarray(r8.history), np.asarray(r1.history))
     assert np.isfinite(r1.history).all()
@@ -1182,6 +1187,8 @@ def wrappers_by_name():
         "K5": sort_tiles.tile_histogram_kernel,
         "K6": sort_tiles.stable_tile_rank_kernel,
         "adam": opt.adam_update_kernel,
+        "loss_fwd": ev_loss.event_loss_forward_kernel,
+        "loss_bwd": ev_loss.event_loss_backward_kernel,
     }
 
 
@@ -1514,6 +1521,202 @@ def test_adam_kernel_in_a_cuda_graph():
         graph.replay()
         assert_adam_equal(out, want)
         assert int(live[0].state.count) == int(live[1].state.count) == k + 2
+
+
+# the event loss at 1080p and at an odd size (no multiple of 4 pixels)
+LOSS_SIZES = ((1080, 1920), (37, 53))
+LOSS_SETTINGS = dict(gt_contrast=0.17, event_weight=0.9, blur_alpha=0.5)
+
+
+def loss_inputs(h, w, seed, gt_channels, deblur, device, offset=False):
+    """Seeded event-loss inputs on ``device``: the renders now, next, main
+    [h, w, 3] in [0, 1] with 1 % exact zeros (L + ε down to ε), the GT
+    images gt_now, gt_next, gt_main of ``gt_channels`` with 30 % of the GT
+    pairs unchanged (coverage below 1), planted ties on 5 % of the pixels
+    each (r = 0, main = gt_main, blurry = main), the contrast 0.2 [] and
+    the blurry image or None.  With ``offset`` each image is the second of
+    a stack of two, an element offset that breaks the 16-byte alignment
+    at the odd size."""
+    rng = np.random.default_rng(seed)
+    img = lambda c: rng.uniform(0.0, 1.0, (h, w, c)).astype(np.float32)
+    share = lambda p: rng.random((h, w)) < p
+    now, nxt, main = img(3), img(3), img(3)
+    gnow, gnext, gmain = img(gt_channels), img(gt_channels), img(gt_channels)
+    for x in (now, nxt):
+        x[rng.random((h, w, 3)) < 0.01] = 0.0
+    same = share(0.3)
+    gnext[same] = gnow[same]
+    tie = share(0.05)
+    nxt[tie], gnext[tie] = now[tie], gnow[tie]
+    tie = share(0.05)
+    main[tie] = gmain[tie]
+    blurry = None
+    if deblur:
+        blurry = img(3)
+        tie = share(0.05)
+        blurry[tie] = main[tie]
+
+    def put(a):
+        t = torch.tensor(a, device=device)
+        return torch.stack([torch.zeros_like(t), t])[1] if offset else t
+
+    return (*(put(a) for a in (now, nxt, main, gnow, gnext, gmain)),
+            torch.tensor(0.2, device=device),
+            None if blurry is None else put(blurry))
+
+
+def assert_loss_close(got, want, what=""):
+    """A loss scalar or the contrast's gradient: sums over 2M pixels in two
+    orders (the kernels' in double), so within rtol 1e-5."""
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0, msg=what)
+
+
+def check_loss_kernels(images, contrast, kw, grad):
+    """Both loss kernels against their plain versions on ``images`` (now,
+    next, main, gt_now, gt_next, gt_main): the coverage and the image
+    gradients bit for bit, the loss, its parts and the contrast's gradient
+    within rtol 1e-5; the plain backward against autograd of the plain
+    forward on the card (the image gradients bit for bit); the kernels
+    again giving the same bits; one launch a call."""
+    launches = (ev_loss.event_loss_forward_kernel.launches,
+                ev_loss.event_loss_backward_kernel.launches)
+    loss, aux = ev_loss.event_loss_forward_kernel(*images, contrast, **kw)
+    want_loss, want_aux = ev_loss.event_mixture_loss_plain(*images, contrast,
+                                                           **kw)
+    assert_bits_equal(aux[2], want_aux["coverage"], "coverage")
+    assert_loss_close(loss, want_loss, "loss")
+    for i, k in enumerate(ev_loss.AUX):
+        if k in want_aux and k != "coverage":
+            assert_loss_close(aux[i], want_aux[k], k)
+    got = ev_loss.event_loss_backward_kernel(grad, *images, contrast, aux[2],
+                                             **kw)
+    want = ev_loss.event_loss_backward_plain(grad, *images, contrast,
+                                             want_aux["coverage"], **kw)
+    for a, b, what in zip(got, want, ("now", "next", "main")):
+        assert_bits_equal(a, b, what)
+    assert_loss_close(got[3], want[3], "contrast")
+    leaves = [t.clone().requires_grad_(True) for t in (*images[:3], contrast)]
+    auto_loss, _ = ev_loss.event_mixture_loss_plain(*leaves[:3], *images[3:],
+                                                    leaves[3], **kw)
+    auto = torch.autograd.grad(auto_loss, leaves, grad)
+    for a, b, what in zip(want, auto, ("now", "next", "main")):
+        assert_bits_equal(a, b, f"plain backward vs autograd: {what}")
+    assert_loss_close(want[3], auto[3], "plain backward vs autograd")
+    again = ev_loss.event_loss_forward_kernel(*images, contrast, **kw)
+    for a, b in zip(again, (loss, aux)):
+        assert_bits_equal(a, b, "forward run twice")
+    for a, b in zip(ev_loss.event_loss_backward_kernel(
+            grad, *images, contrast, aux[2], **kw), got):
+        assert_bits_equal(a, b, "backward run twice")
+    assert (ev_loss.event_loss_forward_kernel.launches,
+            ev_loss.event_loss_backward_kernel.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", LOSS_SIZES, ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("deblur", [False, True],
+                         ids=["event", "event_deblur"])
+@pytest.mark.parametrize("gt_channels", [1, 3], ids=["gt1", "gt3"])
+def test_event_loss_kernels_match_plain_versions(size, deblur, gt_channels):
+    """The forward and backward loss kernels against
+    ``event_mixture_loss_plain`` and ``event_loss_backward_plain``
+    (``check_loss_kernels``) at the gradient 1 and a seeded one; at the
+    odd size also on unaligned images (the kernels' scalar path)."""
+    need_card()
+    h, w = size
+    for offset in (False, True) if (h * w) % 4 else (False,):
+        *images, contrast, blurry = loss_inputs(h, w, 7, gt_channels, deblur,
+                                                "cuda", offset)
+        kw = dict(LOSS_SETTINGS, blurry_main=blurry)
+        for grad in (1.0, -0.37):
+            check_loss_kernels(images, contrast, kw,
+                               torch.tensor(grad, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deblur", [False, True],
+                         ids=["event", "event_deblur"])
+def test_event_loss_kernels_in_a_cuda_graph(deblur):
+    """``event_mixture_loss`` (``EventLoss``: both kernels) and its
+    gradients captured once at 1080p, then replayed over other images
+    copied into the captured inputs: each replay equals the plain versions
+    on those images (the coverage and the image gradients bit for bit, the
+    loss and the contrast's gradient within rtol 1e-5), and the kernels
+    launch in the warm-up and the capture only."""
+    need_card()
+    h, w = LOSS_SIZES[0]
+    *images, contrast, blurry = loss_inputs(h, w, 1, 3, deblur, "cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (*images[:3], contrast)]
+    gts = [t.clone() for t in images[3:]]
+    blur = None if blurry is None else blurry.clone()
+
+    def step():
+        loss, aux = ev_loss.event_mixture_loss(*leaves[:3], *gts, leaves[3],
+                                               blurry_main=blur,
+                                               **LOSS_SETTINGS)
+        return loss, aux, torch.autograd.grad(loss, leaves)
+
+    launches = (ev_loss.event_loss_forward_kernel.launches,
+                ev_loss.event_loss_backward_kernel.launches)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss, aux, grads = step()
+    for seed in (2, 3):
+        *images, contrast, blurry = loss_inputs(h, w, seed, 3, deblur, "cuda")
+        with torch.no_grad():
+            for dst, src in zip((*leaves, *gts), (*images[:3], contrast,
+                                                  *images[3:])):
+                dst.copy_(src)
+            if deblur:
+                blur.copy_(blurry)
+        graph.replay()
+        kw = dict(LOSS_SETTINGS, blurry_main=blurry)
+        want_loss, want_aux = ev_loss.event_mixture_loss_plain(
+            *images, contrast, **kw)
+        want = ev_loss.event_loss_backward_plain(
+            torch.ones((), device="cuda"), *images, contrast,
+            want_aux["coverage"], **kw)
+        assert_bits_equal(aux["coverage"], want_aux["coverage"])
+        assert_loss_close(loss, want_loss, "loss")
+        for a, b in zip(grads[:3], want[:3]):
+            assert_bits_equal(a, b)
+        assert_loss_close(grads[3], want[3], "contrast")
+    assert (ev_loss.event_loss_forward_kernel.launches,
+            ev_loss.event_loss_backward_kernel.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.gpu
+def test_event_loss_logf_matches_torch_log_on_every_float():
+    """The loss kernels' ``logf`` (``csrc/loss.cu`` under ``-fmad=false``,
+    through its test hook) against PyTorch's ``torch.log`` on the card, bit
+    for bit, on every float32 bit pattern from +0 up: the subnormals, the
+    normals (1e-8 + x and the values near 1 among them), +inf, and the NaNs
+    (NaN from both); then on a seeded sample of negative floats (NaN, and
+    -inf at -0)."""
+    need_card()
+    chunk, top = 1 << 27, 1 << 31
+    for start in range(0, top, chunk):
+        bits = torch.arange(start, min(start + chunk, top), device="cuda")
+        x = bits.to(torch.int32).view(torch.float32)
+        del bits
+        y = torch.empty_like(x)
+        kernels.launch("loss", "e3d_event_loss_logf", x.data_ptr(),
+                       y.data_ptr(), x.numel())
+        assert_bits_equal(y, torch.log(x), f"from bit pattern {start:#x}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = -torch.rand(1 << 20, generator=gen, device="cuda") * 1e3
+    x[0] = -0.0
+    y = torch.empty_like(x)
+    kernels.launch("loss", "e3d_event_loss_logf", x.data_ptr(), y.data_ptr(),
+                   x.numel())
+    assert_bits_equal(y, torch.log(x), "negative floats")
 
 
 @pytest.mark.gpu
