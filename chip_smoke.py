@@ -39,18 +39,21 @@ Phases (any failed check exits non-zero; nothing is caught):
    --gray --event`` for 6 iterations with densification at 3 and 6
    (threshold 0, so both passes clone and split every Gaussian and the
    instance cap is re-measured), then ``cli.render`` on the saved PLY (the
-   train and test sets).  Every kernel (the preprocess forward and
-   backward, K1-K6 and the binning's table and depth offsets kernels) must
-   launch 3 times per step, the Adam kernel once (the six leaves and the
+   train and test sets).  Every kernel of a render (K1-K6 and the
+   binning's table and depth offsets kernels) must launch 3 times per
+   step, the preprocess forward and backward once (one launch for the
+   step's three views), the Adam kernel once (the six leaves and the
    contrast in one launch) and the loss kernels once each (forward and
    backward, ``csrc/loss.cu``), the forward preprocess once more per
    instance-cap probe (``train/loop.probe_instance_count``, counted), the
    alive count must grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
-   cap): the forward preprocess (bit-equal), the backward preprocess on
-   seeded upstream gradients (2e-4 of each gradient's max, bit-identical
-   run twice), K1's stop index, K2's rows (1e-5 of the max) and K3
+   cap): the forward preprocess over the step's three 1080p views
+   (bit-equal), the backward preprocess there on seeded upstream gradients
+   (2e-4 of each gradient's max, the feature gradients bit-equal,
+   bit-identical run twice), with both kernels' registers and resident
+   blocks per SM, K1's stop index, K2's rows (1e-5 of the max) and K3
    (bit-equal) against their plain versions on the main view, and K2 run
    twice giving bit-identical rows; the table kernel, the depth offsets kernel, K4, K5,
    K6, the fused counting sort and the whole ``Binning`` there exactly (and
@@ -115,7 +118,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    NCCL and a 1 × 1 mesh; ``train_loop_sharded`` (exact mode) and
    ``train_loop`` from the same state for 6 event steps, densifying at 3
    and 6 as phase 6 does: each render kernel launched 3 times per step in
-   both, the loss histories within rel 1e-5 and the same alive count;
+   both (the preprocess kernels once a step in ``train_loop``, 3 times in
+   the sharded step, which projects each render on its own), the loss
+   histories within rel 1e-5 and the same alive count;
    each loop's host clock per step and peak device memory; one step of
    each (``train_step``, the sharded step) at the trained state timed in
    turns, 10 steps a turn, with its peak memory; the profiler's
@@ -157,8 +162,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    11-60, the device ms per replayed step (CUDA events around 10 replays,
    5 windows), the peak memory of both loops and what the fused steps
    reserve.  One step's CUDA graph read back (``graph_kernels``) holds the
-   Adam kernel and each loss kernel once; the Adam kernel captured in a
-   CUDA graph at the trained state equals its plain version bit for bit,
+   Adam kernel, each loss kernel and each preprocess kernel once; the Adam
+   kernel captured in a CUDA graph at the trained state equals its plain
+   version bit for bit,
    and so do the loss kernels as phase 7 holds them, replayed from a
    graph.  Then a graph
    swap: 12 iterations densifying at 5 and 10 with capacity growth (the instance cap re-measured upward), captured again
@@ -171,13 +177,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    2,097,152 slots (the JAX package's largest working point), the event
    step eager (1 + 3 steps) and graphed (``fused_steps`` 10: warm-up,
    capture, 1 + 3 replays), each on the scene built anew; every kernel
-   launched 3 × 4 + 3 × 3 times (Adam and the loss kernels 4 + 3) with the
-   counts set to 0
+   launched 3 × 4 + 3 × 3 times (Adam, the loss and the preprocess kernels
+   4 + 3) with the counts set to 0
    before, the same loss from both, state GiB, instance cap, ms per step,
    device ms per replay, capture ms, peak and reserved memory.  At that
    state's main view (camera 1) each kernel of the path against its plain
    version at phases 4 and 7's tolerances (the preprocess forward and
-   backward, the table and depth offsets kernels, K4, K5, K6, the
+   backward over the step's three views, the table and depth offsets
+   kernels, K4, K5, K6, the
    counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal, the Adam
    kernel bit-equal, also in a CUDA graph, the loss kernels as in phase 7,
@@ -201,7 +208,9 @@ For K1 and K2 the script prints their time beside the earlier design's
 (pixel, instance) pairs (the work the function needs) and the earlier
 bound over the visited pairs, the pairs they evaluate after the warp cull
 (counted by the plain versions' mirror of it), and their registers and
-resident blocks per SM.
+resident blocks per SM; the preprocess kernels' rows carry their
+registers and resident blocks per SM too (``registers``,
+``blocks_per_sm``), and their bound counts the step's three views.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line of per-kernel numbers (phase 12 adds one row per probe build,
@@ -251,10 +260,11 @@ EARLIER_K2_PAIR_OPS = ((10, 0), (12, 1), (53, 4))
 EARLIER_MS = {"K1 composite_forward": "0.596-0.603",
               "K2 composite_backward": "1.242-1.253"}
 CUDA_BASELINE_PIX_S = 30e6  # bench.py's yardstick for vs_baseline
-# the JAX code the preprocess kernels replace: the projection and the SH
-# colours, which XLA fuses (no Pallas kernel)
+# the JAX code the preprocess kernels replace: the projection, the SH
+# colours and the train step's SH mask, which XLA fuses (no Pallas kernel)
 PREPROCESS_REPLACES = ", ".join(("event3dgs_tpu/ops/projection.py:51",
-                                 "event3dgs_tpu/ops/render.py:49"))
+                                 "event3dgs_tpu/ops/render.py:49",
+                                 "event3dgs_tpu/train/step.py:135"))
 # the JAX code the Adam kernel replaces: adam_update, which XLA fuses inside
 # the jitted train step (no Pallas kernel)
 ADAM_REPLACES = "event3dgs_tpu/models/optimizer.py:39"
@@ -639,55 +649,79 @@ def bits_differ(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
-def preprocess_check(what, act, cam, backward=False):
-    """The forward preprocess kernel against its plain version at one view
-    of the activated Gaussians ``act`` (SH degree 3): mean2d, depth, conic,
-    radius, valid and colours bit-equal.  With ``backward``, the backward
-    kernel on seeded upstream gradients, strided as the rasterizer hands
-    them over (slices of an [N, 9] tensor): each gradient within 2e-4 of
-    its max, and bit-identical when run twice.  Returns a namespace:
-    ``proj`` and ``colors`` (the kernel's), ``errs``, ``calls`` {kernel:
-    (its call, its plain version's)}."""
+def preprocess_check(what, act, dc, rest, cams, cmask=None, backward=False):
+    """The forward preprocess kernel against its plain version over the
+    views ``cams`` (one launch for all), on the activated Gaussians ``act``
+    and the feature leaves ``dc``, ``rest`` (SH degree 3) with the mask
+    ``cmask``: each view's mean2d, depth, conic, radius, valid and colours
+    bit-equal.  With ``backward``, the backward kernel on seeded upstream
+    gradients, strided as the rasterizer hands them over (slices of an [N,
+    9] tensor per view): the gradients of the means, scales and rotations
+    within 2e-4 of their max, the two leaves' bit for bit, and all
+    bit-identical when run twice.  Prints each kernel's registers and
+    resident blocks per SM.  Returns a namespace: ``proj`` and ``colors``
+    (the kernel's, of the first view), ``errs``, ``calls`` {kernel: (its
+    call, its plain version's)}, ``bounds`` {kernel: (bytes, operations)}
+    over the views, ``occupancy`` {kernel: (registers, blocks per SM)}."""
     import types
 
     import torch
 
+    from event3dgs_tpu_torch.ops import kernels
     from event3dgs_tpu_torch.ops import preprocess as pre
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        preprocess_bytes,
+        preprocess_ops,
+    )
 
-    args = (act.means3d, act.scales, act.rotations, cam, 1.0, act.opacities,
-            act.features, 3)
+    n, k, views = act.means3d.shape[0], 1 + rest.shape[1], len(cams)
+    args = (act.means3d, act.scales, act.rotations, cams, 1.0, act.opacities,
+            dc, rest, cmask, 3)
     with torch.no_grad():
-        pk, ck = pre.preprocess_forward_kernel(*args)
-        pp, cp = pre.preprocess_forward_plain(*args)
-    ulps = {f: bits_differ(a, b) for f, a, b in zip(
-        (*pk._fields, "colors"), (*pk, ck), (*pp, cp))}
+        got = pre.preprocess_forward_kernel(*args)
+        want = pre.preprocess_forward_plain(*args)
+    ulps = {f"{f}[{v}]": bits_differ(a, b)
+            for v, ((pk, ck), (pp, cp)) in enumerate(zip(got, want))
+            for f, a, b in zip((*pk._fields, "colors"), (*pk, ck), (*pp, cp))}
     check(not any(ulps.values()), f"{what}: the forward preprocess kernel "
           f"differs from its plain version (ulps by output: {ulps})")
-    n_valid = int(pk.valid.sum())
+    del want
+    n_valid = [int(pk.valid.sum()) for pk, _ in got]
     errs = {"preprocess_forward": 0.0}
     calls = {"preprocess_forward": (
         lambda: pre.preprocess_forward_kernel(*args),
         lambda: pre.preprocess_forward_plain(*args))}
-    text = (f"forward preprocess bit-equal to its plain version ({n_valid} "
-            f"of {pk.valid.numel()} valid)")
+    bounds = {"preprocess_forward": (
+        preprocess_bytes(n, k, 3, views=views),
+        preprocess_ops(n, 3, views=views))}
+    occupancy = {"preprocess_forward": kernels.occupancy(
+        "preprocess", "e3d_preprocess_occupancy", 0, 3, k)}
+    text = (f"forward preprocess over {views} view{'s' * (views > 1)} "
+            f"bit-equal to its plain version ({n_valid} of {n} valid)")
     if backward:
         g = torch.Generator().manual_seed(11)
-        rows = (torch.rand(pk.valid.numel(), 9, generator=g) - 0.5).to(
-            act.means3d.device)
-        bargs = (act.means3d, act.scales, act.rotations, cam, pk.valid,
-                 rows[:, 0:2], rows[:, 2:5], rows[:, 6:9], 1.0, act.features,
-                 3)
+        rows = [(torch.rand(n, 9, generator=g) - 0.5).to(act.means3d.device)
+                for _ in cams]
+        bargs = (act.means3d, act.scales, act.rotations, cams,
+                 [pk.valid for pk, _ in got], [r[:, 0:2] for r in rows],
+                 [r[:, 2:5] for r in rows], [r[:, 6:9] for r in rows], 1.0,
+                 dc, rest, cmask, 3)
         gk = pre.preprocess_backward_kernel(*bargs)
         gp = pre.preprocess_backward_plain(*bargs)
         worst, err = 0.0, 0.0
-        for name, a, b in zip(("means", "scales", "rotations", "features"),
-                              gk, gp):
+        for name, a, b in zip(("means", "scales", "rotations", "features_dc",
+                               "features_rest"), gk, gp):
             top = b.abs().max().item()
             e = (a - b).abs().max().item()
+            if name.startswith("features"):
+                check(bits_differ(a, b.contiguous()) == 0, f"{what}: the "
+                      f"backward preprocess kernel's {name} gradient differs "
+                      f"from its plain version by {e:.3g} (max {top:.3g})")
             check(bool(torch.isfinite(a).all()) and e <= 2e-4 * top,
                   f"{what}: the backward preprocess kernel's {name} gradient "
                   f"differs from its plain version by {e:.3g} (max {top:.3g})")
             worst, err = max(worst, e / max(top, 1e-30)), max(err, e)
+        del gp
         again = pre.preprocess_backward_kernel(*bargs)
         check(all(torch.equal(a, b) for a, b in zip(gk, again)),
               f"{what}: the backward preprocess kernel run twice differs")
@@ -695,10 +729,47 @@ def preprocess_check(what, act, cam, backward=False):
         calls["preprocess_backward"] = (
             lambda: pre.preprocess_backward_kernel(*bargs),
             lambda: pre.preprocess_backward_plain(*bargs))
-        text += (f"; backward within {worst:.3g} of each gradient's max, "
-                 "bit-identical run twice")
+        bounds["preprocess_backward"] = (
+            preprocess_bytes(n, k, 3, backward=True, views=views),
+            preprocess_ops(n, 3, backward=True, views=views))
+        occupancy["preprocess_backward"] = kernels.occupancy(
+            "preprocess", "e3d_preprocess_occupancy", 1, 3, k)
+        text += (f"; backward within {worst:.3g} of each gradient's max, the "
+                 "feature gradients bit-equal, bit-identical run twice")
+    text += "; " + ", ".join(f"{name} {r} registers, {b} blocks per SM"
+                             for name, (r, b) in occupancy.items())
     print(f"{what}: {text}")
-    return types.SimpleNamespace(proj=pk, colors=ck, errs=errs, calls=calls)
+    return types.SimpleNamespace(proj=got[0][0], colors=got[0][1], errs=errs,
+                                 calls=calls, bounds=bounds,
+                                 occupancy=occupancy)
+
+
+def step_preprocess_check(what, state, data, idx):
+    """``preprocess_check`` (backward too) as the event step calls the
+    kernels: its three views (main ``idx[0]``, event pair ``idx[1]`` →
+    ``idx[2]``), the state's feature leaves, the mask as a device tensor
+    with all 16 coefficients on (the degree the step reaches after 3,000
+    iterations)."""
+    import torch
+
+    from event3dgs_tpu_torch.models import activated
+
+    params = state.params
+    cams = [data.cameras[idx[0]], data.event_cameras[idx[1]],
+            data.event_cameras[idx[2]]]
+    cmask = torch.ones(params.sh_coeffs, device=params.device)
+    return preprocess_check(what, activated(params, features=False),
+                            params.features_dc, params.features_rest, cams,
+                            cmask, backward=True)
+
+
+def occupancy_rows(rows, occupancy):
+    """Add each preprocess kernel's registers and resident blocks per SM
+    to its JSON row."""
+    for name, (regs, blocks) in occupancy.items():
+        if name in rows:
+            rows[name]["registers"] = regs
+            rows[name]["blocks_per_sm"] = blocks
 
 
 def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
@@ -1151,18 +1222,23 @@ def count_launches(fn):
 
 
 def check_launches(what, launches, renders, backward, projections=0,
-                   steps=0, event=True):
+                   steps=0, event=True, shared=True):
     """Each kernel launched once per render, the backward kernels once per
     differentiated render (``backward``), the Adam kernel once per train
     step (``steps``), the loss kernels once per train step of an event mode
     (``event``: the steps' mode is one), and the forward preprocess once
     more per instance-cap probe and per projection outside a render
-    (``projections``)."""
+    (``projections``).  A train step's renders (3 in an event mode, 1
+    else) share one launch of each preprocess kernel, 2 a step (with
+    ``shared``; the sharded step projects each render on its own)."""
+    shared = (3 - 1 if event and shared else 0) * steps
     for k, n in launches.items():
         if k == PROBES:
             continue
         want = (steps if k == ADAM else (steps if event else 0) if k in LOSS
                 else backward if k in BACKWARD else renders)
+        if k.startswith("preprocess"):
+            want -= shared
         if k == "preprocess_forward":
             want += launches[PROBES] + projections
         check(n == want, f"{what}: {k} launched {n} times, not {want} "
@@ -1236,12 +1312,15 @@ def render_path(root: str, dev):
                               device=dev)
     cam = cams[0]
     act = activated(params)
-    pre = preprocess_check("view 0", act, cam)
+    # a render reads its [N, K, 3] features as two strided views of them
+    pre = preprocess_check("view 0", act, act.features[:, :1],
+                           act.features[:, 1:], [cam])
     proj, colors = pre.proj, pre.colors
     v = view_kernels("view 0", proj, colors, act.opacities,
                      rt.default_instance_cap(N_GAUSSIANS), dev)
     v.errs.update(pre.errs)
     v.calls.update(pre.calls)
+    v.bounds.update(pre.bounds)
 
     bg = torch.zeros(3, device=dev)
     view = (act.means3d, act.features, act.opacities, act.scales,
@@ -1314,6 +1393,7 @@ def render_path(root: str, dev):
         "K6 stable_tile_rank": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:88"),
     }
     rows = kernel_rows(timings, v.bounds, meta, v.errs)
+    occupancy_rows(rows, pre.occupancy)
     composite_report("K1 composite_forward", rows["K1 composite_forward"],
                      v.pairs, v.bounds["K1 composite_forward"][0],
                      "rasterize_fwd", "e3d_composite_forward_occupancy")
@@ -1913,7 +1993,7 @@ def sharded_path(root: str, dev):
                                ("train_loop_sharded", s_launches)):
             check_launches(f"{what}, {TRAIN_ITERS} event steps", launches,
                            3 * TRAIN_ITERS, 3 * TRAIN_ITERS,
-                           steps=TRAIN_ITERS)
+                           steps=TRAIN_ITERS, shared=what == "train_loop")
         hp, hs = plain.history, sharded.history
         check(len(hs) == len(hp) == TRAIN_ITERS and all(
             math.isfinite(b) and abs(a - b) <= 1e-5 * abs(b) for a, b in zip(hs, hp)),
@@ -2086,14 +2166,16 @@ def train_kernels(dev):
     print(f"bench training state: {N_GAUSSIANS} Gaussians, 4 views at "
           f"{WIDTH}x{HEIGHT}, measured instance cap {icap}")
 
-    # 7. every kernel of the main view's path against its plain version
-    cam = data.cameras[idx[0]]
-    act = activated(state.params)
-    pre = preprocess_check("main view", act, cam, backward=True)
-    v = view_kernels("main view", pre.proj, pre.colors, act.opacities, icap,
-                     dev, backward=True)
+    # 7. every kernel of the main view's path against its plain version;
+    # the preprocess over the step's three views, all 16 coefficients on
+    pre = step_preprocess_check("phase 7, the step's three views", state,
+                                data, idx)
+    v = view_kernels("main view", pre.proj, pre.colors,
+                     activated(state.params).opacities, icap, dev,
+                     backward=True)
     v.errs.update(pre.errs)
     v.calls.update(pre.calls)
+    v.bounds.update(pre.bounds)
 
     # one step's gradients: kernel path against the all-plain path
     grads = {}
@@ -2184,6 +2266,8 @@ def train_kernels(dev):
     v.errs.update(loss_errs)
     v.bounds.update(loss_bounds)
     timings = {
+        # over the step's three views: the rows of both preprocess kernels
+        "preprocess_forward": (*v.calls["preprocess_forward"], None, 50),
         "preprocess_backward": (*v.calls["preprocess_backward"], None, 50),
         "K2 composite_backward": (*v.calls["K2 composite_backward"], None, 20),
         "K3 segment_sums": (
@@ -2194,6 +2278,7 @@ def train_kernels(dev):
         **{k: (*loss_calls[k], None, 50) for k in LOSS},
     }
     meta = {
+        "preprocess_forward": ("preprocess.cu", PREPROCESS_REPLACES),
         "preprocess_backward": ("preprocess.cu", PREPROCESS_REPLACES),
         "K2 composite_backward": ("rasterize_bwd.cu",
                                   "event3dgs_tpu/ops/rasterize_tiled.py:386"),
@@ -2203,6 +2288,7 @@ def train_kernels(dev):
     }
     errs = {k: v.errs[k] for k in timings}
     rows = kernel_rows(timings, v.bounds, meta, errs)
+    occupancy_rows(rows, pre.occupancy)
     rows["K3 segment_sums"].update(k3_in_order("main view", b, rows_k))
     composite_report("K2 composite_backward", rows["K2 composite_backward"],
                      v.pairs, v.bounds["K2 composite_backward"][0],
@@ -2215,7 +2301,8 @@ def densify_growth(state, data, idx, bg, mode="event", extent=3.0):
     """Densify the timed state with capacity growth (its 100k slots are all
     alive, so any candidate grows them), then one step of ``mode`` at a
     re-measured instance cap: every kernel launches once per render (3 in
-    the event modes), Adam once, and the loss is finite.  Threshold 0
+    the event modes), the preprocess kernels and Adam once, and the loss is
+    finite.  Threshold 0
     makes every alive Gaussian a candidate: the event pair's coverage is 1 on bench.py's
     random images, so the main view's gradient, the densify statistic, is
     exactly 0.  ``extent``: the scene extent and ``spatial_lr_scale``
@@ -2601,18 +2688,22 @@ def fused_path(root: str, dev):
         replay_ms.append(start.elapsed_time(end) / FUSED_STEPS)
     check(bool(torch.isfinite(runner.slots.history).all()),
           "non-finite loss in a timed replay")
-    # what one captured step holds: the Adam kernel once, and no copy of a
-    # parameter or moment back into the state after it (only the densify
-    # stats and the metrics are copied)
+    # what one captured step holds: the Adam kernel, each loss kernel and
+    # each preprocess kernel (the three views in one launch) once, and no
+    # copy of a parameter or moment back into the state after it (only the
+    # densify stats and the metrics are copied)
     nodes = kernel_timing.graph_kernels(
         lambda: (runner.cursor.zero_(), runner._call()))
-    for fn in ("adam_update_kernel", *(KERNEL_FUNCTIONS[k][0] for k in LOSS)):
+    for fn in ("adam_update_kernel", *(KERNEL_FUNCTIONS[k][0] for k in LOSS),
+               "preprocess_forward_kernel", "preprocess_backward_kernel"):
         check(nodes.get(fn) == 1, f"phase 13: {nodes.get(fn)} {fn} in one "
               "captured step")
     print(f"phase 13: one captured step holds {sum(nodes.values())} nodes: "
           f"{nodes.get('adam_update_kernel')} Adam kernel, "
           f"{nodes.get('event_loss_forward_kernel')} + "
           f"{nodes.get('event_loss_backward_kernel')} loss kernels, "
+          f"{nodes.get('preprocess_forward_kernel')} + "
+          f"{nodes.get('preprocess_backward_kernel')} preprocess kernels, "
           f"{nodes.get('memcpy', 0)} copies, {nodes.get('memset', 0)} memsets")
     runner.release()
     # the Adam kernel in a CUDA graph at the trained state (count 60)
@@ -2721,13 +2812,14 @@ def scale_kernel_rows(state, data, icap, dev):
     )
 
     what = f"phase 14, {SCALE_CAPACITY} slots, main view"
-    cam = data.cameras[1]
-    act = activated(state.params)
-    pre = preprocess_check(what, act, cam, backward=True)
-    v = view_kernels(what, pre.proj, pre.colors, act.opacities, icap, dev,
+    pre = step_preprocess_check(f"phase 14, {SCALE_CAPACITY} slots, the "
+                                "step's three views", state, data, (1, 1, 2))
+    v = view_kernels(what, pre.proj, pre.colors,
+                     activated(state.params).opacities, icap, dev,
                      backward=True)
     v.errs.update(pre.errs)
     v.calls.update(pre.calls)
+    v.bounds.update(pre.bounds)
     out = {}
     for name, (call, plain) in v.calls.items():
         ms = graph_ms(call)
@@ -2738,6 +2830,7 @@ def scale_kernel_rows(state, data, icap, dev):
         plain_txt = ""
         if name in pre.calls:
             out[name]["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+            out[name]["views"] = 3
             plain_txt = f", plain {out[name]['plain_ms']:.4f} ms"
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
               f"({by}), {ms / bound:.2f}x{plain_txt}")

@@ -63,17 +63,22 @@ class ActivatedGaussians(NamedTuple):
     """Activated parameters as consumed by the renderer."""
 
     means3d: torch.Tensor  # [C, 3]
-    features: torch.Tensor  # [C, K, 3]
+    features: torch.Tensor | None  # [C, K, 3]
     opacities: torch.Tensor  # [C] (zeroed for dead slots)
     scales: torch.Tensor  # [C, 3]
     rotations: torch.Tensor  # [C, 4]
 
 
-def activated(params: GaussianParams) -> ActivatedGaussians:
-    """Apply activations; dead slots get opacity 0 so they never render."""
+def activated(params: GaussianParams,
+              features: bool = True) -> ActivatedGaussians:
+    """Apply activations; dead slots get opacity 0 so they never render.
+    Without ``features`` the [C, K, 3] concatenation of the two feature
+    leaves is not made (None): the train step's preprocess reads the
+    leaves themselves."""
     return ActivatedGaussians(
         means3d=params.xyz,
-        features=torch.cat([params.features_dc, params.features_rest], dim=1),
+        features=torch.cat([params.features_dc, params.features_rest], dim=1)
+        if features else None,
         opacities=torch.sigmoid(params.opacity[:, 0]) * params.alive,
         scales=torch.exp(params.scaling),
         rotations=params.rotation,

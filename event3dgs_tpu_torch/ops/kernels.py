@@ -55,22 +55,28 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # SM) of their kernel
 SIGNATURES = {
     "preprocess": {
-        # means, scales, rotations, opacities (or null), features (or
-        # null), K, SH degree (-1: no features), world_view, full_proj,
-        # camera_center, tan_fovx, tan_fovy, n, width, height,
-        # scaling_modifier, mean2d_out, depth_out, conic_out, radius_out,
-        # valid_out, colors_out (or null), stream
-        "e3d_preprocess_forward": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                                   _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                                   _P],
-        # means, scales, rotations, valid, features (or null), K, SH degree,
-        # world_view, full_proj, camera_center, tan_fovx, tan_fovy, n,
-        # width, height, scaling_modifier, then the gradients of mean2d,
-        # conic and colors (each pointer or null, row stride), g_means_out,
-        # g_scales_out, g_rotations_out, g_features_out (or null), stream
-        "e3d_preprocess_backward": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P,
-                                    _P, _P, _I, _I, _I, _F, _P, _I, _P, _I,
-                                    _P, _I, _P, _P, _P, _P, _P],
+        # means, scales, rotations, opacities (or null), features_dc (or
+        # null: degree -1, projection only) and its row stride (floats),
+        # features_rest and its row stride, K, the [K] mask (or null), SH
+        # degree, n, scaling_modifier, views, per view 11 pointers
+        # (world_view, full_proj, camera_center, tan_fovx, tan_fovy,
+        # mean2d_out, depth_out, conic_out, radius_out, valid_out,
+        # colors_out or null), per view 2 ints (width, height), stream
+        "e3d_preprocess_forward": [_P, _P, _P, _P, _P, _L, _P, _L, _I, _P,
+                                   _I, _I, _F, _I, _P, _P, _P],
+        # means, scales, rotations, features_dc, its row stride,
+        # features_rest, its row stride, K, mask, SH degree, n,
+        # scaling_modifier, views, per view 9 pointers (world_view,
+        # full_proj, camera_center, tan_fovx, tan_fovy, valid, the
+        # gradients of mean2d, conic and colors, each or null), per view 5
+        # ints (width, height, the gradients' row strides), g_means_out,
+        # g_scales_out, g_rotations_out, the [N, K, 3] g_features_out (both
+        # leaves' gradients) and its row stride, stream
+        "e3d_preprocess_backward": [_P, _P, _P, _P, _L, _P, _L, _I, _P, _I,
+                                    _I, _F, _I, _P, _P, _P, _P, _P, _P, _L,
+                                    _P],
+        # registers, blocks per SM, backward (0 or 1), SH degree, K
+        "e3d_preprocess_occupancy": [_IP, _IP, _I, _I, _I],
     },
     "expand": {
         # mean2d, conic (or null), radius, valid, opacity (or null), depth,

@@ -1,5 +1,6 @@
-"""The per-Gaussian preprocess of a render: projection and SH colours,
-forward and backward, as two CUDA kernels (``csrc/preprocess.cu``).
+"""The per-Gaussian preprocess of a step's renders: projection and SH
+colours over the V views (1 to 3) it renders, forward and backward, as two
+CUDA kernels (``csrc/preprocess.cu``).
 
 The JAX package has no Pallas kernel here: ``project_gaussians``
 (``event3dgs_tpu/ops/projection.py``) and ``gaussian_colors``
@@ -7,24 +8,40 @@ The JAX package has no Pallas kernel here: ``project_gaussians``
 autodiff takes their gradients.  In plain PyTorch the same work is some 800
 launches a render and direction, so the port runs it as one forward and one
 backward kernel, the upstream CUDA rasterizer's ``preprocessCUDA`` /
-``BACKWARD::preprocess`` pair.
+``BACKWARD::preprocess`` pair, over all the views of a step at once.  The
+kernels read the feature leaves ``features_dc`` [N, 1, 3] and
+``features_rest`` [N, K-1, 3] where they lie and apply the step's [K] SH
+mask themselves, so the step builds no concatenated or masked features,
+and the backward writes the two leaves' gradient once, as one [N, K, 3]
+tensor, summed over the views.
 
-- :func:`preprocess_forward_plain` is the plain forward: the port's
-  :func:`~event3dgs_tpu_torch.ops.projection.project_gaussians` and
-  :func:`~event3dgs_tpu_torch.ops.render.gaussian_colors`.  The forward
-  kernel repeats their operations in their order, so on the card it equals
-  them bit for bit.
+- :func:`preprocess_forward_plain` is the plain forward: per camera the
+  port's :func:`~event3dgs_tpu_torch.ops.projection.project_gaussians` and
+  :func:`~event3dgs_tpu_torch.ops.render.gaussian_colors` on
+  ``concatenate(dc, rest) * cmask``.  The forward kernel repeats their
+  operations in their order, so on the card it equals them bit for bit.
 - :func:`preprocess_backward_plain` is the analytic backward in plain
-  tensor code, the backward kernel's formulas line for line.  A Gaussian
-  that is not ``valid`` gets a zero gradient (the rasterizers give it
-  none; autograd of the plain forward can give 0·inf = NaN there).
-- :class:`Preprocess` is the ``torch.autograd.Function`` around them and
-  :func:`preprocess` its entry: CPU tensors take the plain versions, CUDA
-  tensors the kernels, or the plain versions with ``plain=True``.  On CUDA
-  a failed build or launch raises; nothing falls back.
+  tensor code: :func:`view_backward_plain`, the backward kernel's formulas
+  line for line, at each view, the views' gradients added from the last
+  view to the first (as autograd adds those of renders made one after
+  another, so that a step's gradients equal the per-render step's bit for
+  bit), the features' then multiplied by the mask and split into dc and
+  rest.
+  A Gaussian that is not ``valid`` in a view gets a zero gradient from it
+  (the rasterizers give it none; autograd of the plain forward can give
+  0·inf = NaN there).
+- :class:`Preprocess` is the ``torch.autograd.Function`` around them;
+  :func:`preprocess_views` (V views, the feature leaves and the mask) and
+  :func:`preprocess` (one view, [N, K, 3] features, which the kernels read
+  as two strided views of themselves) are its entries.  CPU tensors take
+  the plain versions, CUDA tensors the kernels, or the plain versions with
+  ``plain=True``.  On CUDA a failed build or launch raises; nothing falls
+  back.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,22 +59,37 @@ from event3dgs_tpu_torch.ops.projection import (
 )
 
 MAX_COEFFS = 25  # SH degree 4: the kernels' widest feature row
+MAX_VIEWS = 3  # the views one launch takes: the event modes' three renders
 
 
-def preprocess_forward_plain(means3d, scales, rotations, camera: Camera,
+def masked_features(features_dc, features_rest, cmask=None):
+    """The [N, K, 3] features of the leaves, times the [K] mask where one is
+    given: what the kernels read (None without features)."""
+    if features_dc is None:
+        return None
+    features = torch.cat([features_dc, features_rest], dim=1)
+    return features if cmask is None else features * cmask[None, :, None]
+
+
+def preprocess_forward_plain(means3d, scales, rotations, cameras,
                              scaling_modifier: float = 1.0, opacities=None,
-                             features=None, sh_degree: int = 0):
-    """Plain PyTorch version of the forward kernel:
-    (:class:`ProjectedGaussians`, [N, 3] colours or None without
-    ``features``)."""
+                             features_dc=None, features_rest=None,
+                             cmask=None, sh_degree: int = 0):
+    """Plain PyTorch version of the forward kernel: per camera of
+    ``cameras``, (:class:`ProjectedGaussians`, [N, 3] colours or None
+    without features)."""
     from event3dgs_tpu_torch.ops.render import gaussian_colors
 
-    proj = project_gaussians(means3d, scales, rotations, camera,
-                             scaling_modifier=scaling_modifier,
-                             opacities=opacities)
-    colors = None if features is None else gaussian_colors(
-        sh_degree, features, means3d, camera.camera_center)
-    return proj, colors
+    features = masked_features(features_dc, features_rest, cmask)
+    out = []
+    for cam in cameras:
+        proj = project_gaussians(means3d, scales, rotations, cam,
+                                 scaling_modifier=scaling_modifier,
+                                 opacities=opacities)
+        colors = None if features is None else gaussian_colors(
+            sh_degree, features, means3d, cam.camera_center)
+        out.append((proj, colors))
+    return out
 
 
 def sh_basis_grad(deg: int, dirs: torch.Tensor) -> torch.Tensor:
@@ -113,15 +145,16 @@ def sh_basis_grad(deg: int, dirs: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=1)
 
 
-def preprocess_backward_plain(means3d, scales, rotations, camera: Camera,
-                              valid, g_mean2d=None, g_conic=None,
-                              g_colors=None, scaling_modifier: float = 1.0,
-                              features=None, sh_degree: int = 0):
-    """Plain PyTorch version of the backward kernel: from the gradients of
-    mean2d [N, 2], conic [N, 3] and colours [N, 3] (None: zero), the
-    gradients of the means [N, 3], scales [N, 3], quaternions [N, 4] and
-    features ([N, K, 3], or None without ``features``); zero where
-    ``valid`` [N] is False.  The forward's intermediates are recomputed."""
+def view_backward_plain(means3d, scales, rotations, camera: Camera, valid,
+                        g_mean2d=None, g_conic=None, g_colors=None,
+                        scaling_modifier: float = 1.0, features=None,
+                        sh_degree: int = 0):
+    """The backward kernel's formulas at one view, in plain PyTorch: from
+    the gradients of mean2d [N, 2], conic [N, 3] and colours [N, 3] (None:
+    zero), the gradients of the means [N, 3], scales [N, 3], quaternions
+    [N, 4] and features ([N, K, 3], the features as the view saw them, or
+    None without ``features``); zero where ``valid`` [N] is False.  The
+    forward's intermediates are recomputed."""
     W, P = camera.world_view, camera.full_proj
     m0, m1, m2 = means3d[:, 0], means3d[:, 1], means3d[:, 2]
     zero = torch.zeros_like(m0)
@@ -258,6 +291,37 @@ def preprocess_backward_plain(means3d, scales, rotations, camera: Camera,
     return mask(g_means), mask(g_scales), mask(g_rotations), g_features
 
 
+def preprocess_backward_plain(means3d, scales, rotations, cameras, valid,
+                              g_mean2d, g_conic, g_colors,
+                              scaling_modifier: float = 1.0,
+                              features_dc=None, features_rest=None,
+                              cmask=None, sh_degree: int = 0):
+    """Plain PyTorch version of the backward kernel.  ``valid``,
+    ``g_mean2d``, ``g_conic`` and ``g_colors`` hold one entry per camera
+    of ``cameras`` (a gradient None: zero).  Returns the gradients of the
+    means, scales and quaternions and of the two feature leaves (None
+    without features): :func:`view_backward_plain` at each view, added
+    from the last view to the first, (g_2 + g_1) + g_0, the order in which
+    autograd adds the gradients of renders made one after another; the
+    features' sum then times the mask."""
+    features = masked_features(features_dc, features_rest, cmask)
+    total = None
+    for v, cam in reversed(list(enumerate(cameras))):
+        grads = view_backward_plain(
+            means3d, scales, rotations, cam, valid[v], g_mean2d[v],
+            g_conic[v], None if features is None else g_colors[v],
+            scaling_modifier, features, sh_degree)
+        total = list(grads) if total is None else [
+            None if a is None else a + b for a, b in zip(total, grads)]
+    g_means, g_scales, g_rotations, g_features = total
+    if g_features is None:
+        return g_means, g_scales, g_rotations, None, None
+    if cmask is not None:
+        g_features = g_features * cmask[None, :, None]
+    return (g_means, g_scales, g_rotations, g_features[:, :1],
+            g_features[:, 1:])
+
+
 def _check_camera(camera: Camera):
     """The camera's fields as the kernels read them: float32 CUDA tensors
     (world_view and full_proj [4, 4], camera_center [3], the tangents
@@ -266,109 +330,159 @@ def _check_camera(camera: Camera):
                      ("camera_center", (3,)), ("tan_fovx", ()),
                      ("tan_fovy", ())):
         kernels.check(getattr(camera, f), torch.float32, f"camera.{f}", shape)
-    return (camera.world_view.data_ptr(), camera.full_proj.data_ptr(),
+    return [camera.world_view.data_ptr(), camera.full_proj.data_ptr(),
             camera.camera_center.data_ptr(), camera.tan_fovx.data_ptr(),
-            camera.tan_fovy.data_ptr())
+            camera.tan_fovy.data_ptr()]
 
 
-def _check_features(features, n: int, sh_degree: int) -> int:
-    """K of [N, K, 3] features that a kernel of degree ``sh_degree`` reads."""
+def _check_views(cameras) -> int:
+    if not 1 <= len(cameras) <= MAX_VIEWS:
+        raise ValueError(f"expected 1 to {MAX_VIEWS} cameras, got "
+                         f"{len(cameras)}")
+    return len(cameras)
+
+
+def _rows(t, shape, what: str):
+    """(tensor, row stride in floats) of a float32 CUDA tensor of ``shape``
+    as a kernel reads it: where it lies when each row (its trailing
+    dimensions) is contiguous, as in a slice of a wider tensor (a feature
+    leaf of [N, K, 3] features, a gradient of the rasterizer's [N, 9]
+    sums), else a contiguous copy."""
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        raise ValueError(f"{what}: expected a float32 CUDA tensor, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    width = t[0].numel() if len(t) else 0
+    if len(t) and (not t[0].is_contiguous()
+                   or (len(t) > 1 and t.stride(0) < width)):
+        t = t.contiguous()
+    return t, max(t.stride(0), width)
+
+
+def _check_features(features_dc, features_rest, cmask, n: int,
+                    sh_degree: int):
+    """The feature leaves and mask as the kernels read them: (dc, its row
+    stride, rest, its row stride, K, mask pointer), or None without
+    features."""
+    if features_dc is None:
+        return None
     if not 0 <= sh_degree <= 4:
         raise ValueError(f"SH degree must be in [0, 4], got {sh_degree}")
-    kernels.check(features, torch.float32, "features")
-    k = features.shape[1] if features.dim() == 3 else 0
-    if features.shape != (n, k, 3) or not (
-            (sh_degree + 1) ** 2 <= k <= MAX_COEFFS):
-        raise ValueError(f"features: expected [{n}, K, 3] with "
-                         f"{(sh_degree + 1) ** 2} <= K <= {MAX_COEFFS}, got "
-                         f"{tuple(features.shape)}")
-    return k
+    k = 1 + (features_rest.shape[1] if features_rest.dim() == 3 else -1)
+    if not (sh_degree + 1) ** 2 <= k <= MAX_COEFFS:
+        raise ValueError(f"features: expected {(sh_degree + 1) ** 2} <= K <= "
+                         f"{MAX_COEFFS} coefficients, got {k}")
+    dc, ld_dc = _rows(features_dc, (n, 1, 3), "features_dc")
+    rest, ld_rest = _rows(features_rest, (n, k - 1, 3), "features_rest")
+    if cmask is not None:
+        kernels.check(cmask, torch.float32, "cmask", (k,))
+    return (dc, ld_dc, rest, ld_rest, k,
+            None if cmask is None else cmask.data_ptr())
 
 
-def preprocess_forward_kernel(means3d, scales, rotations, camera: Camera,
-                              scaling_modifier: float = 1.0, opacities=None,
-                              features=None, sh_degree: int = 0):
-    """Launch the forward kernel (``csrc/preprocess.cu``) on CUDA tensors."""
+def _check_gaussians(means3d, scales, rotations) -> int:
     n = means3d.shape[0]
     kernels.check(means3d, torch.float32, "means3d", (n, 3))
     kernels.check(scales, torch.float32, "scales", (n, 3))
     kernels.check(rotations, torch.float32, "rotations", (n, 4))
+    return n
+
+
+def preprocess_forward_kernel(means3d, scales, rotations, cameras,
+                              scaling_modifier: float = 1.0, opacities=None,
+                              features_dc=None, features_rest=None,
+                              cmask=None, sh_degree: int = 0):
+    """Launch the forward kernel (``csrc/preprocess.cu``) on CUDA tensors:
+    one launch for all of ``cameras``."""
+    n = _check_gaussians(means3d, scales, rotations)
+    views = _check_views(cameras)
     if opacities is not None:
         kernels.check(opacities, torch.float32, "opacities", (n,))
-    k = 0 if features is None else _check_features(features, n, sh_degree)
-    cam = _check_camera(camera)
+    feats = _check_features(features_dc, features_rest, cmask, n, sh_degree)
+    cams = [_check_camera(c) for c in cameras]
     dev = means3d.device
     empty = lambda *shape, dtype=torch.float32: torch.empty(
         *shape, dtype=dtype, device=dev)
-    proj = ProjectedGaussians(mean2d=empty(n, 2), depth=empty(n),
-                              conic=empty(n, 3), radius=empty(n),
-                              valid=empty(n, dtype=torch.bool))
-    colors = None if features is None else empty(n, 3)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    out = [(ProjectedGaussians(mean2d=empty(n, 2), depth=empty(n),
+                               conic=empty(n, 3), radius=empty(n),
+                               valid=empty(n, dtype=torch.bool)),
+            None if feats is None else empty(n, 3)) for _ in cameras]
+    ptrs = (ctypes.c_void_p * (11 * views))(*(x for cam, (proj, colors) in zip(
+        cams, out) for x in (*cam, *(t.data_ptr() for t in proj),
+                             None if colors is None else colors.data_ptr())))
+    sizes = (ctypes.c_int * (2 * views))(
+        *(s for c in cameras for s in (c.width, c.height)))
+    dc, ld_dc, rest, ld_rest, k, mask = feats or (None, 3, None, 0, 1, None)
     kernels.launch(
         "preprocess", "e3d_preprocess_forward",
         means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(),
-        ptr(opacities), ptr(features), k,
-        -1 if features is None else sh_degree, *cam, n, camera.width,
-        camera.height, float(scaling_modifier), *(t.data_ptr() for t in proj),
-        ptr(colors),
-    )
+        None if opacities is None else opacities.data_ptr(),
+        None if dc is None else dc.data_ptr(), ld_dc,
+        None if rest is None or k == 1 else rest.data_ptr(), ld_rest, k,
+        mask, -1 if feats is None else sh_degree, n, float(scaling_modifier),
+        views, ctypes.addressof(ptrs), ctypes.addressof(sizes))
     preprocess_forward_kernel.launches += 1
-    return proj, colors
+    return out
 
 
 preprocess_forward_kernel.launches = 0
 
 
-def _grad_rows(g, n: int, width: int, what: str):
-    """(pointer, row stride) of an [N, width] gradient whose rows may be
-    strided (slices of the rasterizer's [N, 9] sums); (None, 0) for None."""
-    if g is None:
-        return None, 0
-    if g.device.type != "cuda" or g.dtype != torch.float32:
-        raise ValueError(f"{what}: expected a float32 CUDA tensor, got "
-                         f"{g.dtype} on {g.device}")
-    if tuple(g.shape) != (n, width):
-        raise ValueError(f"{what}: expected shape {(n, width)}, got "
-                         f"{tuple(g.shape)}")
-    if g.stride(1) != 1 or (n > 1 and g.stride(0) < width):
-        g = g.contiguous()
-    return g.data_ptr(), max(g.stride(0), width)
-
-
-def preprocess_backward_kernel(means3d, scales, rotations, camera: Camera,
-                               valid, g_mean2d=None, g_conic=None,
-                               g_colors=None, scaling_modifier: float = 1.0,
-                               features=None, sh_degree: int = 0):
-    """Launch the backward kernel (``csrc/preprocess.cu``) on CUDA
-    tensors."""
-    n = means3d.shape[0]
-    kernels.check(means3d, torch.float32, "means3d", (n, 3))
-    kernels.check(scales, torch.float32, "scales", (n, 3))
-    kernels.check(rotations, torch.float32, "rotations", (n, 4))
-    kernels.check(valid, torch.bool, "valid", (n,))
-    k = 0 if features is None else _check_features(features, n, sh_degree)
-    cam = _check_camera(camera)
-    rows = [_grad_rows(g, n, w, what) for g, w, what in (
-        (g_mean2d, 2, "g_mean2d"), (g_conic, 3, "g_conic"),
-        (g_colors if features is not None else None, 3, "g_colors"))]
+def preprocess_backward_kernel(means3d, scales, rotations, cameras, valid,
+                               g_mean2d, g_conic, g_colors,
+                               scaling_modifier: float = 1.0,
+                               features_dc=None, features_rest=None,
+                               cmask=None, sh_degree: int = 0, out=None):
+    """Launch the backward kernel (``csrc/preprocess.cu``) on CUDA tensors:
+    one launch for all of ``cameras``, the arguments of
+    :func:`preprocess_backward_plain`.  The kernel writes both leaves'
+    gradients as one [N, K, 3] tensor, ``out`` where given (contiguous
+    float32), and returns its views ``out[:, :1]`` and ``out[:, 1:]``."""
+    n = _check_gaussians(means3d, scales, rotations)
+    views = _check_views(cameras)
+    feats = _check_features(features_dc, features_rest, cmask, n, sh_degree)
+    cams = [_check_camera(c) for c in cameras]
+    for v in range(views):
+        kernels.check(valid[v], torch.bool, f"valid[{v}]", (n,))
+    rows = [[(None, 0) if g[v] is None
+             else _rows(g[v], (n, w), f"{what}[{v}]") for g, w, what in (
+                 (g_mean2d, 2, "g_mean2d"), (g_conic, 3, "g_conic"),
+                 (g_colors if feats is not None else [None] * views, 3,
+                  "g_colors"))]
+            for v in range(views)]
     dev = means3d.device
     g_means = torch.empty(n, 3, device=dev)
     g_scales = torch.empty(n, 3, device=dev)
     g_rotations = torch.empty(n, 4, device=dev)
-    g_features = None if features is None else torch.empty_like(features)
+    g_dc = g_rest = None
+    k = 1 if feats is None else feats[4]
+    if feats is not None:
+        if out is None:
+            out = torch.empty(n, k, 3, device=dev)
+        else:
+            kernels.check(out, torch.float32, "out", (n, k, 3))
+        g_dc, g_rest = out[:, :1], out[:, 1:]
+    ptrs = (ctypes.c_void_p * (9 * views))(*(
+        x for v in range(views) for x in (
+            *cams[v], valid[v].data_ptr(),
+            *(None if t is None else t.data_ptr() for t, _ in rows[v]))))
+    ints = (ctypes.c_int * (5 * views))(*(
+        x for v in range(views) for x in (
+            cameras[v].width, cameras[v].height, *(r[1] for r in rows[v]))))
+    dc, ld_dc, rest, ld_rest, _, mask = feats or (None, 3, None, 0, 1, None)
     kernels.launch(
         "preprocess", "e3d_preprocess_backward",
         means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(),
-        valid.data_ptr(), None if features is None else features.data_ptr(),
-        k, -1 if features is None else sh_degree, *cam, n, camera.width,
-        camera.height, float(scaling_modifier),
-        *(x for r in rows for x in r), g_means.data_ptr(),
-        g_scales.data_ptr(), g_rotations.data_ptr(),
-        None if g_features is None else g_features.data_ptr(),
-    )
+        None if dc is None else dc.data_ptr(), ld_dc,
+        None if rest is None or k == 1 else rest.data_ptr(), ld_rest, k,
+        mask, -1 if feats is None else sh_degree, n, float(scaling_modifier),
+        views, ctypes.addressof(ptrs), ctypes.addressof(ints),
+        g_means.data_ptr(), g_scales.data_ptr(), g_rotations.data_ptr(),
+        None if out is None else out.data_ptr(), 3 * k)
     preprocess_backward_kernel.launches += 1
-    return g_means, g_scales, g_rotations, g_features
+    return g_means, g_scales, g_rotations, g_dc, g_rest
 
 
 preprocess_backward_kernel.launches = 0
@@ -391,49 +505,73 @@ def preprocess_backward(*args, **kw):
 
 
 class Preprocess(torch.autograd.Function):
-    """Projection and SH colours, forward and backward.
+    """Projection and SH colours over V views, forward and backward.
 
-    ``forward(means3d, scales, rotations, opacities, features, camera,
-    scaling_modifier, sh_degree, plain)`` → (mean2d, depth, conic, radius,
-    valid[, colours]); gradients flow to the means, scales, rotations and
-    features, none to the opacities, depth, radius and valid.
+    ``forward(means3d, scales, rotations, opacities, features, features_dc,
+    features_rest, cmask, cameras, scaling_modifier, sh_degree, plain)``
+    takes the features as one [N, K, 3] tensor (``features``) or as the two
+    leaves, and returns per view (mean2d, depth, conic, radius, valid[,
+    colours]), one flat tuple; gradients flow to the means, scales,
+    rotations and features, none to the opacities, the mask, depth, radius
+    and valid.  One launch of each kernel serves all the views.
     """
 
     @staticmethod
-    def forward(ctx, means3d, scales, rotations, opacities, features, camera,
-                scaling_modifier, sh_degree, plain):
+    def forward(ctx, means3d, scales, rotations, opacities, features,
+                features_dc, features_rest, cmask, cameras, scaling_modifier,
+                sh_degree, plain):
+        if features is not None:
+            features_dc, features_rest = features[:, :1], features[:, 1:]
         fwd = preprocess_forward_plain if plain else preprocess_forward
-        proj, colors = fwd(means3d, scales, rotations, camera,
-                           scaling_modifier, opacities, features, sh_degree)
-        ctx.mark_non_differentiable(proj.depth, proj.radius, proj.valid)
+        views = fwd(means3d, scales, rotations, cameras, scaling_modifier,
+                    opacities, features_dc, features_rest, cmask, sh_degree)
+        ctx.mark_non_differentiable(*(t for proj, _ in views for t in (
+            proj.depth, proj.radius, proj.valid)))
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(means3d, scales, rotations, features,
-                              proj.valid)
-        ctx.camera, ctx.plain = camera, plain
+        saved = (features,) if features is not None else (features_dc,
+                                                          features_rest)
+        ctx.save_for_backward(means3d, scales, rotations, cmask, *saved,
+                              *(proj.valid for proj, _ in views))
+        ctx.cameras, ctx.plain = cameras, plain
+        ctx.whole = features is not None
         ctx.scaling_modifier, ctx.sh_degree = scaling_modifier, sh_degree
-        return tuple(proj) if colors is None else (*proj, colors)
+        return tuple(t for proj, colors in views for t in (
+            (*proj,) if colors is None else (*proj, colors)))
 
     @staticmethod
-    def backward(ctx, g_mean2d, g_depth, g_conic, g_radius, g_valid,
-                 g_colors=None):
-        means3d, scales, rotations, features, valid = ctx.saved_tensors
-        bwd = preprocess_backward_plain if ctx.plain else preprocess_backward
-        g_means, g_scales, g_rotations, g_features = bwd(
-            means3d, scales, rotations, ctx.camera, valid, g_mean2d, g_conic,
-            g_colors, ctx.scaling_modifier, features, ctx.sh_degree)
-        return (g_means, g_scales, g_rotations, None, g_features, None, None,
-                None, None)
+    def backward(ctx, *grads):
+        means3d, scales, rotations, cmask, *rest = ctx.saved_tensors
+        views = len(ctx.cameras)
+        valid = rest[-views:]
+        if ctx.whole:
+            features = rest[0]
+            dc, fr = features[:, :1], features[:, 1:]
+        else:
+            dc, fr = rest[0], rest[1]
+        per = len(grads) // views
+        g = [grads[v * per:(v + 1) * per] for v in range(views)]
+        args = (means3d, scales, rotations, ctx.cameras, valid,
+                [x[0] for x in g], [x[2] for x in g],
+                [x[5] if per > 5 else None for x in g], ctx.scaling_modifier,
+                dc, fr, cmask, ctx.sh_degree)
+        if ctx.plain or means3d.device.type == "cpu":
+            g_means, g_scales, g_rotations, g_dc, g_rest = \
+                preprocess_backward_plain(*args)
+            g_features = (torch.cat([g_dc, g_rest], dim=1) if ctx.whole
+                          else None)
+        else:  # the whole features are contiguous here (_apply)
+            g_features = torch.empty_like(features) if ctx.whole else None
+            g_means, g_scales, g_rotations, g_dc, g_rest = \
+                preprocess_backward_kernel(*args, out=g_features)
+        if ctx.whole:
+            g_dc = g_rest = None
+        return (g_means, g_scales, g_rotations, None, g_features, g_dc,
+                g_rest, None, None, None, None, None)
 
 
-def preprocess(means3d, scales, rotations, camera: Camera,
-               scaling_modifier: float = 1.0, opacities=None, features=None,
-               sh_degree: int = 0, plain: bool = False):
-    """Project N Gaussians into ``camera`` and, with ``features`` [N, K, 3],
-    evaluate their SH colours at ``sh_degree``:
-    (:class:`ProjectedGaussians`, [N, 3] colours or None), differentiable
-    in the means, scales, rotations and features.  The kernels for CUDA
-    tensors (the plain versions with ``plain``), the plain versions for CPU
-    ones."""
+def _apply(means3d, scales, rotations, opacities, features, features_dc,
+           features_rest, cmask, cameras, scaling_modifier, sh_degree, plain):
+    _check_views(cameras)
     if means3d.device.type != "cpu" and not plain:
         means3d, scales, rotations = (t.contiguous() for t in (
             means3d, scales, rotations))
@@ -442,6 +580,42 @@ def preprocess(means3d, scales, rotations, camera: Camera,
         if features is not None:
             features = features.contiguous()
     out = Preprocess.apply(means3d, scales, rotations, opacities, features,
-                           camera, float(scaling_modifier), int(sh_degree),
+                           features_dc, features_rest, cmask, tuple(cameras),
+                           float(scaling_modifier), int(sh_degree),
                            bool(plain))
-    return ProjectedGaussians(*out[:5]), (out[5] if len(out) > 5 else None)
+    per = len(out) // len(cameras)
+    return [(ProjectedGaussians(*out[v * per:v * per + 5]),
+             out[v * per + 5] if per > 5 else None)
+            for v in range(len(cameras))]
+
+
+def preprocess_views(means3d, scales, rotations, cameras,
+                     scaling_modifier: float = 1.0, opacities=None,
+                     features_dc=None, features_rest=None, cmask=None,
+                     sh_degree: int = 0, plain: bool = False):
+    """Project N Gaussians into each of ``cameras`` (1 to 3) and, with the
+    feature leaves ``features_dc`` [N, 1, 3] and ``features_rest`` [N,
+    K-1, 3], evaluate their SH colours at ``sh_degree`` on the features
+    times ``cmask`` ([K], a device tensor, or None): per camera
+    (:class:`ProjectedGaussians`, [N, 3] colours or None), differentiable
+    in the means, scales, rotations and both leaves.  One kernel launch
+    for all the views, forward and backward (the plain versions with
+    ``plain``, or for CPU tensors)."""
+    return _apply(means3d, scales, rotations, opacities, None, features_dc,
+                  features_rest, cmask, cameras, scaling_modifier, sh_degree,
+                  plain)
+
+
+def preprocess(means3d, scales, rotations, camera: Camera,
+               scaling_modifier: float = 1.0, opacities=None, features=None,
+               sh_degree: int = 0, plain: bool = False):
+    """Project N Gaussians into ``camera`` and, with ``features`` [N, K, 3],
+    evaluate their SH colours at ``sh_degree``:
+    (:class:`ProjectedGaussians`, [N, 3] colours or None), differentiable
+    in the means, scales, rotations and features (whose gradient the
+    backward kernel writes as one [N, K, 3] tensor).  The kernels for CUDA
+    tensors (the plain versions with ``plain``), the plain versions for
+    CPU ones."""
+    (out,) = _apply(means3d, scales, rotations, opacities, features, None,
+                    None, None, [camera], scaling_modifier, sh_degree, plain)
+    return out

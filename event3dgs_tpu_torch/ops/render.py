@@ -10,7 +10,11 @@ mean gradient that densification reads (the reference's
 ``screenspace_points.grad``).  The projection and the SH colours run as
 one forward and one backward kernel on the card
 (:func:`~event3dgs_tpu_torch.ops.preprocess.preprocess`);
-:func:`gaussian_colors` is their plain version's colour half.
+:func:`gaussian_colors` is their plain version's colour half.  A view
+already projected (the train step projects its views in one call,
+:func:`~event3dgs_tpu_torch.ops.preprocess.preprocess_views`) is
+rasterized by :func:`rasterize_projected` and composed over its background
+by :func:`composed`.
 """
 
 from __future__ import annotations
@@ -59,6 +63,31 @@ def gaussian_colors(sh_degree: int, features, means3d, camera_center):
     return torch.clamp(rgb + 0.5, min=0.0)
 
 
+def rasterize_projected(proj, colors, opacities, camera, rasterizer,
+                        instance_cap=None, plain=False, mean2d_tap=None):
+    """Pre-background (rgb [H, W, 3], log T [H, W]) of one view whose
+    Gaussians are projected (``proj``) and coloured (``colors`` [N, 3]);
+    ``mean2d_tap`` is added to the projected means first."""
+    if mean2d_tap is not None:
+        proj = proj._replace(mean2d=proj.mean2d + mean2d_tap)
+    if rasterizer == "tiled":
+        return rasterize_tiled_partials(
+            proj, colors, opacities, camera.width, camera.height,
+            instance_cap=instance_cap, plain=plain,
+        )
+    if rasterizer == "reference":
+        return rasterize_reference_partials(
+            proj, colors, opacities, camera.width, camera.height
+        )
+    raise ValueError(f"unknown rasterizer {rasterizer!r}")
+
+
+def composed(rgb, logt, background):
+    """The image [H, W, 3] of pre-background partials over ``background``
+    [3]."""
+    return rgb + torch.exp(logt)[:, :, None] * background[None, None, :]
+
+
 def _partials(means3d, features, opacities, scales, rotations, camera,
               sh_degree, scaling_modifier, mean2d_tap, override_colors,
               rasterizer, instance_cap, plain=False):
@@ -67,21 +96,11 @@ def _partials(means3d, features, opacities, scales, rotations, camera,
         opacities=opacities,
         features=features if override_colors is None else None,
         sh_degree=sh_degree, plain=plain)
-    if mean2d_tap is not None:
-        proj = proj._replace(mean2d=proj.mean2d + mean2d_tap)
     if override_colors is not None:
         colors = override_colors
-    if rasterizer == "tiled":
-        rgb, logt = rasterize_tiled_partials(
-            proj, colors, opacities, camera.width, camera.height,
-            instance_cap=instance_cap, plain=plain,
-        )
-    elif rasterizer == "reference":
-        rgb, logt = rasterize_reference_partials(
-            proj, colors, opacities, camera.width, camera.height
-        )
-    else:
-        raise ValueError(f"unknown rasterizer {rasterizer!r}")
+    rgb, logt = rasterize_projected(proj, colors, opacities, camera,
+                                    rasterizer, instance_cap, plain,
+                                    mean2d_tap)
     return rgb, logt, proj
 
 
@@ -120,8 +139,8 @@ def render(
         scaling_modifier, mean2d_tap, override_colors, rasterizer,
         instance_cap, plain,
     )
-    image = rgb + torch.exp(logt)[:, :, None] * background[None, None, :]
-    return RenderOutput(image=image, radii=proj.radius, visibility=proj.valid)
+    return RenderOutput(image=composed(rgb, logt, background),
+                        radii=proj.radius, visibility=proj.valid)
 
 
 def render_partials(

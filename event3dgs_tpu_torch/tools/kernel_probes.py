@@ -330,8 +330,10 @@ def event_step_stages(state, data, idx, bg, instance_cap: int,
     """The event step of ``state`` in seven cumulative stages: [(name,
     callable)], each callable running the step from ``state`` up to and
     including its stage and returning what it computed.  Stages 1-5 work on
-    the main view ``idx[0]`` as the step's render of it does; 6 is
-    ``make_loss_and_grads``, 7 ``make_train_step``."""
+    the main view ``idx[0]`` as a render of it alone does (the step projects
+    its three views in one call); 6 is ``make_loss_and_grads``, 7
+    ``make_train_step``."""
+    from event3dgs_tpu_torch.ops.preprocess import masked_features
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors, render_partials
     from event3dgs_tpu_torch.train.step import (
@@ -353,9 +355,13 @@ def event_step_stages(state, data, idx, bg, instance_cap: int,
                                  opacities=act.opacities)
         return inp, proj._replace(mean2d=proj.mean2d + inp.tap)
 
+    def features(inp):  # the step's masked features, as one render reads
+        return masked_features(inp.leaves["features_dc"],
+                               inp.leaves["features_rest"], inp.cmask)
+
     def colors():
         inp, proj = projection()
-        return inp, proj, gaussian_colors(max_sh_degree, inp.features,
+        return inp, proj, gaussian_colors(max_sh_degree, features(inp),
                                           inp.act.means3d, cam.camera_center)
 
     def binned():
@@ -369,7 +375,7 @@ def event_step_stages(state, data, idx, bg, instance_cap: int,
     def forward(inp=None):
         inp = step_inputs(state, max_sh_degree) if inp is None else inp
         act = inp.act
-        out = render_partials(act.means3d, inp.features, act.opacities,
+        out = render_partials(act.means3d, features(inp), act.opacities,
                               act.scales, act.rotations, cam,
                               sh_degree=max_sh_degree, mean2d_tap=inp.tap,
                               rasterizer="tiled", instance_cap=instance_cap)

@@ -149,34 +149,43 @@ def segment_sums_bytes(live: int, slots: int, n: int) -> int:
 
 
 def preprocess_bytes(n: int, coeffs: int, sh_degree: int,
-                     backward: bool = False) -> int:
+                     backward: bool = False, views: int = 1) -> int:
     """Bytes the preprocess forward (or backward) kernel must move for
-    ``n`` Gaussians whose features are [N, coeffs, 3] at ``sh_degree``:
-    the forward reads the means, scales, quaternions, opacities and the
-    coefficients the degree uses, and writes mean2d, depth, conic, radius,
-    valid (one byte) and the colours; the backward reads the means, scales,
-    quaternions, valid, the used coefficients and the gradients of mean2d,
-    conic and colours, and writes the gradients of the means, scales,
-    quaternions and of all the features.  The camera's 148 bytes are left
-    out."""
+    ``n`` Gaussians whose features are [N, coeffs, 3] at ``sh_degree``,
+    projected into ``views`` views in one launch.  Each input is read once
+    for all the views: the means, scales and quaternions, and of the two
+    feature leaves the rows the degree uses (features_dc's 12-byte row and
+    the first (degree + 1)² - 1 coefficients of features_rest's row, each
+    leaf read at its own row stride); the forward also the opacities.  Per
+    view the forward writes mean2d, depth, conic, radius, valid (one byte)
+    and the colours; the backward reads valid and the gradients of mean2d,
+    conic and colours.  The backward writes the gradients of the means,
+    scales, quaternions and of both leaves whole (all ``coeffs``), once.
+    The mask's and the cameras' bytes are left out."""
     used = (sh_degree + 1) ** 2 * 12
     if not backward:
-        return n * (12 + 12 + 16 + 4 + used + 8 + 4 + 12 + 4 + 1 + 12)
-    return n * (12 + 12 + 16 + 1 + used + 8 + 12 + 12
+        return n * (12 + 12 + 16 + 4 + used
+                    + views * (8 + 4 + 12 + 4 + 1 + 12))
+    return n * (12 + 12 + 16 + used + views * (1 + 8 + 12 + 12)
                 + 12 + 12 + 16 + coeffs * 12)
 
 
-def preprocess_ops(n: int, sh_degree: int, backward: bool = False):
+def preprocess_ops(n: int, sh_degree: int, backward: bool = False,
+                   views: int = 1):
     """(FP32, SFU) operations the preprocess forward (or backward) kernel
-    does at least for ``n`` Gaussians, counted from ``csrc/preprocess.cu``
-    and rounded down: the projection about 170 FP32 and 12 SFU operations
-    (6 divisions, 4 square roots, 2 reciprocals), the colours 6 per used
-    coefficient and 4 SFU (a square root, 3 divisions); the backward about
-    twice the projection's and 12 per coefficient, and 8 SFU more."""
+    does at least for ``n`` Gaussians in each of ``views`` views, counted
+    from ``csrc/preprocess.cu`` and rounded down: the projection about 170
+    FP32 and 12 SFU operations (6 divisions, 4 square roots, 2
+    reciprocals), the colours 6 per used coefficient and 4 SFU (a square
+    root, 3 divisions); the backward about twice the projection's FP32
+    operations and 12 per coefficient, and 12 SFU (its recompute of the
+    projection takes reciprocals: 4 of them, 2 divisions and a square root;
+    a reciprocal of the conic's determinant; the SH direction's square
+    root, 3 divisions and a reciprocal)."""
     coeffs = (sh_degree + 1) ** 2
     if not backward:
-        return (n * (170 + 6 * coeffs), n * 16)
-    return (n * (2 * 170 + 12 * coeffs), n * 24)
+        return (views * n * (170 + 6 * coeffs), views * n * 16)
+    return (views * n * (2 * 170 + 12 * coeffs), views * n * 12)
 
 
 # the Adam update (csrc/adam.cu) per float: p, g, m and v read, p, m and

@@ -50,7 +50,8 @@ from event3dgs_tpu_torch.models.gaussians import (
     with_trainable,
 )
 from event3dgs_tpu_torch.models.optimizer import AdamGroup, adam_update_groups
-from event3dgs_tpu_torch.ops.render import render
+from event3dgs_tpu_torch.ops.preprocess import preprocess_views
+from event3dgs_tpu_torch.ops.render import composed, rasterize_projected
 from event3dgs_tpu_torch.train.state import (
     SceneData,
     TrainState,
@@ -88,16 +89,17 @@ class StepInputs(NamedTuple):
     leaves: dict  # the six trainable tensors, detached, requiring grad
     contrast: torch.Tensor  # the raw contrast, requiring grad
     tap: torch.Tensor  # [C, 2] zeros requiring grad (the mean2d tap)
-    act: object  # the activated Gaussians of ``leaves``
-    features: torch.Tensor  # their SH features, masked to the active degree
+    act: object  # the activated Gaussians of ``leaves``, without features
+    cmask: torch.Tensor  # [K] SH mask of the step's degree
 
 
 def step_inputs(state: TrainState, max_sh_degree: int = 3,
                 cmask: Optional[torch.Tensor] = None) -> StepInputs:
     """The differentiable inputs of ``state``'s next step: fresh leaves of
-    its trainable tensors and contrast, the zero tap, and the activated
-    Gaussians with their SH features masked to the step's degree (by
-    ``cmask``, [K] float, where given; else from ``state.step``)."""
+    its trainable tensors and contrast, the zero tap, the activated
+    Gaussians (the preprocess reads the feature leaves themselves) and the
+    SH mask of the step's degree (``cmask``, [K] float, where given; else
+    from ``state.step``)."""
     params = state.params
     dev = params.device
     if cmask is None:
@@ -108,9 +110,8 @@ def step_inputs(state: TrainState, max_sh_degree: int = 3,
               for k, v in trainable_dict(params).items()}
     contrast = state.contrast.detach().requires_grad_(True)
     tap = torch.zeros(params.capacity, 2, device=dev, requires_grad=True)
-    act = activated(with_trainable(params, leaves))
-    return StepInputs(leaves, contrast, tap, act,
-                      act.features * cmask[None, :, None])
+    act = activated(with_trainable(params, leaves), features=False)
+    return StepInputs(leaves, contrast, tap, act, cmask)
 
 
 class StepViews(NamedTuple):
@@ -195,27 +196,31 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
 
     def loss_and_grads(state: TrainState, views: StepViews, bg: torch.Tensor,
                        cmask: Optional[torch.Tensor] = None):
-        leaves, contrast, tap, act, features = step_inputs(
+        leaves, contrast, tap, act, cmask = step_inputs(
             state, max_sh_degree, cmask)
-
-        def render_view(cam, tap=None):
-            return render(act.means3d, features, act.opacities, act.scales,
-                          act.rotations, cam, bg, sh_degree=max_sh_degree,
-                          mean2d_tap=tap, rasterizer=rasterizer,
-                          instance_cap=instance_cap, plain=plain)
-
-        out_main = render_view(views.cam_main, tap)
+        cams = ([views.cam_main, views.cam_now, views.cam_next]
+                if mode.startswith("event") else [views.cam_main])
+        # one preprocess call for the step's views (the main view first,
+        # which takes the tap), then per view the rasterizer
+        projected = preprocess_views(
+            act.means3d, act.scales, act.rotations, cams,
+            opacities=act.opacities, features_dc=leaves["features_dc"],
+            features_rest=leaves["features_rest"], cmask=cmask,
+            sh_degree=max_sh_degree, plain=plain)
+        images = [composed(*rasterize_projected(
+            proj, colors, act.opacities, cam, rasterizer, instance_cap,
+            plain, tap if v == 0 else None), bg)
+            for v, (cam, (proj, colors)) in enumerate(zip(cams, projected))]
+        proj_main = projected[0][0]
         if mode == "rgb":
-            loss, aux = rgb_total_loss(out_main.image, views.gt_main,
+            loss, aux = rgb_total_loss(images[0], views.gt_main,
                                        lambda_dssim)
         elif mode == "gray":
-            loss, aux = gray_total_loss(out_main.image, views.gt_main,
+            loss, aux = gray_total_loss(images[0], views.gt_main,
                                         lambda_dssim)
         else:  # event / event_deblur (the blurry capture in the latter)
-            out_now = render_view(views.cam_now)
-            out_next = render_view(views.cam_next)
             loss, aux = event_total_loss(
-                out_now.image, out_next.image, out_main.image,
+                images[1], images[2], images[0],
                 views.gt_now, views.gt_next, views.gt_main,
                 effective_contrast(contrast,
                                    event_cfg.contrast_parameterization),
@@ -224,8 +229,8 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
                 blurry_main=views.blurry_main,
                 blur_alpha=event_cfg.blur_alpha, plain=plain,
             )
-        aux["radii"] = out_main.radii
-        aux["visibility"] = out_main.visibility
+        aux["radii"] = proj_main.radius
+        aux["visibility"] = proj_main.valid
 
         inputs = [*leaves.values(), contrast, tap]
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)

@@ -1116,10 +1116,10 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
     grows the capacity (captured at 0 and again after 10).  Losses, final
     parameters, contrast and alive slots equal bit for bit; the kernels
     launch in the warm-up steps and the captures only (the reference
-    rasterizer launches none of K1-K6, the preprocess kernels as the tiled
-    one does, the Adam kernel once a step in every mode, the loss kernels
-    once a step in the event modes); the forward preprocess also in each
-    instance-cap probe."""
+    rasterizer launches none of K1-K6; the preprocess kernels, the Adam
+    kernel once a step in every mode, the loss kernels once a step in the
+    event modes); the forward preprocess also in each instance-cap
+    probe."""
     from event3dgs_tpu_torch.train import loop, train_loop
     from event3dgs_tpu_torch.train.fused import WARMUP_STEPS
     from event3dgs_tpu_torch.train.loop import TrainCallbacks
@@ -1155,9 +1155,10 @@ def test_graphed_loop_equals_eager_loop_in_every_mode(mode, rasterizer):
     assert (p1 > 0) == (p8 > 0) == tiled
     for n, steps, p in ((n1, 20, p1), (n8, 2 * (WARMUP_STEPS + 1), p8)):
         want = dict.fromkeys(ws, steps * renders if tiled else 0)
-        # the preprocess kernels run under either rasterizer
-        want["preprocess_fwd"] = steps * renders + p
-        want["preprocess_bwd"] = steps * renders
+        # the preprocess kernels run under either rasterizer, once a step
+        # for all its renders
+        want["preprocess_fwd"] = steps + p
+        want["preprocess_bwd"] = steps
         want["adam"] = steps  # both groups in one launch a step
         # the loss kernels in the event modes, whatever the rasterizer
         want["loss_fwd"] = want["loss_bwd"] = (
@@ -1192,35 +1193,73 @@ def wrappers_by_name():
     }
 
 
+# positions of a case's views beside its own camera's, and their sizes as
+# fractions of its own (the third view smaller: per-view sizes)
+VIEW_SHIFTS = ((0.0, 0.0, 0.0), (0.1, 0.0, -0.2), (-0.15, 0.05, 0.1))
+VIEW_SIZES = ((1, 1), (1, 1), (2, 1))
+
+
+def view_cameras(n, seed, deg, edge, views, device):
+    """``views`` cameras around the camera of ``preprocess_scene(n, seed,
+    ...)``: shifted by ``VIEW_SHIFTS``, sized by ``VIEW_SIZES``."""
+    a = preprocess_arrays(n, seed, sh_degree=deg, edge=edge)
+    return [make_camera(a["R"], a["t"] + np.asarray(d), *a["fov"],
+                        a["w"] // sw, a["h"] // sh, device=device)
+            for d, (sw, sh) in zip(VIEW_SHIFTS[:views], VIEW_SIZES)]
+
+
 def preprocess_args(case, device):
-    """The forward preprocess's arguments for a ``PREPROCESS_FWD`` case."""
+    """The forward preprocess's arguments for a ``PREPROCESS_FWD`` case:
+    1 to 3 views (by the seed), the features as two contiguous leaves (even
+    seeds: the kernels' bulk copy) or as strided views of one [N, K, 3]
+    tensor (odd seeds: their copy float by float), and the mask of an
+    active degree up to the case's (by the seed)."""
     n, seed, deg, edge, smod, with_opac, with_feats = case
-    means, scales, rots, opac, feats, cam = preprocess_scene(
+    means, scales, rots, opac, feats, _ = preprocess_scene(
         n, seed, sh_degree=deg, edge=edge, device=device)
-    return (means, scales, rots, cam, smod, opac if with_opac else None,
-            feats if with_feats else None, deg)
+    cams = view_cameras(n, seed, deg, edge, 1 + seed % 3, device)
+    dc, rest = feats[:, :1], feats[:, 1:]
+    if seed % 2 == 0:
+        dc, rest = dc.contiguous(), rest.contiguous()
+    active = seed % (deg + 1)
+    cmask = (torch.arange(feats.shape[1], device=device)
+             < (active + 1) ** 2).float()
+    if not with_feats:
+        dc = rest = cmask = None
+    return (means, scales, rots, cams, smod, opac if with_opac else None, dc,
+            rest, cmask, deg)
+
+
+def assert_forward_equal(got, want):
+    """Each view's mean2d, depth, conic, radius, valid and colours bit for
+    bit."""
+    assert len(got) == len(want)
+    for (pk, ck), (pp, cp) in zip(got, want):
+        for field, k, p in zip(pk._fields, pk, pp):
+            assert_bits_equal(k, p, field)
+        assert (ck is None) == (cp is None)
+        if ck is not None:
+            assert_bits_equal(ck, cp, "colors")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PREPROCESS_FWD, ids=str)
 def test_preprocess_forward_kernel_matches_plain_version(case):
-    """mean2d, depth, conic, radius, valid and colours bit-equal to the
-    plain version's (the kernel repeats its operations in their order),
-    over SH degrees 0-4, a scaling modifier, with and without opacities
-    and features, and the edge cases of ``preprocess_scene``."""
+    """mean2d, depth, conic, radius, valid and colours of every view
+    bit-equal to the plain version's (the kernel repeats its operations in
+    their order), over SH degrees 0-4 with a mask of a lower active degree,
+    1 to 3 views of their own sizes, the leaves contiguous or strided, a
+    scaling modifier, with and without opacities and features, and the
+    edge cases of ``preprocess_scene``."""
     need_card()
     args = preprocess_args(case, "cuda")
     before = pre.preprocess_forward_kernel.launches
-    pk, ck = pre.preprocess_forward(*args)
+    got = pre.preprocess_forward(*args)
     assert pre.preprocess_forward_kernel.launches == before + 1
-    pp, cp = pre.preprocess_forward_plain(*args)
-    for field, k, p in zip(pk._fields, pk, pp):
-        assert_bits_equal(k, p, field)
-    assert (ck is None) == (cp is None) == (args[6] is None)
-    if ck is not None:
-        assert_bits_equal(ck, cp, "colors")
+    assert_forward_equal(got, pre.preprocess_forward_plain(*args))
+    assert all((c is None) == (args[6] is None) for _, c in got)
     if case[3]:
-        assert 0 < int(pk.valid.sum()) < case[0]
+        assert 0 < int(got[0][0].valid.sum()) < case[0]
 
 
 @pytest.mark.gpu
@@ -1231,50 +1270,60 @@ def test_preprocess_forward_kernel_on_the_rasterizer_scenes(name):
     need_card()
     means, scales, rots, opac, _, cam = scene_inputs(**SCENES[name],
                                                      device="cuda")
-    pk, _ = pre.preprocess_forward_kernel(means, scales, rots, cam,
-                                          opacities=opac)
-    pp, _ = pre.preprocess_forward_plain(means, scales, rots, cam,
-                                         opacities=opac)
-    for field, k, p in zip(pk._fields, pk, pp):
-        assert_bits_equal(k, p, field)
+    assert_forward_equal(
+        pre.preprocess_forward_kernel(means, scales, rots, [cam],
+                                      opacities=opac),
+        pre.preprocess_forward_plain(means, scales, rots, [cam],
+                                     opacities=opac))
 
 
 def backward_case(args, seed):
     """The backward preprocess's arguments on a forward case's inputs:
-    the forward's valid and seeded gradients of mean2d, conic and colours,
-    slices of an [N, 9] tensor as the rasterizer's K3 hands them over."""
-    means, scales, rots, cam, smod, opac, feats, deg = args
-    valid = pre.preprocess_forward_plain(*args)[0].valid
+    each view's valid from the forward and seeded gradients of mean2d,
+    conic and colours, slices of an [N, 9] tensor as the rasterizer's K3
+    hands them over."""
+    means, scales, rots, cams, smod, opac, dc, rest, cmask, deg = args
+    out = pre.preprocess_forward_plain(*args)
     g = torch.Generator().manual_seed(seed)
-    rows = (torch.rand(means.shape[0], 9, generator=g) - 0.5).to(means.device)
-    return (means, scales, rots, cam, valid, rows[:, 0:2], rows[:, 2:5],
-            rows[:, 6:9] if feats is not None else None, smod, feats, deg)
+    rows = [(torch.rand(means.shape[0], 9, generator=g) - 0.5).to(
+        means.device) for _ in cams]
+    return (means, scales, rots, cams, [proj.valid for proj, _ in out],
+            [r[:, 0:2] for r in rows], [r[:, 2:5] for r in rows],
+            [r[:, 6:9] if dc is not None else None for r in rows], smod, dc,
+            rest, cmask, deg)
 
 
 def assert_backward_close(got, want, valid, atol=2e-4):
-    """Each gradient within ``atol`` of its max (tests/test_rasterize_tiled
-    .py's normalisation), finite, and exactly zero for the Gaussians that
-    are not ``valid``."""
-    for name, a, b in zip(("means", "scales", "rotations", "features"),
-                          got, want):
+    """The gradients of the means, scales and rotations within ``atol`` of
+    each one's max (tests/test_rasterize_tiled.py's normalisation), the two
+    feature leaves' bit for bit (each view's drgb·B, added from the last
+    view to the first and masked as the plain version does), all finite,
+    and exactly zero for the Gaussians valid in no view."""
+    nowhere = ~torch.stack(list(valid)).any(0)
+    for name, a, b in zip(("means", "scales", "rotations", "features_dc",
+                           "features_rest"), got, want):
         if b is None:
             assert a is None, name
             continue
         assert a.shape == b.shape and torch.isfinite(a).all(), name
         if not b.numel():
             continue
-        scale = b.abs().max().clamp(min=1e-30)
-        torch.testing.assert_close(a / scale, b / scale, atol=atol, rtol=0,
-                                   msg=name)
-        assert not a[~valid].any(), name
+        if name.startswith("features"):
+            assert_bits_equal(a, b.contiguous(), name)
+        else:
+            scale = b.abs().max().clamp(min=1e-30)
+            torch.testing.assert_close(a / scale, b / scale, atol=atol,
+                                       rtol=0, msg=name)
+        assert not a[nowhere].any(), name
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PREPROCESS_FWD, ids=str)
 def test_preprocess_backward_kernel_matches_plain_version(case):
-    """The backward kernel against the analytic plain backward, within 2e-4
-    of each gradient's max, zero for the Gaussians that are not valid, and
-    bit-identical when launched twice."""
+    """The backward kernel against the analytic plain backward summed over
+    the views (``assert_backward_close``: the feature gradients bit for
+    bit), zero for the Gaussians valid in no view, and bit-identical when
+    launched twice."""
     need_card()
     bargs = backward_case(preprocess_args(case, "cuda"), case[1])
     before = pre.preprocess_backward_kernel.launches
@@ -1286,23 +1335,104 @@ def test_preprocess_backward_kernel_matches_plain_version(case):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+# leaf layouts the kernels read: (name, N); the leaves as contiguous
+# tensors (the bulk copy), as views of one [N, K, 3] tensor, and with rows
+# wider than their data (a slice of a wider tensor); N = 1, one row past a
+# block, a last block of 127 rows (dc 1,524 bytes, rest 22,860: neither a
+# multiple of 16)
+LEAF_LAYOUTS = [(layout, n) for layout in ("leaves", "whole", "padded")
+                for n in (1, 129, 255)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,n", LEAF_LAYOUTS,
+                         ids=[f"{a}-n{b}" for a, b in LEAF_LAYOUTS])
+def test_preprocess_kernels_on_strided_and_ragged_leaves(layout, n):
+    """Both kernels over three views with the feature leaves laid out as
+    ``layout``: the forward bit-equal to its plain version, the backward
+    as ``assert_backward_close`` holds it."""
+    need_card()
+    means, scales, rots, opac, feats, _ = preprocess_scene(n, 30, edge=True,
+                                                           device="cuda")
+    if layout == "whole":
+        dc, rest = feats[:, :1], feats[:, 1:]
+    elif layout == "padded":
+        wide = torch.zeros(n, 19, 3, device="cuda")
+        wide[:, 1:2], wide[:, 3:18] = feats[:, :1], feats[:, 1:]
+        dc, rest = wide[:, 1:2], wide[:, 3:18]
+        assert rest.stride(0) == 57
+    else:
+        dc, rest = feats[:, :1].contiguous(), feats[:, 1:].contiguous()
+    cmask = (torch.arange(16, device="cuda") < 9).float()
+    args = (means, scales, rots, view_cameras(n, 30, 3, True, 3, "cuda"), 0.9,
+            opac, dc, rest, cmask, 3)
+    assert_forward_equal(pre.preprocess_forward_kernel(*args),
+                         pre.preprocess_forward_plain(*args))
+    bargs = backward_case(args, 31)
+    assert_backward_close(pre.preprocess_backward_kernel(*bargs),
+                          pre.preprocess_backward_plain(*bargs), bargs[4])
+
+
+@pytest.mark.gpu
+def test_preprocess_function_on_the_card():
+    """Autograd through ``preprocess_views`` (three views, the leaves and a
+    mask) and ``preprocess`` (one view, [N, K, 3] features, whose gradient
+    the backward kernel writes as one tensor) on the card: one launch of
+    each kernel a call, the outputs equal to ``plain=True``'s bit for bit,
+    the gradients as ``assert_backward_close`` holds them."""
+    need_card()
+    means, scales, rots, opac, feats, _ = preprocess_scene(
+        3000, 32, edge=True, device="cuda")
+    cams = view_cameras(3000, 32, 3, True, 3, "cuda")
+    cmask = (torch.arange(16, device="cuda") < 16).float()
+    out = {}
+    for plain in (False, True):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (
+            means, scales, rots, feats[:, :1], feats[:, 1:])]
+        before = (pre.preprocess_forward_kernel.launches,
+                  pre.preprocess_backward_kernel.launches)
+        views = pre.preprocess_views(*leaves[:3], cams, opacities=opac,
+                                     features_dc=leaves[3],
+                                     features_rest=leaves[4], cmask=cmask,
+                                     sh_degree=3, plain=plain)
+        loss = sum((p.mean2d.sin().sum() + p.conic.cos().sum()
+                    + c.square().sum()) for p, c in views)
+        grads = torch.autograd.grad(loss, leaves)
+        after = (pre.preprocess_forward_kernel.launches,
+                 pre.preprocess_backward_kernel.launches)
+        assert after == ((before[0] + 1, before[1] + 1) if not plain
+                         else before)
+        out[plain] = views, grads
+    assert_forward_equal(out[False][0], out[True][0])
+    valid = [p.valid for p, _ in out[True][0]]
+    assert_backward_close(out[False][1], out[True][1], valid)
+    whole = {}
+    for plain in (False, True):
+        f = feats.detach().clone().requires_grad_(True)
+        proj, colors = pre.preprocess(means, scales, rots, cams[0], 1.0, opac,
+                                      f, 3, plain=plain)
+        (whole[plain],) = torch.autograd.grad(colors.square().sum(), [f])
+    assert whole[False].shape == feats.shape
+    assert_bits_equal(whole[False], whole[True])
+
+
 @pytest.mark.gpu
 def test_preprocess_backward_kernel_at_2m_slots():
-    """At ``tools/scale.py``'s 2,097,152-slot maxcap state (its main view,
-    camera 1): the backward kernel against the plain backward, within 2e-4
-    of each gradient's max, and bit-identical run twice; the forward
-    bit-equal."""
+    """At ``tools/scale.py``'s 2,097,152-slot maxcap state, the step's three
+    views (main view camera 1, event pair 1 → 2) with all 16 coefficients
+    of the mask on: the forward bit-equal; the backward against the plain
+    backward (``assert_backward_close``), bit-identical run twice."""
     need_card()
     from event3dgs_tpu_torch.tools.scale import maxcap_scene
 
     state, data = maxcap_scene(2_097_152, 1920, 1080, "cuda")
-    act = activated(state.params)
-    args = (act.means3d, act.scales, act.rotations, data.cameras[1], 1.0,
-            act.opacities, act.features, 3)
-    pk, ck = pre.preprocess_forward_kernel(*args)
-    pp, cp = pre.preprocess_forward_plain(*args)
-    for field, k, p in zip((*pk._fields, "colors"), (*pk, ck), (*pp, cp)):
-        assert_bits_equal(k, p, field)
+    act = activated(state.params, features=False)
+    cams = [data.cameras[1], data.event_cameras[1], data.event_cameras[2]]
+    args = (act.means3d, act.scales, act.rotations, cams, 1.0,
+            act.opacities, state.params.features_dc,
+            state.params.features_rest, torch.ones(16, device="cuda"), 3)
+    assert_forward_equal(pre.preprocess_forward_kernel(*args),
+                         pre.preprocess_forward_plain(*args))
     bargs = backward_case(args, 3)
     gk = pre.preprocess_backward_kernel(*bargs)
     assert_backward_close(gk, pre.preprocess_backward_plain(*bargs), bargs[4])
@@ -1312,9 +1442,10 @@ def test_preprocess_backward_kernel_at_2m_slots():
 
 @pytest.mark.gpu
 def test_preprocess_kernels_in_a_cuda_graph():
-    """Both kernels captured in a CUDA graph with a camera picked on the
-    device (``train/step.take``): each replay after the pick moves to
-    another view equals the eager launches at that view bit for bit."""
+    """Both kernels captured in a CUDA graph over three views picked on the
+    device (``train/step.take``), the mask a device tensor: each replay
+    after the picks move to other views equals the eager launches at those
+    views bit for bit."""
     need_card()
     from event3dgs_tpu_torch.core.camera import stack_cameras
     from event3dgs_tpu_torch.train.step import take
@@ -1324,34 +1455,136 @@ def test_preprocess_kernels_in_a_cuda_graph():
     cams = stack_cameras([cam0] + [make_camera(
         np.eye(3), np.array([0.1 * i, 0.0, -0.2 * i]), 1.0, 0.7, 256, 144,
         device="cuda") for i in (1, 2)])
-    index = torch.zeros(1, dtype=torch.int64, device="cuda")
-    rows = torch.rand(3000, 9, device="cuda") - 0.5
+    index = torch.zeros(3, dtype=torch.int64, device="cuda")
+    cmask = torch.ones(16, device="cuda")
+    dc, rest = feats[:, :1].contiguous(), feats[:, 1:].contiguous()
+    rows = torch.rand(3, 3000, 9, device="cuda") - 0.5
 
-    def both(cam):
-        proj, colors = pre.preprocess_forward_kernel(
-            means, scales, rots, cam, 0.8, opac, feats, 3)
+    def both(views):
+        out = pre.preprocess_forward_kernel(means, scales, rots, views, 0.8,
+                                            opac, dc, rest, cmask, 3)
         grads = pre.preprocess_backward_kernel(
-            means, scales, rots, cam, proj.valid, rows[:, 0:2], rows[:, 2:5],
-            rows[:, 6:9], 0.8, feats, 3)
-        return (*proj, colors, *grads)
+            means, scales, rots, views, [p.valid for p, _ in out],
+            [r[:, 0:2] for r in rows], [r[:, 2:5] for r in rows],
+            [r[:, 6:9] for r in rows], 0.8, dc, rest, cmask, 3)
+        return (*(t for p, c in out for t in (*p, c)), *grads)
 
+    picked = lambda: [take(cams, index[v:v + 1]) for v in range(3)]
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        both(take(cams, index))  # warm-up
+        both(picked())  # warm-up
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = both(take(cams, index))
-    for view in (2, 0, 1):
-        index.fill_(view)
+        out = both(picked())
+    for views in ((2, 0, 1), (1, 1, 2), (0, 2, 0)):
+        index.copy_(torch.tensor(views))
         graph.replay()
-        for a, b in zip(out, both(cams[view])):
+        for a, b in zip(out, both([cams[v] for v in views])):
             assert_bits_equal(a, b)
 
 
+def step_state(device, n, width, height):
+    """``bench.py``'s training state (``kernel_timing.bench_state``) at a
+    small size, its higher-order features drawn from seed 4: (state, data,
+    instance cap)."""
+    from event3dgs_tpu_torch.tools.kernel_timing import bench_state
+
+    state, data, cap = bench_state(device, n, width, height)
+    rest = state.params.features_rest
+    return state.replace(params=dataclasses.replace(
+        state.params, features_rest=torch.tensor(
+            np.random.default_rng(4).normal(0.0, 0.2, tuple(rest.shape)),
+            dtype=torch.float32, device=rest.device))), data, cap
+
+
+def per_render_loss_and_grads(state, data, mode, cmask, cap):
+    """The train step's loss and gradients at views (1, 1, 2) and the mask
+    ``cmask``, from ``train/step``'s one preprocess call for its views,
+    and as the step computed them before: each view rendered on its own
+    through ``render`` with the concatenated features times the mask,
+    autograd adding the views' gradients.  In event_deblur mode the
+    blurry captures are the views in reverse order.  (On random images the
+    event mode's main view gets no gradient, its coverage being 1;
+    event_deblur's blur term gives it one, so that three views' gradients
+    are added.)  Returns (the step's loss, its gradients, the per-render
+    loss, its gradients in the order of ``names``, ``names``: the six
+    leaves, the contrast, the tap)."""
+    from event3dgs_tpu_torch.losses.event import effective_contrast
+    from event3dgs_tpu_torch.losses.modes import (
+        event_total_loss,
+        rgb_total_loss,
+    )
+    from event3dgs_tpu_torch.train.step import (
+        _views_loss_and_grads,
+        step_inputs,
+        step_views,
+    )
+    from event3dgs_tpu_torch.utils.config import EventConfig
+
+    ev = EventConfig()
+    event = mode.startswith("event")
+    lam = ev.event_lambda_dssim if event else 0.2
+    if mode == "event_deblur":
+        data = data._replace(blurry_images=data.images.flip(0).contiguous())
+    views = step_views(data, mode, 1, 1, 2)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cmask.device)
+    loss, _, grads = _views_loss_and_grads(mode, ev, lam, 3, "tiled", cap)(
+        state, views, bg, cmask)
+    inp = step_inputs(state, 3, cmask)
+    act = inp.act
+    features = torch.cat([inp.leaves["features_dc"],
+                          inp.leaves["features_rest"]], dim=1) * cmask[
+                              None, :, None]
+
+    def image(cam, tap=None):
+        return render(act.means3d, features, act.opacities, act.scales,
+                      act.rotations, cam, bg, sh_degree=3, mean2d_tap=tap,
+                      rasterizer="tiled", instance_cap=cap).image
+
+    main = image(views.cam_main, inp.tap)
+    if mode == "rgb":
+        want_loss, _ = rgb_total_loss(main, views.gt_main, lam)
+    else:
+        want_loss, _ = event_total_loss(
+            image(views.cam_now), image(views.cam_next), main, views.gt_now,
+            views.gt_next, views.gt_main,
+            effective_contrast(inp.contrast, ev.contrast_parameterization),
+            gt_contrast=ev.gt_contrast, event_weight=ev.event_weight,
+            blurry_main=views.blurry_main, blur_alpha=ev.blur_alpha)
+    inputs = [*inp.leaves.values(), inp.contrast, inp.tap]
+    want = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        inputs, torch.autograd.grad(want_loss, inputs, allow_unused=True))]
+    assert list(grads["params"]) == list(inp.leaves)
+    return (loss, grads, want_loss.detach(), want,
+            [*inp.leaves, "contrast", "tap"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["event", "event_deblur", "rgb"])
+def test_step_equals_the_per_render_step_on_the_card(mode):
+    """On the card, the train step (one launch of each preprocess kernel
+    for its views) against the step that renders each view on its own (a
+    launch of each a view, autograd adding the views' gradients): the loss
+    and every gradient bit for bit, at 3,000 Gaussians and 256×144."""
+    need_card()
+    state, data, cap = step_state("cuda", 3000, 256, 144)
+    cmask = (torch.arange(16, device="cuda") < 9).float()
+    before = pre.preprocess_backward_kernel.launches
+    loss, grads, want_loss, want, names = per_render_loss_and_grads(
+        state, data, mode, cmask, cap)
+    views = 3 if mode.startswith("event") else 1
+    assert pre.preprocess_backward_kernel.launches == before + 1 + views
+    assert_bits_equal(loss, want_loss, "loss")
+    got = [*grads["params"].values(), grads["contrast"], grads["tap"]]
+    for name, g, w in zip(names, got, want):
+        assert_bits_equal(g, w.contiguous(), name)
+
+
 # the train state's trainable leaves: (name, trailing shape); the feature
-# gradients are slices of one [C, 16, 3] gradient, as autograd gives them
+# gradients are slices of one [C, 16, 3] gradient, as the preprocess
+# backward writes them
 ADAM_LEAVES = (("xyz", (3,)), ("features_dc", (1, 3)),
                ("features_rest", (15, 3)), ("scaling", (3,)),
                ("rotation", (4,)), ("opacity", (1,)))
@@ -2027,11 +2260,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ]
     means, scales, rots, opac3, feats, cam = preprocess_scene(20, 0)
     calls += [
-        lambda: pre.preprocess_forward_kernel(means, scales, rots, cam, 1.0,
-                                              opac3, feats, 3),
+        lambda: pre.preprocess_forward_kernel(means, scales, rots, [cam], 1.0,
+                                              opac3, feats[:, :1],
+                                              feats[:, 1:], None, 3),
         lambda: pre.preprocess_backward_kernel(
-            means, scales, rots, cam, torch.ones(20, dtype=torch.bool),
-            means[:, :2], means, means, 1.0, feats, 3),
+            means, scales, rots, [cam], [torch.ones(20, dtype=torch.bool)],
+            [means[:, :2]], [means], [means], 1.0, feats[:, :1],
+            feats[:, 1:], None, 3),
     ]
     groups = adam_groups(20, 0, "cpu")
     calls += [lambda: opt.adam_update_kernel(groups),

@@ -1,15 +1,21 @@
 """The preprocess of ``ops/preprocess.py`` on the CPU: the plain forward
 (the port's ``project_gaussians`` and ``gaussian_colors``) against the JAX
 package's, the analytic plain backward against ``jax.vjp`` of the JAX
-functions and against float64 autograd of the plain forward, and the CPU
-render's gradients through ``Preprocess`` against the JAX render's.
+functions and against float64 autograd of the plain forward, the CPU
+render's gradients through ``Preprocess`` against the JAX render's, the
+V-view plain versions (the feature leaves, the SH mask, 1 and 3 views)
+against ``jax.vjp`` of the JAX functions summed over the views, and the
+train step built on the V-view call against the step that renders each
+view on its own.
 
 Tolerances: the forward as tests/test_torch_projection.py holds it; the
 backward against JAX max-normalised at atol 2e-4 (tests/test_rasterize_tiled
 .py's); against float64 autograd at 1e-10 of each gradient's max (the two
 differ only by float64 rounding).  The rasterizers give a Gaussian that is
 not valid no gradient, so the cotangents are zero there, and the analytic
-backward defines its gradient as exactly zero.
+backward defines its gradient as exactly zero.  The step's loss and
+gradients equal the per-render step's bit for bit: the backward adds the
+views' gradients in the order autograd adds the three renders'.
 """
 
 import dataclasses
@@ -30,11 +36,35 @@ from event3dgs_tpu_torch.ops.projection import project_gaussians
 from event3dgs_tpu_torch.ops.render import gaussian_colors, render
 from test_torch_kernels import (
     assert_bits_equal,
+    per_render_loss_and_grads,
     preprocess_arrays,
     preprocess_scene,
+    step_state,
 )
 
 torch.set_num_threads(1)
+
+
+def leaves(feats):
+    """[N, K, 3] features as the two leaves (None, None without)."""
+    return (None, None) if feats is None else (feats[:, :1], feats[:, 1:])
+
+
+def forward1(means, scales, rots, cam, smod, opac, feats, deg):
+    """The plain forward at one view, on [N, K, 3] features, unmasked."""
+    (out,) = pre.preprocess_forward_plain(means, scales, rots, [cam], smod,
+                                          opac, *leaves(feats), None, deg)
+    return out
+
+
+def backward1(means, scales, rots, cam, valid, g_mean2d, g_conic, g_colors,
+              smod, feats, deg):
+    """The plain backward at one view, the feature leaves' gradients put
+    back together as [N, K, 3]."""
+    g = pre.preprocess_backward_plain(
+        means, scales, rots, [cam], [valid], [g_mean2d], [g_conic],
+        [g_colors], smod, *leaves(feats), None, deg)
+    return (*g[:3], None if g[3] is None else torch.cat(g[3:], dim=1))
 
 # (N, seed, SH degree, edge cases, scaling modifier, with opacities, with
 # features)
@@ -84,7 +114,7 @@ def test_plain_forward_matches_jax(case):
     ref = jproject(j("means"), j("scales"), j("rots"), jcam,
                    scaling_modifier=smod,
                    opacities=j("opac") if with_opac else None)
-    proj, colors = pre.preprocess_forward_plain(
+    proj, colors = forward1(
         t("means"), t("scales"), t("rots"), tcam, smod,
         t("opac") if with_opac else None, t("feats") if with_feats else None,
         deg)
@@ -150,10 +180,10 @@ def test_plain_backward_matches_jax_vjp(case):
     t = lambda k: torch.as_tensor(arrs[k])
     opac = t("opac") if with_opac else None
     feats = t("feats") if with_feats else None
-    proj, _ = pre.preprocess_forward_plain(t("means"), t("scales"), t("rots"),
-                                           tcam, smod, opac, feats, deg)
+    proj, _ = forward1(t("means"), t("scales"), t("rots"), tcam, smod, opac,
+                       feats, deg)
     cts = cotangents(n, proj.valid.numpy(), seed, with_feats)
-    got = pre.preprocess_backward_plain(
+    got = backward1(
         t("means"), t("scales"), t("rots"), tcam, proj.valid,
         *(None if c is None else torch.as_tensor(c) for c in cts), smod,
         feats, deg)
@@ -177,7 +207,7 @@ def test_plain_backward_matches_float64_autograd(case):
     means, scales, rots, opac, feats, cam = preprocess_scene(
         n, seed, sh_degree=deg, edge=edge, dtype=torch.float64)
     leaves = [x.requires_grad_(True) for x in (means, scales, rots, feats)]
-    proj, colors = pre.preprocess_forward_plain(
+    proj, colors = forward1(
         means, scales, rots, cam, smod, opac if with_opac else None,
         feats if with_feats else None, deg)
     cts = [torch.as_tensor(c, dtype=torch.float64) if c is not None else None
@@ -186,7 +216,7 @@ def test_plain_backward_matches_float64_autograd(case):
     if with_feats:
         loss = loss + (colors * cts[2]).sum()
     want = torch.autograd.grad(loss, leaves, allow_unused=True)
-    got = pre.preprocess_backward_plain(
+    got = backward1(
         *(x.detach() for x in (means, scales, rots)), cam, proj.valid, *cts,
         smod, feats.detach() if with_feats else None, deg)
     for name, g, w in zip(("means", "scales", "rotations", "features"), got,
@@ -207,15 +237,14 @@ def test_autograd_nan_at_the_camera_centre_is_zero_here():
         64, 9, edge=True, dtype=torch.float64)
     assert float(means[0].abs().max()) == 0.0  # the identity camera's centre
     leaves = [x.requires_grad_(True) for x in (means, feats)]
-    proj, colors = pre.preprocess_forward_plain(means, scales, rots, cam, 1.0,
-                                                opac, feats, 3)
+    proj, colors = forward1(means, scales, rots, cam, 1.0, opac, feats, 3)
     assert not bool(proj.valid[0])
     w = proj.valid[:, None].double()
     loss = (colors * w).sum() + (proj.mean2d * w).sum()
     g_means, g_feats = torch.autograd.grad(loss, leaves)
     assert torch.isnan(g_means[0]).all() and torch.isnan(g_feats[0]).any()
     assert torch.isfinite(g_means[1:]).all()
-    got = pre.preprocess_backward_plain(
+    got = backward1(
         means.detach(), scales, rots, cam, proj.valid, w.expand(-1, 2),
         None, w.expand(-1, 3), 1.0, feats.detach(), 3)
     assert (got[0][0] == 0).all() and (got[3][0] == 0).all()
@@ -233,7 +262,7 @@ def test_preprocess_function_on_the_cpu():
                                                feats)]
     proj, colors = pre.preprocess(means, scales, rots, cam, 0.8,
                                   opacities=opac, features=feats, sh_degree=3)
-    want, want_c = pre.preprocess_forward_plain(
+    want, want_c = forward1(
         *(x.detach() for x in (means, scales, rots)), cam, 0.8,
         opac.detach(), feats.detach(), 3)
     for a, b in zip((*proj, colors), (*want, want_c)):
@@ -247,7 +276,7 @@ def test_preprocess_function_on_the_cpu():
                                               colors), g))
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     assert grads[3] is None
-    ref = pre.preprocess_backward_plain(
+    ref = backward1(
         *(x.detach() for x in (means, scales, rots)), cam, proj.valid, *g,
         0.8, feats.detach(), 3)
     for a, b in zip((grads[0], grads[1], grads[2], grads[4]), ref):
@@ -340,3 +369,137 @@ def test_preprocess_float64_camera_is_the_float32_one():
         a, b = getattr(cam32, f.name), getattr(cam64, f.name)
         if isinstance(a, torch.Tensor):
             assert b.dtype == torch.float64 and torch.equal(a.double(), b)
+
+
+# the V-view cases: (views, K, active SH degree); the mask keeps the
+# coefficients of the active degree, the SH sum runs at K's degree
+VIEW_CASES = [(v, k, d) for v in (1, 3) for k in (16, 25)
+              for d in range(round(k ** 0.5))]
+VIEW_IDS = [f"views{v}-K{k}-active{d}" for v, k, d in VIEW_CASES]
+# the views' camera positions (identity rotations: the edge cases of
+# preprocess_arrays are placed for the first)
+VIEW_POSITIONS = (np.zeros(3), np.asarray([0.1, 0.0, -0.2]),
+                  np.asarray([-0.15, 0.05, 0.1]))
+
+
+def view_inputs(case, n=65):
+    """A V-view case: float32 arrays with the edge cases (Gaussians that
+    are not valid, one at the first camera's centre), the mask, the
+    degree, and the cameras in both packages."""
+    views, k, active = case
+    deg = round(k ** 0.5) - 1
+    a = preprocess_arrays(n, 20 + 7 * views + k + active, sh_degree=deg,
+                          coeffs=k, edge=True)
+    arrs = {key: np.asarray(a[key], np.float32)
+            for key in ("means", "scales", "rots", "opac", "feats")}
+    cmask = np.asarray(np.arange(k) < (active + 1) ** 2, np.float32)
+    jcams = [jmake_camera(a["R"], t, *a["fov"], a["w"], a["h"])
+             for t in VIEW_POSITIONS[:views]]
+    tcams = [tmake_camera(a["R"], t, *a["fov"], a["w"], a["h"], device="cpu")
+             for t in VIEW_POSITIONS[:views]]
+    return arrs, cmask, deg, jcams, tcams
+
+
+def view_args(arrs, cmask, deg, tcams):
+    """The V-view plain forward's arguments: the leaves and the mask."""
+    t = lambda key: torch.as_tensor(arrs[key])
+    feats = t("feats")
+    return (t("means"), t("scales"), t("rots"), tcams, 1.0, t("opac"),
+            feats[:, :1], feats[:, 1:], torch.as_tensor(cmask), deg)
+
+
+@pytest.mark.parametrize("case", VIEW_CASES, ids=VIEW_IDS)
+def test_views_plain_forward_matches_jax(case):
+    """Each view of the V-view plain forward against the JAX projection and
+    colours on concatenate(dc, rest) * mask, at the single-view test's
+    tolerances; and bit for bit the one-view plain forward on the masked
+    features."""
+    arrs, cmask, deg, jcams, tcams = view_inputs(case)
+    args = view_args(arrs, cmask, deg, tcams)
+    out = pre.preprocess_forward_plain(*args)
+    assert len(out) == len(tcams)
+    j = lambda key: jnp.asarray(arrs[key])
+    jfeats = j("feats") * jnp.asarray(cmask)[None, :, None]
+    masked = pre.masked_features(args[6], args[7], args[8])
+    for (proj, colors), jcam, tcam in zip(out, jcams, tcams):
+        ref = jproject(j("means"), j("scales"), j("rots"), jcam,
+                       opacities=j("opac"))
+        valid = np.asarray(ref.valid)
+        np.testing.assert_array_equal(proj.valid.numpy(), valid)
+        assert 0 < valid.sum() < valid.size
+        np.testing.assert_array_equal(proj.radius.numpy(),
+                                      np.asarray(ref.radius))
+        np.testing.assert_allclose(proj.mean2d.numpy()[valid],
+                                   np.asarray(ref.mean2d)[valid], atol=1e-4)
+        np.testing.assert_allclose(proj.conic.numpy()[valid],
+                                   np.asarray(ref.conic)[valid], atol=1e-5,
+                                   rtol=1e-5)
+        jc = np.asarray(jcolors(deg, jfeats, j("means"), jcam.camera_center))
+        np.testing.assert_allclose(colors.numpy(), jc, atol=1e-5)
+        one, one_c = forward1(*args[:3], tcam, 1.0, args[5], masked, deg)
+        for a, b in zip((*proj, colors), (*one, one_c)):
+            assert_bits_equal(a, b)
+
+
+@pytest.mark.parametrize("case", VIEW_CASES, ids=VIEW_IDS)
+def test_views_plain_backward_matches_jax_vjp(case):
+    """The V-view plain backward against ``jax.vjp`` of the JAX projection
+    and colours on concatenate(dc, rest) * mask, summed over the views:
+    the means, scales, quaternions and both leaves within 2e-4 of each
+    gradient's max; exactly zero for a Gaussian valid in no view and for
+    the coefficients the mask drops."""
+    arrs, cmask, deg, jcams, tcams = view_inputs(case)
+    args = view_args(arrs, cmask, deg, tcams)
+    out = pre.preprocess_forward_plain(*args)
+    valid = [proj.valid for proj, _ in out]
+    cts = [cotangents(len(arrs["means"]), v.numpy(), 5 * k + case[2], True)
+           for k, v in enumerate(valid)]
+    got = pre.preprocess_backward_plain(
+        *args[:4], valid, *([torch.as_tensor(c[i]) for c in cts]
+                            for i in range(3)), 1.0, *args[6:])
+    jmask = jnp.asarray(cmask)[None, :, None]
+    opac = jnp.asarray(arrs["opac"])
+
+    def f(m, s, q, dc, rest):
+        feats = jnp.concatenate([dc, rest], axis=1) * jmask
+        outs = ()
+        for jcam in jcams:
+            p = jproject(m, s, q, jcam, opacities=opac)
+            outs += (p.mean2d, p.conic,
+                     jcolors(deg, feats, m, jcam.camera_center))
+        return outs
+
+    feats = jnp.asarray(arrs["feats"])
+    _, vjp = jax.vjp(f, *(jnp.asarray(arrs[k]) for k in ("means", "scales",
+                                                         "rots")),
+                     feats[:, :1], feats[:, 1:])
+    want = vjp(tuple(jnp.asarray(c) for ct in cts for c in ct))
+    names = ("means", "scales", "rotations", "features_dc", "features_rest")
+    nowhere = ~np.any([v.numpy() for v in valid], axis=0)
+    assert nowhere.any()
+    for name, g, w in zip(names, got, want):
+        assert_max_normalised(g.numpy(), np.asarray(w), 2e-4, name)
+        assert (g.numpy()[nowhere] == 0).all(), name
+    g_features = torch.cat(got[3:], dim=1).numpy()
+    assert (g_features[:, cmask == 0] == 0).all()
+    assert np.abs(g_features[:, cmask == 1]).max() > 0
+
+
+@pytest.mark.parametrize("mode", ["event", "event_deblur", "rgb"])
+def test_step_gradients_equal_the_per_render_path(mode):
+    """The train step's loss and gradients (one preprocess call for its
+    views, on the feature leaves and the mask) against the step as it was
+    built before (``test_torch_kernels.per_render_loss_and_grads``), on the
+    CPU at a mask of degree 2 of 3 and random higher-order features: the
+    loss and each gradient (the six leaves, the contrast, the tap) bit for
+    bit."""
+    state, data, cap = step_state("cpu", 300, 64, 48)
+    cmask = (torch.arange(16) < 9).float()
+    loss, grads, want_loss, want, names = per_render_loss_and_grads(
+        state, data, mode, cmask, cap)
+    assert_bits_equal(loss, want_loss, "loss")
+    got = [*grads["params"].values(), grads["contrast"], grads["tap"]]
+    for name, g, w in zip(names, got, want):
+        assert_bits_equal(g, w.contiguous(), name)
+    assert float(got[2][:, 9:].abs().max()) == 0.0  # masked coefficients
+    assert float(got[2].abs().max()) > 0.0

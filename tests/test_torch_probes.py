@@ -193,6 +193,7 @@ def small_state():
 
 
 def test_stages_equal_the_ports_own_functions(small_state):
+    from event3dgs_tpu_torch.ops.preprocess import masked_features
     from event3dgs_tpu_torch.ops.projection import project_gaussians
     from event3dgs_tpu_torch.ops.render import gaussian_colors, render_partials
     from event3dgs_tpu_torch.train.step import (
@@ -214,14 +215,16 @@ def test_stages_equal_the_ports_own_functions(small_state):
                              opacities=act.opacities)
     for field in proj._fields:
         assert torch.equal(getattr(out[0][1], field), getattr(proj, field))
-    colors = gaussian_colors(3, inp.features, act.means3d, cam.camera_center)
+    features = masked_features(inp.leaves["features_dc"],
+                               inp.leaves["features_rest"], inp.cmask)
+    colors = gaussian_colors(3, features, act.means3d, cam.camera_center)
     assert torch.equal(out[1][2], colors)
     b = binning.bin_gaussians(proj.mean2d.detach(), proj.depth, proj.radius,
                               proj.valid, 96, 64, cap, opacities=act.opacities,
                               conic=proj.conic)
     for field in ("inst_gauss", "tile_offsets", "tile_counts", "dest", "offsets"):
         assert torch.equal(getattr(out[2][3], field), getattr(b, field))
-    partials = render_partials(act.means3d, inp.features, act.opacities,
+    partials = render_partials(act.means3d, features, act.opacities,
                                act.scales, act.rotations, cam, sh_degree=3,
                                mean2d_tap=inp.tap, rasterizer="tiled",
                                instance_cap=cap)
@@ -377,10 +380,17 @@ def test_path_bounds_of_one_view():
     # SH degree 3 over 16 coefficients: 236 bytes read and 41 written a
     # Gaussian forward, 265 read and 232 written backward
     assert b["preprocess_forward"] == (4 * 277, (4 * 266, 4 * 16))
-    assert b["preprocess_backward"] == (4 * 497, (4 * 532, 4 * 24))
+    assert b["preprocess_backward"] == (4 * 497, (4 * 532, 4 * 12))
     assert kt.path_bounds(4, 10, offsets, 6, pairs, 2, 8, 2, coeffs=25,
                           sh_degree=1)["preprocess_backward"][0] == (
         4 * (12 + 12 + 16 + 1 + 48 + 32 + 40 + 300))
+    # three views in one launch: the inputs read once, each view's outputs
+    # (forward) or upstream gradients and valid (backward) per view
+    assert kt.preprocess_bytes(4, 16, 3, views=3) == 4 * (236 + 3 * 41)
+    assert kt.preprocess_bytes(4, 16, 3, backward=True, views=3) == (
+        4 * (232 + 3 * 33 + 232))
+    assert kt.preprocess_ops(4, 3, backward=True, views=3) == (
+        3 * 4 * 532, 3 * 4 * 12)
     assert b["K4 gaussian_tables"] == (4 * 85, (240, 28))
     assert b["K4 depth_offsets"] == (4 * 20 + 4 + segments(10) * 4, (0, 0))
     # ranks 0 and 2 start under the cap (rank 1 is empty, rank 3 at it)
@@ -427,7 +437,7 @@ REPLAY = [
 ]
 MARKS = ["preprocess fwd", "other", "rasterizer fwd", "other", "loss fwd",
          "other", "loss bwd", "rasterizer bwd", "preprocess bwd",
-         "feature sums", "other", "Adam fwd", "other", "densify stats fwd",
+         "other", "other", "Adam fwd", "other", "densify stats fwd",
          "other"]
 
 
@@ -446,10 +456,9 @@ def test_replay_split_groups_a_fixed_kernel_list():
             "binning kernels": [15.0, 6], "argsort": [8.0, 2],
             "preprocess forward": [3.0, 1], "preprocess backward": [5.0, 1],
             "preprocess, other": [4.0 + 1.5, 2],
-            "feature gradient sums": [2.5, 1],
             "rasterizer, other": [0.25 + 0.75, 2], "loss": [9.0 + 2.0, 2],
             "Adam": [8.0, 1], "densify stats": [1.25, 1],
-            "other, copies": [1.0 + 1.0, 2], "other": [2.0 + 3.5, 2]}
+            "other, copies": [1.0 + 1.0, 2], "other": [2.0 + 2.5 + 3.5, 3]}
     assert totals == want
     assert sum(k for _, k in totals.values()) == len(labelled)
     assert ss.split_group("composite_forward_kernel", "loss bwd") == "K1"
@@ -464,6 +473,50 @@ def test_replay_split_groups_a_fixed_kernel_list():
         "loss"
     with pytest.raises(ValueError, match="marker kernels"):
         ss.stage_labels(REPLAY, MARKS[:-1])
+
+
+def test_replay_split_by_function():
+    """The split by CUDA function: the profiler's keys labelled by kernel
+    name and, for PyTorch's templated kernels, the functor or kernel
+    function they run; each group's functions with device µs and
+    launches, largest first."""
+    arr = "at::detail::Array<char*, 3>"
+    add = (f"void at::native::vectorized_elementwise_kernel<4, "
+           f"at::native::CUDAFunctor_add<float>, {arr} >(int, "
+           f"at::native::CUDAFunctor_add<float>, {arr})")
+    mul = ("void at::native::elementwise_kernel<128, 2, "
+           "at::native::gpu_kernel_impl_nocast<at::native::BinaryFunctor<"
+           "float, float, float, at::native::binary_internal::MulFunctor<"
+           "float> > >(at::TensorIteratorBase&)::{lambda(int)#1}>(int)")
+    exp = ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+           "(anonymous namespace)::exp_kernel_cuda(at::TensorIteratorBase&)::"
+           "{lambda()#2}::operator()() const::{lambda(float)#1}, "
+           "at::detail::Array<char*, 2> >(int)")
+    ours = ("void (anonymous namespace)::preprocess_backward_kernel<3>("
+            "(anonymous namespace)::Args)")
+    assert ss.function_label(add) == \
+        "vectorized_elementwise_kernel<CUDAFunctor_add>"
+    assert ss.function_label(mul) == "elementwise_kernel<MulFunctor>"
+    assert ss.function_label(exp) == \
+        "vectorized_elementwise_kernel<exp_kernel_cuda>"
+    assert ss.function_label(ours) == "preprocess_backward_kernel"
+    assert ss.function_label("Memcpy DtoD (Device -> Device)") == \
+        "Memcpy DtoD (Device -> Device)"
+    keys = [add, exp, add, ours, mul, add]
+    labelled = [(kt.kernel_name(k), us, stage) for k, us, stage in zip(
+        keys, (2.0, 3.0, 1.0, 5.0, 0.5, 4.0),
+        ("other", "other", "rasterizer fwd", "preprocess bwd", "other",
+         "other"))]
+    got = ss.split_functions(labelled, keys)
+    assert got == {
+        "other": {"vectorized_elementwise_kernel<CUDAFunctor_add>": [6.0, 2],
+                  "vectorized_elementwise_kernel<exp_kernel_cuda>": [3.0, 1],
+                  "elementwise_kernel<MulFunctor>": [0.5, 1]},
+        "rasterizer, other": {
+            "vectorized_elementwise_kernel<CUDAFunctor_add>": [1.0, 1]},
+        "preprocess backward": {"preprocess_backward_kernel": [5.0, 1]}}
+    assert list(got["other"])[0].endswith("CUDAFunctor_add>")
+    assert "other" in ss.BY_FUNCTION and "rasterizer, other" in ss.BY_FUNCTION
 
 
 def test_stage_markers_mark_each_stage_of_an_eager_step(monkeypatch):
@@ -484,20 +537,20 @@ def test_stage_markers_mark_each_stage_of_an_eager_step(monkeypatch):
     step = step_mod.GraphTrainStep("event", OptimizationConfig(),
                                    EventConfig(), spatial_lr_scale=3.0,
                                    rasterizer="tiled", instance_cap=icap)
-    before = [getattr(render, n) for n in ("preprocess",
-                                           "rasterize_tiled_partials")]
+    staged = [(render, "preprocess"), (render, "rasterize_tiled_partials"),
+              (step_mod, "preprocess_views")]
+    before = [getattr(m, n) for m, n in staged]
     runner = FusedSteps(step, state, data, 1)
     row = torch.from_numpy(step.row(1, (1, 1, 2), np.zeros(3))[None])
     with ss.stage_markers([]):
         loss = runner.run(row)[0]
     assert np.isfinite(loss)
-    assert [getattr(render, n) for n in ("preprocess",
-                                         "rasterize_tiled_partials")] == before
+    assert [getattr(m, n) for m, n in staged] == before
     starts = [m for m in seen if m != "other"]
-    for label in ("preprocess", "rasterizer"):  # three renders
-        assert starts.count(f"{label} fwd") == 3
-        assert starts.count(f"{label} bwd") == 3
-    assert starts.count("feature sums") == 3
+    # one preprocess call for the three views, three renders' rasterizers
+    assert starts.count("preprocess fwd") == starts.count("preprocess bwd") == 1
+    assert starts.count("rasterizer fwd") == 3
+    assert starts.count("rasterizer bwd") == 3
     assert starts.count("loss fwd") == starts.count("loss bwd") == 1
     assert starts.count("Adam fwd") == 1  # the Gaussians and contrast
     assert starts.count("densify stats fwd") == 1
