@@ -16,12 +16,14 @@ Phases (any failed check exits non-zero; nothing is caught):
 3. Render the train views through the entry point
    (``event3dgs_tpu_torch.cli.render.main``) and check that each kernel of
    the path (the forward preprocess, the binning's table and depth offsets
-   kernels, K1, K4, K5, K6) launched once per view and that the PNGs
-   exist.
+   kernels, K1, K4, K5, K6) launched once per view, that
+   ``pack_features`` was called nowhere (the preprocess forward writes the
+   packed rows K1 reads) and that the PNGs exist.
 4. Hold each render kernel against its plain PyTorch version at the shapes
    of view 0 (the forward preprocess bit for bit: mean2d, depth, conic,
-   radius, valid and colours; the table kernel, the depth offsets kernel, K4 with its count
-   rows, K5, K6, the fused counting sort with and without K4's rows and
+   radius, valid, colours and the packed rows, the rows also against
+   ``pack_features`` of the kernel's own outputs; the table kernel, the
+   depth offsets kernel, K4 with its count rows, K5, K6, the fused counting sort with and without K4's rows and
    the whole ``Binning`` exactly, K1 within 1e-5), one full view of the
    kernel path against the all-plain path, and the kernel path against the
    oracle rasterizer on a small scene.  The fused counting sort (K5 and K6
@@ -49,8 +51,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    alive count must grow and the loss must be finite.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
-   cap): the forward preprocess over the step's three 1080p views
-   (bit-equal), the backward preprocess there on seeded upstream gradients
+   cap): the forward preprocess over the step's three 1080p views with
+   the step's zero mean2d tap and the packed rows (bit-equal, the rows to
+   ``pack_features`` too), the backward preprocess there on seeded
+   upstream gradients
    (2e-4 of each gradient's max, the feature gradients bit-equal,
    bit-identical run twice), with both kernels' registers and resident
    blocks per SM, K1's stop index, K2's rows (1e-5 of the max) and K3
@@ -71,7 +75,12 @@ Phases (any failed check exits non-zero; nothing is caught):
    bit-identical).
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
-   profile one step, and time K2, K3, the Adam kernel (its yardstick
+   profile one step (its device kernels), check that neither the eager
+   step nor the graphed one (``FusedSteps``' warm-up and capture) calls
+   ``pack_features``, print the device nodes one graphed step enqueues
+   (its CUDA graph read back) and its device ms per replay, time the
+   forward preprocess with and without the packed rows, and time K2, K3,
+   the Adam kernel (its yardstick
    ``torch._fused_adam_``, one call per learning rate) and the loss
    kernels (no yardstick: no one PyTorch call computes the loss) as in
    phase 5; K3
@@ -200,8 +209,11 @@ Phases (any failed check exits non-zero; nothing is caught):
    warm-ups and captures only, and its first 20 losses equal to the eager
    loop's bit for bit; then phase 8's densify with capacity growth on its
    trained state (threshold 0: ~0.9M alive slots all candidates) and one
-   rgb step at the re-measured instance cap.  Each kernel's JSON row gets
-   the 2M columns under ``scale``.
+   rgb step at the re-measured instance cap.  At the 2M state, as in
+   phase 8: the graphed step's device nodes, its device ms per replay and
+   no ``pack_features`` call, and the forward preprocess with and without
+   the packed rows.  Each kernel's JSON row gets the 2M columns under
+   ``scale``.
 
 For K1 and K2 the script prints their time beside the earlier design's
 (before the warp cull, from PERF.md), their bound over the composited
@@ -649,26 +661,33 @@ def bits_differ(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
-def preprocess_check(what, act, dc, rest, cams, cmask=None, backward=False):
+def preprocess_check(what, act, dc, rest, cams, cmask=None, backward=False,
+                     tap=False):
     """The forward preprocess kernel against its plain version over the
     views ``cams`` (one launch for all), on the activated Gaussians ``act``
     and the feature leaves ``dc``, ``rest`` (SH degree 3) with the mask
-    ``cmask``: each view's mean2d, depth, conic, radius, valid and colours
-    bit-equal.  With ``backward``, the backward kernel on seeded upstream
+    ``cmask``, asked for the packed rows as the render and the train step
+    ask (with ``tap``, the step's zero [N, 2] mean2d tap on the first
+    view): each view's mean2d, depth, conic, radius, valid, colours and
+    packed rows bit-equal, and the rows bit-equal to ``pack_features`` of
+    the kernel's own outputs.  With ``backward``, the backward kernel on
+    seeded upstream
     gradients, strided as the rasterizer hands them over (slices of an [N,
     9] tensor per view): the gradients of the means, scales and rotations
     within 2e-4 of their max, the two leaves' bit for bit, and all
     bit-identical when run twice.  Prints each kernel's registers and
     resident blocks per SM.  Returns a namespace: ``proj`` and ``colors``
     (the kernel's, of the first view), ``errs``, ``calls`` {kernel: (its
-    call, its plain version's)}, ``bounds`` {kernel: (bytes, operations)}
-    over the views, ``occupancy`` {kernel: (registers, blocks per SM)}."""
+    call, its plain version's)}, ``unpacked`` (the forward's call without
+    the packed rows), ``bounds`` {kernel: (bytes, operations)} over the
+    views, ``occupancy`` {kernel: (registers, blocks per SM)}."""
     import types
 
     import torch
 
     from event3dgs_tpu_torch.ops import kernels
     from event3dgs_tpu_torch.ops import preprocess as pre
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
     from event3dgs_tpu_torch.tools.kernel_timing import (
         preprocess_bytes,
         preprocess_ops,
@@ -677,33 +696,40 @@ def preprocess_check(what, act, dc, rest, cams, cmask=None, backward=False):
     n, k, views = act.means3d.shape[0], 1 + rest.shape[1], len(cams)
     args = (act.means3d, act.scales, act.rotations, cams, 1.0, act.opacities,
             dc, rest, cmask, 3)
+    kw = dict(mean2d_tap=torch.zeros(n, 2, device=act.means3d.device)
+              if tap else None, packed=True)
     with torch.no_grad():
-        got = pre.preprocess_forward_kernel(*args)
-        want = pre.preprocess_forward_plain(*args)
+        got = pre.preprocess_forward_kernel(*args, **kw)
+        want = pre.preprocess_forward_plain(*args, **kw)
     ulps = {f"{f}[{v}]": bits_differ(a, b)
-            for v, ((pk, ck), (pp, cp)) in enumerate(zip(got, want))
-            for f, a, b in zip((*pk._fields, "colors"), (*pk, ck), (*pp, cp))}
+            for v, ((pk, ck, fk), (pp, cp, fp)) in enumerate(zip(got, want))
+            for f, a, b in zip((*pk._fields, "colors", "packed rows"),
+                               (*pk, ck, fk), (*pp, cp, fp))}
+    ulps.update({f"pack_features[{v}]": bits_differ(fk, rt.pack_features(
+        pk.mean2d, pk.conic, ck, act.opacities))
+        for v, (pk, ck, fk) in enumerate(got)})
     check(not any(ulps.values()), f"{what}: the forward preprocess kernel "
           f"differs from its plain version (ulps by output: {ulps})")
     del want
-    n_valid = [int(pk.valid.sum()) for pk, _ in got]
+    n_valid = [int(pk.valid.sum()) for pk, _, _ in got]
     errs = {"preprocess_forward": 0.0}
     calls = {"preprocess_forward": (
-        lambda: pre.preprocess_forward_kernel(*args),
-        lambda: pre.preprocess_forward_plain(*args))}
+        lambda: pre.preprocess_forward_kernel(*args, **kw),
+        lambda: pre.preprocess_forward_plain(*args, **kw))}
     bounds = {"preprocess_forward": (
-        preprocess_bytes(n, k, 3, views=views),
+        preprocess_bytes(n, k, 3, views=views, tap=tap),
         preprocess_ops(n, 3, views=views))}
     occupancy = {"preprocess_forward": kernels.occupancy(
         "preprocess", "e3d_preprocess_occupancy", 0, 3, k)}
     text = (f"forward preprocess over {views} view{'s' * (views > 1)} "
-            f"bit-equal to its plain version ({n_valid} of {n} valid)")
+            f"{'with the tap ' * tap}bit-equal to its plain version, its "
+            f"packed rows to pack_features too ({n_valid} of {n} valid)")
     if backward:
         g = torch.Generator().manual_seed(11)
         rows = [(torch.rand(n, 9, generator=g) - 0.5).to(act.means3d.device)
                 for _ in cams]
         bargs = (act.means3d, act.scales, act.rotations, cams,
-                 [pk.valid for pk, _ in got], [r[:, 0:2] for r in rows],
+                 [pk.valid for pk, _, _ in got], [r[:, 0:2] for r in rows],
                  [r[:, 2:5] for r in rows], [r[:, 6:9] for r in rows], 1.0,
                  dc, rest, cmask, 3)
         gk = pre.preprocess_backward_kernel(*bargs)
@@ -739,9 +765,11 @@ def preprocess_check(what, act, dc, rest, cams, cmask=None, backward=False):
     text += "; " + ", ".join(f"{name} {r} registers, {b} blocks per SM"
                              for name, (r, b) in occupancy.items())
     print(f"{what}: {text}")
-    return types.SimpleNamespace(proj=got[0][0], colors=got[0][1], errs=errs,
-                                 calls=calls, bounds=bounds,
-                                 occupancy=occupancy)
+    return types.SimpleNamespace(
+        proj=got[0][0], colors=got[0][1], errs=errs, calls=calls,
+        unpacked=lambda: pre.preprocess_forward_kernel(
+            *args, mean2d_tap=kw["mean2d_tap"]),
+        bounds=bounds, occupancy=occupancy)
 
 
 def step_preprocess_check(what, state, data, idx):
@@ -749,7 +777,7 @@ def step_preprocess_check(what, state, data, idx):
     kernels: its three views (main ``idx[0]``, event pair ``idx[1]`` →
     ``idx[2]``), the state's feature leaves, the mask as a device tensor
     with all 16 coefficients on (the degree the step reaches after 3,000
-    iterations)."""
+    iterations), the zero tap, the packed rows."""
     import torch
 
     from event3dgs_tpu_torch.models import activated
@@ -760,7 +788,7 @@ def step_preprocess_check(what, state, data, idx):
     cmask = torch.ones(params.sh_coeffs, device=params.device)
     return preprocess_check(what, activated(params, features=False),
                             params.features_dc, params.features_rest, cams,
-                            cmask, backward=True)
+                            cmask, backward=True, tap=True)
 
 
 def occupancy_rows(rows, occupancy):
@@ -1203,6 +1231,28 @@ ADAM = "adam_update"
 LOSS = ("event_loss_forward", "event_loss_backward")
 
 
+@contextlib.contextmanager
+def counting_packs():
+    """While open, each call of ``pack_features`` (the tiled rasterizer's
+    packing and the plain preprocess's) appends 1 to the list it yields:
+    the event step and the colour render take the packed rows from the
+    preprocess forward kernel and call it nowhere."""
+    from event3dgs_tpu_torch.ops import preprocess as pre
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+
+    calls, pack = [], rt.pack_features
+
+    def counted(*args):
+        calls.append(1)
+        return pack(*args)
+
+    rt.pack_features = pre.pack_features = counted
+    try:
+        yield calls
+    finally:
+        rt.pack_features = pre.pack_features = pack
+
+
 def count_launches(fn):
     """Run ``fn`` with every launch count set to 0; return (its result, the
     counts it left, and under ``PROBES`` the instance-cap probes it ran)."""
@@ -1286,12 +1336,14 @@ def render_path(root: str, dev):
 
     # 3. the render path: cli.render on the card ----------------------------
     t0 = time.perf_counter()
-    rc, launches = count_launches(
-        lambda: render_main(["-m", model, "--skip_test", "--device", DEVICE]))
+    with counting_packs() as packs:
+        rc, launches = count_launches(lambda: render_main(
+            ["-m", model, "--skip_test", "--device", DEVICE]))
     check(rc == 0, "cli.render failed")
+    check(not packs, f"cli.render called pack_features {len(packs)} times")
     cli_s = time.perf_counter() - t0
     print(f"cli.render: {VIEWS} views in {cli_s:.2f} s (PNG IO included); "
-          f"launches {launches}")
+          f"launches {launches}; pack_features called 0 times")
     check_render_launches("cli.render", launches, VIEWS)
     out = os.path.join(model, "train", "ours_1")
     for sub in ("renders", "gt"):
@@ -2223,8 +2275,12 @@ def train_kernels(dev):
         "phase 7, the step's renders", *loss_views(state, data, idx, bg, icap))
 
     # 8. timing: bench.py's event step ---------------------------------------
-    (st, _), per_step = count_launches(lambda: step(state, data, *idx, bg))
+    with counting_packs() as packs:
+        (st, _), per_step = count_launches(lambda: step(state, data, *idx,
+                                                        bg))
     check_launches("one event step", per_step, 3, 3, steps=1)
+    check(not packs, f"one event step called pack_features {len(packs)} "
+          "times")
     for _ in range(WARMUP_STEPS):
         st, _ = step(st, data, *idx, bg)
     torch.cuda.synchronize()
@@ -2258,6 +2314,7 @@ def train_kernels(dev):
         "vs_baseline": round(pix_s / CUDA_BASELINE_PIX_S, 4)}))
     profile_view(lambda: step(st, data, *idx, bg), what="one event step",
                  top=15)
+    graphed_step("phase 8, bench.py's state", st, data, icap)
 
     b, rows_k = v.bk, v.rows_k
     _, _, (gathered, lengths) = k3_inputs(b, rows_k)
@@ -2289,6 +2346,7 @@ def train_kernels(dev):
     errs = {k: v.errs[k] for k in timings}
     rows = kernel_rows(timings, v.bounds, meta, errs)
     occupancy_rows(rows, pre.occupancy)
+    packed_cost("phase 8", rows["preprocess_forward"], pre)
     rows["K3 segment_sums"].update(k3_in_order("main view", b, rows_k))
     composite_report("K2 composite_backward", rows["K2 composite_backward"],
                      v.pairs, v.bounds["K2 composite_backward"][0],
@@ -2790,6 +2848,72 @@ def fused_path(root: str, dev):
           f"last loss {float(last.group(1)):.6f}; {smi}")
 
 
+def packed_cost(what, row, pre):
+    """The forward preprocess as the step calls it, with the packed rows,
+    and without them (``pre.unpacked``), graph ms each, into its JSON row
+    (``graph_ms_packed``, ``graph_ms_unpacked``): what writing the rows
+    costs the kernel."""
+    from event3dgs_tpu_torch.tools.kernel_timing import graph_ms
+
+    row["graph_ms_packed"] = graph_ms(pre.calls["preprocess_forward"][0])
+    row["graph_ms_unpacked"] = graph_ms(pre.unpacked)
+    print(f"{what}: preprocess_forward with the packed rows "
+          f"{row['graph_ms_packed']:.4f} graph ms, without them "
+          f"{row['graph_ms_unpacked']:.4f}")
+
+
+def graphed_step(what, state, data, icap):
+    """The event step of ``state`` (views 1, 1 → 2) as ``--fused_steps``
+    runs it (``train/fused.FusedSteps``: two eager warm-up steps and the
+    capture), ``pack_features`` called in none of them; the device work
+    that one step enqueues, read from its CUDA graph (``graph_kernels``);
+    the device ms of a replay (CUDA events around 10 replays, the median
+    of 3 windows).  Printed beside the card's name and power limit."""
+    import torch
+
+    from event3dgs_tpu_torch.tools import kernel_timing
+    from event3dgs_tpu_torch.train.fused import FusedSteps
+    from event3dgs_tpu_torch.train.step import GraphTrainStep
+    from event3dgs_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig()
+    step = GraphTrainStep("event", cfg.optimization, cfg.event,
+                          spatial_lr_scale=3.0, rasterizer="tiled",
+                          instance_cap=icap)
+    replays = 10
+    with counting_packs() as packs:
+        runner = FusedSteps(step, state, data, replays)
+        runner.table.copy_(torch.from_numpy(np.stack([
+            step.row(int(state.step) + 1 + j, (1, 1, 2), np.zeros(3))
+            for j in range(replays)])))
+        nodes = kernel_timing.graph_kernels(
+            lambda: (runner.cursor.zero_(), runner._call()))
+    check(not packs, f"{what}: the graphed event step called pack_features "
+          f"{len(packs)} times")
+    ms = []
+    for _ in range(3):
+        runner.cursor.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            runner.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end) / replays)
+    check(bool(torch.isfinite(runner.slots.history).all()),
+          f"{what}: non-finite loss in a timed replay")
+    runner.release()
+    kernels = sum(c for k, c in nodes.items()
+                  if k not in ("memset", "memcpy", "other"))
+    print(f"{what}: one graphed event step enqueues {sum(nodes.values())} "
+          f"device nodes ({kernels} kernels, {nodes.get('memcpy', 0)} "
+          f"copies, {nodes.get('memset', 0)} memsets); "
+          f"{float(np.median(ms)):.4f} device ms per replay (median of "
+          f"{', '.join(f'{m:.4f}' for m in ms)}); pack_features called 0 "
+          f"times in its warm-up steps and capture; {card()}")
+
+
 def scale_kernel_rows(state, data, icap, dev):
     """Phase 14b: at the 2M-slot maxcap state, every kernel of the path
     against its plain version at the step's main view (camera 1), at the
@@ -2835,6 +2959,7 @@ def scale_kernel_rows(state, data, icap, dev):
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
               f"({by}), {ms / bound:.2f}x{plain_txt}")
     out["K3 segment_sums"].update(k3_in_order(what, v.bk, v.rows_k))
+    packed_cost(what, out["preprocess_forward"], pre)
     adam = adam_groups(state, data, (1, 1, 2),
                        torch.zeros(3, device=dev), icap, 1)
     err, kern, plain = adam_check(what, adam, graphed=True)
@@ -2901,6 +3026,8 @@ def scale_path(dev):
 
     # 14b: each kernel of the path at 2M against its plain version
     state, data = scale.maxcap_scene(SCALE_CAPACITY, WIDTH, HEIGHT, dev)
+    graphed_step(f"phase 14, {SCALE_CAPACITY} slots", state, data,
+                 rec["instance_cap"])
     rows = scale_kernel_rows(state, data, rec["instance_cap"], dev)
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -23,7 +23,14 @@
 // ops/projection.project_gaussians and ops/render.gaussian_colors return on
 // features * mask: mean2d [N, 2], depth [N], conic [N, 3], radius [N],
 // valid [N] (bool) and colours [N, 3] = max(eval_sh + 0.5, 0).  Without
-// features it projects only.  Every operation is the plain version's, one
+// features it projects only.  The first view's mean2d takes the optional
+// [N, 2] tap (mean2d + tap, as the render adds it).  Where a view's packed
+// rows are asked for (with features and opacities), it also writes the
+// [N, 12] rows the compositing kernels K1 and K2 read, as
+// ops/rasterize_tiled.pack_features lays them out: mean2d (tapped), the
+// conic times (-0.5, -1, -0.5), the opacity, the colours and three zeros;
+// the train step and the render then build no rows of their own.  Every
+// operation is the plain version's, one
 // rounding each, in its order (the build has -fmad=false), and each
 // coefficient is multiplied by its mask entry before the SH sum, as
 // features * mask rounds: the outputs equal the plain PyTorch version's bit
@@ -53,10 +60,11 @@
 // the gradients repeat bit for bit.
 //
 // Bound: bytes.  At SH degree 3 the forward reads 236 bytes a Gaussian
-// (means, scales, quaternion, opacity, 192 of features) and writes 41 a
-// view; the backward reads 232 and 33 a view (upstream gradients and valid)
-// and writes 232.  A few hundred FP32 operations a Gaussian and view stay
-// below the bytes' time.  Design for Hopper:
+// (means, scales, quaternion, opacity, 192 of features) and the tap's 8,
+// and writes 41 a view and the packed row's 48; the backward reads 232
+// and 33 a view (upstream gradients and valid) and writes 232.  A few
+// hundred FP32 operations a Gaussian and view stay below the bytes' time.
+// Design for Hopper:
 // - A block of 128 threads stages its 128 feature rows in shared memory:
 //   the dc rows [128, 3], then the rest rows [128, 3(K-1)], each leaf as
 //   it lies.  Where a leaf's rows are contiguous and 16-byte aligned (the
@@ -80,6 +88,15 @@
 //   direction's norm): it decides no output of the forward, and the
 //   divisions are the longest chains of a view's some 350 operations.
 //   The mask multiplies each thread's staged rows once.
+// - The packed row of a view (48 bytes, 16-byte aligned) is written whole
+//   where the view is coloured, three float4 stores a thread back to back
+//   (a warp's three cover 1,536 contiguous bytes); its first 6 floats wait
+//   in registers from the projection.  Measured in trial builds on the
+//   H100: written as two halves where each is computed (the registers and
+//   blocks of the kernel without rows), the sectors that the two halves
+//   share reach memory apart and the rows cost far more than their bytes
+//   at 2M slots; staged in shared memory (one block fewer an SM), about
+//   as fast as this at 2M and a little faster at 100k.
 // - No tensor cores: each Gaussian has its own 16 × 3 features, so there is
 //   no shared matrix product.
 
@@ -93,6 +110,7 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int MAX_K = 25;     // SH degree 4
 constexpr int MAX_VIEWS = 3;  // the event modes' renders a step
+constexpr int FEAT = 12;      // floats of a packed row (pack_features)
 
 // the plain version's Python float constants, rounded to float32 as
 // PyTorch rounds a scalar operand
@@ -153,6 +171,7 @@ struct View {
   float* radius;
   bool* valid;
   float* colors;
+  float* feat;  // packed rows [N, 12], or null
   const unsigned char* valid_in;
   const float* g_mean2d;
   const float* g_conic;
@@ -167,6 +186,7 @@ struct Args {
   const float* scales;
   const float* rots;
   const float* opac;   // forward, or null
+  const float* tap;    // forward: the first view's [N, 2] mean2d tap, or null
   const float* dc;     // [N, 1, 3], or null at degree -1
   const float* rest;   // [N, K-1, 3]
   const float* cmask;  // [K], or null
@@ -220,6 +240,15 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
 
 __device__ __forceinline__ float clamp_minf(float v, float lo) {
   return isnan(v) ? v : fmaxf(v, lo);
+}
+
+// x * s as one multiply, as PyTorch's product with a scale tensor rounds
+// (the compiler would turn x * -1 into a negation, which may keep a NaN's
+// sign where the multiply gives the canonical NaN)
+__device__ __forceinline__ float mulf(float x, float s) {
+  float r;
+  asm("mul.rn.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(s));
+  return r;
 }
 
 // m0 * M[0, j] + m1 * M[1, j] + m2 * M[2, j] + M[3, j]
@@ -697,6 +726,7 @@ __global__ void __launch_bounds__(THREADS) preprocess_forward_kernel(
 
   const bool in = i < a.n;
   float m[3], sc[3], q[4];
+  float head[MAX_VIEWS][6];  // each view's packed row, floats 0-5
   if (in) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -705,7 +735,8 @@ __global__ void __launch_bounds__(THREADS) preprocess_forward_kernel(
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) q[k] = a.rots[4 * (size_t)i + k];
-    const bool opaque = a.opac == nullptr || a.opac[i] >= MIN_OPACITY;
+    const float op = a.opac != nullptr ? a.opac[i] : 0.0f;
+    const bool opaque = a.opac == nullptr || op >= MIN_OPACITY;
 #pragma unroll
     for (int v = 0; v < MAX_VIEWS; ++v) {
       if (v >= a.nviews) break;
@@ -713,13 +744,26 @@ __global__ void __launch_bounds__(THREADS) preprocess_forward_kernel(
       Proj p;
       project<true>(cams[v], m, sc, q, w.width, w.height, a.smod, p);
       const bool valid = p.valid && opaque;
-      w.mean2d[2 * (size_t)i] = p.mx;
-      w.mean2d[2 * (size_t)i + 1] = p.my;
+      float mx = p.mx, my = p.my;
+      if (v == 0 && a.tap != nullptr) {
+        mx = mx + a.tap[2 * (size_t)i];
+        my = my + a.tap[2 * (size_t)i + 1];
+      }
+      w.mean2d[2 * (size_t)i] = mx;
+      w.mean2d[2 * (size_t)i + 1] = my;
       w.depth[i] = valid ? p.tz : INFINITY;
 #pragma unroll
       for (int k = 0; k < 3; ++k) w.conic[3 * (size_t)i + k] = p.conic[k];
       w.radius[i] = valid ? p.radius : 0.0f;
       w.valid[i] = valid;
+      if constexpr (D >= 0) {
+        head[v][0] = mx;
+        head[v][1] = my;
+        head[v][2] = mulf(p.conic[0], -0.5f);
+        head[v][3] = mulf(p.conic[1], -1.0f);
+        head[v][4] = mulf(p.conic[2], -0.5f);
+        head[v][5] = op;
+      }
     }
   }
 
@@ -737,13 +781,23 @@ __global__ void __launch_bounds__(THREADS) preprocess_forward_kernel(
       direction(cams[v], m, dir);
       float B[NC];
       sh_basis<D>(dir[0], dir[1], dir[2], B);
+      float rgb[3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         float acc = feature(fdc, frest, 0, c) * B[0];
 #pragma unroll
         for (int k = 1; k < NC; ++k)
           acc = acc + feature(fdc, frest, k, c) * B[k];
-        a.view[v].colors[3 * (size_t)i + c] = clamp_minf(acc + 0.5f, 0.0f);
+        rgb[c] = clamp_minf(acc + 0.5f, 0.0f);
+        a.view[v].colors[3 * (size_t)i + c] = rgb[c];
+      }
+      if (a.view[v].feat != nullptr) {  // the whole row
+        float4* row =
+            reinterpret_cast<float4*>(a.view[v].feat + FEAT * (size_t)i);
+        const float* h = head[v];
+        row[0] = make_float4(h[0], h[1], h[2], h[3]);
+        row[1] = make_float4(h[4], h[5], rgb[0], rgb[1]);
+        row[2] = make_float4(rgb[2], 0.0f, 0.0f, 0.0f);
       }
     }
   }
@@ -927,23 +981,28 @@ bool common_args(Args& a, const float* means, const float* scales,
 }  // namespace
 
 // degree -1: no features (projection only; dc, rest, cmask unread);
-// per view in ``views`` 11 pointers: world_view, full_proj, camera_center,
-// tan_fovx, tan_fovy, then the outputs mean2d, depth, conic, radius, valid,
-// colors (null at degree -1); in ``sizes`` its width and height
+// ``tap`` (or null) is added to the first view's mean2d; per view in
+// ``views`` 12 pointers: world_view, full_proj, camera_center, tan_fovx,
+// tan_fovy, then the outputs mean2d, depth, conic, radius, valid, colors
+// (null at degree -1) and the packed rows (null: not written; else
+// 16-byte aligned, with features and opacities); in ``sizes`` its width
+// and height
 extern "C" int e3d_preprocess_forward(
     const float* means, const float* scales, const float* rots,
-    const float* opac, const float* dc, long long ld_dc, const float* rest,
+    const float* opac, const float* tap, const float* dc, long long ld_dc,
+    const float* rest,
     long long ld_rest, int K, const float* cmask, int degree, int n,
     float smod, int nviews, const void* const* views, const int* sizes,
     cudaStream_t stream) {
   if (n <= 0) return 0;  // (an empty tensor's pointer may be null)
   Args a;
   if (!common_args(a, means, scales, rots, dc, ld_dc, rest, ld_rest, K,
-                   cmask, degree, n, smod, nviews, views, sizes, 11))
+                   cmask, degree, n, smod, nviews, views, sizes, 12))
     return (int)cudaErrorInvalidValue;
   a.opac = opac;
+  a.tap = tap;
   for (int v = 0; v < nviews; ++v) {
-    const void* const* c = views + (size_t)v * 11;
+    const void* const* c = views + (size_t)v * 12;
     View& w = a.view[v];
     w.mean2d = (float*)c[5];
     w.depth = (float*)c[6];
@@ -951,7 +1010,12 @@ extern "C" int e3d_preprocess_forward(
     w.radius = (float*)c[8];
     w.valid = (bool*)c[9];
     w.colors = (float*)c[10];
+    w.feat = (float*)c[11];
     if (degree >= 0 && w.colors == nullptr) return (int)cudaErrorInvalidValue;
+    if (w.feat != nullptr
+        && (degree < 0 || opac == nullptr
+            || (reinterpret_cast<uintptr_t>(w.feat) & 15) != 0))
+      return (int)cudaErrorInvalidValue;
   }
   const int blocks = (n + THREADS - 1) / THREADS;
   const int smem = smem_bytes(degree, a.K);

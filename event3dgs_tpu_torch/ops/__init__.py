@@ -1,9 +1,9 @@
 """Gaussian splatting ops, differentiable.
 
 - ``projection``: frustum cull + EWA 3D→2D covariance projection
-- ``preprocess``: the projection and the SH colours of up to three views
-  as one forward and one backward CUDA kernel, and the autograd Function
-  around them
+- ``preprocess``: the projection and the SH colours of up to three views,
+  and the tiled rasterizer's packed rows, as one forward and one backward
+  CUDA kernel, and the autograd Function around them
 - ``binning``: per-tile depth-ordered instance lists (kernels K4, K5, K6
   in ``expand`` and ``sort_tiles``)
 - ``rasterize_tiled``: forward compositing (kernel K1), backward

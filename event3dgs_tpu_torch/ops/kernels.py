@@ -55,15 +55,17 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # SM) of their kernel
 SIGNATURES = {
     "preprocess": {
-        # means, scales, rotations, opacities (or null), features_dc (or
-        # null: degree -1, projection only) and its row stride (floats),
-        # features_rest and its row stride, K, the [K] mask (or null), SH
-        # degree, n, scaling_modifier, views, per view 11 pointers
-        # (world_view, full_proj, camera_center, tan_fovx, tan_fovy,
-        # mean2d_out, depth_out, conic_out, radius_out, valid_out,
-        # colors_out or null), per view 2 ints (width, height), stream
-        "e3d_preprocess_forward": [_P, _P, _P, _P, _P, _L, _P, _L, _I, _P,
-                                   _I, _I, _F, _I, _P, _P, _P],
+        # means, scales, rotations, opacities (or null), the first view's
+        # mean2d tap (or null), features_dc (or null: degree -1,
+        # projection only) and its row stride (floats), features_rest and
+        # its row stride, K, the [K] mask (or null), SH degree, n,
+        # scaling_modifier, views, per view 12 pointers (world_view,
+        # full_proj, camera_center, tan_fovx, tan_fovy, mean2d_out,
+        # depth_out, conic_out, radius_out, valid_out, colors_out or null,
+        # the packed rows' [N, 12] out or null), per view 2 ints (width,
+        # height), stream
+        "e3d_preprocess_forward": [_P, _P, _P, _P, _P, _P, _L, _P, _L, _I,
+                                   _P, _I, _I, _F, _I, _P, _P, _P],
         # means, scales, rotations, features_dc, its row stride,
         # features_rest, its row stride, K, mask, SH degree, n,
         # scaling_modifier, views, per view 9 pointers (world_view,

@@ -13,13 +13,19 @@ kernels read the feature leaves ``features_dc`` [N, 1, 3] and
 ``features_rest`` [N, K-1, 3] where they lie and apply the step's [K] SH
 mask themselves, so the step builds no concatenated or masked features,
 and the backward writes the two leaves' gradient once, as one [N, K, 3]
-tensor, summed over the views.
+tensor, summed over the views.  The forward also adds the render's mean2d
+tap to the first view's means and, asked with ``packed``, writes each
+coloured view's [N, 12] packed rows, which the compositing kernels K1 and
+K2 read (:func:`~event3dgs_tpu_torch.ops.rasterize_tiled.pack_features`'s
+layout): the train step and the render pack no rows of their own.
 
 - :func:`preprocess_forward_plain` is the plain forward: per camera the
   port's :func:`~event3dgs_tpu_torch.ops.projection.project_gaussians` and
   :func:`~event3dgs_tpu_torch.ops.render.gaussian_colors` on
-  ``concatenate(dc, rest) * cmask``.  The forward kernel repeats their
-  operations in their order, so on the card it equals them bit for bit.
+  ``concatenate(dc, rest) * cmask``, the tap added to the first view's
+  means, and ``pack_features`` of what they return.  The forward kernel
+  repeats their operations in their order, so on the card it equals them
+  bit for bit.
 - :func:`preprocess_backward_plain` is the analytic backward in plain
   tensor code: :func:`view_backward_plain`, the backward kernel's formulas
   line for line, at each view, the views' gradients added from the last
@@ -33,7 +39,10 @@ tensor, summed over the views.
 - :class:`Preprocess` is the ``torch.autograd.Function`` around them;
   :func:`preprocess_views` (V views, the feature leaves and the mask) and
   :func:`preprocess` (one view, [N, K, 3] features, which the kernels read
-  as two strided views of themselves) are its entries.  CPU tensors take
+  as two strided views of themselves) are its entries.  The tap's gradient
+  is the first view's mean2d gradient; the packed rows take none (their
+  gradients reach mean2d, conic, colours and the opacities through the
+  rasterizer's own inputs).  CPU tensors take
   the plain versions, CUDA tensors the kernels, or the plain versions with
   ``plain=True``.  On CUDA a failed build or launch raises; nothing falls
   back.
@@ -57,6 +66,7 @@ from event3dgs_tpu_torch.ops.projection import (
     rotation_entries,
     row_norm,
 )
+from event3dgs_tpu_torch.ops.rasterize_tiled import FEAT, pack_features
 
 MAX_COEFFS = 25  # SH degree 4: the kernels' widest feature row
 MAX_VIEWS = 3  # the views one launch takes: the event modes' three renders
@@ -71,24 +81,40 @@ def masked_features(features_dc, features_rest, cmask=None):
     return features if cmask is None else features * cmask[None, :, None]
 
 
+def _check_packed(packed: bool, features_dc, opacities):
+    if packed and features_dc is not None and opacities is None:
+        raise ValueError("packed rows need the opacities")
+
+
 def preprocess_forward_plain(means3d, scales, rotations, cameras,
                              scaling_modifier: float = 1.0, opacities=None,
                              features_dc=None, features_rest=None,
-                             cmask=None, sh_degree: int = 0):
+                             cmask=None, sh_degree: int = 0, mean2d_tap=None,
+                             packed: bool = False):
     """Plain PyTorch version of the forward kernel: per camera of
     ``cameras``, (:class:`ProjectedGaussians`, [N, 3] colours or None
-    without features)."""
+    without features), the [N, 2] ``mean2d_tap`` (or None) added to the
+    first camera's mean2d; with ``packed`` a third entry, the view's [N,
+    12] packed rows (``pack_features`` of its mean2d, conic, colours and
+    the opacities; None without features)."""
     from event3dgs_tpu_torch.ops.render import gaussian_colors
 
+    _check_packed(packed, features_dc, opacities)
     features = masked_features(features_dc, features_rest, cmask)
     out = []
-    for cam in cameras:
+    for v, cam in enumerate(cameras):
         proj = project_gaussians(means3d, scales, rotations, cam,
                                  scaling_modifier=scaling_modifier,
                                  opacities=opacities)
+        if v == 0 and mean2d_tap is not None:
+            proj = proj._replace(mean2d=proj.mean2d + mean2d_tap)
         colors = None if features is None else gaussian_colors(
             sh_degree, features, means3d, cam.camera_center)
-        out.append((proj, colors))
+        if not packed:
+            out.append((proj, colors))
+            continue
+        out.append((proj, colors, None if colors is None else pack_features(
+            proj.mean2d, proj.conic, colors, opacities)))
     return out
 
 
@@ -393,38 +419,47 @@ def _check_gaussians(means3d, scales, rotations) -> int:
 def preprocess_forward_kernel(means3d, scales, rotations, cameras,
                               scaling_modifier: float = 1.0, opacities=None,
                               features_dc=None, features_rest=None,
-                              cmask=None, sh_degree: int = 0):
+                              cmask=None, sh_degree: int = 0, mean2d_tap=None,
+                              packed: bool = False):
     """Launch the forward kernel (``csrc/preprocess.cu``) on CUDA tensors:
-    one launch for all of ``cameras``."""
+    one launch for all of ``cameras``, the arguments and outputs of
+    :func:`preprocess_forward_plain` (the packed rows 16-byte aligned)."""
     n = _check_gaussians(means3d, scales, rotations)
     views = _check_views(cameras)
+    _check_packed(packed, features_dc, opacities)
     if opacities is not None:
         kernels.check(opacities, torch.float32, "opacities", (n,))
+    if mean2d_tap is not None:
+        kernels.check(mean2d_tap, torch.float32, "mean2d_tap", (n, 2))
     feats = _check_features(features_dc, features_rest, cmask, n, sh_degree)
     cams = [_check_camera(c) for c in cameras]
     dev = means3d.device
     empty = lambda *shape, dtype=torch.float32: torch.empty(
         *shape, dtype=dtype, device=dev)
+    colored = feats is not None
     out = [(ProjectedGaussians(mean2d=empty(n, 2), depth=empty(n),
                                conic=empty(n, 3), radius=empty(n),
                                valid=empty(n, dtype=torch.bool)),
-            None if feats is None else empty(n, 3)) for _ in cameras]
-    ptrs = (ctypes.c_void_p * (11 * views))(*(x for cam, (proj, colors) in zip(
-        cams, out) for x in (*cam, *(t.data_ptr() for t in proj),
-                             None if colors is None else colors.data_ptr())))
+            empty(n, 3) if colored else None,
+            empty(n, FEAT) if colored and packed else None) for _ in cameras]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ptrs = (ctypes.c_void_p * (12 * views))(*(
+        x for cam, (proj, colors, feat) in zip(cams, out)
+        for x in (*cam, *(t.data_ptr() for t in proj), ptr(colors),
+                  ptr(feat))))
     sizes = (ctypes.c_int * (2 * views))(
         *(s for c in cameras for s in (c.width, c.height)))
     dc, ld_dc, rest, ld_rest, k, mask = feats or (None, 3, None, 0, 1, None)
     kernels.launch(
         "preprocess", "e3d_preprocess_forward",
         means3d.data_ptr(), scales.data_ptr(), rotations.data_ptr(),
-        None if opacities is None else opacities.data_ptr(),
+        ptr(opacities), ptr(mean2d_tap),
         None if dc is None else dc.data_ptr(), ld_dc,
         None if rest is None or k == 1 else rest.data_ptr(), ld_rest, k,
         mask, -1 if feats is None else sh_degree, n, float(scaling_modifier),
         views, ctypes.addressof(ptrs), ctypes.addressof(sizes))
     preprocess_forward_kernel.launches += 1
-    return out
+    return out if packed else [entry[:2] for entry in out]
 
 
 preprocess_forward_kernel.launches = 0
@@ -508,35 +543,43 @@ class Preprocess(torch.autograd.Function):
     """Projection and SH colours over V views, forward and backward.
 
     ``forward(means3d, scales, rotations, opacities, features, features_dc,
-    features_rest, cmask, cameras, scaling_modifier, sh_degree, plain)``
-    takes the features as one [N, K, 3] tensor (``features``) or as the two
-    leaves, and returns per view (mean2d, depth, conic, radius, valid[,
-    colours]), one flat tuple; gradients flow to the means, scales,
-    rotations and features, none to the opacities, the mask, depth, radius
-    and valid.  One launch of each kernel serves all the views.
+    features_rest, cmask, mean2d_tap, cameras, scaling_modifier, sh_degree,
+    packed, plain)`` takes the features as one [N, K, 3] tensor
+    (``features``) or as the two leaves, and returns per view (mean2d,
+    depth, conic, radius, valid[, colours[, packed rows]]), one flat tuple;
+    gradients flow to the means, scales, rotations and features, and to
+    the tap (the first view's mean2d gradient), none to the opacities, the
+    mask, depth, radius, valid and the packed rows.  One launch of each
+    kernel serves all the views.
     """
 
     @staticmethod
     def forward(ctx, means3d, scales, rotations, opacities, features,
-                features_dc, features_rest, cmask, cameras, scaling_modifier,
-                sh_degree, plain):
+                features_dc, features_rest, cmask, mean2d_tap, cameras,
+                scaling_modifier, sh_degree, packed, plain):
         if features is not None:
             features_dc, features_rest = features[:, :1], features[:, 1:]
         fwd = preprocess_forward_plain if plain else preprocess_forward
         views = fwd(means3d, scales, rotations, cameras, scaling_modifier,
-                    opacities, features_dc, features_rest, cmask, sh_degree)
-        ctx.mark_non_differentiable(*(t for proj, _ in views for t in (
-            proj.depth, proj.radius, proj.valid)))
+                    opacities, features_dc, features_rest, cmask, sh_degree,
+                    mean2d_tap=mean2d_tap, packed=packed)
+        if not packed:
+            views = [(proj, colors, None) for proj, colors in views]
+        ctx.mark_non_differentiable(*(t for proj, _, feat in views for t in (
+            proj.depth, proj.radius, proj.valid,
+            *(() if feat is None else (feat,)))))
         ctx.set_materialize_grads(False)
         saved = (features,) if features is not None else (features_dc,
                                                           features_rest)
         ctx.save_for_backward(means3d, scales, rotations, cmask, *saved,
-                              *(proj.valid for proj, _ in views))
+                              *(proj.valid for proj, _, _ in views))
         ctx.cameras, ctx.plain = cameras, plain
         ctx.whole = features is not None
+        ctx.tapped = mean2d_tap is not None
         ctx.scaling_modifier, ctx.sh_degree = scaling_modifier, sh_degree
-        return tuple(t for proj, colors in views for t in (
-            (*proj,) if colors is None else (*proj, colors)))
+        return tuple(t for proj, colors, feat in views for t in (
+            *proj, *(() if colors is None else (colors,)),
+            *(() if feat is None else (feat,))))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -548,6 +591,8 @@ class Preprocess(torch.autograd.Function):
             dc, fr = features[:, :1], features[:, 1:]
         else:
             dc, fr = rest[0], rest[1]
+        # a view's outputs: mean2d, depth, conic, radius, valid[, colours[,
+        # packed rows]]
         per = len(grads) // views
         g = [grads[v * per:(v + 1) * per] for v in range(views)]
         args = (means3d, scales, rotations, ctx.cameras, valid,
@@ -565,13 +610,18 @@ class Preprocess(torch.autograd.Function):
                 preprocess_backward_kernel(*args, out=g_features)
         if ctx.whole:
             g_dc = g_rest = None
+        # mean2d = projection + tap: the tap's gradient is mean2d's
+        g_tap = g[0][0] if ctx.tapped else None
         return (g_means, g_scales, g_rotations, None, g_features, g_dc,
-                g_rest, None, None, None, None, None)
+                g_rest, None, g_tap, None, None, None, None, None)
 
 
 def _apply(means3d, scales, rotations, opacities, features, features_dc,
-           features_rest, cmask, cameras, scaling_modifier, sh_degree, plain):
+           features_rest, cmask, mean2d_tap, cameras, scaling_modifier,
+           sh_degree, packed, plain):
     _check_views(cameras)
+    _check_packed(packed, features if features is not None else features_dc,
+                  opacities)
     if means3d.device.type != "cpu" and not plain:
         means3d, scales, rotations = (t.contiguous() for t in (
             means3d, scales, rotations))
@@ -579,43 +629,53 @@ def _apply(means3d, scales, rotations, opacities, features, features_dc,
             opacities = opacities.contiguous()
         if features is not None:
             features = features.contiguous()
+        if mean2d_tap is not None:
+            mean2d_tap = mean2d_tap.contiguous()
     out = Preprocess.apply(means3d, scales, rotations, opacities, features,
-                           features_dc, features_rest, cmask, tuple(cameras),
-                           float(scaling_modifier), int(sh_degree),
-                           bool(plain))
+                           features_dc, features_rest, cmask, mean2d_tap,
+                           tuple(cameras), float(scaling_modifier),
+                           int(sh_degree), bool(packed), bool(plain))
     per = len(out) // len(cameras)
-    return [(ProjectedGaussians(*out[v * per:v * per + 5]),
-             out[v * per + 5] if per > 5 else None)
-            for v in range(len(cameras))]
+    views = [out[v * per:(v + 1) * per] for v in range(len(cameras))]
+    return [(ProjectedGaussians(*x[:5]), x[5] if per > 5 else None,
+             x[6] if per > 6 else None)[:3 if packed else 2] for x in views]
 
 
 def preprocess_views(means3d, scales, rotations, cameras,
                      scaling_modifier: float = 1.0, opacities=None,
                      features_dc=None, features_rest=None, cmask=None,
-                     sh_degree: int = 0, plain: bool = False):
+                     sh_degree: int = 0, plain: bool = False,
+                     mean2d_tap=None, packed: bool = False):
     """Project N Gaussians into each of ``cameras`` (1 to 3) and, with the
     feature leaves ``features_dc`` [N, 1, 3] and ``features_rest`` [N,
     K-1, 3], evaluate their SH colours at ``sh_degree`` on the features
     times ``cmask`` ([K], a device tensor, or None): per camera
     (:class:`ProjectedGaussians`, [N, 3] colours or None), differentiable
-    in the means, scales, rotations and both leaves.  One kernel launch
-    for all the views, forward and backward (the plain versions with
-    ``plain``, or for CPU tensors)."""
+    in the means, scales, rotations and both leaves.  ``mean2d_tap`` ([N,
+    2], or None) is added to the first camera's mean2d and takes its
+    gradient.  With ``packed`` each camera's entry has a third item, its
+    [N, 12] packed rows for the tiled rasterizer (``pack_features``' rows
+    of the tapped mean2d, the conic, the colours and ``opacities``; None
+    without features).  One kernel launch for all the views, forward and
+    backward (the plain versions with ``plain``, or for CPU tensors)."""
     return _apply(means3d, scales, rotations, opacities, None, features_dc,
-                  features_rest, cmask, cameras, scaling_modifier, sh_degree,
-                  plain)
+                  features_rest, cmask, mean2d_tap, cameras, scaling_modifier,
+                  sh_degree, packed, plain)
 
 
 def preprocess(means3d, scales, rotations, camera: Camera,
                scaling_modifier: float = 1.0, opacities=None, features=None,
-               sh_degree: int = 0, plain: bool = False):
+               sh_degree: int = 0, plain: bool = False, mean2d_tap=None,
+               packed: bool = False):
     """Project N Gaussians into ``camera`` and, with ``features`` [N, K, 3],
     evaluate their SH colours at ``sh_degree``:
     (:class:`ProjectedGaussians`, [N, 3] colours or None), differentiable
     in the means, scales, rotations and features (whose gradient the
-    backward kernel writes as one [N, K, 3] tensor).  The kernels for CUDA
-    tensors (the plain versions with ``plain``), the plain versions for
-    CPU ones."""
+    backward kernel writes as one [N, K, 3] tensor), and in ``mean2d_tap``
+    as :func:`preprocess_views` takes it; with ``packed`` also the packed
+    rows.  The kernels for CUDA tensors (the plain versions with
+    ``plain``), the plain versions for CPU ones."""
     (out,) = _apply(means3d, scales, rotations, opacities, features, None,
-                    None, None, [camera], scaling_modifier, sh_degree, plain)
+                    None, None, mean2d_tap, [camera], scaling_modifier,
+                    sh_degree, packed, plain)
     return out

@@ -10,7 +10,8 @@ from the image weighs < 1e-6.
 
 - K1 is ``csrc/rasterize_fwd.cu``: one block per 32×32 tile reading the
   tile's depth-ordered range of ``inst_gauss`` and gathering each
-  Gaussian's packed features (:func:`pack_features`).  Besides the rgb and
+  Gaussian's packed features (:func:`pack_features`'s rows, which the
+  preprocess forward writes for the views it colours).  Besides the rgb and
   log T partials it writes each pixel's stop index (one past the last
   instance it evaluated).
 - K2 is ``csrc/rasterize_bwd.cu``: the same tiles walked back to front from
@@ -66,7 +67,15 @@ def default_instance_cap(n: int) -> int:
 def pack_features(mean2d, conic, colors, opacities) -> torch.Tensor:
     """[N, 12] float32 per-Gaussian rows for K1 and K2: mean x, y; the
     conic pre-scaled for the power form (−a/2, −b, −c/2); opacity; r, g, b;
-    three pad floats (48-byte rows for aligned vector loads)."""
+    three pad floats (48-byte rows for aligned vector loads).
+
+    The plain version of the rows that the preprocess forward kernel writes
+    (``ops/preprocess.py``, ``packed``) for the views whose colours it
+    computes: the train step and the colour render take those.  It packs
+    the rows of the paths whose colours come from elsewhere: a render with
+    ``override_colors`` (``render_depth``), the sharded exchange's
+    gathered columns, and the probes and checks that pack a projection's
+    outputs themselves."""
     n = mean2d.shape[0]
     scale = constant((-0.5, -1.0, -0.5), conic.dtype, conic.device)
     return torch.cat(
@@ -404,17 +413,21 @@ class TiledRasterize(torch.autograd.Function):
     """Binning + K1 forward; K2 then K3 backward.
 
     ``forward(mean2d, conic, colors, opacities, depth, radius, valid,
-    width, height, cap, plain)`` → ([H, W, 3] rgb, [H, W] log T).
+    width, height, cap, plain, feat)`` → ([H, W, 3] rgb, [H, W] log T).
+    ``feat``, the [N, 12] packed rows of the other four (as the preprocess
+    forward writes them), or None: packed here.  Gradients go to mean2d,
+    conic, colours and opacities, none to ``feat``.
     """
 
     @staticmethod
     def forward(ctx, mean2d, conic, colors, opacities, depth, radius, valid,
-                width, height, cap, plain):
+                width, height, cap, plain, feat):
         binning = bin_gaussians(
             mean2d, depth, radius, valid, width, height, cap,
             opacities=opacities, conic=conic, plain=plain,
         )
-        feat = pack_features(mean2d, conic, colors, opacities)
+        if feat is None:
+            feat = pack_features(mean2d, conic, colors, opacities)
         composite = composite_forward_plain if plain else composite_forward
         rgb, logt, stop = composite(binning.inst_gauss, binning.tile_offsets,
                                     binning.tile_counts, feat,
@@ -440,7 +453,7 @@ class TiledRasterize(torch.autograd.Function):
                         b.inst_gauss.shape[0])
         gsum = gaussian_grads(b, rows, plain=ctx.plain)
         return (gsum[:, 0:2], gsum[:, 2:5], gsum[:, 6:9], gsum[:, 5],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def rasterize_tiled_partials(
@@ -451,20 +464,23 @@ def rasterize_tiled_partials(
     height: int,
     instance_cap: int | None = None,
     plain: bool = False,
+    feat: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pre-background partials: ([H, W, 3] rgb, [H, W] log-transmittance),
     differentiable in ``proj.mean2d``, ``proj.conic``, ``colors`` and
     ``opacities``.
 
-    ``plain`` runs the plain versions of K1-K6 on CUDA tensors too (for
-    holding the kernels against them); CPU tensors always do.
+    ``feat`` is their [N, 12] packed rows where the preprocess wrote them
+    (``preprocess(..., packed=True)``); None packs them here.  ``plain``
+    runs the plain versions of K1-K6 on CUDA tensors too (for holding the
+    kernels against them); CPU tensors always do.
     """
     n = proj.mean2d.shape[0]
     cap = default_instance_cap(n) if instance_cap is None else \
         -(-int(instance_cap) // 1024) * 1024
     return TiledRasterize.apply(
         proj.mean2d, proj.conic, colors, opacities, proj.depth.detach(),
-        proj.radius.detach(), proj.valid, width, height, cap, plain)
+        proj.radius.detach(), proj.valid, width, height, cap, plain, feat)
 
 
 def rasterize_tiled(

@@ -7,8 +7,9 @@ images are [H, W, 3] channel-last like the JAX package's.  Everything is
 differentiable in the Gaussian parameters; a zero ``mean2d_tap`` with
 ``requires_grad`` added to the projected means collects the screen-space
 mean gradient that densification reads (the reference's
-``screenspace_points.grad``).  The projection and the SH colours run as
-one forward and one backward kernel on the card
+``screenspace_points.grad``).  The projection, the tap's add, the SH
+colours and the tiled rasterizer's packed rows run as one forward and one
+backward kernel on the card
 (:func:`~event3dgs_tpu_torch.ops.preprocess.preprocess`);
 :func:`gaussian_colors` is their plain version's colour half.  A view
 already projected (the train step projects its views in one call,
@@ -64,16 +65,15 @@ def gaussian_colors(sh_degree: int, features, means3d, camera_center):
 
 
 def rasterize_projected(proj, colors, opacities, camera, rasterizer,
-                        instance_cap=None, plain=False, mean2d_tap=None):
+                        instance_cap=None, plain=False, feat=None):
     """Pre-background (rgb [H, W, 3], log T [H, W]) of one view whose
     Gaussians are projected (``proj``) and coloured (``colors`` [N, 3]);
-    ``mean2d_tap`` is added to the projected means first."""
-    if mean2d_tap is not None:
-        proj = proj._replace(mean2d=proj.mean2d + mean2d_tap)
+    ``feat``, their packed rows from the preprocess (or None), goes to the
+    tiled rasterizer, which packs its own without them."""
     if rasterizer == "tiled":
         return rasterize_tiled_partials(
             proj, colors, opacities, camera.width, camera.height,
-            instance_cap=instance_cap, plain=plain,
+            instance_cap=instance_cap, plain=plain, feat=feat,
         )
     if rasterizer == "reference":
         return rasterize_reference_partials(
@@ -91,16 +91,17 @@ def composed(rgb, logt, background):
 def _partials(means3d, features, opacities, scales, rotations, camera,
               sh_degree, scaling_modifier, mean2d_tap, override_colors,
               rasterizer, instance_cap, plain=False):
-    proj, colors = preprocess(
+    # override colours: no features, so no packed rows either
+    proj, colors, feat = preprocess(
         means3d, scales, rotations, camera, scaling_modifier=scaling_modifier,
         opacities=opacities,
         features=features if override_colors is None else None,
-        sh_degree=sh_degree, plain=plain)
+        sh_degree=sh_degree, plain=plain, mean2d_tap=mean2d_tap,
+        packed=True)
     if override_colors is not None:
         colors = override_colors
     rgb, logt = rasterize_projected(proj, colors, opacities, camera,
-                                    rasterizer, instance_cap, plain,
-                                    mean2d_tap)
+                                    rasterizer, instance_cap, plain, feat)
     return rgb, logt, proj
 
 

@@ -149,23 +149,27 @@ def segment_sums_bytes(live: int, slots: int, n: int) -> int:
 
 
 def preprocess_bytes(n: int, coeffs: int, sh_degree: int,
-                     backward: bool = False, views: int = 1) -> int:
+                     backward: bool = False, views: int = 1,
+                     tap: bool = False) -> int:
     """Bytes the preprocess forward (or backward) kernel must move for
     ``n`` Gaussians whose features are [N, coeffs, 3] at ``sh_degree``,
     projected into ``views`` views in one launch.  Each input is read once
     for all the views: the means, scales and quaternions, and of the two
     feature leaves the rows the degree uses (features_dc's 12-byte row and
     the first (degree + 1)² - 1 coefficients of features_rest's row, each
-    leaf read at its own row stride); the forward also the opacities.  Per
-    view the forward writes mean2d, depth, conic, radius, valid (one byte)
-    and the colours; the backward reads valid and the gradients of mean2d,
-    conic and colours.  The backward writes the gradients of the means,
-    scales, quaternions and of both leaves whole (all ``coeffs``), once.
-    The mask's and the cameras' bytes are left out."""
+    leaf read at its own row stride); the forward also the opacities and,
+    with ``tap``, the first view's [N, 2] mean2d tap.  Per view the forward
+    writes mean2d, depth, conic, radius, valid (one byte), the colours and
+    the 48-byte packed row of the compositing kernels (the train step and
+    the colour render ask for it); the backward reads
+    valid and the gradients of mean2d, conic and colours.  The backward
+    writes the gradients of the means, scales, quaternions and of both
+    leaves whole (all ``coeffs``), once.  The mask's and the cameras' bytes
+    are left out."""
     used = (sh_degree + 1) ** 2 * 12
     if not backward:
-        return n * (12 + 12 + 16 + 4 + used
-                    + views * (8 + 4 + 12 + 4 + 1 + 12))
+        return n * (12 + 12 + 16 + 4 + used + (8 if tap else 0)
+                    + views * (8 + 4 + 12 + 4 + 1 + 12 + 48))
     return n * (12 + 12 + 16 + used + views * (1 + 8 + 12 + 12)
                 + 12 + 12 + 16 + coeffs * 12)
 

@@ -201,16 +201,18 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
         cams = ([views.cam_main, views.cam_now, views.cam_next]
                 if mode.startswith("event") else [views.cam_main])
         # one preprocess call for the step's views (the main view first,
-        # which takes the tap), then per view the rasterizer
+        # which takes the tap) that also writes each view's packed rows,
+        # then per view the rasterizer
         projected = preprocess_views(
             act.means3d, act.scales, act.rotations, cams,
             opacities=act.opacities, features_dc=leaves["features_dc"],
             features_rest=leaves["features_rest"], cmask=cmask,
-            sh_degree=max_sh_degree, plain=plain)
+            sh_degree=max_sh_degree, plain=plain, mean2d_tap=tap,
+            packed=True)
         images = [composed(*rasterize_projected(
             proj, colors, act.opacities, cam, rasterizer, instance_cap,
-            plain, tap if v == 0 else None), bg)
-            for v, (cam, (proj, colors)) in enumerate(zip(cams, projected))]
+            plain, feat), bg)
+            for cam, (proj, colors, feat) in zip(cams, projected)]
         proj_main = projected[0][0]
         if mode == "rgb":
             loss, aux = rgb_total_loss(images[0], views.gt_main,

@@ -1242,6 +1242,24 @@ def assert_forward_equal(got, want):
             assert_bits_equal(ck, cp, "colors")
 
 
+def seeded_tap(n, seed, device):
+    """A non-zero [N, 2] mean2d tap (a few pixels), seeded."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(n, 2, generator=g) * 3.0).to(device)
+
+
+def assert_packed_equal(got, want, opac):
+    """``assert_forward_equal`` of the (proj, colours) pairs, and each
+    view's packed rows 16-byte aligned and bit-equal to the plain
+    version's and to ``pack_features`` of the view's own outputs."""
+    assert_forward_equal([x[:2] for x in got], [x[:2] for x in want])
+    for (pk, ck, fk), (_, _, fp) in zip(got, want):
+        assert fk.data_ptr() % 16 == 0 and fk.shape == (len(opac), rt.FEAT)
+        assert_bits_equal(fk, fp, "packed rows")
+        assert_bits_equal(fk, rt.pack_features(pk.mean2d, pk.conic, ck, opac),
+                          "pack_features")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", PREPROCESS_FWD, ids=str)
 def test_preprocess_forward_kernel_matches_plain_version(case):
@@ -1250,14 +1268,22 @@ def test_preprocess_forward_kernel_matches_plain_version(case):
     their order), over SH degrees 0-4 with a mask of a lower active degree,
     1 to 3 views of their own sizes, the leaves contiguous or strided, a
     scaling modifier, with and without opacities and features, and the
-    edge cases of ``preprocess_scene``."""
+    edge cases of ``preprocess_scene``; with both, a non-zero tap and the
+    packed rows (``assert_packed_equal``)."""
     need_card()
     args = preprocess_args(case, "cuda")
+    packed = args[5] is not None and args[6] is not None
+    kw = dict(mean2d_tap=seeded_tap(case[0], case[1], "cuda"),
+              packed=True) if packed else {}
     before = pre.preprocess_forward_kernel.launches
-    got = pre.preprocess_forward(*args)
+    got = pre.preprocess_forward(*args, **kw)
     assert pre.preprocess_forward_kernel.launches == before + 1
-    assert_forward_equal(got, pre.preprocess_forward_plain(*args))
-    assert all((c is None) == (args[6] is None) for _, c in got)
+    want = pre.preprocess_forward_plain(*args, **kw)
+    if packed:
+        assert_packed_equal(got, want, args[5])
+    else:
+        assert_forward_equal(got, want)
+    assert all((x[1] is None) == (args[6] is None) for x in got)
     if case[3]:
         assert 0 < int(got[0][0].valid.sum()) < case[0]
 
@@ -1349,8 +1375,9 @@ LEAF_LAYOUTS = [(layout, n) for layout in ("leaves", "whole", "padded")
                          ids=[f"{a}-n{b}" for a, b in LEAF_LAYOUTS])
 def test_preprocess_kernels_on_strided_and_ragged_leaves(layout, n):
     """Both kernels over three views with the feature leaves laid out as
-    ``layout``: the forward bit-equal to its plain version, the backward
-    as ``assert_backward_close`` holds it."""
+    ``layout``: the forward bit-equal to its plain version (with a tap, its
+    packed rows too), the backward as ``assert_backward_close`` holds
+    it."""
     need_card()
     means, scales, rots, opac, feats, _ = preprocess_scene(n, 30, edge=True,
                                                            device="cuda")
@@ -1366,8 +1393,11 @@ def test_preprocess_kernels_on_strided_and_ragged_leaves(layout, n):
     cmask = (torch.arange(16, device="cuda") < 9).float()
     args = (means, scales, rots, view_cameras(n, 30, 3, True, 3, "cuda"), 0.9,
             opac, dc, rest, cmask, 3)
-    assert_forward_equal(pre.preprocess_forward_kernel(*args),
-                         pre.preprocess_forward_plain(*args))
+    tap = seeded_tap(n, 34, "cuda")
+    assert_packed_equal(
+        pre.preprocess_forward_kernel(*args, mean2d_tap=tap, packed=True),
+        pre.preprocess_forward_plain(*args, mean2d_tap=tap, packed=True),
+        opac)
     bargs = backward_case(args, 31)
     assert_backward_close(pre.preprocess_backward_kernel(*bargs),
                           pre.preprocess_backward_plain(*bargs), bargs[4])
@@ -1443,9 +1473,10 @@ def test_preprocess_backward_kernel_at_2m_slots():
 @pytest.mark.gpu
 def test_preprocess_kernels_in_a_cuda_graph():
     """Both kernels captured in a CUDA graph over three views picked on the
-    device (``train/step.take``), the mask a device tensor: each replay
-    after the picks move to other views equals the eager launches at those
-    views bit for bit."""
+    device (``train/step.take``), the mask a device tensor, the forward
+    with a tap and the packed rows: each replay after the picks move to
+    other views and the tap changes equals the eager launches at those
+    views bit for bit, the rows too."""
     need_card()
     from event3dgs_tpu_torch.core.camera import stack_cameras
     from event3dgs_tpu_torch.train.step import take
@@ -1457,17 +1488,19 @@ def test_preprocess_kernels_in_a_cuda_graph():
         device="cuda") for i in (1, 2)])
     index = torch.zeros(3, dtype=torch.int64, device="cuda")
     cmask = torch.ones(16, device="cuda")
+    tap = torch.zeros(3000, 2, device="cuda")
     dc, rest = feats[:, :1].contiguous(), feats[:, 1:].contiguous()
     rows = torch.rand(3, 3000, 9, device="cuda") - 0.5
 
     def both(views):
         out = pre.preprocess_forward_kernel(means, scales, rots, views, 0.8,
-                                            opac, dc, rest, cmask, 3)
+                                            opac, dc, rest, cmask, 3,
+                                            mean2d_tap=tap, packed=True)
         grads = pre.preprocess_backward_kernel(
-            means, scales, rots, views, [p.valid for p, _ in out],
+            means, scales, rots, views, [p.valid for p, _, _ in out],
             [r[:, 0:2] for r in rows], [r[:, 2:5] for r in rows],
             [r[:, 6:9] for r in rows], 0.8, dc, rest, cmask, 3)
-        return (*(t for p, c in out for t in (*p, c)), *grads)
+        return (*(t for p, c, f in out for t in (*p, c, f)), *grads)
 
     picked = lambda: [take(cams, index[v:v + 1]) for v in range(3)]
     stream = torch.cuda.Stream()
@@ -1478,8 +1511,9 @@ def test_preprocess_kernels_in_a_cuda_graph():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = both(picked())
-    for views in ((2, 0, 1), (1, 1, 2), (0, 2, 0)):
+    for seed, views in enumerate(((2, 0, 1), (1, 1, 2), (0, 2, 0))):
         index.copy_(torch.tensor(views))
+        tap.copy_(seeded_tap(3000, 36 + seed, "cuda"))
         graph.replay()
         for a, b in zip(out, both([cams[v] for v in views])):
             assert_bits_equal(a, b)
@@ -1499,12 +1533,16 @@ def step_state(device, n, width, height):
             dtype=torch.float32, device=rest.device))), data, cap
 
 
-def per_render_loss_and_grads(state, data, mode, cmask, cap):
+def per_render_loss_and_grads(state, data, mode, cmask, cap, parent=False):
     """The train step's loss and gradients at views (1, 1, 2) and the mask
     ``cmask``, from ``train/step``'s one preprocess call for its views,
     and as the step computed them before: each view rendered on its own
     through ``render`` with the concatenated features times the mask,
-    autograd adding the views' gradients.  In event_deblur mode the
+    autograd adding the views' gradients.  With ``parent`` each view is
+    rendered as the render did before the preprocess took the tap and
+    wrote the packed rows: ``preprocess``, the tap added to the main
+    view's projected means, ``rasterize_tiled_partials`` packing the
+    rows.  In event_deblur mode the
     blurry captures are the views in reverse order.  (On random images the
     event mode's main view gets no gradient, its coverage being 1;
     event_deblur's blur term gives it one, so that three views' gradients
@@ -1539,9 +1577,20 @@ def per_render_loss_and_grads(state, data, mode, cmask, cap):
                               None, :, None]
 
     def image(cam, tap=None):
-        return render(act.means3d, features, act.opacities, act.scales,
-                      act.rotations, cam, bg, sh_degree=3, mean2d_tap=tap,
-                      rasterizer="tiled", instance_cap=cap).image
+        if not parent:
+            return render(act.means3d, features, act.opacities, act.scales,
+                          act.rotations, cam, bg, sh_degree=3,
+                          mean2d_tap=tap, rasterizer="tiled",
+                          instance_cap=cap).image
+        proj, colors = pre.preprocess(act.means3d, act.scales, act.rotations,
+                                      cam, opacities=act.opacities,
+                                      features=features, sh_degree=3)
+        if tap is not None:
+            proj = proj._replace(mean2d=proj.mean2d + tap)
+        rgb, logt = rt.rasterize_tiled_partials(
+            proj, colors, act.opacities, cam.width, cam.height,
+            instance_cap=cap)
+        return rgb + torch.exp(logt)[:, :, None] * bg[None, None, :]
 
     main = image(views.cam_main, inp.tap)
     if mode == "rgb":
@@ -1576,6 +1625,39 @@ def test_step_equals_the_per_render_step_on_the_card(mode):
         state, data, mode, cmask, cap)
     views = 3 if mode.startswith("event") else 1
     assert pre.preprocess_backward_kernel.launches == before + 1 + views
+    assert_bits_equal(loss, want_loss, "loss")
+    got = [*grads["params"].values(), grads["contrast"], grads["tap"]]
+    for name, g, w in zip(names, got, want):
+        assert_bits_equal(g, w.contiguous(), name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["event", "event_deblur", "rgb"])
+def test_step_equals_the_parents_add_and_pack_on_the_card(mode):
+    """On the card, the train step (the forward preprocess taking the tap
+    and writing the packed rows that K1 and K2 read) against the
+    per-render step as it was built before (the tap added to the main
+    view's projected means, ``pack_features`` in the rasterizer): the loss
+    and every gradient bit for bit, at 3,000 Gaussians and 256×144; the
+    step calls ``pack_features`` nowhere."""
+    need_card()
+    state, data, cap = step_state("cuda", 3000, 256, 144)
+    cmask = (torch.arange(16, device="cuda") < 9).float()
+    calls = []
+    pack = rt.pack_features
+
+    def counted(*a):
+        calls.append(1)
+        return pack(*a)
+
+    rt.pack_features = pre.pack_features = counted
+    try:
+        loss, grads, want_loss, want, names = per_render_loss_and_grads(
+            state, data, mode, cmask, cap, parent=True)
+    finally:
+        rt.pack_features = pre.pack_features = pack
+    views = 3 if mode.startswith("event") else 1
+    assert len(calls) == views  # the per-render step's rasterizers only
     assert_bits_equal(loss, want_loss, "loss")
     got = [*grads["params"].values(), grads["contrast"], grads["tap"]]
     for name, g, w in zip(names, got, want):

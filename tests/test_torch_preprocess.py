@@ -39,6 +39,7 @@ from test_torch_kernels import (
     per_render_loss_and_grads,
     preprocess_arrays,
     preprocess_scene,
+    seeded_tap,
     step_state,
 )
 
@@ -503,3 +504,143 @@ def test_step_gradients_equal_the_per_render_path(mode):
         assert_bits_equal(g, w.contiguous(), name)
     assert float(got[2][:, 9:].abs().max()) == 0.0  # masked coefficients
     assert float(got[2].abs().max()) > 0.0
+
+
+# the packed rows' cases: (views, active SH degree of the K = 16 mask)
+PACKED_CASES = [(v, d) for v in (1, 2, 3) for d in range(4)]
+
+
+@pytest.mark.parametrize("case", PACKED_CASES,
+                         ids=[f"views{v}-active{d}" for v, d in PACKED_CASES])
+def test_plain_packed_rows_equal_pack_features(case):
+    """With ``packed``, each view's rows equal ``pack_features`` of the
+    plain forward's own mean2d (the first view's with a non-zero tap
+    added), conic, colours and opacities bit for bit, at 1 to 3 views and
+    SH degrees 0-3 of a mask; the other outputs are the unpacked call's,
+    and ``preprocess_views`` returns the same rows."""
+    from event3dgs_tpu_torch.ops.rasterize_tiled import FEAT, pack_features
+
+    views, active = case
+    arrs, cmask, deg, _, tcams = view_inputs((3, 16, active))
+    args = view_args(arrs, cmask, deg, tcams[:views])
+    tap = seeded_tap(len(arrs["means"]), 40 + 4 * views + active, "cpu")
+    packed = pre.preprocess_forward_plain(*args, mean2d_tap=tap, packed=True)
+    unpacked = pre.preprocess_forward_plain(*args)
+    opac = args[5]
+    assert len(packed) == views
+    for v, ((proj, colors, feat), (p0, c0)) in enumerate(zip(packed,
+                                                             unpacked)):
+        assert feat.shape == (len(opac), FEAT) and feat.is_contiguous()
+        assert_bits_equal(feat, pack_features(proj.mean2d, proj.conic,
+                                              colors, opac))
+        assert_bits_equal(proj.mean2d, p0.mean2d + tap if v == 0
+                          else p0.mean2d)
+        for a, b in zip((*proj[1:], colors), (*p0[1:], c0)):
+            assert_bits_equal(a, b)
+    through = pre.preprocess_views(*args[:5], opacities=opac,
+                                   features_dc=args[6], features_rest=args[7],
+                                   cmask=args[8], sh_degree=deg,
+                                   mean2d_tap=tap, packed=True)
+    for (_, _, a), (_, _, b) in zip(through, packed):
+        assert_bits_equal(a, b)
+
+
+def test_no_packed_rows_without_colours():
+    """Without features there are no colours and no packed rows: the entry
+    holds None, the tiled rasterizer packs the override colours itself, and
+    rows asked for without the opacities they hold are refused."""
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+    from event3dgs_tpu_torch.ops.render import render_depth
+
+    means, scales, rots, opac, feats, cam = preprocess_scene(200, 12,
+                                                             edge=True)
+    cams = [cam, cam]
+    out = pre.preprocess_views(means, scales, rots, cams, opacities=opac,
+                               packed=True)
+    assert [len(x) for x in out] == [3, 3]
+    assert all(c is None and f is None for _, c, f in out)
+    assert pre.preprocess(means, scales, rots, cam, opacities=opac,
+                          packed=True)[1:] == (None, None)
+    assert pre.preprocess_forward_plain(means, scales, rots, cams,
+                                        packed=True)[0][2] is None
+    with pytest.raises(ValueError, match="opacities"):
+        pre.preprocess(means, scales, rots, cam, features=feats, sh_degree=3,
+                       packed=True)
+    with pytest.raises(ValueError, match="opacities"):
+        pre.preprocess_forward_plain(means, scales, rots, cams, 1.0, None,
+                                     feats[:, :1], feats[:, 1:], None, 3,
+                                     packed=True)
+    calls = []
+    pack = rt.pack_features
+    rt.pack_features = lambda *a: calls.append(1) or pack(*a)
+    try:
+        img = render_depth(means, opac, scales, rots, cam,
+                           torch.zeros(3), rasterizer="tiled").image
+    finally:
+        rt.pack_features = pack
+    assert calls == [1] and torch.isfinite(img).all()
+
+
+def parent_partials(means, feats, opac, scales, rots, cam, tap, plain=False):
+    """One view's (rgb, log T) as the render built them before the
+    preprocess took the tap and wrote the packed rows: the tap added to
+    the projected means, the rows packed by the tiled rasterizer."""
+    from event3dgs_tpu_torch.ops.rasterize_tiled import (
+        rasterize_tiled_partials,
+    )
+
+    proj, colors = pre.preprocess(means, scales, rots, cam, opacities=opac,
+                                  features=feats, sh_degree=3, plain=plain)
+    proj = proj._replace(mean2d=proj.mean2d + tap)
+    return rasterize_tiled_partials(proj, colors, opac, cam.width,
+                                    cam.height, plain=plain)
+
+
+def test_nonzero_tap_matches_the_add():
+    """A non-zero mean2d tap through the render (the preprocess adds it
+    and packs the rows) gives the image and the gradients of the tap and
+    of the five Gaussian inputs that the add before the rasterizer gave,
+    bit for bit, on the CPU."""
+    from event3dgs_tpu_torch.ops.render import render_partials
+
+    s = render_scene(seed=11, n=90)
+    tcam = tmake_camera(np.eye(3), np.asarray([0.05, 0.0, -0.1]), 1.0, 0.8,
+                        s["w"], s["h"], device="cpu")
+    wgt = torch.as_tensor(s["wgt"])
+    out = {}
+    for how in ("preprocess", "add"):
+        leaves = [torch.tensor(s[k], requires_grad=True) for k in ARGS]
+        tap = seeded_tap(90, 5, "cpu").requires_grad_(True)
+        m, f, o, sc, q = leaves
+        if how == "preprocess":
+            p = render_partials(m, f, o, sc, q, tcam, sh_degree=3,
+                                mean2d_tap=tap, rasterizer="tiled")
+            rgb, logt = p.rgb, p.logt
+        else:
+            rgb, logt = parent_partials(m, f, o, sc, q, tcam, tap)
+        loss = (rgb * wgt).sum() + logt.sum()
+        out[how] = (rgb, logt, *torch.autograd.grad(loss, [*leaves, tap]))
+    assert float(out["add"][-1].abs().max()) > 0
+    names = ("rgb", "logt", *ARGS, "tap")
+    for name, a, b in zip(names, out["preprocess"], out["add"]):
+        assert_bits_equal(a.detach(), b.detach(), name)
+
+
+@pytest.mark.parametrize("mode", ["event", "event_deblur", "rgb"])
+def test_step_gradients_equal_the_parent_add_and_pack(mode):
+    """The train step (the preprocess taking the tap and writing the
+    packed rows) against the per-render step as it was built before, each
+    view rendered with the tap added to its projected means and its rows
+    packed by the rasterizer, on the CPU: the loss and each gradient (the
+    six leaves, the contrast, the tap) bit for bit."""
+    state, data, cap = step_state("cpu", 300, 64, 48)
+    cmask = (torch.arange(16) < 9).float()
+    loss, grads, want_loss, want, names = per_render_loss_and_grads(
+        state, data, mode, cmask, cap, parent=True)
+    assert_bits_equal(loss, want_loss, "loss")
+    got = [*grads["params"].values(), grads["contrast"], grads["tap"]]
+    for name, g, w in zip(names, got, want):
+        assert_bits_equal(g, w.contiguous(), name)
+    # (the event mode's main view takes no gradient on these random
+    # images: per_render_loss_and_grads)
+    assert (float(got[-1].abs().max()) > 0.0) == (mode != "event")

@@ -378,15 +378,19 @@ def test_path_bounds_of_one_view():
                       "K5 tile_histogram", "K6 stable_tile_rank",
                       "preprocess_forward", "preprocess_backward"}
     # SH degree 3 over 16 coefficients: 236 bytes read and 41 written a
-    # Gaussian forward, 265 read and 232 written backward
-    assert b["preprocess_forward"] == (4 * 277, (4 * 266, 4 * 16))
+    # Gaussian forward and its 48-byte packed row, 265 read and 232
+    # written backward
+    assert b["preprocess_forward"] == (4 * 325, (4 * 266, 4 * 16))
     assert b["preprocess_backward"] == (4 * 497, (4 * 532, 4 * 12))
     assert kt.path_bounds(4, 10, offsets, 6, pairs, 2, 8, 2, coeffs=25,
                           sh_degree=1)["preprocess_backward"][0] == (
         4 * (12 + 12 + 16 + 1 + 48 + 32 + 40 + 300))
     # three views in one launch: the inputs read once, each view's outputs
-    # (forward) or upstream gradients and valid (backward) per view
-    assert kt.preprocess_bytes(4, 16, 3, views=3) == 4 * (236 + 3 * 41)
+    # and packed row (forward) or upstream gradients and valid (backward)
+    # per view; the step's tap read once, 8 bytes a Gaussian
+    assert kt.preprocess_bytes(4, 16, 3, views=3) == 4 * (236 + 3 * 89)
+    assert kt.preprocess_bytes(4, 16, 3, views=3, tap=True) == (
+        4 * (244 + 3 * 89))
     assert kt.preprocess_bytes(4, 16, 3, backward=True, views=3) == (
         4 * (232 + 3 * 33 + 232))
     assert kt.preprocess_ops(4, 3, backward=True, views=3) == (
