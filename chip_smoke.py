@@ -68,17 +68,23 @@ Phases (any failed check exits non-zero; nothing is caught):
    the Adam kernel (``csrc/adam.cu``) on the next step's update of that
    state, two chained updates out of place and in place, bit-equal to its
    plain version; the two loss kernels (``csrc/loss.cu``) on the step's
-   three 1080p renders and GT images, in event and event_deblur mode,
-   against their plain versions (the coverage and the image gradients bit
-   for bit, the loss, its parts and the contrast's gradient within rtol
-   1e-5; the plain backward bit-equal to autograd's; two runs
-   bit-identical).
+   three 1080p renders as their partials (rgb, log T; composed by the
+   kernels over a seeded background) and the GT images as frames of their
+   stacks at device indices, in event and event_deblur mode, and on the
+   composed images and picked frames in event mode (the sharded step's
+   form), against their plain versions (the coverage and the renders'
+   gradients, d rgb and d log T, bit for bit, the loss, its parts and the
+   contrast's gradient within rtol 1e-5; the plain backward bit-equal to
+   autograd's; two runs bit-identical).
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
    profile one step (its device kernels), check that neither the eager
    step nor the graphed one (``FusedSteps``' warm-up and capture) calls
-   ``pack_features``, print the device nodes one graphed step enqueues
-   (its CUDA graph read back) and its device ms per replay, time the
+   ``pack_features`` or ``ops/render.composed`` (the loss kernels compose
+   the renders), print the device nodes one graphed step enqueues (its
+   CUDA graph read back; its ``indexSelect`` nodes, 16: the table row and
+   15 camera fields, the GT frames read where they lie) and its device ms
+   per replay, time the
    forward preprocess with and without the packed rows, and time K2, K3,
    the Adam kernel (its yardstick
    ``torch._fused_adam_``, one call per learning rate) and the loss
@@ -188,7 +194,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    capture, 1 + 3 replays), each on the scene built anew; every kernel
    launched 3 × 4 + 3 × 3 times (Adam, the loss and the preprocess kernels
    4 + 3) with the counts set to 0
-   before, the same loss from both, state GiB, instance cap, ms per step,
+   before, ``ops/render.composed`` called in neither, the same loss from
+   both, state GiB, instance cap, ms per step,
    device ms per replay, capture ms, peak and reserved memory.  At that
    state's main view (camera 1) each kernel of the path against its plain
    version at phases 4 and 7's tolerances (the preprocess forward and
@@ -210,8 +217,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    loop's bit for bit; then phase 8's densify with capacity growth on its
    trained state (threshold 0: ~0.9M alive slots all candidates) and one
    rgb step at the re-measured instance cap.  At the 2M state, as in
-   phase 8: the graphed step's device nodes, its device ms per replay and
-   no ``pack_features`` call, and the forward preprocess with and without
+   phase 8: the graphed step's device nodes and ``indexSelect`` nodes,
+   its device ms per replay and no ``pack_features`` or
+   ``ops/render.composed`` call, and the forward preprocess with and without
    the packed rows.  Each kernel's JSON row gets the 2M columns under
    ``scale``.
 
@@ -281,9 +289,15 @@ PREPROCESS_REPLACES = ", ".join(("event3dgs_tpu/ops/projection.py:51",
 # the jitted train step (no Pallas kernel)
 ADAM_REPLACES = "event3dgs_tpu/models/optimizer.py:39"
 # the JAX code the loss kernels replace: event_mixture_loss and deblur_mix,
-# which XLA fuses inside the jitted train step (no Pallas kernel)
+# with the renders' composition and the GT frame picks before them, which
+# XLA fuses inside the jitted train step (no Pallas kernel)
 LOSS_REPLACES = ", ".join(("event3dgs_tpu/losses/event.py:68",
-                           "event3dgs_tpu/losses/modes.py:59"))
+                           "event3dgs_tpu/losses/modes.py:59",
+                           "event3dgs_tpu/ops/render.py:122",
+                           "event3dgs_tpu/train/step.py:115",
+                           "event3dgs_tpu/train/step.py:151",
+                           "event3dgs_tpu/train/step.py:152",
+                           "event3dgs_tpu/train/step.py:164"))
 # bench.py times 5 steps; a 50-step window separates a noisy host from
 # stalls, and its median and spread are printed beside bench.py's mean
 STEP_ITERS = 50
@@ -1063,42 +1077,61 @@ def adam_floats(groups) -> int:
     return sum(t.numel() for g in groups for t in leaves(g.params))
 
 
-def loss_views(state, data, idx, bg, icap):
-    """What an event step at views ``idx`` (main, now, next) gives its loss:
-    (the three 1080p renders of ``state`` through the kernel path, now,
-    next, main, no gradient; the GT images of the event pair and of the
-    main view; the contrast [], effective as identity), and a blurry
-    capture for event_deblur: the GT image of the view after the main."""
+def loss_views(state, data, idx, icap):
+    """What an event step at views ``idx`` (main, now, next) gives its
+    loss, as the graphed step gives it: the three 1080p renders of
+    ``state`` through the kernel path as their partials (rgb, log T), now,
+    next, main, no gradient; the GT images as frames of their stacks at
+    [1] int64 device indices (the event pair's of ``event_images``, the
+    main view's of ``images``); then the contrast [] (effective as
+    identity) and a blurry operand for event_deblur (the frame of
+    ``images`` after the main view)."""
     import torch
 
+    from event3dgs_tpu_torch.losses.event import Frame, Partials
     from event3dgs_tpu_torch.models import activated
-    from event3dgs_tpu_torch.ops.render import render
+    from event3dgs_tpu_torch.ops.render import render_partials
 
     act = activated(state.params)
     cams = (data.event_cameras[idx[1]], data.event_cameras[idx[2]],
             data.cameras[idx[0]])
     with torch.no_grad():
-        renders = [render(act.means3d, act.features, act.opacities,
-                          act.scales, act.rotations, cam, bg, sh_degree=3,
-                          rasterizer="tiled", instance_cap=icap).image
-                   for cam in cams]
-    gts = (data.event_images[idx[1]], data.event_images[idx[2]],
-           data.images[idx[0]])
-    blurry = data.images[(idx[0] + 1) % data.images.shape[0]]
+        renders = [Partials(*render_partials(
+            act.means3d, act.features, act.opacities, act.scales,
+            act.rotations, cam, sh_degree=3, rasterizer="tiled",
+            instance_cap=icap)[:2]) for cam in cams]
+    dev = state.contrast.device
+    frame = lambda stack, i: Frame(stack, torch.tensor([i], device=dev))
+    gts = (frame(data.event_images, idx[1]), frame(data.event_images, idx[2]),
+           frame(data.images, idx[0]))
+    blurry = frame(data.images, (idx[0] + 1) % data.images.shape[0])
     return (*renders, *gts), state.contrast, blurry
 
 
-def loss_check(what, images, contrast, blurry, graphed=False):
+def flat_tensors(xs) -> list:
+    """The tensors of loss operands or gradients: a ``Partials``' rgb and
+    log T, else the tensor."""
+    from event3dgs_tpu_torch.losses.event import Partials
+
+    return [t for x in xs for t in (x if isinstance(x, Partials) else (x,))]
+
+
+def loss_check(what, operands, contrast, blurry, graphed=False):
     """Both loss kernels (``csrc/loss.cu``) against their plain versions on
-    an event step's renders and GT images (``loss_views``), in event and
-    event_deblur mode (with ``blurry``): the coverage and the three image
-    gradients bit for bit, the loss, its parts and the contrast's gradient
-    within rtol 1e-5; the plain backward against autograd of the plain
-    forward bit for bit; the kernels called twice (or, with ``graphed``,
-    captured once in a CUDA graph and replayed twice) giving the same bits.
-    Returns ({kernel: largest |kernel - plain|}, {kernel: (the kernel's
-    call, its plain version's)} in event mode, {kernel: its bound's
-    (bytes, operations)})."""
+    an event step's partials and GT frames (``loss_views``): in event and
+    event_deblur mode (with ``blurry``) on the partials over a seeded
+    background and the frames at device indices, as the step gives them,
+    and in event mode on images (the partials composed, the frames
+    picked), as the sharded step and the probes give them: the coverage
+    and the renders' gradients (d rgb and d log T, or d image) bit for
+    bit, the loss, its parts and the contrast's gradient within rtol 1e-5;
+    the plain backward against autograd of the plain forward bit for bit;
+    the kernels called twice (or, with ``graphed``, captured once in a
+    CUDA graph and replayed twice) giving the same bits.  The background
+    is seeded (the bench step's is zero, which would leave d log T zero).
+    Returns ({kernel: largest |kernel - plain|},
+    {kernel: (the kernel's call, its plain version's)} on the step's
+    operands in event mode, {kernel: its bound's (bytes, operations)})."""
     import torch
 
     from event3dgs_tpu_torch.losses import event as ev
@@ -1107,17 +1140,24 @@ def loss_check(what, images, contrast, blurry, graphed=False):
 
     cfg = EventConfig()
     grad = torch.ones((), device=contrast.device)
+    gen = torch.Generator().manual_seed(18)
+    background = torch.rand(3, generator=gen).to(contrast.device)
+    images = [ev.render_image(r, background) for r in operands[:3]]
+    images += [ev.frame_image(g) for g in operands[3:]]
     errs = dict.fromkeys(LOSS, 0.0)
     worst = lambda a, b: (a.double() - b.double()).abs().max().item()
     close = lambda a, b: abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
-    for mode, blur in (("event", None), ("event_deblur", blurry)):
+    cases = (("event", operands, None), ("event_deblur", operands, blurry),
+             ("event, on images", images, None))
+    for mode, ops, blur in cases:
         kw = dict(gt_contrast=cfg.gt_contrast, event_weight=cfg.event_weight,
-                  blurry_main=blur, blur_alpha=cfg.blur_alpha)
+                  blurry_main=blur, blur_alpha=cfg.blur_alpha,
+                  background=background)
 
         def both():
-            loss, aux = ev.event_loss_forward_kernel(*images, contrast, **kw)
+            loss, aux = ev.event_loss_forward_kernel(*ops, contrast, **kw)
             return (loss, aux, *ev.event_loss_backward_kernel(
-                grad, *images, contrast, aux[2], **kw))
+                grad, *ops, contrast, aux[2], **kw))
 
         if graphed:
             both()  # any lazy set-up
@@ -1128,15 +1168,15 @@ def loss_check(what, images, contrast, blurry, graphed=False):
             runs = []
             for _ in range(2):
                 graph.replay()
-                runs.append([t.clone() for t in out])
+                runs.append([t.clone() for t in flat_tensors(out)])
         else:
-            runs = [both() for _ in range(2)]
+            runs = [flat_tensors(both()) for _ in range(2)]
         torch.cuda.synchronize()
         loss, aux, *got = runs[0]
         for a, b in zip(runs[0], runs[1]):
             check(bits_differ(a, b) == 0, f"{what} ({mode}): a loss kernel "
                   "gave other bits the second time")
-        want_loss, want_aux = ev.event_mixture_loss_plain(*images, contrast,
+        want_loss, want_aux = ev.event_mixture_loss_plain(*ops, contrast,
                                                           **kw)
         check(bits_differ(aux[2], want_aux["coverage"]) == 0,
               f"{what} ({mode}): coverage {float(aux[2])} vs "
@@ -1147,23 +1187,31 @@ def loss_check(what, images, contrast, blurry, graphed=False):
                       f"{float(aux[i])} vs {float(want_aux[k])}")
         check(close(loss, want_loss), f"{what} ({mode}): loss {float(loss)} "
               f"vs {float(want_loss)}")
-        want = ev.event_loss_backward_plain(grad, *images, contrast,
-                                            want_aux["coverage"], **kw)
+        want = flat_tensors(ev.event_loss_backward_plain(
+            grad, *ops, contrast, want_aux["coverage"], **kw))
         leaves = [t.clone().requires_grad_(True)
-                  for t in (*images[:3], contrast)]
-        auto_loss, _ = ev.event_mixture_loss_plain(*leaves[:3], *images[3:],
-                                                   leaves[3], **kw)
-        auto = torch.autograd.grad(auto_loss, leaves)
-        for k, a, b, c in zip(("now", "next", "main"), got, want, auto):
+                  for t in flat_tensors(ops[:3])]
+        c = contrast.clone().requires_grad_(True)
+        it = iter(leaves)
+        renders = [type(r)(next(it), next(it)) if isinstance(r, ev.Partials)
+                   else next(it) for r in ops[:3]]
+        auto_loss, _ = ev.event_mixture_loss_plain(*renders, *ops[3:], c,
+                                                   **kw)
+        auto = torch.autograd.grad(auto_loss, leaves + [c])
+        names = [f"{r} {x}" if isinstance(o, ev.Partials) else r
+                 for r, o in zip(("now", "next", "main"), ops[:3])
+                 for x in (("rgb", "log T") if isinstance(o, ev.Partials)
+                           else ("",))]
+        for k, a, b, c_ in zip(names, got, want, auto):
             ulps = bits_differ(a, b)
-            check(ulps == 0, f"{what} ({mode}): d render_{k} differs from "
+            check(ulps == 0, f"{what} ({mode}): d {k} differs from "
                   f"the plain backward by {ulps} ulps")
-            ulps = bits_differ(b, c)
+            ulps = bits_differ(b, c_)
             check(ulps == 0, f"{what} ({mode}): the plain backward's d "
-                  f"render_{k} differs from autograd's by {ulps} ulps")
-        check(close(got[3], want[3]) and close(want[3], auto[3]),
-              f"{what} ({mode}): d contrast {float(got[3])}, plain "
-              f"{float(want[3])}, autograd {float(auto[3])}")
+                  f"{k} differs from autograd's by {ulps} ulps")
+        check(close(got[-1], want[-1]) and close(want[-1], auto[-1]),
+              f"{what} ({mode}): d contrast {float(got[-1])}, plain "
+              f"{float(want[-1])}, autograd {float(auto[-1])}")
         errs[LOSS[0]] = max(errs[LOSS[0]], worst(loss, want_loss),
                             worst(aux[:3], torch.stack(
                                 [want_aux[k] for k in ev.AUX[:3]])))
@@ -1171,27 +1219,29 @@ def loss_check(what, images, contrast, blurry, graphed=False):
                                                for a, b in zip(got, want)])
         print(f"{what} ({mode}): loss kernels vs plain: loss "
               f"{float(loss):.7f} / {float(want_loss):.7f}, coverage "
-              f"{float(aux[2]):.6f} bit-equal, image gradients bit-equal "
-              f"(and the plain backward to autograd's), d contrast "
-              f"{float(got[3]):.7g} / {float(want[3]):.7g}; "
+              f"{float(aux[2]):.6f} bit-equal, {', '.join(names)} "
+              f"gradients bit-equal (and the plain backward to autograd's), "
+              f"d contrast {float(got[-1]):.7g} / {float(want[-1]):.7g}; "
               f"{'two replays of a CUDA graph' if graphed else 'two runs'} "
               "bit-identical")
-    kw = dict(gt_contrast=cfg.gt_contrast, event_weight=cfg.event_weight)
-    _, aux = ev.event_loss_forward_kernel(*images, contrast, **kw)
+    kw = dict(gt_contrast=cfg.gt_contrast, event_weight=cfg.event_weight,
+              background=background)
+    _, aux = ev.event_loss_forward_kernel(*operands, contrast, **kw)
     coverage = aux[2]
     calls = {
-        LOSS[0]: (lambda: ev.event_loss_forward_kernel(*images, contrast, **kw),
-                  lambda: ev.event_mixture_loss_plain(*images, contrast,
+        LOSS[0]: (lambda: ev.event_loss_forward_kernel(*operands, contrast,
+                                                       **kw),
+                  lambda: ev.event_mixture_loss_plain(*operands, contrast,
                                                       **kw)),
         LOSS[1]: (lambda: ev.event_loss_backward_kernel(
-            grad, *images, contrast, coverage, **kw),
-            lambda: ev.event_loss_backward_plain(grad, *images, contrast,
+            grad, *operands, contrast, coverage, **kw),
+            lambda: ev.event_loss_backward_plain(grad, *operands, contrast,
                                                  coverage, **kw)),
     }
     pixels = images[0].numel() // 3
     channels = [t.shape[-1] for t in images[3:]]
-    bounds = {k: loss_bound(pixels, channels, backward=k == LOSS[1])
-              for k in LOSS}
+    bounds = {k: loss_bound(pixels, channels, backward=k == LOSS[1],
+                            partials=3) for k in LOSS}
     return errs, calls, bounds
 
 
@@ -1232,25 +1282,49 @@ LOSS = ("event_loss_forward", "event_loss_backward")
 
 
 @contextlib.contextmanager
-def counting_packs():
-    """While open, each call of ``pack_features`` (the tiled rasterizer's
-    packing and the plain preprocess's) appends 1 to the list it yields:
-    the event step and the colour render take the packed rows from the
-    preprocess forward kernel and call it nowhere."""
-    from event3dgs_tpu_torch.ops import preprocess as pre
-    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+def counting(name, *modules):
+    """While open, each call of the function ``name`` of ``modules`` (one
+    function, which each module defines or imported) appends 1 to the list
+    it yields."""
+    calls, fn = [], getattr(modules[0], name)
 
-    calls, pack = [], rt.pack_features
-
-    def counted(*args):
+    def counted(*args, **kw):
         calls.append(1)
-        return pack(*args)
+        return fn(*args, **kw)
 
-    rt.pack_features = pre.pack_features = counted
+    for m in modules:
+        setattr(m, name, counted)
     try:
         yield calls
     finally:
-        rt.pack_features = pre.pack_features = pack
+        for m in modules:
+            setattr(m, name, fn)
+
+
+def counting_packs():
+    """``counting`` of ``pack_features`` (the tiled rasterizer's packing
+    and the plain preprocess's): the event step and the colour render
+    take the packed rows from the preprocess forward kernel and call it
+    nowhere."""
+    from event3dgs_tpu_torch.ops import preprocess as pre
+    from event3dgs_tpu_torch.ops import rasterize_tiled as rt
+
+    return counting("pack_features", rt, pre)
+
+
+def counting_composes():
+    """``counting`` of ``ops/render.composed`` (and of the names the train
+    step and the loss's plain version imported): the event step hands its
+    renders' partials to the loss kernels, which compose them, and calls
+    it nowhere."""
+    import importlib
+
+    from event3dgs_tpu_torch.losses import event as ev
+    from event3dgs_tpu_torch.train import step
+
+    # the module: the package's name ``render`` is the function
+    render = importlib.import_module("event3dgs_tpu_torch.ops.render")
+    return counting("composed", render, step, ev)
 
 
 def count_launches(fn):
@@ -1458,7 +1532,7 @@ def kernel_device_ms(name, fn) -> tuple[float, float]:
     call), matched by exact name, each function's time taken over the
     launches the profiler saw of it; and the fewest launches per call it
     saw of one of them.  Fails if the profiler saw none of one of them in
-    three sessions."""
+    ``kernel_timing.PROFILE_SESSIONS`` sessions."""
     from event3dgs_tpu_torch.tools.kernel_timing import (
         device_profile,
         per_launch_ms,
@@ -2272,15 +2346,17 @@ def train_kernels(dev):
     adam_err, *adam_calls = adam_check("phase 7, the step after one", adam)
     # the loss kernels on the step's three 1080p renders
     loss_errs, loss_calls, loss_bounds = loss_check(
-        "phase 7, the step's renders", *loss_views(state, data, idx, bg, icap))
+        "phase 7, the step's renders", *loss_views(state, data, idx, icap))
 
     # 8. timing: bench.py's event step ---------------------------------------
-    with counting_packs() as packs:
+    with counting_packs() as packs, counting_composes() as composes:
         (st, _), per_step = count_launches(lambda: step(state, data, *idx,
                                                         bg))
     check_launches("one event step", per_step, 3, 3, steps=1)
     check(not packs, f"one event step called pack_features {len(packs)} "
           "times")
+    check(not composes, f"one event step called ops.render.composed "
+          f"{len(composes)} times")
     for _ in range(WARMUP_STEPS):
         st, _ = step(st, data, *idx, bg)
     torch.cuda.synchronize()
@@ -2770,8 +2846,7 @@ def fused_path(root: str, dev):
         FUSED_ITERS + 1, lr_on_device=True), graphed=True)
     # the loss kernels in a CUDA graph at the trained state
     loss_check("phase 13, after the fused loop", *loss_views(
-        rf.state, data, (2, 2, 3), torch.zeros(3, device=dev), icap),
-        graphed=True)
+        rf.state, data, (2, 2, 3), icap), graphed=True)
     q = np.percentile(replay_ms, [0, 50, 100])
     print(f"phase 13: device time per replayed step (CUDA events around "
           f"{FUSED_STEPS} replays, 5 windows): median {q[1]:.4f} ms, min "
@@ -2881,7 +2956,7 @@ def graphed_step(what, state, data, icap):
                           spatial_lr_scale=3.0, rasterizer="tiled",
                           instance_cap=icap)
     replays = 10
-    with counting_packs() as packs:
+    with counting_packs() as packs, counting_composes() as composes:
         runner = FusedSteps(step, state, data, replays)
         runner.table.copy_(torch.from_numpy(np.stack([
             step.row(int(state.step) + 1 + j, (1, 1, 2), np.zeros(3))
@@ -2890,6 +2965,13 @@ def graphed_step(what, state, data, icap):
             lambda: (runner.cursor.zero_(), runner._call()))
     check(not packs, f"{what}: the graphed event step called pack_features "
           f"{len(packs)} times")
+    check(not composes, f"{what}: the graphed event step called "
+          f"ops.render.composed {len(composes)} times")
+    # the picks left: the table row and the three cameras' 5 fields; the
+    # GT frames are read by the loss kernels where they lie
+    picks = sum(c for k, c in nodes.items() if k.startswith("indexSelect"))
+    check(picks == 1 + 3 * 5, f"{what}: {picks} indexSelect nodes in the "
+          "graphed event step, not 16 (the table row, 15 camera fields)")
     ms = []
     for _ in range(3):
         runner.cursor.zero_()
@@ -2910,8 +2992,10 @@ def graphed_step(what, state, data, icap):
           f"device nodes ({kernels} kernels, {nodes.get('memcpy', 0)} "
           f"copies, {nodes.get('memset', 0)} memsets); "
           f"{float(np.median(ms)):.4f} device ms per replay (median of "
-          f"{', '.join(f'{m:.4f}' for m in ms)}); pack_features called 0 "
-          f"times in its warm-up steps and capture; {card()}")
+          f"{', '.join(f'{m:.4f}' for m in ms)}); {picks} indexSelect "
+          f"nodes (the table row, 15 camera fields; no GT frame copied); "
+          f"pack_features and ops.render.composed called 0 times in its "
+          f"warm-up steps and capture; {card()}")
 
 
 def scale_kernel_rows(state, data, icap, dev):
@@ -2973,8 +3057,7 @@ def scale_kernel_rows(state, data, icap, dev):
           f"{ms / bound:.2f}x, plain {out[ADAM]['plain_ms']:.4f} ms, "
           f"torch._fused_adam_ {out[ADAM]['library_ms']:.4f} ms")
     errs, calls, bounds = loss_check(what, *loss_views(
-        state, data, (1, 1, 2), torch.zeros(3, device=dev), icap),
-        graphed=True)
+        state, data, (1, 1, 2), icap), graphed=True)
     for k in LOSS:
         ms = graph_ms(calls[k][0])
         bound, by = bound_ms(*bounds[k])
@@ -3001,10 +3084,13 @@ def scale_path(dev):
     smi = card()
     # 14a: scale.maxcap at 2M, eager then graphed, each on its own scene
     iters = scale.MAXCAP_ITERS
-    rec, launches = count_launches(lambda: scale.run_scene(
-        "maxcap", SCALE_CAPACITY, iters, SCALE_FUSED, False, WIDTH, HEIGHT,
-        dev))
+    with counting_composes() as composes:
+        rec, launches = count_launches(lambda: scale.run_scene(
+            "maxcap", SCALE_CAPACITY, iters, SCALE_FUSED, False, WIDTH,
+            HEIGHT, dev))
     check(rec["status"] == "ok", f"phase 14: maxcap at {SCALE_CAPACITY}: {rec}")
+    check(not composes, f"phase 14: the eager and graphed event steps called "
+          f"ops.render.composed {len(composes)} times")
     want = 3 * (1 + iters) + 3 * (WARMUP_STEPS + 1)
     # eager 1 + iters steps, graphed warm-up and capture
     check_launches("phase 14", launches, want, want,

@@ -14,7 +14,10 @@ card as two hand-written kernels (``csrc/loss.cu``) behind one autograd
 Function, :class:`EventLoss`: :func:`event_loss_forward_kernel` and
 :func:`event_loss_backward_kernel`, whose plain versions are
 :func:`event_mixture_loss_plain` and :func:`event_loss_backward_plain`.
-CPU tensors take the plain forward and autograd's backward.
+The train step hands it each render as its :class:`Partials` (rgb and
+log T) and, graphed, each GT image as a :class:`Frame` of its stack: the
+kernels compose the renders over the background and pick the frames
+themselves.  CPU tensors take the plain forward and autograd's backward.
 
 The variants after :func:`event_loss_backward_plain` are the reference's
 experimental event losses, which no training mode calls.  They keep the
@@ -26,6 +29,7 @@ JAX package's static shapes where those decide the result: the first
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,6 +42,7 @@ from event3dgs_tpu_torch.losses.basic import (
     rgb_to_luv_l,
 )
 from event3dgs_tpu_torch.ops import kernels
+from event3dgs_tpu_torch.ops.render import composed
 from event3dgs_tpu_torch.utils.device import constant
 
 LOG_EPS = 1e-8  # epsilon inside the logs (`loss_utils.py:243`)
@@ -84,11 +89,58 @@ def deblur_mix(loss, render_main, gt_blurry, blur_alpha: float = 0.5):
     return (1.0 - blur_alpha) * loss + blur_alpha * ll1, {"blur_l1": ll1}
 
 
+class Partials(NamedTuple):
+    """A render before its background: the rasterizer's rgb [H, W, 3] and
+    log T [H, W] (``ops/render.rasterize_projected``).  The event loss
+    takes a render as its image or as its partials, which it composes over
+    its ``background`` (``ops/render.composed``)."""
+
+    rgb: torch.Tensor
+    logt: torch.Tensor
+
+
+class Frame(NamedTuple):
+    """Frame ``index`` ([1] int64 on the stack's device) of a stack of GT
+    images [V, H, W, C].  The event loss takes a GT operand as its image or
+    as such a frame, which the kernels read where it lies: the host never
+    reads the index, so a CUDA graph holds the pick."""
+
+    stack: torch.Tensor
+    index: torch.Tensor
+
+
+def render_image(render, background):
+    """The image of a render operand: its partials composed over
+    ``background`` (``ops/render.composed``), or the image itself."""
+    if isinstance(render, Partials):
+        return composed(render.rgb, render.logt, background)
+    return render
+
+
+def frame_image(gt):
+    """The image of a GT operand: its frame picked on the device
+    (``index_select``, as the train step picked it), or the image
+    itself."""
+    if isinstance(gt, Frame):
+        return gt.stack.index_select(0, gt.index)[0]
+    return gt
+
+
+def composed_backward_plain(grad, render: Partials, background) -> Partials:
+    """The gradients of ``ops/render.composed``'s image with respect to the
+    partials, from the image's gradient ``grad``: autograd's chain written
+    out, one PyTorch op for each of its own in its order (the sum passes
+    ``grad`` on; the product's backward ``grad·bg``, summed over the
+    broadcast channel axis; the exp's backward, times its result)."""
+    g_e = (grad * background[None, None, :]).sum(-1, keepdim=True)
+    return Partials(grad, g_e.squeeze(-1) * torch.exp(render.logt))
+
+
 def event_mixture_loss_plain(render_now, render_next, render_main, gt_now,
                              gt_next, gt_main, contrast,
                              gt_contrast: float = 0.17,
                              event_weight: float = 0.9, blurry_main=None,
-                             blur_alpha: float = 0.5):
+                             blur_alpha: float = 0.5, background=None):
     """The event-mode training loss (reference `train.py:165-196`) in plain
     PyTorch, differentiated by autograd.
 
@@ -99,9 +151,16 @@ def event_mixture_loss_plain(render_now, render_next, render_main, gt_now,
         loss = w·loss1·coverage + (1-w)·loss2·(1-coverage)
 
     With ``blurry_main`` (event_deblur mode) the loss is :func:`deblur_mix`'s
-    of it.  Returns (loss, aux dict with event_l1 / intensity_l1 / coverage
-    [/ blur_l1]).
+    of it.  A render may come as its :class:`Partials`, composed over
+    ``background`` first (:func:`render_image`), a GT operand as a
+    :class:`Frame`, picked first (:func:`frame_image`).  Returns (loss, aux
+    dict with event_l1 / intensity_l1 / coverage [/ blur_l1]).
     """
+    render_now, render_next, render_main = (
+        render_image(r, background)
+        for r in (render_now, render_next, render_main))
+    gt_now, gt_next, gt_main = (frame_image(g)
+                                for g in (gt_now, gt_next, gt_main))
     img_diff = event_log_diff(render_now, render_next, contrast)
     gt_diff = event_log_diff(gt_now, gt_next, gt_contrast)
     loss1 = l1_loss(img_diff, gt_diff)
@@ -112,7 +171,8 @@ def event_mixture_loss_plain(render_now, render_next, render_main, gt_now,
     aux = {"event_l1": loss1, "intensity_l1": loss2, "coverage": coverage}
     if blurry_main is None:
         return loss, aux
-    loss, blur = deblur_mix(loss, render_main, blurry_main, blur_alpha)
+    loss, blur = deblur_mix(loss, render_main, frame_image(blurry_main),
+                            blur_alpha)
     return loss, {**aux, **blur}
 
 
@@ -120,18 +180,24 @@ def event_loss_backward_plain(grad, render_now, render_next, render_main,
                               gt_now, gt_next, gt_main, contrast, coverage,
                               gt_contrast: float = 0.17,
                               event_weight: float = 0.9, blurry_main=None,
-                              blur_alpha: float = 0.5):
+                              blur_alpha: float = 0.5, background=None):
     """The backward kernel's plain version: the gradients of
     :func:`event_mixture_loss_plain`'s loss times ``grad`` (a 0-d tensor)
     with respect to the three renders and the contrast (a tensor; the
     forward's ``coverage`` is given) → (d render_now, d render_next,
-    d render_main, d contrast).
+    d render_main, d contrast), a render's a :class:`Partials` of d rgb
+    and d log T where it came as partials (:func:`composed_backward_plain`).
 
     Autograd's chain written out, one PyTorch op for each of its own in its
     order (a mean's backward divides by the count, an abs's multiplies by
     ``sgn``, 0 at a tie), so the image gradients equal autograd's bit for
     bit on either device; the contrast's is a sum over the pixels.
     """
+    renders = (render_now, render_next, render_main)
+    render_now, render_next, render_main = (render_image(r, background)
+                                            for r in renders)
+    gt_now, gt_next, gt_main = (frame_image(g)
+                                for g in (gt_now, gt_next, gt_main))
     w = constant(_LUV_WEIGHTS, render_now.dtype, render_now.device)
     base = grad if blurry_main is None else grad * (1.0 - blur_alpha)
     a_now = rgb_to_luv_l(render_now) + LOG_EPS
@@ -147,10 +213,12 @@ def event_loss_backward_plain(grad, render_now, render_next, render_main,
     g_main = (base * (1.0 - coverage) * (1.0 - event_weight) / r_main.numel()
               * torch.sgn(r_main))
     if blurry_main is not None:
-        r_blur = render_main - blurry_main
+        r_blur = render_main - frame_image(blurry_main)
         g_main = g_main + (grad * blur_alpha / r_blur.numel()
                            * torch.sgn(r_blur))
-    return g_now, g_next, g_main, g_c
+    return (*(composed_backward_plain(g, x, background)
+              if isinstance(x, Partials) else g
+              for g, x in zip((g_now, g_next, g_main), renders)), g_c)
 
 
 # the loss kernels' outputs beside the loss, in order (blur_l1 is 0 in event
@@ -174,62 +242,97 @@ def loss_constants(pixels: int, gt_contrast: float, event_weight: float,
     return (ctypes.c_float * len(values))(*values)
 
 
-def _loss_launch(render_now, render_next, render_main, gt_now, gt_next,
-                 gt_main, contrast, blurry_main, gt_contrast, event_weight,
-                 blur_alpha) -> tuple:
-    """The loss kernels' leading arguments (images, channel counts, P,
-    constants, contrast) after the checks; the counts and the constants
-    are host arrays, which ctypes passes by address."""
-    shape = render_now.shape
+def _gt_operand(gt, what: str, frame_shape) -> tuple:
+    """A GT operand's (image or stack, index or None) and its (channels,
+    frames, frame stride) after the checks."""
+    t, index = (gt.stack, gt.index) if isinstance(gt, Frame) else (gt, None)
+    kernels.check(t, torch.float32, what)
+    lead = 0 if index is None else 1
+    shape = tuple(t.shape[lead:])
+    if (len(shape) != len(frame_shape) + 1
+            or shape[:-1] != tuple(frame_shape) or shape[-1] not in (1, 3)):
+        raise ValueError(f"{what}: expected {'[V] + ' if lead else ''}"
+                         f"{tuple(frame_shape)} + (1 or 3,), got "
+                         f"{tuple(t.shape)}")
+    frames, stride = 1, 0
+    if index is not None:
+        kernels.check(index, torch.int64, f"{what} index", (1,))
+        if index.device != t.device:
+            raise ValueError(f"{what} index: on {index.device}, its stack "
+                             f"on {t.device}")
+        frames, stride = t.shape[0], t.stride(0)
+    return (t, index), (shape[-1], frames, stride)
+
+
+def _loss_launch(renders, gts, contrast, background, settings) -> tuple:
+    """The loss kernels' leading arguments after the checks: the host
+    arrays of operand pointers and sizes (by address), P, the constants
+    and the contrast; then the host arrays themselves, to keep them alive
+    for the call."""
+    gt_contrast, event_weight, blur_alpha = settings
+    rgbs = [r.rgb if isinstance(r, Partials) else r for r in renders]
+    shape = rgbs[0].shape
     if len(shape) < 2 or shape[-1] != 3:
         raise ValueError(f"render_now: expected [..., 3], got {tuple(shape)}")
-    for t, what in ((render_now, "render_now"), (render_next, "render_next"),
-                    (render_main, "render_main")):
-        kernels.check(t, torch.float32, what, shape)
-    gts = [(gt_now, "gt_now"), (gt_next, "gt_next"), (gt_main, "gt_main")]
-    if blurry_main is not None:
-        gts.append((blurry_main, "blurry_main"))
-    channels = []
-    for t, what in gts:
-        kernels.check(t, torch.float32, what)
-        if tuple(t.shape[:-1]) != tuple(shape[:-1]) or t.shape[-1] not in (1, 3):
-            raise ValueError(f"{what}: expected {tuple(shape[:-1])} + (1 or "
-                             f"3,), got {tuple(t.shape)}")
-        channels.append(t.shape[-1])
+    ptrs = []
+    for r, rgb, what in zip(renders, rgbs,
+                            ("render_now", "render_next", "render_main")):
+        kernels.check(rgb, torch.float32, what, shape)
+        logt = None
+        if isinstance(r, Partials):
+            logt = r.logt
+            kernels.check(logt, torch.float32, f"{what} log T", shape[:-1])
+        ptrs += [rgb.data_ptr(), None if logt is None else logt.data_ptr()]
+    if background is not None:
+        kernels.check(background, torch.float32, "background", (3,))
+    elif any(isinstance(r, Partials) for r in renders):
+        raise ValueError("renders given as partials need the background")
+    ptrs.append(None if background is None else background.data_ptr())
+    sizes = []
+    for g, what in zip(gts, ("gt_now", "gt_next", "gt_main", "blurry_main")):
+        if g is None:
+            ptrs += [None, None]
+            sizes += [1, 1, 0]
+            continue
+        (t, index), size = _gt_operand(g, what, shape[:-1])
+        ptrs += [t.data_ptr(), None if index is None else index.data_ptr()]
+        sizes += size
     kernels.check(contrast, torch.float32, "contrast")
     if contrast.numel() != 1:
         raise ValueError(f"contrast: expected one value, got "
                          f"{tuple(contrast.shape)}")
-    pixels = render_now.numel() // 3
+    pixels = rgbs[0].numel() // 3
     if not 0 < pixels < 2**31:
         raise ValueError(f"{pixels} pixels: expected 1 to 2**31 - 1")
-    ptrs = [t.data_ptr() for t in (render_now, render_next, render_main,
-                                   gt_now, gt_next, gt_main)]
-    ptrs.append(None if blurry_main is None else blurry_main.data_ptr())
-    counts = (ctypes.c_int * 4)(*channels, *([1] * (4 - len(channels))))
+    operands = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    sizes = (ctypes.c_longlong * len(sizes))(*sizes)
     consts = loss_constants(pixels, gt_contrast, event_weight, blur_alpha)
-    return (*ptrs, counts, pixels, consts, contrast.data_ptr())
+    return ((ctypes.addressof(operands), ctypes.addressof(sizes), pixels,
+             consts, contrast.data_ptr()), (operands, sizes))
 
 
 def event_loss_forward_kernel(render_now, render_next, render_main, gt_now,
                               gt_next, gt_main, contrast,
                               gt_contrast: float = 0.17,
                               event_weight: float = 0.9, blurry_main=None,
-                              blur_alpha: float = 0.5):
+                              blur_alpha: float = 0.5, background=None):
     """Launch the forward kernel (``csrc/loss.cu``) on CUDA tensors (the
-    arguments of :func:`event_mixture_loss_plain`; the renders [..., 3],
-    the GT images [..., 1 or 3], the contrast one float) → (the loss [],
-    [4] of ``AUX``)."""
-    args = _loss_launch(render_now, render_next, render_main, gt_now,
-                        gt_next, gt_main, contrast, blurry_main, gt_contrast,
-                        event_weight, blur_alpha)
-    dev = render_now.device
+    arguments of :func:`event_mixture_loss_plain`: each render [..., 3]
+    or its :class:`Partials`, each GT operand [..., 1 or 3] or a
+    :class:`Frame`, the contrast one float, the background [3] where a
+    render comes as partials) → (the loss [], [4] of ``AUX``)."""
+    args, keep = _loss_launch(
+        (render_now, render_next, render_main),
+        (gt_now, gt_next, gt_main, blurry_main), contrast, background,
+        (gt_contrast, event_weight, blur_alpha))
+    dev = contrast.device
     partials = torch.empty(LOSS_BLOCKS, 4, dtype=torch.float64, device=dev)
     loss = torch.empty((), device=dev)
     aux = torch.empty(len(AUX), device=dev)
     kernels.launch("loss", "e3d_event_loss_forward", *args,
                    partials.data_ptr(), LOSS_BLOCKS, loss.data_ptr(),
                    aux.data_ptr())
+    del keep
     event_loss_forward_kernel.launches += 1
     return loss, aux
 
@@ -241,90 +344,130 @@ def event_loss_backward_kernel(grad, render_now, render_next, render_main,
                                gt_now, gt_next, gt_main, contrast, coverage,
                                gt_contrast: float = 0.17,
                                event_weight: float = 0.9, blurry_main=None,
-                               blur_alpha: float = 0.5):
+                               blur_alpha: float = 0.5, background=None):
     """Launch the backward kernel (``csrc/loss.cu``) on CUDA tensors (the
     arguments of :func:`event_loss_backward_plain`; ``grad`` and
     ``coverage`` 0-d) → (d render_now, d render_next, d render_main,
-    d contrast)."""
-    args = _loss_launch(render_now, render_next, render_main, gt_now,
-                        gt_next, gt_main, contrast, blurry_main, gt_contrast,
-                        event_weight, blur_alpha)
+    d contrast), as the plain version gives them."""
+    renders = (render_now, render_next, render_main)
+    args, keep = _loss_launch(
+        renders, (gt_now, gt_next, gt_main, blurry_main), contrast,
+        background, (gt_contrast, event_weight, blur_alpha))
     kernels.check(grad, torch.float32, "grad", ())
     kernels.check(coverage, torch.float32, "coverage", ())
-    dev = render_now.device
+    dev = contrast.device
     partials = torch.empty(LOSS_BLOCKS, dtype=torch.float64, device=dev)
-    out = [torch.empty_like(t) for t in (render_now, render_next,
-                                         render_main, contrast)]
+    out = [Partials(torch.empty_like(r.rgb), torch.empty_like(r.logt))
+           if isinstance(r, Partials) else torch.empty_like(r)
+           for r in renders]
+    g_c = torch.empty_like(contrast)
+    ptrs = [p for g in out for p in (
+        (g.rgb.data_ptr(), g.logt.data_ptr()) if isinstance(g, Partials)
+        else (g.data_ptr(), None))]
+    grads = (ctypes.c_void_p * len(ptrs))(*ptrs)
     kernels.launch("loss", "e3d_event_loss_backward", *args,
                    grad.data_ptr(), coverage.data_ptr(), partials.data_ptr(),
-                   LOSS_BLOCKS, *(t.data_ptr() for t in out))
+                   LOSS_BLOCKS, ctypes.addressof(grads), g_c.data_ptr())
+    del keep
     event_loss_backward_kernel.launches += 1
-    return tuple(out)
+    return (*out, g_c)
 
 
 event_loss_backward_kernel.launches = 0
 
 
+def _flat_operands(renders, gts) -> list:
+    """The loss's operands as :class:`EventLoss` takes them: per render its
+    rgb or image and its log T or None, per GT operand its image or stack
+    (None: no blurry image) and its index or None."""
+    out = []
+    for r in renders:
+        out += list(r) if isinstance(r, Partials) else [r, None]
+    for g in gts:
+        out += list(g) if isinstance(g, Frame) else [g, None]
+    return out
+
+
+def _operands(flat) -> tuple:
+    """:func:`_flat_operands`' inverse: (renders, GT operands)."""
+    renders = [x if lt is None else Partials(x, lt)
+               for x, lt in zip(flat[0:6:2], flat[1:6:2])]
+    gts = [x if i is None else Frame(x, i)
+           for x, i in zip(flat[6::2], flat[7::2])]
+    return renders, gts
+
+
 class EventLoss(torch.autograd.Function):
     """The event-mode loss on a card, forward and backward one kernel each.
 
-    ``forward(render_now, render_next, render_main, gt_now, gt_next,
-    gt_main, blurry_main, contrast, settings)`` with ``settings``
-    (gt_contrast, event_weight, blur_alpha) → (loss, [4] of ``AUX``, not
-    differentiable); gradients flow to the three renders and the contrast,
-    none to the GT images.
+    ``forward(contrast, background, settings, *operands)`` with
+    ``settings`` (gt_contrast, event_weight, blur_alpha) and the operands
+    of :func:`_flat_operands` → (loss, [4] of ``AUX``, not
+    differentiable); gradients flow to each render's rgb and log T (or its
+    image) and to the contrast, none to the GT images, stacks or indices
+    or to the background.
     """
 
     @staticmethod
-    def forward(ctx, render_now, render_next, render_main, gt_now, gt_next,
-                gt_main, blurry_main, contrast, settings):
+    def forward(ctx, contrast, background, settings, *flat):
         gt_contrast, event_weight, blur_alpha = settings
-        images = (render_now, render_next, render_main, gt_now, gt_next,
-                  gt_main)
+        renders, gts = _operands(flat)
         loss, aux = event_loss_forward_kernel(
-            *images, contrast, gt_contrast, event_weight, blurry_main,
-            blur_alpha)
+            *renders, *gts[:3], contrast, gt_contrast, event_weight, gts[3],
+            blur_alpha, background)
         ctx.mark_non_differentiable(aux)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*images, blurry_main, contrast, aux)
+        ctx.save_for_backward(contrast, background, aux, *flat)
         ctx.settings = settings
         return loss, aux
 
     @staticmethod
     def backward(ctx, g_loss, g_aux):
+        n = len(ctx.saved_tensors) - 3
         if g_loss is None:
-            return (None,) * 9
-        *images, blurry_main, contrast, aux = ctx.saved_tensors
+            return (None,) * (3 + n)
+        contrast, background, aux, *flat = ctx.saved_tensors
         gt_contrast, event_weight, blur_alpha = ctx.settings
-        g_now, g_next, g_main, g_c = event_loss_backward_kernel(
-            g_loss, *images, contrast, aux[2], gt_contrast,
-            event_weight, blurry_main, blur_alpha)
-        return g_now, g_next, g_main, None, None, None, None, g_c, None
+        renders, gts = _operands(flat)
+        *g_renders, g_c = event_loss_backward_kernel(
+            g_loss, *renders, *gts[:3], contrast, aux[2], gt_contrast,
+            event_weight, gts[3], blur_alpha, background)
+        g_flat = _flat_operands(g_renders, [None] * 4)
+        return (g_c, None, None, *g_flat[:6], *([None] * (n - 6)))
 
 
 def event_mixture_loss(render_now, render_next, render_main, gt_now, gt_next,
                        gt_main, contrast, gt_contrast: float = 0.17,
                        event_weight: float = 0.9, blurry_main=None,
-                       blur_alpha: float = 0.5, plain: bool = False):
+                       blur_alpha: float = 0.5, plain: bool = False,
+                       background=None):
     """The event-mode training loss (reference `train.py:165-196`; in
     event_deblur mode, with ``blurry_main``, :func:`deblur_mix`'s of it,
     `train.py:197-203`) → (loss, aux dict with event_l1 / intensity_l1 /
     coverage [/ blur_l1]).
 
-    For CUDA tensors the two kernels of :class:`EventLoss`; for CPU tensors,
-    or with ``plain``, :func:`event_mixture_loss_plain` under autograd.
+    Each render is its image or, as the train step gives it, its
+    :class:`Partials` over ``background``; each GT operand its image or,
+    as the graphed step gives it, a :class:`Frame` of its stack.  The
+    sharded step and the probes pass images, which they have composed or
+    picked themselves.
+
+    For CUDA tensors the two kernels of :class:`EventLoss`, which compose
+    the partials and read the frames themselves; for CPU tensors, or with
+    ``plain``, :func:`event_mixture_loss_plain` under autograd.
     """
-    if render_now.device.type == "cpu" or plain:
-        return event_mixture_loss_plain(
-            render_now, render_next, render_main, gt_now, gt_next, gt_main,
-            contrast, gt_contrast, event_weight, blurry_main, blur_alpha)
-    images = [t.contiguous() for t in (render_now, render_next, render_main,
-                                       gt_now, gt_next, gt_main)]
-    if blurry_main is not None:
-        blurry_main = blurry_main.contiguous()
-    loss, aux = EventLoss.apply(*images, blurry_main, contrast,
+    renders = (render_now, render_next, render_main)
+    gts = (gt_now, gt_next, gt_main, blurry_main)
+    first = render_now.rgb if isinstance(render_now, Partials) else render_now
+    if first.device.type == "cpu" or plain:
+        return event_mixture_loss_plain(*renders, *gts[:3], contrast,
+                                        gt_contrast, event_weight, gts[3],
+                                        blur_alpha, background)
+    flat = [None if t is None else t.contiguous()
+            for t in _flat_operands(renders, gts)]
+    loss, aux = EventLoss.apply(contrast, background,
                                 (float(gt_contrast), float(event_weight),
-                                 float(blur_alpha)))
+                                 float(blur_alpha)), *flat)
     names = AUX if blurry_main is not None else AUX[:3]
     return loss, {k: aux[i] for i, k in enumerate(names)}
 

@@ -35,14 +35,17 @@ def gray_total_loss(render, gt, lambda_dssim: float = 0.2):
 def event_total_loss(render_now, render_next, render_main, gt_now, gt_next,
                      gt_main, contrast, gt_contrast: float = 0.17,
                      event_weight: float = 0.9, blurry_main=None,
-                     blur_alpha: float = 0.5, plain: bool = False):
+                     blur_alpha: float = 0.5, plain: bool = False,
+                     background=None):
     """Event mode (`train.py:149-196`; λ_dssim is forced to 0 there); with
     ``blurry_main``, event_deblur mode: :func:`deblur_mix` of it with
     ``blur_alpha`` (`train.py:197-203`), in the same two kernels on a card
-    (``plain``: the plain version there too)."""
+    (``plain``: the plain version there too).  A render may come as its
+    ``Partials`` over ``background``, a GT operand as a ``Frame`` of its
+    stack (``losses/event.py``), as the train step passes them."""
     return event_mixture_loss(render_now, render_next, render_main, gt_now,
                               gt_next, gt_main, contrast,
                               gt_contrast=gt_contrast,
                               event_weight=event_weight,
                               blurry_main=blurry_main, blur_alpha=blur_alpha,
-                              plain=plain)
+                              plain=plain, background=background)

@@ -150,19 +150,24 @@ SIGNATURES = {
         "e3d_adam_update": [_P, _P, _P, _I, _F, _F, _F, _F, _F, _P],
     },
     "loss": {
-        # now, next, main ([P, 3]), gt_now, gt_next, gt_main, blurry (or
-        # null) ([P, 1 or 3]), their channel counts (4 host ints), P, the
-        # constants (11 host floats: losses/event.loss_constants), contrast,
-        # partials scratch, its rows, loss_out, aux_out (4 floats), stream
-        "e3d_event_loss_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                   _P, _P, _I, _P, _P, _P],
-        # the forward's images, channel counts, P and constants, contrast,
-        # the loss's gradient, the forward's coverage, partials scratch, its
-        # rows, g_now, g_next, g_main, g_contrast, stream
-        "e3d_event_loss_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                                    _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-        # x, y, n: the kernels' logf (for a card test), stream
+        # operands (a host array of 15 pointers: per render now, next, main
+        # its rgb or image [P, 3] and its log T [P] or null, the background
+        # [3] or null, per GT operand gt_now, gt_next, gt_main, blurry its
+        # image [P, 1 or 3] or stack and its [1] int64 index or null), sizes
+        # (12 host int64: per GT operand channels, frames, frame stride), P,
+        # the constants (11 host floats: losses/event.loss_constants),
+        # contrast, partials scratch, its rows, loss_out, aux_out (4
+        # floats), stream
+        "e3d_event_loss_forward": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+        # the forward's operands, sizes, P and constants, contrast, the
+        # loss's gradient, the forward's coverage, partials scratch, its
+        # rows, the gradients (a host array of 6 pointers: per render d rgb
+        # or d image, d log T or null), g_contrast, stream
+        "e3d_event_loss_backward": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                                    _P, _P],
+        # x, y, n: the kernels' logf and expf (for the card tests), stream
         "e3d_event_loss_logf": [_P, _P, _L, _P],
+        "e3d_event_loss_expf": [_P, _P, _L, _P],
     },
     "probes": {
         # x, capacity (blocks of 1,024 floats), n (a device int), partials

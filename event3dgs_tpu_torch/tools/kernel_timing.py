@@ -208,27 +208,37 @@ def adam_bound(floats: int):
 
 
 # the event loss (csrc/loss.cu) per pixel, (FP32, SFU) operations counted
-# from the source, a logf or a division as one SFU operation and nothing
-# more (so the bound stays a lower bound), by kernel (backward or not);
-# each three-channel image of the GT pair adds its L channel, event_deblur
-# the blurry image's L1
+# from the source, a logf, an expf or a division as one SFU operation and
+# nothing more (so the bound stays a lower bound), by kernel (backward or
+# not); each three-channel image of the GT pair adds its L channel,
+# event_deblur the blurry image's L1, each render given as partials its
+# composition (3 products, 3 sums and an expf) and in the backward its
+# log T gradient (4 products and 2 sums)
 LOSS_PIXEL_OPS = {False: (25, 5), True: (33, 9)}
 LOSS_GT_L_OPS = 5
 LOSS_DEBLUR_OPS = {False: 6, True: 9}
+LOSS_PARTIALS_OPS = {False: (6, 1), True: (12, 1)}
 
 
-def loss_bound(pixels: int, channels, backward: bool = False):
+def loss_bound(pixels: int, channels, backward: bool = False,
+               partials: int = 0):
     """(bytes, (FP32, SFU) operations) that one event loss kernel must move
     and do at ``pixels`` pixels, for :func:`bound_ms`: the three renders (3
-    floats a pixel) and the GT images of ``channels`` (gt_now, gt_next,
+    floats a pixel, and log T's one for the ``partials`` of them given as
+    rgb and log T) and the GT images of ``channels`` (gt_now, gt_next,
     gt_main[, blurry]: 1 or 3 each) read once, the scalars read and
-    written, and in the backward the three image gradients written."""
+    written, and in the backward the three renders' gradients written
+    (log T's too)."""
     deblur = len(channels) > 3
-    floats = 9 + sum(channels) + (9 if backward else 0)
+    floats = 9 + partials + sum(channels)
+    if backward:
+        floats += 9 + partials
     scalars = 4 * (4 if backward else 6)  # c, grad, coverage, dc / c, 5 out
     fp32, sfu = LOSS_PIXEL_OPS[backward]
     fp32 += LOSS_GT_L_OPS * sum(c == 3 for c in channels[:2])
     fp32 += LOSS_DEBLUR_OPS[backward] if deblur else 0
+    fp32 += LOSS_PARTIALS_OPS[backward][0] * partials
+    sfu += LOSS_PARTIALS_OPS[backward][1] * partials
     return 4 * floats * pixels + scalars, (fp32 * pixels, sfu * pixels)
 
 
@@ -512,8 +522,15 @@ def graph_kernels(fn) -> dict[str, int]:
     return out
 
 
+# profiler sessions device_profile makes at most: late in chip_smoke's
+# process a session can see none of a kernel's launches (three sessions
+# in a row saw no K4 launch in phase 12, NVIDIA H100 80GB HBM3, 700 W)
+PROFILE_SESSIONS = 8
+
+
 def device_profile(fn, calls: int = 20, expect=(),
-                   sessions: int = 3) -> dict[str, tuple[float, float]]:
+                   sessions: int = PROFILE_SESSIONS
+                   ) -> dict[str, tuple[float, float]]:
     """{device kernel name: (self device ms per call, launches per call)}
     over ``calls`` calls of ``fn`` after one warm-up call (torch.profiler).
     Late in a long process the profiler may see only some of the launches,

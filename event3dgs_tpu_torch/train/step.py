@@ -33,7 +33,11 @@ import torch
 
 from event3dgs_tpu_torch.core.camera import Camera
 from event3dgs_tpu_torch.core.schedules import exponential_lr
-from event3dgs_tpu_torch.losses.event import effective_contrast
+from event3dgs_tpu_torch.losses.event import (
+    Frame,
+    Partials,
+    effective_contrast,
+)
 from event3dgs_tpu_torch.losses.modes import (
     event_total_loss,
     gray_total_loss,
@@ -116,15 +120,16 @@ def step_inputs(state: TrainState, max_sh_degree: int = 3,
 
 class StepViews(NamedTuple):
     """The cameras a step renders and the images it compares them with
-    (None where its mode needs none)."""
+    (None where its mode needs none): in the event modes each image as a
+    tensor or as a ``Frame`` of its stack, which the loss picks itself."""
 
     cam_main: Camera
-    gt_main: torch.Tensor
+    gt_main: torch.Tensor | Frame
     cam_now: Optional[Camera] = None
     cam_next: Optional[Camera] = None
-    gt_now: Optional[torch.Tensor] = None
-    gt_next: Optional[torch.Tensor] = None
-    blurry_main: Optional[torch.Tensor] = None
+    gt_now: Optional[torch.Tensor | Frame] = None
+    gt_next: Optional[torch.Tensor | Frame] = None
+    blurry_main: Optional[torch.Tensor | Frame] = None
 
 
 def take(x, index: torch.Tensor):
@@ -140,21 +145,24 @@ def take(x, index: torch.Tensor):
 
 
 def step_views(data: SceneData, mode: str, idx_main, idx_now, idx_next,
-               pick=lambda x, i: x[i]) -> StepViews:
+               pick=lambda x, i: x[i], frame=None) -> StepViews:
     """What a step of ``mode`` reads from ``data``: the main view
     ``idx_main`` and, in the event modes, the event pair (``idx_now``,
     ``idx_next``) and the blurry capture.  ``pick(stack, index)`` takes one
     view of a stack (default: Python int indexing; :func:`take` for device
-    indices)."""
+    indices); ``frame(stack, index)`` one GT image of an event mode, which
+    the loss reads (default: ``pick``; ``Frame`` for device indices, so
+    that the loss kernels read the frame where it lies)."""
     event = mode.startswith("event")
+    frame = frame or pick
     return StepViews(
         cam_main=pick(data.cameras, idx_main),
-        gt_main=pick(data.images, idx_main),
+        gt_main=(frame if event else pick)(data.images, idx_main),
         cam_now=pick(data.event_cameras, idx_now) if event else None,
         cam_next=pick(data.event_cameras, idx_next) if event else None,
-        gt_now=pick(data.event_images, idx_now) if event else None,
-        gt_next=pick(data.event_images, idx_next) if event else None,
-        blurry_main=(pick(data.blurry_images, idx_main)
+        gt_now=frame(data.event_images, idx_now) if event else None,
+        gt_next=frame(data.event_images, idx_next) if event else None,
+        blurry_main=(frame(data.blurry_images, idx_main)
                      if mode == "event_deblur" else None),
     )
 
@@ -202,27 +210,28 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
                 if mode.startswith("event") else [views.cam_main])
         # one preprocess call for the step's views (the main view first,
         # which takes the tap) that also writes each view's packed rows,
-        # then per view the rasterizer
+        # then per view the rasterizer's (rgb, log T)
         projected = preprocess_views(
             act.means3d, act.scales, act.rotations, cams,
             opacities=act.opacities, features_dc=leaves["features_dc"],
             features_rest=leaves["features_rest"], cmask=cmask,
             sh_degree=max_sh_degree, plain=plain, mean2d_tap=tap,
             packed=True)
-        images = [composed(*rasterize_projected(
+        partials = [Partials(*rasterize_projected(
             proj, colors, act.opacities, cam, rasterizer, instance_cap,
-            plain, feat), bg)
+            plain, feat))
             for cam, (proj, colors, feat) in zip(cams, projected)]
         proj_main = projected[0][0]
         if mode == "rgb":
-            loss, aux = rgb_total_loss(images[0], views.gt_main,
-                                       lambda_dssim)
+            loss, aux = rgb_total_loss(composed(*partials[0], bg),
+                                       views.gt_main, lambda_dssim)
         elif mode == "gray":
-            loss, aux = gray_total_loss(images[0], views.gt_main,
-                                        lambda_dssim)
-        else:  # event / event_deblur (the blurry capture in the latter)
+            loss, aux = gray_total_loss(composed(*partials[0], bg),
+                                        views.gt_main, lambda_dssim)
+        else:  # event / event_deblur (the blurry capture in the latter):
+            # the loss composes the renders over bg itself
             loss, aux = event_total_loss(
-                images[1], images[2], images[0],
+                partials[1], partials[2], partials[0],
                 views.gt_now, views.gt_next, views.gt_main,
                 effective_contrast(contrast,
                                    event_cfg.contrast_parameterization),
@@ -230,6 +239,7 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
                 event_weight=event_cfg.event_weight,
                 blurry_main=views.blurry_main,
                 blur_alpha=event_cfg.blur_alpha, plain=plain,
+                background=bg,
             )
         aux["radii"] = proj_main.radius
         aux["visibility"] = proj_main.valid
@@ -390,8 +400,10 @@ class GraphTrainStep:
                  slots: StepSlots) -> None:
         r = table.index_select(0, cursor)[0]
         idx = r[:3].to(torch.int64)
+        # the GT images of the event modes stay in their stacks: the loss
+        # kernels read frame idx[k] where it lies
         views = step_views(data, self.mode, idx[0:1], idx[1:2], idx[2:3],
-                           pick=take)
+                           pick=take, frame=Frame)
         loss, aux, grads = self.grads_fn(state, views, r[3:6], r[7:])
         lrs = dict(self.lrs, xyz=r[6:7])
         # Adam writes the parameters, the contrast and their moments in

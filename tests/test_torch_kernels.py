@@ -1610,6 +1610,61 @@ def per_render_loss_and_grads(state, data, mode, cmask, cap, parent=False):
             [*inp.leaves, "contrast", "tap"])
 
 
+def composed_step_loss_and_grads(state, data, mode, cmask, cap,
+                                 frames=False):
+    """The event step's loss and gradients at views (1, 1, 2), the loss
+    composing the renders' partials over the background (and, with
+    ``frames``, reading the GT images as ``Frame``s of their stacks at
+    device indices, as ``GraphTrainStep`` gives them), and as the step
+    computed them before: each render composed by ``ops/render.composed``
+    and the GT images picked, then the loss on images.  In event_deblur
+    mode the blurry captures are the views in reverse order.  Returns (the
+    step's loss, its eight gradients, the earlier step's loss, its
+    gradients, their names: the six leaves, the contrast, the tap)."""
+    from event3dgs_tpu_torch.losses import event as ev
+    from event3dgs_tpu_torch.train import step as step_mod
+    from event3dgs_tpu_torch.utils.config import EventConfig
+
+    cfg = EventConfig()
+    if mode == "event_deblur":
+        data = data._replace(blurry_images=data.images.flip(0).contiguous())
+    dev = cmask.device
+    if frames:
+        index = torch.tensor([1, 1, 2], device=dev)
+        views = step_mod.step_views(data, mode, index[0:1], index[1:2],
+                                    index[2:3], pick=step_mod.take,
+                                    frame=ev.Frame)
+        assert isinstance(views.gt_now, ev.Frame)
+    else:
+        views = step_mod.step_views(data, mode, 1, 1, 2)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    fn = step_mod._views_loss_and_grads(mode, cfg, cfg.event_lambda_dssim, 3,
+                                        "tiled", cap)
+    total = step_mod.event_total_loss
+    calls = []
+
+    def composed_first(*a, background=None, blurry_main=None, **kw):
+        calls.append(tuple(type(x).__name__ for x in a[:6]))
+        return total(*(ev.render_image(r, background) for r in a[:3]),
+                     *(ev.frame_image(g) for g in a[3:6]), *a[6:],
+                     blurry_main=(None if blurry_main is None
+                                  else ev.frame_image(blurry_main)), **kw)
+
+    out = {}
+    for earlier in (False, True):
+        if earlier:
+            step_mod.event_total_loss = composed_first
+        try:
+            loss, _, grads = fn(state, views, bg, cmask)
+        finally:
+            step_mod.event_total_loss = total
+        out[earlier] = (loss, [*grads["params"].values(), grads["contrast"],
+                               grads["tap"]])
+    gt = "Frame" if frames else "Tensor"
+    assert calls == [("Partials",) * 3 + (gt,) * 3]
+    return (*out[False], *out[True], [*grads["params"], "contrast", "tap"])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["event", "event_deblur", "rgb"])
 def test_step_equals_the_per_render_step_on_the_card(mode):
@@ -1886,13 +1941,85 @@ def assert_loss_close(got, want, what=""):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0, msg=what)
 
 
+def loss_operands(h, w, seed, gt_channels, deblur, device, logt=True,
+                  frames=True, offset=False):
+    """``loss_inputs``' seeded inputs in the forms the train step gives the
+    loss: with ``logt`` each render as ``Partials``, its image as rgb and
+    a seeded log T in [-14, 0] with 5 % zeros (next's equal to now's, so
+    that the event pair's ties stay; the main render's -inf, T = 0, where
+    it ties with gt_main or the blurry image, so that its image there is
+    its rgb); with ``frames`` each GT image as a ``Frame``, a seeded frame
+    of a stack of 3 seeded frames.  ``offset`` as ``loss_inputs``' for the
+    operands that are not stacks.  Returns (the renders, the GT operands,
+    the contrast, the blurry operand or None, a seeded background [3])."""
+    *images, contrast, blurry = loss_inputs(h, w, seed, gt_channels, deblur,
+                                            "cpu")
+    rng = np.random.default_rng(seed + 1000)
+    uniform = lambda lo, hi, *shape: torch.tensor(
+        rng.uniform(lo, hi, shape).astype(np.float32))
+    renders, gts = images[:3], [*images[3:], blurry]
+    if logt:
+        lt = uniform(-14.0, 0.0, h, w)
+        lt[torch.tensor(rng.random((h, w)) < 0.05)] = 0.0
+        lt_main = uniform(-14.0, 0.0, h, w)
+        main = renders[2]
+        tie = (main == gts[2]).all(-1)
+        if blurry is not None:
+            tie |= (main == blurry).all(-1)
+        lt_main[tie] = -float("inf")
+        renders = [ev_loss.Partials(r, t)
+                   for r, t in zip(renders, (lt, lt.clone(), lt_main))]
+    if frames:
+        def framed(g):
+            k = int(rng.integers(3))
+            stack = uniform(0.0, 1.0, 3, *g.shape)
+            stack[k] = g
+            return ev_loss.Frame(stack, torch.tensor([k]))
+
+        gts = [None if g is None else framed(g) for g in gts]
+
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, (ev_loss.Partials, ev_loss.Frame)):
+            return type(x)(*(put(t) if isinstance(x, ev_loss.Partials)
+                             else t.to(device) for t in x))
+        t = x.to(device)
+        return torch.stack([torch.zeros_like(t), t])[1] if offset else t
+
+    return ([put(r) for r in renders], [put(g) for g in gts[:3]],
+            contrast.to(device), put(gts[3]), uniform(0.0, 1.0, 3).to(device))
+
+
+def flat_tensors(xs) -> list:
+    """The tensors of loss operands or of the renders' gradients: a
+    ``Partials``' rgb and log T, a ``Frame``'s stack and index, else the
+    tensor (None: none)."""
+    return [t for x in xs if x is not None
+            for t in (x if isinstance(x, (ev_loss.Partials, ev_loss.Frame))
+                      else (x,))]
+
+
+def cloned(x, grad=False):
+    """A copy of a loss operand (None: None), its float tensors requiring
+    a gradient with ``grad``."""
+    if x is None:
+        return None
+    if isinstance(x, (ev_loss.Partials, ev_loss.Frame)):
+        return type(x)(*(cloned(t, grad) for t in x))
+    return x.clone().requires_grad_(grad and x.is_floating_point())
+
+
 def check_loss_kernels(images, contrast, kw, grad):
     """Both loss kernels against their plain versions on ``images`` (now,
-    next, main, gt_now, gt_next, gt_main): the coverage and the image
-    gradients bit for bit, the loss, its parts and the contrast's gradient
-    within rtol 1e-5; the plain backward against autograd of the plain
-    forward on the card (the image gradients bit for bit); the kernels
-    again giving the same bits; one launch a call."""
+    next, main, each its image or its ``Partials``; gt_now, gt_next,
+    gt_main, each its image or a ``Frame``; the background in ``kw``
+    where a render comes as partials): the coverage and the renders'
+    gradients (d image, or d rgb and d log T) bit for bit, the loss, its
+    parts and the contrast's gradient within rtol 1e-5; the plain
+    backward against autograd of the plain forward on the card (the
+    renders' gradients bit for bit); the kernels again giving the same
+    bits; one launch a call."""
     launches = (ev_loss.event_loss_forward_kernel.launches,
                 ev_loss.event_loss_backward_kernel.launches)
     loss, aux = ev_loss.event_loss_forward_kernel(*images, contrast, **kw)
@@ -1907,70 +2034,106 @@ def check_loss_kernels(images, contrast, kw, grad):
                                              **kw)
     want = ev_loss.event_loss_backward_plain(grad, *images, contrast,
                                              want_aux["coverage"], **kw)
-    for a, b, what in zip(got, want, ("now", "next", "main")):
+    names = []
+    for r, g in zip(("now", "next", "main"), want[:3]):
+        names += ([f"{r} rgb", f"{r} log T"]
+                  if isinstance(g, ev_loss.Partials) else [r])
+    assert len(flat_tensors(got[:3])) == len(names)
+    for a, b, what in zip(flat_tensors(got[:3]), flat_tensors(want[:3]),
+                          names):
         assert_bits_equal(a, b, what)
     assert_loss_close(got[3], want[3], "contrast")
-    leaves = [t.clone().requires_grad_(True) for t in (*images[:3], contrast)]
-    auto_loss, _ = ev_loss.event_mixture_loss_plain(*leaves[:3], *images[3:],
-                                                    leaves[3], **kw)
-    auto = torch.autograd.grad(auto_loss, leaves, grad)
-    for a, b, what in zip(want, auto, ("now", "next", "main")):
+    leaves = [cloned(r, grad=True) for r in images[:3]]
+    c = cloned(contrast, grad=True)
+    auto_loss, _ = ev_loss.event_mixture_loss_plain(*leaves, *images[3:], c,
+                                                    **kw)
+    auto = torch.autograd.grad(auto_loss, flat_tensors(leaves) + [c], grad)
+    for a, b, what in zip(flat_tensors(want[:3]), auto, names):
         assert_bits_equal(a, b, f"plain backward vs autograd: {what}")
-    assert_loss_close(want[3], auto[3], "plain backward vs autograd")
+    assert_loss_close(want[3], auto[-1], "plain backward vs autograd")
     again = ev_loss.event_loss_forward_kernel(*images, contrast, **kw)
     for a, b in zip(again, (loss, aux)):
         assert_bits_equal(a, b, "forward run twice")
-    for a, b in zip(ev_loss.event_loss_backward_kernel(
-            grad, *images, contrast, aux[2], **kw), got):
+    twice = ev_loss.event_loss_backward_kernel(grad, *images, contrast,
+                                               aux[2], **kw)
+    for a, b in zip(flat_tensors(twice[:3]) + [twice[3]],
+                    flat_tensors(got[:3]) + [got[3]]):
         assert_bits_equal(a, b, "backward run twice")
     assert (ev_loss.event_loss_forward_kernel.launches,
             ev_loss.event_loss_backward_kernel.launches) == (
         launches[0] + 2, launches[1] + 2)
 
 
+# the loss kernels' operand forms: (renders as partials, GT images as
+# frames of stacks)
+LOSS_FORMS = {"images": (False, False), "partials_frames": (True, True),
+              "partials": (True, False), "frames": (False, True)}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", list(LOSS_FORMS))
 @pytest.mark.parametrize("size", LOSS_SIZES, ids=lambda s: f"{s[1]}x{s[0]}")
 @pytest.mark.parametrize("deblur", [False, True],
                          ids=["event", "event_deblur"])
 @pytest.mark.parametrize("gt_channels", [1, 3], ids=["gt1", "gt3"])
-def test_event_loss_kernels_match_plain_versions(size, deblur, gt_channels):
+def test_event_loss_kernels_match_plain_versions(size, deblur, gt_channels,
+                                                 form):
     """The forward and backward loss kernels against
     ``event_mixture_loss_plain`` and ``event_loss_backward_plain``
-    (``check_loss_kernels``) at the gradient 1 and a seeded one; at the
-    odd size also on unaligned images (the kernels' scalar path)."""
+    (``check_loss_kernels``) at the gradient 1 and a seeded one, on each
+    form of their operands (``loss_operands``): images, the renders as
+    their partials (composed over the background in the kernels), the GT
+    images as frames of stacks at device indices, and both; at the odd
+    size also on unaligned operands (the kernels' scalar path); with both,
+    also a mix: the main render as its image (the kernels' null log T)
+    and the blurry image not a frame."""
     need_card()
     h, w = size
+    logt, frames = LOSS_FORMS[form]
     for offset in (False, True) if (h * w) % 4 else (False,):
-        *images, contrast, blurry = loss_inputs(h, w, 7, gt_channels, deblur,
-                                                "cuda", offset)
-        kw = dict(LOSS_SETTINGS, blurry_main=blurry)
+        renders, gts, contrast, blurry, bg = loss_operands(
+            h, w, 7, gt_channels, deblur, "cuda", logt, frames, offset)
+        kw = dict(LOSS_SETTINGS, blurry_main=blurry, background=bg)
         for grad in (1.0, -0.37):
-            check_loss_kernels(images, contrast, kw,
+            check_loss_kernels([*renders, *gts], contrast, kw,
                                torch.tensor(grad, device="cuda"))
+    if form == "partials_frames":
+        renders[2] = ev_loss.render_image(renders[2], bg).contiguous()
+        if deblur:
+            kw["blurry_main"] = ev_loss.frame_image(blurry).contiguous()
+        check_loss_kernels([*renders, *gts], contrast, kw,
+                           torch.tensor(0.5, device="cuda"))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("form", ["images", "partials_frames"])
 @pytest.mark.parametrize("deblur", [False, True],
                          ids=["event", "event_deblur"])
-def test_event_loss_kernels_in_a_cuda_graph(deblur):
+def test_event_loss_kernels_in_a_cuda_graph(deblur, form):
     """``event_mixture_loss`` (``EventLoss``: both kernels) and its
-    gradients captured once at 1080p, then replayed over other images
-    copied into the captured inputs: each replay equals the plain versions
-    on those images (the coverage and the image gradients bit for bit, the
-    loss and the contrast's gradient within rtol 1e-5), and the kernels
-    launch in the warm-up and the capture only."""
+    gradients captured once at 1080p, on images or, as the graphed step
+    gives them, on the renders' partials and the GT images' frames, then
+    replayed over other operands (``loss_operands``) copied into the
+    captured inputs, the frames' indices and the background among them:
+    each replay equals the plain versions on those operands (the coverage
+    and the renders' gradients bit for bit, the loss and the contrast's
+    gradient within rtol 1e-5), and the kernels launch in the warm-up and
+    the capture only."""
     need_card()
     h, w = LOSS_SIZES[0]
-    *images, contrast, blurry = loss_inputs(h, w, 1, 3, deblur, "cuda")
-    leaves = [t.clone().requires_grad_(True) for t in (*images[:3], contrast)]
-    gts = [t.clone() for t in images[3:]]
-    blur = None if blurry is None else blurry.clone()
+    logt, frames = LOSS_FORMS[form]
+    renders, gts, contrast, blurry, bg = loss_operands(h, w, 1, 3, deblur,
+                                                       "cuda", logt, frames)
+    leaves = [cloned(r, grad=True) for r in renders]
+    c = cloned(contrast, grad=True)
+    live = [cloned(g) for g in (*gts, blurry)]
+    background = bg.clone()
 
     def step():
-        loss, aux = ev_loss.event_mixture_loss(*leaves[:3], *gts, leaves[3],
-                                               blurry_main=blur,
-                                               **LOSS_SETTINGS)
-        return loss, aux, torch.autograd.grad(loss, leaves)
+        loss, aux = ev_loss.event_mixture_loss(
+            *leaves, *live[:3], c, blurry_main=live[3],
+            background=background, **LOSS_SETTINGS)
+        return loss, aux, torch.autograd.grad(loss, flat_tensors(leaves) + [c])
 
     launches = (ev_loss.event_loss_forward_kernel.launches,
                 ev_loss.event_loss_backward_kernel.launches)
@@ -1983,28 +2146,115 @@ def test_event_loss_kernels_in_a_cuda_graph(deblur):
     with torch.cuda.graph(graph):
         loss, aux, grads = step()
     for seed in (2, 3):
-        *images, contrast, blurry = loss_inputs(h, w, seed, 3, deblur, "cuda")
+        renders, gts, contrast, blurry, bg = loss_operands(
+            h, w, seed, 3, deblur, "cuda", logt, frames)
         with torch.no_grad():
-            for dst, src in zip((*leaves, *gts), (*images[:3], contrast,
-                                                  *images[3:])):
+            for dst, src in zip(
+                    flat_tensors([*leaves, *live, c, background]),
+                    flat_tensors([*renders, *gts, blurry, contrast, bg])):
                 dst.copy_(src)
-            if deblur:
-                blur.copy_(blurry)
         graph.replay()
-        kw = dict(LOSS_SETTINGS, blurry_main=blurry)
+        kw = dict(LOSS_SETTINGS, blurry_main=blurry, background=bg)
         want_loss, want_aux = ev_loss.event_mixture_loss_plain(
-            *images, contrast, **kw)
+            *renders, *gts, contrast, **kw)
         want = ev_loss.event_loss_backward_plain(
-            torch.ones((), device="cuda"), *images, contrast,
+            torch.ones((), device="cuda"), *renders, *gts, contrast,
             want_aux["coverage"], **kw)
         assert_bits_equal(aux["coverage"], want_aux["coverage"])
         assert_loss_close(loss, want_loss, "loss")
-        for a, b in zip(grads[:3], want[:3]):
+        for a, b in zip(grads[:-1], flat_tensors(want[:3])):
             assert_bits_equal(a, b)
-        assert_loss_close(grads[3], want[3], "contrast")
+        assert_loss_close(grads[-1], want[3], "contrast")
     assert (ev_loss.event_loss_forward_kernel.launches,
             ev_loss.event_loss_backward_kernel.launches) == (
         launches[0] + 2, launches[1] + 2)
+
+
+# a process that launches a loss kernel with GT frame indices past their
+# stack (argv: "forward" or "backward", the index) and prints "no trap"
+# if the launch ran to its end
+TRAP_SCRIPT = """
+import sys
+import torch
+from event3dgs_tpu_torch.losses import event as ev
+which, index = sys.argv[1], int(sys.argv[2])
+stack = torch.rand(3, 16, 24, 3, device="cuda")
+frame = ev.Frame(stack, torch.tensor([index], device="cuda"))
+img = lambda: torch.rand(16, 24, 3, device="cuda")
+renders = [ev.Partials(img(), -torch.rand(16, 24, device="cuda"))
+           for _ in range(3)]
+bg, c = torch.rand(3, device="cuda"), torch.tensor(0.2, device="cuda")
+gts = (stack[0], stack[1], frame)
+if which == "forward":
+    ev.event_loss_forward_kernel(*renders, *gts, c, background=bg)
+else:
+    one = torch.ones((), device="cuda")
+    ev.event_loss_backward_kernel(one, *renders, *gts, c, one * 0.5,
+                                  background=bg)
+torch.cuda.synchronize()
+print("no trap")
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("index", [3, -1, 1 << 40])
+def test_event_loss_kernels_trap_an_index_past_the_stack(which, index):
+    """A GT frame index outside its stack (the stack's frame count, -1, a
+    large one) makes the loss kernels trap instead of reading outside the
+    stack: the launch fails on the card (in a process of its own, whose
+    CUDA context the trap ends), and the process does not get past its
+    synchronise."""
+    need_card()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", TRAP_SCRIPT, which,
+                          str(index)], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "no trap" not in run.stdout, (
+        run.returncode, run.stdout, run.stderr[-2000:])
+
+
+@pytest.mark.gpu
+def test_event_loss_expf_matches_torch_exp_on_every_float():
+    """The loss kernels' ``expf`` (``csrc/loss.cu`` under ``-fmad=false``,
+    through its test hook), which composes the renders, against PyTorch's
+    ``torch.exp`` on the card, bit for bit, on every float32 bit pattern:
+    both signs, the subnormals, the normals, the infinities and the
+    NaNs."""
+    need_card()
+    chunk, top = 1 << 27, 1 << 32
+    for start in range(0, top, chunk):
+        bits = torch.arange(start, start + chunk, device="cuda")
+        x = (bits - (bits >= 1 << 31).long() * (1 << 32)).to(
+            torch.int32).view(torch.float32)
+        del bits
+        y = torch.empty_like(x)
+        kernels.launch("loss", "e3d_event_loss_expf", x.data_ptr(),
+                       y.data_ptr(), x.numel())
+        assert_bits_equal(y, torch.exp(x), f"from bit pattern {start:#x}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames", [False, True], ids=["views", "frames"])
+@pytest.mark.parametrize("mode", ["event", "event_deblur"])
+def test_step_with_the_fold_equals_the_composed_step_on_the_card(mode,
+                                                                  frames):
+    """On the card, the train step whose loss kernels compose the renders'
+    partials (and, as ``GraphTrainStep`` gives them, read the GT frames
+    from their stacks at device indices) against the step that composed
+    each render with ``ops/render.composed`` and picked the GT images
+    first, the loss kernels then on images: the loss and the eight
+    gradients bit for bit, at 3,000 Gaussians and 256×144."""
+    need_card()
+    state, data, cap = step_state("cuda", 3000, 256, 144)
+    cmask = (torch.arange(16, device="cuda") < 9).float()
+    before = ev_loss.event_loss_backward_kernel.launches
+    loss, got, want_loss, want, names = composed_step_loss_and_grads(
+        state, data, mode, cmask, cap, frames=frames)
+    assert ev_loss.event_loss_backward_kernel.launches == before + 2
+    assert_bits_equal(loss, want_loss, "loss")
+    for name, g, w in zip(names, got, want):
+        assert_bits_equal(g, w.contiguous(), name)
 
 
 @pytest.mark.gpu
