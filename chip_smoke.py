@@ -48,7 +48,12 @@ Phases (any failed check exits non-zero; nothing is caught):
    contrast in one launch) and the loss kernels once each (forward and
    backward, ``csrc/loss.cu``), the forward preprocess once more per
    instance-cap probe (``train/loop.probe_instance_count``, counted), the
-   alive count must grow and the loss must be finite.
+   alive count must grow and the loss must be finite.  Then ``cli.train``
+   in rgb mode (no flag) and in gray mode (``--gray``) on the same scene
+   for 2 iterations each: each render kernel and the SSIM loss kernels
+   (``csrc/ssim.cu``) once a step, the event loss kernels never, no
+   ``ops/render.composed`` and no ``F.conv2d`` call, a finite loss; the
+   SSIM kernels' JSON rows take their launches from these two runs.
 7. At ``bench.py``'s training configuration (100k Gaussians with its
    scales, 4 cameras, event mode, spatial_lr_scale 3.0, a measured instance
    cap): the forward preprocess over the step's three 1080p views with
@@ -75,7 +80,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    form), against their plain versions (the coverage and the renders'
    gradients, d rgb and d log T, bit for bit, the loss, its parts and the
    contrast's gradient within rtol 1e-5; the plain backward bit-equal to
-   autograd's; two runs bit-identical).
+   autograd's; two runs bit-identical).  The two SSIM loss kernels
+   (``csrc/ssim.cu``) on the main view's 1080p render as its partials
+   (composed by the kernels over a seeded background) and its GT as the
+   frame of ``images`` at a device index, in rgb and gray mode, and on the
+   composed image and picked frame in rgb mode (the sharded step's form),
+   against their plain versions: the three derivative maps and the
+   render's gradients (d rgb and d log T, or d image) bit for bit, the
+   loss and l1 within rtol 1e-5, two runs bit-identical.
 8. Time the event step (host clock: ``bench.py``'s pixels/s over a 50-step
    window, then the median and spread of 50 steps timed one by one),
    profile one step (its device kernels), check that neither the eager
@@ -84,12 +96,16 @@ Phases (any failed check exits non-zero; nothing is caught):
    the renders), print the device nodes one graphed step enqueues (its
    CUDA graph read back; its ``indexSelect`` nodes, 16: the table row and
    15 camera fields, the GT frames read where they lie) and its device ms
-   per replay, time the
+   per replay; the same for one rgb and one gray step, eager (each kernel
+   of the render and the SSIM loss kernels launched once, no
+   ``composed``, no ``F.conv2d``) and graphed (6 ``indexSelect`` nodes:
+   the table row, 5 camera fields); time the
    forward preprocess with and without the packed rows, and time K2, K3,
    the Adam kernel (its yardstick
-   ``torch._fused_adam_``, one call per learning rate) and the loss
-   kernels (no yardstick: no one PyTorch call computes the loss) as in
-   phase 5; K3
+   ``torch._fused_adam_``, one call per learning rate), the event loss
+   kernels and the SSIM loss kernels in rgb mode, gray mode's graph ms
+   beside them (no yardstick: no one PyTorch call computes a loss), as in
+   phase 5, with the SSIM kernels' registers, spills and shared memory; K3
    also over the
    rows put into expansion order beforehand and, through ``dest``, in
    each of its two orders of work (``ops/segscan.py``), each bit-equal to
@@ -203,9 +219,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    kernels, K4, K5, K6, the
    counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal, the Adam
-   kernel bit-equal, also in a CUDA graph, the loss kernels as in phase 7,
-   in a CUDA graph) and its graph ms beside its bound, K3 in its orders as
-   in phase 8.  The depth offsets kernel over
+   kernel bit-equal, also in a CUDA graph, the event and SSIM loss
+   kernels as in phase 7, in a CUDA graph) and its graph ms beside its
+   bound (the SSIM kernels' in rgb and gray mode), K3 in its orders as in
+   phase 8.  The depth offsets kernel over
    8,192 + 1 look-back blocks (16.8M ranks, twice, its state left cleared) and the
    counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
    bit-equal to their plain versions.  ``train --densify --fused_steps
@@ -213,8 +230,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    from 300 to 160 iterations so that the script's cadence densifies at
    100 and 150: finite, decreasing losses (the script's checks), no
    instance overflow at the loop's last cap, the kernels launched in the
-   warm-ups and captures only, and its first 20 losses equal to the eager
-   loop's bit for bit; then phase 8's densify with capacity growth on its
+   warm-ups and captures only (the SSIM loss kernels once a step there,
+   the event loss kernels never), and its first 20 losses equal to the
+   eager loop's bit for bit, its it/s printed beside the card's name and
+   power limit; then phase 8's densify with capacity growth on its
    trained state (threshold 0: ~0.9M alive slots all candidates) and one
    rgb step at the re-measured instance cap.  At the 2M state, as in
    phase 8: the graphed step's device nodes and ``indexSelect`` nodes,
@@ -261,6 +280,7 @@ WIDTH, HEIGHT = 1920, 1080
 VIEWS = 4
 TRAIN_VIEWS = 8
 TRAIN_ITERS = 6
+PHOTO_ITERS = 2  # phase 6's rgb and gray cli.train runs
 BLUR_STEPS = 18  # renders per blurry frame (render_blurry_set's default)
 EVENT_STEPS = 3  # cli.render --event's --interpolationN (its default)
 EVENT_DT = 1000.0  # µs between the chain's frames (--dt's default)
@@ -298,6 +318,16 @@ LOSS_REPLACES = ", ".join(("event3dgs_tpu/losses/event.py:68",
                            "event3dgs_tpu/train/step.py:151",
                            "event3dgs_tpu/train/step.py:152",
                            "event3dgs_tpu/train/step.py:164"))
+# the JAX code the SSIM loss kernels replace: rgb_total_loss and
+# gray_total_loss on _depthwise_blur's convolutions, with the render's
+# composition and the GT pick before them, which XLA fuses inside the jitted
+# train step (no Pallas kernel)
+PHOTO_REPLACES = ", ".join(("event3dgs_tpu/losses/modes.py:16",
+                            "event3dgs_tpu/losses/modes.py:25",
+                            "event3dgs_tpu/losses/basic.py:71",
+                            "event3dgs_tpu/losses/basic.py:98",
+                            "event3dgs_tpu/ops/render.py:122",
+                            "event3dgs_tpu/train/step.py:115"))
 # bench.py times 5 steps; a 50-step window separates a noisy host from
 # stalls, and its median and spread are printed beside bench.py's mean
 STEP_ITERS = 50
@@ -518,6 +548,8 @@ KERNEL_FUNCTIONS = {
     "adam_update": ("adam_update_kernel",),
     "event_loss_forward": ("event_loss_forward_kernel",),
     "event_loss_backward": ("event_loss_backward_kernel",),
+    "photometric_loss_forward": ("photometric_loss_forward_kernel",),
+    "photometric_loss_backward": ("photometric_loss_backward_kernel",),
 }
 SORT_FUNCTIONS = KERNEL_FUNCTIONS["K6 stable_tile_rank"]
 
@@ -1245,9 +1277,136 @@ def loss_check(what, operands, contrast, blurry, graphed=False):
     return errs, calls, bounds
 
 
+def photometric_views(state, data, idx, icap):
+    """What an rgb or gray step at main view ``idx`` gives its loss, as the
+    graphed step gives it: the 1080p render of ``state`` through the
+    kernel path as its partials (rgb, log T), no gradient, and the GT as
+    the frame of ``images`` at a [1] int64 device index."""
+    import torch
+
+    from event3dgs_tpu_torch.losses.event import Frame, Partials
+    from event3dgs_tpu_torch.models import activated
+    from event3dgs_tpu_torch.ops.render import render_partials
+
+    act = activated(state.params)
+    with torch.no_grad():
+        render = Partials(*render_partials(
+            act.means3d, act.features, act.opacities, act.scales,
+            act.rotations, data.cameras[idx], sh_degree=3,
+            rasterizer="tiled", instance_cap=icap)[:2])
+    dev = state.contrast.device
+    return render, Frame(data.images, torch.tensor([idx], device=dev))
+
+
+def photometric_check(what, render, gt, graphed=False):
+    """Both SSIM loss kernels (``csrc/ssim.cu``) against their plain
+    versions on a step's main-view partials and GT frame
+    (``photometric_views``): in rgb and gray mode on the partials over a
+    seeded background and the frame at a device index, as the step gives
+    them, and in rgb mode on the composed image and the picked frame, as
+    the sharded step gives them: the derivative maps and the render's
+    gradients (d rgb and d log T, or d image) bit for bit, the loss and l1
+    within rtol 1e-5; the kernels called twice (or, with ``graphed``,
+    captured once in a CUDA graph and replayed twice) giving the same bits.
+    Returns ({kernel: largest |kernel - plain|}, and per mode, rgb then
+    gray, ({kernel: (the kernel's call, its plain version's)} on the step's
+    operands, {kernel: its bound's (bytes, operations)}))."""
+    import torch
+
+    from event3dgs_tpu_torch.losses import event as ev
+    from event3dgs_tpu_torch.losses import modes
+    from event3dgs_tpu_torch.tools.kernel_timing import photometric_bound
+
+    lam = 0.2  # OptimizationConfig's lambda_dssim
+    dev = render.rgb.device
+    grad = torch.ones((), device=dev)
+    gen = torch.Generator().manual_seed(19)
+    bg = torch.rand(3, generator=gen).to(dev)
+    errs = dict.fromkeys(PHOTO, 0.0)
+    worst = lambda a, b: (a.double() - b.double()).abs().max().item()
+    close = lambda a, b: abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+    cases = (("rgb", render, gt, False), ("gray", render, gt, True),
+             ("rgb, on images", ev.render_image(render, bg).contiguous(),
+              ev.frame_image(gt), False))
+    for mode, r, g, gray in cases:
+        def both():
+            loss, l1, maps = modes.photometric_loss_forward_kernel(
+                r, g, lam, gray, bg)
+            return [loss, l1, maps, *flat_tensors([
+                modes.photometric_loss_backward_kernel(grad, r, g, maps, lam,
+                                                       gray, bg)])]
+
+        if graphed:
+            both()  # any lazy set-up
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = both()
+            runs = []
+            for _ in range(2):
+                graph.replay()
+                runs.append([t.clone() for t in out])
+        else:
+            runs = [both() for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(runs[0], runs[1]):
+            check(bits_differ(a, b) == 0, f"{what} ({mode}): an SSIM loss "
+                  "kernel gave other bits the second time")
+        loss, l1, maps, *got = runs[0]
+        want_loss, want_l1, want_maps = modes.photometric_loss_plain(
+            r, g, lam, gray, bg)
+        check(close(loss, want_loss) and close(l1, want_l1),
+              f"{what} ({mode}): loss {float(loss)}, l1 {float(l1)} vs "
+              f"{float(want_loss)}, {float(want_l1)}")
+        ulps = bits_differ(maps, want_maps)
+        check(ulps == 0, f"{what} ({mode}): the derivative maps differ from "
+              f"the plain version's by {ulps} ulps")
+        want = flat_tensors([modes.photometric_loss_backward_plain(
+            grad, r, g, want_maps, lam, gray, bg)])
+        names = ("d rgb", "d log T") if len(want) == 2 else ("d image",)
+        for k, a, b in zip(names, got, want):
+            ulps = bits_differ(a, b)
+            check(ulps == 0, f"{what} ({mode}): {k} differs from the plain "
+                  f"backward by {ulps} ulps")
+        errs[PHOTO[0]] = max(errs[PHOTO[0]], worst(loss, want_loss),
+                             worst(l1, want_l1), worst(maps, want_maps))
+        errs[PHOTO[1]] = max([errs[PHOTO[1]]] + [worst(a, b)
+                                                 for a, b in zip(got, want)])
+        print(f"{what} ({mode}): SSIM loss kernels vs plain: loss "
+              f"{float(loss):.7f} / {float(want_loss):.7f}, l1 "
+              f"{float(l1):.7f} / {float(want_l1):.7f}, the derivative maps "
+              f"and {', '.join(names)} bit-equal; "
+              f"{'two replays of a CUDA graph' if graphed else 'two runs'} "
+              "bit-identical")
+    pixels = render.rgb.numel() // 3
+    gt_channels = ev.frame_image(gt).shape[-1]
+    per_mode = []
+    for gray in (False, True):
+        _, _, maps = modes.photometric_loss_forward_kernel(render, gt, lam,
+                                                           gray, bg)
+        calls = {
+            PHOTO[0]: (lambda gray=gray: modes.photometric_loss_forward_kernel(
+                render, gt, lam, gray, bg),
+                lambda gray=gray: modes.photometric_loss_plain(
+                    render, gt, lam, gray, bg)),
+            PHOTO[1]: (lambda gray=gray, maps=maps:
+                       modes.photometric_loss_backward_kernel(
+                           grad, render, gt, maps, lam, gray, bg),
+                       lambda gray=gray, maps=maps:
+                       modes.photometric_loss_backward_plain(
+                           grad, render, gt, maps, lam, gray, bg)),
+        }
+        bounds = {k: photometric_bound(pixels, 1 if gray else 3,
+                                       k == PHOTO[1], gt_channels)
+                  for k in PHOTO}
+        per_mode.append((calls, bounds))
+    return errs, *per_mode
+
+
 def wrappers():
     """Every kernel's launch wrapper, by name."""
     from event3dgs_tpu_torch.losses import event as ev
+    from event3dgs_tpu_torch.losses import modes
     from event3dgs_tpu_torch.models import optimizer as opt
     from event3dgs_tpu_torch.ops import binning, expand, segscan, sort_tiles
     from event3dgs_tpu_torch.ops import preprocess as pre
@@ -1267,6 +1426,8 @@ def wrappers():
         ADAM: opt.adam_update_kernel,
         LOSS[0]: ev.event_loss_forward_kernel,
         LOSS[1]: ev.event_loss_backward_kernel,
+        PHOTO[0]: modes.photometric_loss_forward_kernel,
+        PHOTO[1]: modes.photometric_loss_backward_kernel,
     }
 
 
@@ -1279,6 +1440,8 @@ BACKWARD = ("preprocess_backward", "K2 composite_backward", "K3 segment_sums")
 ADAM = "adam_update"
 # the kernels that run once per event-mode train step (forward, backward)
 LOSS = ("event_loss_forward", "event_loss_backward")
+# the kernels that run once per rgb- or gray-mode train step
+PHOTO = ("photometric_loss_forward", "photometric_loss_backward")
 
 
 @contextlib.contextmanager
@@ -1313,18 +1476,24 @@ def counting_packs():
 
 
 def counting_composes():
-    """``counting`` of ``ops/render.composed`` (and of the names the train
-    step and the loss's plain version imported): the event step hands its
-    renders' partials to the loss kernels, which compose them, and calls
-    it nowhere."""
+    """``counting`` of ``ops/render.composed`` (and of the name the loss's
+    plain versions imported): the train step hands its renders' partials
+    to the loss kernels, which compose them, and calls it nowhere."""
     import importlib
 
     from event3dgs_tpu_torch.losses import event as ev
-    from event3dgs_tpu_torch.train import step
 
     # the module: the package's name ``render`` is the function
     render = importlib.import_module("event3dgs_tpu_torch.ops.render")
-    return counting("composed", render, step, ev)
+    return counting("composed", render, ev)
+
+
+def counting_convs():
+    """``counting`` of ``torch.nn.functional.conv2d``: the rgb and gray
+    steps' SSIM runs in its kernels, and the step calls it nowhere."""
+    import torch.nn.functional as F
+
+    return counting("conv2d", F)
 
 
 def count_launches(fn):
@@ -1349,8 +1518,9 @@ def check_launches(what, launches, renders, backward, projections=0,
                    steps=0, event=True, shared=True):
     """Each kernel launched once per render, the backward kernels once per
     differentiated render (``backward``), the Adam kernel once per train
-    step (``steps``), the loss kernels once per train step of an event mode
-    (``event``: the steps' mode is one), and the forward preprocess once
+    step (``steps``), the event loss kernels once per train step of an
+    event mode (``event``: the steps' mode is one), the SSIM loss kernels
+    once per train step of rgb or gray mode, and the forward preprocess once
     more per instance-cap probe and per projection outside a render
     (``projections``).  A train step's renders (3 in an event mode, 1
     else) share one launch of each preprocess kernel, 2 a step (with
@@ -1360,6 +1530,7 @@ def check_launches(what, launches, renders, backward, projections=0,
         if k == PROBES:
             continue
         want = (steps if k == ADAM else (steps if event else 0) if k in LOSS
+                else (0 if event else steps) if k in PHOTO
                 else backward if k in BACKWARD else renders)
         if k.startswith("preprocess"):
             want -= shared
@@ -1592,8 +1763,11 @@ def kernel_rows(timings, bounds, meta, errs):
 
 def train_path(root: str):
     """Phase 6: cli.train --gray --event on a 1080p COLMAP scene, then
-    cli.render on its PLY (the train and the held-out test views).
-    Returns the training run's launch counts and the model folder."""
+    cli.render on its PLY (the train and the held-out test views); then
+    cli.train in rgb mode (no flag) and in gray mode (--gray) for
+    ``PHOTO_ITERS`` iterations each on the same scene.  Returns the event
+    run's launch counts, its model folder and the launch counts of the rgb
+    and gray runs together."""
     from event3dgs_tpu_torch.cli.render import main as render_main
     from event3dgs_tpu_torch.cli.train import main as train_main
 
@@ -1653,7 +1827,33 @@ def train_path(root: str):
         renders = os.path.join(model, split, f"ours_{TRAIN_ITERS}", "renders")
         check(len(os.listdir(renders)) == TRAIN_VIEWS,
               f"missing trained {split} renders")
-    return launches, model
+
+    # the rgb and gray modes: one render a step, the SSIM loss kernels
+    photo = {}
+    for flags in ([], ["--gray"]):
+        mode = "gray" if flags else "rgb"
+        args = ["-s", src, "-m", os.path.join(root, f"trained_{mode}"), *flags,
+                "-r", "1", "--iterations", str(PHOTO_ITERS), "--device",
+                DEVICE]
+        t0 = time.perf_counter()
+        with counting_composes() as composes, counting_convs() as convs:
+            rc, runs, log = run_cli(train_main, args)
+        check(rc == 0, f"cli.train ({mode} mode) failed")
+        check(not composes and not convs, f"cli.train ({mode} mode) called "
+              f"ops.render.composed {len(composes)} and F.conv2d "
+              f"{len(convs)} times")
+        last = re.search(r"last loss (\S+)", log)
+        check(last is not None and math.isfinite(float(last.group(1))),
+              f"cli.train ({mode} mode): no finite loss reported")
+        check_launches(f"cli.train, {PHOTO_ITERS} {mode} steps", runs,
+                       PHOTO_ITERS, PHOTO_ITERS, steps=PHOTO_ITERS,
+                       event=False)
+        print(f"cli.train {' '.join(args)}: {PHOTO_ITERS} {mode} steps in "
+              f"{time.perf_counter() - t0:.2f} s, last loss "
+              f"{float(last.group(1)):.6f}, no composed or F.conv2d call; "
+              f"launches {runs}")
+        photo = {k: photo.get(k, 0) + n for k, n in runs.items()}
+    return launches, model, photo
 
 
 def card() -> str:
@@ -2347,6 +2547,10 @@ def train_kernels(dev):
     # the loss kernels on the step's three 1080p renders
     loss_errs, loss_calls, loss_bounds = loss_check(
         "phase 7, the step's renders", *loss_views(state, data, idx, icap))
+    # the SSIM loss kernels on the rgb and gray steps' 1080p render
+    photo_errs, (photo_calls, photo_bounds), gray = photometric_check(
+        "phase 7, the main view's render",
+        *photometric_views(state, data, idx[0], icap))
 
     # 8. timing: bench.py's event step ---------------------------------------
     with counting_packs() as packs, counting_composes() as composes:
@@ -2391,6 +2595,25 @@ def train_kernels(dev):
     profile_view(lambda: step(st, data, *idx, bg), what="one event step",
                  top=15)
     graphed_step("phase 8, bench.py's state", st, data, icap)
+    # the rgb and gray steps, eager and graphed: the SSIM loss kernels on
+    # the render's partials, no composition and no convolution
+    for mode in ("rgb", "gray"):
+        mstep = make_train_step(mode, opt, ev, spatial_lr_scale=3.0,
+                                rasterizer="tiled", instance_cap=icap)
+        with counting_composes() as composes, counting_convs() as convs:
+            (_, m), launches = count_launches(lambda: mstep(st, data, *idx,
+                                                            bg))
+        check_launches(f"one {mode} step", launches, 1, 1, steps=1,
+                       event=False)
+        check(not composes and not convs, f"one {mode} step called "
+              f"ops.render.composed {len(composes)} and F.conv2d "
+              f"{len(convs)} times")
+        check(math.isfinite(float(m["loss"])), f"non-finite {mode} loss")
+        print(f"one {mode} step (bench.py's state, view {idx[0]}): loss "
+              f"{float(m['loss']):.6f}, l1 {float(m['l1']):.6f}, no "
+              f"composed or F.conv2d call; launches {launches}")
+        graphed_step(f"phase 8, bench.py's state, {mode} mode", st, data,
+                     icap, mode)
 
     b, rows_k = v.bk, v.rows_k
     _, _, (gathered, lengths) = k3_inputs(b, rows_k)
@@ -2398,6 +2621,8 @@ def train_kernels(dev):
     v.bounds[ADAM] = adam_bound(adam_floats(adam))
     v.errs.update(loss_errs)
     v.bounds.update(loss_bounds)
+    v.errs.update(photo_errs)
+    v.bounds.update(photo_bounds)
     timings = {
         # over the step's three views: the rows of both preprocess kernels
         "preprocess_forward": (*v.calls["preprocess_forward"], None, 50),
@@ -2407,8 +2632,9 @@ def train_kernels(dev):
             *v.calls["K3 segment_sums"],
             lambda: torch.segment_reduce(gathered, "sum", lengths=lengths), 50),
         ADAM: (*adam_calls, fused_adam_call(adam), 50),
-        # no single PyTorch call computes the loss: no yardstick
+        # no single PyTorch call computes a loss: no yardstick
         **{k: (*loss_calls[k], None, 50) for k in LOSS},
+        **{k: (*photo_calls[k], None, 50) for k in PHOTO},
     }
     meta = {
         "preprocess_forward": ("preprocess.cu", PREPROCESS_REPLACES),
@@ -2418,10 +2644,12 @@ def train_kernels(dev):
         "K3 segment_sums": ("segsum.cu", "event3dgs_tpu/ops/segscan.py:46"),
         ADAM: ("adam.cu", ADAM_REPLACES),
         **{k: ("loss.cu", LOSS_REPLACES) for k in LOSS},
+        **{k: ("ssim.cu", PHOTO_REPLACES) for k in PHOTO},
     }
     errs = {k: v.errs[k] for k in timings}
     rows = kernel_rows(timings, v.bounds, meta, errs)
     occupancy_rows(rows, pre.occupancy)
+    photometric_rows("phase 8", rows, gray)
     packed_cost("phase 8", rows["preprocess_forward"], pre)
     rows["K3 segment_sums"].update(k3_in_order("main view", b, rows_k))
     composite_report("K2 composite_backward", rows["K2 composite_backward"],
@@ -2923,6 +3151,35 @@ def fused_path(root: str, dev):
           f"last loss {float(last.group(1)):.6f}; {smi}")
 
 
+def photometric_rows(what, rows, gray):
+    """The SSIM loss kernels' JSON rows (rgb mode) get their registers,
+    spills and shared memory as ``-Xptxas -v`` reported them, and under
+    ``gray`` gray mode's graph ms, bound and plain ms (``gray``: the calls
+    and bounds of ``photometric_check`` in gray mode)."""
+    from event3dgs_tpu_torch.ops import kernels
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        bound_ms,
+        cuda_ms,
+        graph_ms,
+        ptxas_report,
+    )
+
+    log = kernels.build(["ssim"])["ssim"]
+    calls, bounds = gray
+    for k in PHOTO:
+        rows[k].update(ptxas_report(log, f"{k}_kernel"))
+        bound, by = bound_ms(*bounds[k])
+        rows[k]["gray"] = {"graph_ms": graph_ms(calls[k][0]),
+                           "bound_ms": bound, "bound_by": by,
+                           "plain_ms": cuda_ms(calls[k][1], 5, warmup=1)}
+        print(f"{what}: {k}: {rows[k]['registers']} registers, "
+              f"{rows[k]['spill_stores']} bytes spilled, {rows[k]['smem']} "
+              f"bytes of shared memory; gray mode "
+              f"{rows[k]['gray']['graph_ms']:.4f} graph ms, bound "
+              f"{bound:.4f} ms ({by}), plain "
+              f"{rows[k]['gray']['plain_ms']:.4f} ms")
+
+
 def packed_cost(what, row, pre):
     """The forward preprocess as the step calls it, with the packed rows,
     and without them (``pre.unpacked``), graph ms each, into its JSON row
@@ -2937,13 +3194,16 @@ def packed_cost(what, row, pre):
           f"{row['graph_ms_unpacked']:.4f}")
 
 
-def graphed_step(what, state, data, icap):
-    """The event step of ``state`` (views 1, 1 → 2) as ``--fused_steps``
-    runs it (``train/fused.FusedSteps``: two eager warm-up steps and the
-    capture), ``pack_features`` called in none of them; the device work
-    that one step enqueues, read from its CUDA graph (``graph_kernels``);
-    the device ms of a replay (CUDA events around 10 replays, the median
-    of 3 windows).  Printed beside the card's name and power limit."""
+def graphed_step(what, state, data, icap, mode="event"):
+    """The step of ``mode`` of ``state`` (views 1, 1 → 2; rgb and gray
+    render view 1 alone) as ``--fused_steps`` runs it
+    (``train/fused.FusedSteps``: two eager warm-up steps and the capture),
+    ``pack_features``, ``ops/render.composed`` and ``F.conv2d`` called in
+    none of them; the device work that one step enqueues, read from its
+    CUDA graph (``graph_kernels``): its ``indexSelect`` nodes the table
+    row and each camera's 5 fields, no GT frame copied; the device ms of a
+    replay (CUDA events around 10 replays, the median of 3 windows).
+    Printed beside the card's name and power limit."""
     import torch
 
     from event3dgs_tpu_torch.tools import kernel_timing
@@ -2952,26 +3212,30 @@ def graphed_step(what, state, data, icap):
     from event3dgs_tpu_torch.utils.config import TrainConfig
 
     cfg = TrainConfig()
-    step = GraphTrainStep("event", cfg.optimization, cfg.event,
+    step = GraphTrainStep(mode, cfg.optimization, cfg.event,
                           spatial_lr_scale=3.0, rasterizer="tiled",
                           instance_cap=icap)
     replays = 10
-    with counting_packs() as packs, counting_composes() as composes:
+    with counting_packs() as packs, counting_composes() as composes, \
+            counting_convs() as convs:
         runner = FusedSteps(step, state, data, replays)
         runner.table.copy_(torch.from_numpy(np.stack([
             step.row(int(state.step) + 1 + j, (1, 1, 2), np.zeros(3))
             for j in range(replays)])))
         nodes = kernel_timing.graph_kernels(
             lambda: (runner.cursor.zero_(), runner._call()))
-    check(not packs, f"{what}: the graphed event step called pack_features "
+    check(not packs, f"{what}: the graphed {mode} step called pack_features "
           f"{len(packs)} times")
-    check(not composes, f"{what}: the graphed event step called "
-          f"ops.render.composed {len(composes)} times")
-    # the picks left: the table row and the three cameras' 5 fields; the
-    # GT frames are read by the loss kernels where they lie
+    check(not composes and not convs, f"{what}: the graphed {mode} step "
+          f"called ops.render.composed {len(composes)} and F.conv2d "
+          f"{len(convs)} times")
+    # the picks left: the table row and each camera's 5 fields; the GT
+    # frames are read by the loss kernels where they lie
+    cams = 3 if mode.startswith("event") else 1
     picks = sum(c for k, c in nodes.items() if k.startswith("indexSelect"))
-    check(picks == 1 + 3 * 5, f"{what}: {picks} indexSelect nodes in the "
-          "graphed event step, not 16 (the table row, 15 camera fields)")
+    check(picks == 1 + cams * 5, f"{what}: {picks} indexSelect nodes in the "
+          f"graphed {mode} step, not {1 + cams * 5} (the table row, "
+          f"{cams * 5} camera fields)")
     ms = []
     for _ in range(3):
         runner.cursor.zero_()
@@ -2988,14 +3252,14 @@ def graphed_step(what, state, data, icap):
     runner.release()
     kernels = sum(c for k, c in nodes.items()
                   if k not in ("memset", "memcpy", "other"))
-    print(f"{what}: one graphed event step enqueues {sum(nodes.values())} "
+    print(f"{what}: one graphed {mode} step enqueues {sum(nodes.values())} "
           f"device nodes ({kernels} kernels, {nodes.get('memcpy', 0)} "
           f"copies, {nodes.get('memset', 0)} memsets); "
           f"{float(np.median(ms)):.4f} device ms per replay (median of "
           f"{', '.join(f'{m:.4f}' for m in ms)}); {picks} indexSelect "
-          f"nodes (the table row, 15 camera fields; no GT frame copied); "
-          f"pack_features and ops.render.composed called 0 times in its "
-          f"warm-up steps and capture; {card()}")
+          f"nodes (the table row, {cams * 5} camera fields; no GT frame "
+          f"copied); pack_features, ops.render.composed and F.conv2d "
+          f"called 0 times in its warm-up steps and capture; {card()}")
 
 
 def scale_kernel_rows(state, data, icap, dev):
@@ -3067,6 +3331,23 @@ def scale_kernel_rows(state, data, icap, dev):
                                                       warmup=1)}
         print(f"{what}: {k} {ms:.4f} graph ms, bound {bound:.4f} ms ({by}), "
               f"{ms / bound:.2f}x, plain {out[k]['plain_ms']:.4f} ms")
+    errs, *per_mode = photometric_check(what, *photometric_views(
+        state, data, 1, icap), graphed=True)
+    for k in PHOTO:
+        for mode, (calls, bounds) in zip(("rgb", "gray"), per_mode):
+            ms = graph_ms(calls[k][0])
+            bound, by = bound_ms(*bounds[k])
+            row = {"gaussians": state.params.capacity, "instance_cap": icap,
+                   "max_abs_err": errs[k], "graph_ms": ms, "bound_ms": bound,
+                   "bound_by": by, "plain_ms": cuda_ms(calls[k][1], 2,
+                                                       warmup=1)}
+            if mode == "rgb":
+                out[k] = row
+            else:
+                out[k]["gray"] = row
+            print(f"{what}: {k} ({mode}) {ms:.4f} graph ms, bound "
+                  f"{bound:.4f} ms ({by}), {ms / bound:.2f}x, plain "
+                  f"{row['plain_ms']:.4f} ms")
     return out
 
 
@@ -3197,6 +3478,8 @@ def scale_path(dev):
           f"{SCALE_TRAIN_EAGER} losses equal to the eager loop's bit for "
           f"bit ({eager['it_s']:.3f} it/s eager); launches {tl}; {smi}")
     del eres
+    for k in PHOTO:  # the 2M run is in event mode: the SSIM kernels' 14d's
+        rows[k]["launches"] = tl[k]
     # densify with capacity growth at ~1M: the trained state, threshold 0
     densify_growth(res.state, scene[1], (3, 3, 4),
                    torch.zeros(3, device=dev), mode="rgb",
@@ -3230,7 +3513,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         render_launches, _, rows = render_path(root, dev)
-        train_launches, model = train_path(root)
+        train_launches, model, photo_launches = train_path(root)
         evaluation_path(root, model, dev)
         event_path(root, model, dev)
         _, train_rows, per_step = train_kernels(dev)
@@ -3242,11 +3525,13 @@ def main() -> int:
         sharded_launches = sharded_path(root, dev)
     rows.update(train_rows)
     print(f"launches: cli.render {render_launches}; cli.train "
-          f"{train_launches}; train_loop_sharded {sharded_launches}; one "
+          f"{train_launches}; cli.train rgb and gray {photo_launches}; "
+          f"train_loop_sharded {sharded_launches}; one "
           f"event step {per_step}; phase 14's {SCALE_CAPACITY}-slot run "
           f"{scale_launches}")
     for name, row in rows.items():
-        row["launches"] = train_launches[name]
+        row["launches"] = (photo_launches if name in PHOTO
+                           else train_launches)[name]
         row["scale"] = scale_rows[name]
     rows.update(probe_rows)
 

@@ -76,13 +76,13 @@
 // Python float.  `logf` and `expf` are the CUDA math library's, as
 // PyTorch's `log` and `exp`.
 //
-// The sums: each thread adds its pixels' terms in double, a block adds its
-// threads' in a fixed tree, and the last block to finish (a counter of its
-// own in device memory, set back to 0 by that block) adds the blocks'
-// partials in block order.  The grid is fixed by the card and P, so the
-// same inputs give the same bits in every run.  No host read, no host copy:
-// the constants and the operands' pointers go by value in the kernel's
-// parameters, so a CUDA graph captures the launch whole.  Two launches of
+// The sums (block_sums.cuh): each thread adds its pixels' terms in double,
+// a block adds its threads' in a fixed tree, and the last block to finish
+// (a counter of its own in device memory, set back to 0 by that block)
+// adds the blocks' partials in block order.  The grid is fixed by the card
+// and P, so the same inputs give the same bits in every run.  No host read,
+// no host copy: the constants and the operands' pointers go by value in the
+// kernel's parameters, so a CUDA graph captures the launch whole.  Two launches of
 // one of these kernels must not run at once (on two streams): they would
 // share its counter.
 //
@@ -98,10 +98,11 @@
 
 #include <stdint.h>
 
+#include "block_sums.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int PIX = 4;          // pixels a chunk
 constexpr int N_SUMS = 4;       // forward partials: |r|, |r_main|, |r_blur|, count
 constexpr int N_CONSTS = 11;    // floats of Consts, in its order
@@ -275,16 +276,6 @@ __device__ __forceinline__ void load_render(const Images& im, int r,
   }
 }
 
-// d log T of one pixel from its image's gradient g and e = expf(log T):
-// autograd's chain through the composition (see the head of this file)
-__device__ __forceinline__ float logt_grad(const float (&g)[3],
-                                           const float (&bg)[3], float e) {
-  const float a0 = __fadd_rn(0.0f, __fmul_rn(g[0], bg[0]));
-  const float a1 = __fadd_rn(0.0f, __fmul_rn(g[1], bg[1]));
-  const float a2 = __fadd_rn(0.0f, __fmul_rn(g[2], bg[2]));
-  return __fmul_rn(__fadd_rn(__fadd_rn(a0, a2), a1), e);
-}
-
 // render r's gradients at pixels [p0, p0 + n) from its image's g: g
 // itself into d rgb (or d image), and d log T where it has log T
 __device__ __forceinline__ void store_render(const Images& im,
@@ -320,11 +311,6 @@ __device__ __forceinline__ void load_l(const float* __restrict__ x, int ch,
   for (int j = 0; j < PIX; ++j) l[j] = ch == 3 ? luv_l(v[j], k) : v[j][0];
 }
 
-// torch.sgn of a float: 1, -1, or 0 at 0 and NaN
-__device__ __forceinline__ float sgn(float x) {
-  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
 struct EventPixel {
   float a_now, a_next;  // L + eps of the rendered pair
   float img;            // the rendered log difference over c
@@ -348,65 +334,6 @@ __device__ __forceinline__ EventPixel event_pixel(const float (&now)[3],
   e.r = __fsub_rn(e.img, gd);
   e.fired = gd != 0.0f;
   return e;
-}
-
-// v summed over the block in a fixed tree; the sums land in thread 0's v
-template <int N>
-__device__ __forceinline__ void block_sum(double (&v)[N]) {
-  __shared__ double warp_sums[WARPS][N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      v[i] += __shfl_down_sync(0xffffffffu, v[i], o);
-    }
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) warp_sums[warp][i] = v[i];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      double s = warp_sums[0][i];
-      for (int w = 1; w < WARPS; ++w) s += warp_sums[w][i];
-      v[i] = s;
-    }
-  }
-  __syncthreads();  // warp_sums free for the next call
-}
-
-// the block's sums (in thread 0's v) into its partials row; true in every
-// thread of the last block to get here, which then reads all the rows
-template <int N>
-__device__ __forceinline__ bool arrive(const double (&v)[N],
-                                       double* __restrict__ partials,
-                                       unsigned int* arrivals) {
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) partials[blockIdx.x * N + i] = v[i];
-    __threadfence();  // the row is visible before the block counts in
-    last = atomicAdd(arrivals, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
-// the partials rows summed in block order (in thread 0's v)
-template <int N>
-__device__ __forceinline__ void total(const double* __restrict__ partials,
-                                      double (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = 0.0;
-  for (int b = threadIdx.x; b < gridDim.x; b += THREADS) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] += __ldcg(&partials[b * N + i]);
-  }
-  block_sum<N>(v);
 }
 
 // the background in registers (zeros where no render has log T)
@@ -477,9 +404,12 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   double v[N_SUMS] = {s_event, s_main, s_blur, static_cast<double>(fired)};
-  block_sum<N_SUMS>(v);
-  if (!arrive<N_SUMS>(v, partials, &forward_arrivals)) return;
-  total<N_SUMS>(partials, v);
+  block_sum<THREADS, N_SUMS>(v, threadIdx.x);
+  if (!arrive<N_SUMS>(v, partials, blockIdx.x, gridDim.x, &forward_arrivals,
+                      threadIdx.x)) {
+    return;
+  }
+  total<THREADS, N_SUMS>(partials, gridDim.x, v, threadIdx.x);
   if (threadIdx.x != 0) return;
   const float event_l1 = __fmul_rn(__double2float_rn(v[0]), k.inv_pix);
   const float intensity_l1 = __fmul_rn(__double2float_rn(v[1]), k.inv_vals);
@@ -592,9 +522,12 @@ __global__ void __launch_bounds__(THREADS)
     store_render(im, out, 2, bg, p0, n, vec, gt, e_main);
   }
   double v[1] = {s_c};
-  block_sum<1>(v);
-  if (!arrive<1>(v, partials, &backward_arrivals)) return;
-  total<1>(partials, v);
+  block_sum<THREADS, 1>(v, threadIdx.x);
+  if (!arrive<1>(v, partials, blockIdx.x, gridDim.x, &backward_arrivals,
+                 threadIdx.x)) {
+    return;
+  }
+  total<THREADS, 1>(partials, gridDim.x, v, threadIdx.x);
   if (threadIdx.x != 0) return;
   *g_contrast = __double2float_rn(v[0]);
   backward_arrivals = 0;  // every block has counted in

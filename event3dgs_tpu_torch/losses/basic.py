@@ -10,7 +10,10 @@ match `utils/loss_utils.py` / `utils/image_utils.py`:
 - SSIM: 11×11 gaussian window, σ=1.5, C1=0.01², C2=0.03²
   (`loss_utils.py:359-418`), as a separable float32 depthwise ``conv2d``
   (TF32 is switched off around it: cuDNN would otherwise round the inputs
-  to TF32 on the card).
+  to TF32 on the card).  :func:`ssim` serves evaluation; the rgb and gray
+  training losses (``losses/modes.py``) take :func:`ssim_terms`, the same
+  map with its derivatives, blurred by :func:`tap_blur` in the order of
+  their kernels (``csrc/ssim.cu``).
 """
 
 from __future__ import annotations
@@ -99,6 +102,53 @@ def _depthwise_blur(img: torch.Tensor, window_size: int, sigma: float):
         x = F.conv2d(x, kh, padding=(pad, 0), groups=c)
         x = F.conv2d(x, kw, padding=(0, pad), groups=c)
     return x[0].permute(1, 2, 0)
+
+
+def tap_blur(img: torch.Tensor, window_size: int = 11,
+             sigma: float = 1.5) -> torch.Tensor:
+    """:func:`_depthwise_blur`'s separable gaussian blur on [H, W, C] with
+    zero ("same") padding, in the order of the SSIM kernels
+    (``csrc/ssim.cu``): vertical, then horizontal, each pass an ordered
+    sum over the taps t of ``g[t]`` times the zero-padded image shifted by
+    t, the first product, then one sum a tap (one rounding each)."""
+    g = constant(_gauss_window_1d(window_size, sigma), img.dtype, img.device)
+    pad = window_size // 2
+    h, w = img.shape[0], img.shape[1]
+    z = F.pad(img, (0, 0, 0, 0, pad, pad))
+    v = g[0] * z[0:h]
+    for t in range(1, window_size):
+        v = v + g[t] * z[t:t + h]
+    z = F.pad(v, (0, 0, pad, pad))
+    out = g[0] * z[:, 0:w]
+    for t in range(1, window_size):
+        out = out + g[t] * z[:, t:t + w]
+    return out
+
+
+SSIM_C1, SSIM_C2 = 0.01**2, 0.03**2
+
+
+def ssim_terms(x: torch.Tensor, y: torch.Tensor, window_size: int = 11,
+               sigma: float = 1.5):
+    """The SSIM map of [H, W, C] images (`loss_utils.py:388-418`) through
+    :func:`tap_blur`, and its derivatives by the blurred mean of ``x``, of
+    ``x·x`` and of ``x·y``: (m, (D_mu, D_xx, D_xy)), each [H, W, C], in
+    the SSIM kernels' order (``csrc/ssim.cu``).  With A1 = 2μxμy + C1,
+    A2 = 2σxy + C2, B1 = μx² + μy² + C1, B2 = σx² + σy² + C2 and
+    d = B1·B2: m = A1·A2/d, D_mu = (2μy(A2 − A1) − 2μx·m·(B2 − B1))/d,
+    D_xx = −m/B2, D_xy = 2A1/d."""
+    blur = lambda z: tap_blur(z, window_size, sigma)
+    mx, my = blur(x), blur(y)
+    exx, eyy, exy = blur(x * x), blur(y * y), blur(x * y)
+    mx2, my2, mxy = mx * mx, my * my, mx * my
+    a1 = 2 * mxy + SSIM_C1
+    a2 = 2 * (exy - mxy) + SSIM_C2
+    b1 = (mx2 + my2) + SSIM_C1
+    b2 = ((exx - mx2) + (eyy - my2)) + SSIM_C2
+    d = b1 * b2
+    m = (a1 * a2) / d
+    d_mu = ((2 * my) * (a2 - a1) - ((2 * mx) * m) * (b2 - b1)) / d
+    return m, (d_mu, -(m / b2), (2 * a1) / d)
 
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,

@@ -19,7 +19,8 @@ Nothing on the render or training path passes macros.
 ``-fmad=false`` is part of the build: the preprocess forward kernel's
 projection and colours, the table kernel's rects and cull data, the
 expansion kernel's ellipse cull, the compositing kernels' alpha, the Adam
-update and the event loss's image gradients and event count must round
+update, the event loss's image gradients and event count and the rgb and
+gray modes' SSIM maps and gradients must round
 like their plain PyTorch versions, which run one rounding per operation,
 and the backward kernel must skip exactly the (pixel, instance) pairs the
 forward kernel skipped.
@@ -168,6 +169,22 @@ SIGNATURES = {
         # x, y, n: the kernels' logf and expf (for the card tests), stream
         "e3d_event_loss_logf": [_P, _P, _L, _P],
         "e3d_event_loss_expf": [_P, _P, _L, _P],
+    },
+    "ssim": {
+        # operands (a host array of 5 pointers: the render's rgb or image
+        # [P, 3], its log T [P] or null, the background [3] or null, the GT
+        # image [P, 1 or 3] or stack, its [1] int64 index or null), sizes (3
+        # host int64: the GT's channels, frames, frame stride), H, W, gray,
+        # the constants (19 host floats: losses/modes.photometric_constants),
+        # partials scratch, its rows, loss_out, l1_out, the derivative maps
+        # [3, P, C] or null, stream
+        "e3d_photometric_loss_forward": [_P, _P, _I, _I, _I, _P, _P, _I, _P,
+                                         _P, _P, _P],
+        # the forward's operands, sizes, H, W, gray and constants, the
+        # loss's gradient, the maps (or null where lambda is 0), d rgb or
+        # d image, d log T or null, stream
+        "e3d_photometric_loss_backward": [_P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                          _P, _P],
     },
     "probes": {
         # x, capacity (blocks of 1,024 floats), n (a device int), partials

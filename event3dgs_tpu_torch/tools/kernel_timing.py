@@ -242,6 +242,46 @@ def loss_bound(pixels: int, channels, backward: bool = False,
     return 4 * floats * pixels + scalars, (fp32 * pixels, sfu * pixels)
 
 
+# the rgb and gray loss (csrc/ssim.cu) per compared value (a pixel of a
+# channel: 3 in rgb mode, its luma in gray mode), (FP32, SFU) operations
+# counted from the source, a division as one SFU operation, without the
+# vertical pass the kernels repeat over each tile's halo (so the bound stays
+# a lower bound): forward the five moments' two 11-tap passes (5 · 2 · 21),
+# the three products blurred, the map and its derivatives (28, 4
+# divisions), |x - y| and the two sums; backward the three maps' two passes
+# (3 · 2 · 21), their sum (5) and dx (5).  Per pixel: a luma (8) of the
+# render and of a three-channel GT in gray mode and, in the backward, the
+# spread over the channels (3); the composition of partials (3 products, 3
+# sums, an expf), in the backward again, with the log T gradient (9)
+PHOTO_VALUE_OPS = {False: (245, 4), True: (136, 0)}
+PHOTO_LUMA_OPS = 8
+PHOTO_PARTIALS_OPS = {False: (6, 1), True: (15, 1)}
+
+
+def photometric_bound(pixels: int, channels: int = 3, backward: bool = False,
+                      gt_channels: int = 3, partials: bool = True):
+    """(bytes, (FP32, SFU) operations) that one SSIM loss kernel must move
+    and do at ``pixels`` pixels with ``channels`` compared (3: rgb mode, 1:
+    gray), for :func:`bound_ms`: the render (3 floats a pixel, and log T's
+    one where it comes as ``partials``) and the GT (``gt_channels``) read
+    once, the forward's three derivative maps (3 · ``channels``) written,
+    and in the backward read, with the render's gradients written (d rgb,
+    d log T); the scalars read and written."""
+    render = 3 + partials
+    floats = render + gt_channels + 3 * channels
+    if backward:
+        floats += render
+    scalars = 4 * (1 if backward else 2)
+    fp32, sfu = PHOTO_VALUE_OPS[backward]
+    fp32, sfu = fp32 * channels, sfu * channels
+    if channels == 1:
+        fp32 += PHOTO_LUMA_OPS * (1 + (gt_channels == 3)) + 3 * backward
+    if partials:
+        fp32 += PHOTO_PARTIALS_OPS[backward][0]
+        sfu += PHOTO_PARTIALS_OPS[backward][1]
+    return 4 * floats * pixels + scalars, (fp32 * pixels, sfu * pixels)
+
+
 def fused_adam_call(groups, b1: float = 0.9, b2: float = 0.999,
                     eps: float = 1e-15):
     """The timing yardstick of the Adam kernel: a callable that runs

@@ -1,16 +1,18 @@
-"""Where one replay of the graphed event step spends its device time.
+"""Where one replay of the graphed train step spends its device time.
 
-    python3 -m event3dgs_tpu_torch.tools.step_split
+    python3 -m event3dgs_tpu_torch.tools.step_split [--mode rgb|gray]
     python3 event3dgs_tpu_torch/tools/step_split.py --trees OLD . . OLD
 
-captures the event train step (``train/step.GraphTrainStep`` in
+captures the train step of ``--mode`` (event by default; rgb and gray
+render the main view alone) (``train/step.GraphTrainStep`` in
 ``train/fused.FusedSteps``, views 1, 1 → 2) at ``bench.py``'s state (100k
 Gaussians, 1080p, 4 cameras) and at ``tools/scale.py``'s 2,097,152-slot
 maxcap state, profiles one replay of each (``torch.profiler``) and adds up
 the device time of its kernels by group (:func:`split_group`): K1, K2, K3,
 the binning's kernels, its ``argsort``, the preprocess kernels (projection
 and SH colours, ``csrc/preprocess.cu``) forward and backward, the
-rasterizer's other work, the loss (its two kernels, ``csrc/loss.cu``),
+rasterizer's other work, the loss (its two kernels, ``csrc/loss.cu`` in
+the event modes, ``csrc/ssim.cu`` in rgb and gray mode),
 Adam (its kernel, ``csrc/adam.cu``, and the step counts' increments), the
 densify stats, the copies outside the stages and the rest; and within each
 group by CUDA function (:func:`function_label`: the kernel's name, and for
@@ -69,7 +71,9 @@ SPLIT_FUNCTIONS = {
     "preprocess forward": ("preprocess_forward_kernel",),
     "preprocess backward": ("preprocess_backward_kernel",),
     "Adam": ("adam_update_kernel",),
-    "loss": ("event_loss_forward_kernel", "event_loss_backward_kernel"),
+    "loss": ("event_loss_forward_kernel", "event_loss_backward_kernel",
+             "photometric_loss_forward_kernel",
+             "photometric_loss_backward_kernel"),
     "binning kernels": ("gaussian_table_kernel", "depth_offsets_kernel",
                         "expand_kernel", "segment_count_kernel",
                         "scan_kernel", "rank_kernel"),
@@ -260,18 +264,21 @@ def _staged(label: str, fn):
 
 # (module, attribute, stage) that stage_markers wraps, where the module has
 # the attribute: the step's one preprocess call for its views, or in a tree
-# whose step renders each view through ops/render.render, the render's
+# whose step renders each view through ops/render.render, the render's; the
+# loss of each mode
 STAGES = (("event3dgs_tpu_torch.train.step", "preprocess_views", "preprocess"),
           ("event3dgs_tpu_torch.ops.render", "preprocess", "preprocess"),
           ("event3dgs_tpu_torch.ops.render", "rasterize_tiled_partials",
            "rasterizer"),
           ("event3dgs_tpu_torch.train.step", "event_total_loss", "loss"),
+          ("event3dgs_tpu_torch.train.step", "rgb_total_loss", "loss"),
+          ("event3dgs_tpu_torch.train.step", "gray_total_loss", "loss"),
           ("event3dgs_tpu_torch.train.step", "adam_update_groups", "Adam"),
           ("event3dgs_tpu_torch.train.step", "update_stats", "densify stats"))
 
 
 class stage_markers:
-    """While open, the event step's stages (``STAGES``) launch a marker
+    """While open, the train step's stages (``STAGES``) launch a marker
     kernel where each begins and ends, forward and backward, and a capture
     notes each marker's label in ``marks``.  For the replay split only: the
     markers' identity nodes may change the order in which autograd adds a
@@ -325,8 +332,10 @@ def replay_kernels(fn, keys: list | None = None) -> list:
     return [(kernel_name(e.name), e.time_range.elapsed_us()) for e in evs]
 
 
-def replay_split(state, data, icap, dev, what: str) -> dict:
-    """One replay of the graphed event step (views 1, 1 → 2) on ``state``,
+def replay_split(state, data, icap, dev, what: str,
+                 mode: str = "event") -> dict:
+    """One replay of the graphed step of ``mode`` (views 1, 1 → 2; rgb and
+    gray render view 1 alone) on ``state``,
     captured with :class:`stage_markers`, profiled: device µs and kernels
     by group (:func:`split_totals`), the markers' own µs, and the device ms
     per replay of the same graph (CUDA events over 5 replays of the row,
@@ -337,7 +346,7 @@ def replay_split(state, data, icap, dev, what: str) -> dict:
     from event3dgs_tpu_torch.train.step import GraphTrainStep
     from event3dgs_tpu_torch.utils.config import EventConfig, OptimizationConfig
 
-    step = GraphTrainStep("event", OptimizationConfig(), EventConfig(),
+    step = GraphTrainStep(mode, OptimizationConfig(), EventConfig(),
                           spatial_lr_scale=3.0, rasterizer="tiled",
                           instance_cap=icap)
     marks: list = []
@@ -360,7 +369,7 @@ def replay_split(state, data, icap, dev, what: str) -> dict:
     replay_ms = cuda_ms(replay, 5, warmup=1)
     runner.release()
     marker_us = sum(us for name, us in kernels if name == MARKER)
-    return {"split": what, "instance_cap": icap,
+    return {"split": what, "mode": mode, "instance_cap": icap,
             "groups": {g: {"us": round(us, 3), "kernels": k}
                        for g, (us, k) in totals.items() if k},
             "functions": {g: {f: {"us": round(us, 3), "launches": k}
@@ -373,9 +382,10 @@ def replay_split(state, data, icap, dev, what: str) -> dict:
 
 
 
-def split_runs(tree: str | None = None) -> list:
-    """The replay split at ``bench.py``'s state and at the 2M state, one
-    JSON line each as it ends (marked with ``tree`` where given)."""
+def split_runs(tree: str | None = None, mode: str = "event") -> list:
+    """The replay split of ``mode``'s step at ``bench.py``'s state and at
+    the 2M state, one JSON line each as it ends (marked with ``tree`` where
+    given)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -388,7 +398,7 @@ def split_runs(tree: str | None = None) -> list:
     for what, make in (("100k", lambda: bench_state(dev)),
                        ("2M", lambda: scale_view(dev))):
         state, data, icap = make()
-        out.append(replay_split(state, data, icap, dev, what))
+        out.append(replay_split(state, data, icap, dev, what, mode))
         if tree is not None:
             out[-1]["tree"] = tree
         print(json.dumps(out[-1]), flush=True)
@@ -400,7 +410,8 @@ def split_runs(tree: str | None = None) -> list:
 def print_tables(runs: list) -> None:
     """The groups of each run, then the functions of ``BY_FUNCTION``'s
     groups, device µs and kernels (launches) each."""
-    head = lambda r: f"{r['split']} {r.get('tree', '')[-14:]}".strip()
+    head = lambda r: (f"{r.get('mode', 'event')} {r['split']} "
+                      f"{r.get('tree', '')[-10:]}").strip()
     print(f"{'group':22s}" + "".join(f"{head(r):>22s}" for r in runs))
     cell = lambda d: (f"{d['us']:12.1f} us {d['kernels']:5d}k" if d
                       else f"{'-':>22s}")
@@ -433,10 +444,13 @@ def main(argv=None) -> int:
     one JSON line per run, then the tables."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trees", nargs="+", help="source trees, in turns")
+    parser.add_argument("--mode", default="event",
+                        choices=("event", "rgb", "gray"),
+                        help="the train mode whose step is split")
     parser.add_argument("--tree", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not args.trees:
-        runs = split_runs(args.tree)
+        runs = split_runs(args.tree, args.mode)
         if args.tree is None:
             print(card())
             print_tables(runs)
@@ -445,7 +459,8 @@ def main(argv=None) -> int:
     for tree in args.trees:
         tree = str(Path(tree).resolve())
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--tree", tree], capture_output=True, text=True)
+                              "--tree", tree, "--mode", args.mode],
+                             capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
             print(f"step_split: {tree} failed", file=sys.stderr)

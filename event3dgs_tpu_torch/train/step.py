@@ -55,7 +55,7 @@ from event3dgs_tpu_torch.models.gaussians import (
 )
 from event3dgs_tpu_torch.models.optimizer import AdamGroup, adam_update_groups
 from event3dgs_tpu_torch.ops.preprocess import preprocess_views
-from event3dgs_tpu_torch.ops.render import composed, rasterize_projected
+from event3dgs_tpu_torch.ops.render import rasterize_projected
 from event3dgs_tpu_torch.train.state import (
     SceneData,
     TrainState,
@@ -120,8 +120,8 @@ def step_inputs(state: TrainState, max_sh_degree: int = 3,
 
 class StepViews(NamedTuple):
     """The cameras a step renders and the images it compares them with
-    (None where its mode needs none): in the event modes each image as a
-    tensor or as a ``Frame`` of its stack, which the loss picks itself."""
+    (None where its mode needs none): each image as a tensor or as a
+    ``Frame`` of its stack, which the loss picks itself."""
 
     cam_main: Camera
     gt_main: torch.Tensor | Frame
@@ -150,14 +150,14 @@ def step_views(data: SceneData, mode: str, idx_main, idx_now, idx_next,
     ``idx_main`` and, in the event modes, the event pair (``idx_now``,
     ``idx_next``) and the blurry capture.  ``pick(stack, index)`` takes one
     view of a stack (default: Python int indexing; :func:`take` for device
-    indices); ``frame(stack, index)`` one GT image of an event mode, which
-    the loss reads (default: ``pick``; ``Frame`` for device indices, so
-    that the loss kernels read the frame where it lies)."""
+    indices); ``frame(stack, index)`` one GT image, which the loss reads
+    (default: ``pick``; ``Frame`` for device indices, so that the loss
+    kernels read the frame where it lies)."""
     event = mode.startswith("event")
     frame = frame or pick
     return StepViews(
         cam_main=pick(data.cameras, idx_main),
-        gt_main=(frame if event else pick)(data.images, idx_main),
+        gt_main=frame(data.images, idx_main),
         cam_now=pick(data.event_cameras, idx_now) if event else None,
         cam_next=pick(data.event_cameras, idx_next) if event else None,
         gt_now=frame(data.event_images, idx_now) if event else None,
@@ -222,14 +222,12 @@ def _views_loss_and_grads(mode, event_cfg, lambda_dssim, max_sh_degree,
             plain, feat))
             for cam, (proj, colors, feat) in zip(cams, projected)]
         proj_main = projected[0][0]
-        if mode == "rgb":
-            loss, aux = rgb_total_loss(composed(*partials[0], bg),
-                                       views.gt_main, lambda_dssim)
-        elif mode == "gray":
-            loss, aux = gray_total_loss(composed(*partials[0], bg),
-                                        views.gt_main, lambda_dssim)
-        else:  # event / event_deblur (the blurry capture in the latter):
-            # the loss composes the renders over bg itself
+        # the loss composes the renders over bg itself
+        if mode in ("rgb", "gray"):
+            total = rgb_total_loss if mode == "rgb" else gray_total_loss
+            loss, aux = total(partials[0], views.gt_main, lambda_dssim,
+                              plain=plain, background=bg)
+        else:  # event / event_deblur (the blurry capture in the latter)
             loss, aux = event_total_loss(
                 partials[1], partials[2], partials[0],
                 views.gt_now, views.gt_next, views.gt_main,
@@ -400,8 +398,8 @@ class GraphTrainStep:
                  slots: StepSlots) -> None:
         r = table.index_select(0, cursor)[0]
         idx = r[:3].to(torch.int64)
-        # the GT images of the event modes stay in their stacks: the loss
-        # kernels read frame idx[k] where it lies
+        # the GT images stay in their stacks: the loss kernels read frame
+        # idx[k] where it lies
         views = step_views(data, self.mode, idx[0:1], idx[1:2], idx[2:3],
                            pick=take, frame=Frame)
         loss, aux, grads = self.grads_fn(state, views, r[3:6], r[7:])

@@ -2678,3 +2678,257 @@ def test_kernel_build_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     again = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
     assert sorted(n for n in after if after[n] != again[n]) == [
         "expand", "sort_tiles"]
+    # the two losses share csrc/block_sums.cuh
+    header = tmp_path / "block_sums.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    last = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
+    assert sorted(n for n in again if again[n] != last[n]) == ["loss", "ssim"]
+
+
+# the SSIM kernels (csrc/ssim.cu): sizes (1080p and one of ragged 16×16
+# tiles); (mode, GT channels); the operand forms of LOSS_FORMS, the render
+# as partials or its image, the GT as a frame or its image
+PHOTO_SIZES = ((1080, 1920), (37, 53))
+PHOTO_CASES = (("rgb", 3), ("gray", 3), ("gray", 1))
+PHOTO_CASE_IDS = ("rgb", "gray-gt3", "gray-gt1")
+
+
+def photometric_operands(h, w, seed, gt_channels, device, logt=True,
+                         frames=True):
+    """Seeded SSIM-loss operands on ``device``: the render as ``Partials``
+    (rgb in [0, 0.9] with 1 % zeros, log T in [-14, 0] with 5 % zeros and,
+    where the render ties with the GT, -inf: its image there is its rgb)
+    or, without ``logt``, its image; the GT [h, w, gt_channels] in [0, 1]
+    with 5 % planted ties (x = y, sgn 0) as a ``Frame``, a seeded frame of
+    a stack of 3, or, without ``frames``, its image; a seeded background
+    [3]."""
+    rng = np.random.default_rng(seed)
+    f = lambda lo, hi, *shape: rng.uniform(lo, hi, shape).astype(np.float32)
+    rgb = f(0.0, 0.9, h, w, 3)
+    rgb[rng.random((h, w, 3)) < 0.01] = 0.0
+    gt = f(0.0, 1.0, h, w, gt_channels)
+    tie = rng.random((h, w)) < 0.05
+    gt[tie] = rgb[tie][:, :gt_channels]
+    lt = f(-14.0, 0.0, h, w)
+    lt[rng.random((h, w)) < 0.05] = 0.0
+    lt[tie] = -np.inf
+    bg = torch.tensor(f(0.0, 1.0, 3), device=device)
+    render = torch.tensor(rgb, device=device)
+    if logt:
+        render = ev_loss.Partials(render, torch.tensor(lt, device=device))
+    else:
+        render = (render + torch.exp(torch.tensor(lt, device=device))[
+            :, :, None] * bg).contiguous()
+    gt = torch.tensor(gt, device=device)
+    if frames:
+        k = int(rng.integers(3))
+        stack = torch.tensor(f(0.0, 1.0, 3, h, w, gt_channels),
+                             device=device)
+        stack[k] = gt
+        gt = ev_loss.Frame(stack, torch.tensor([k], device=device))
+    return render, gt, bg
+
+
+def check_photometric_kernels(render, gt, lam, gray, bg, grad):
+    """Both SSIM kernels against their plain versions: the derivative maps
+    and the render's gradients (d image, or d rgb and d log T) bit for
+    bit, the loss and l1 within rtol 1e-5 (sums in two orders); the
+    kernels again giving the same bits; one launch a call."""
+    from event3dgs_tpu_torch.losses import modes
+
+    launches = (modes.photometric_loss_forward_kernel.launches,
+                modes.photometric_loss_backward_kernel.launches)
+    loss, l1, maps = modes.photometric_loss_forward_kernel(render, gt, lam,
+                                                           gray, bg)
+    want_loss, want_l1, want_maps = modes.photometric_loss_plain(
+        render, gt, lam, gray, bg)
+    assert_loss_close(loss, want_loss, "loss")
+    assert_loss_close(l1, want_l1, "l1")
+    assert (maps is None) == (want_maps is None) == (lam == 0.0)
+    if maps is not None:
+        for k, what in enumerate(("D_mu", "D_xx", "D_xy")):
+            assert_bits_equal(maps[k], want_maps[k], what)
+    got = modes.photometric_loss_backward_kernel(grad, render, gt, maps, lam,
+                                                 gray, bg)
+    want = modes.photometric_loss_backward_plain(grad, render, gt, want_maps,
+                                                 lam, gray, bg)
+    got, want = flat_tensors([got]), flat_tensors([want])
+    assert len(got) == len(want) == (2 if isinstance(render,
+                                                     ev_loss.Partials) else 1)
+    for a, b, what in zip(got, want, ("d rgb or d image", "d log T")):
+        assert_bits_equal(a, b, what)
+    again = modes.photometric_loss_forward_kernel(render, gt, lam, gray, bg)
+    for a, b in zip(again, (loss, l1, maps)):
+        if b is not None:
+            assert_bits_equal(a, b, "forward run twice")
+    twice = modes.photometric_loss_backward_kernel(grad, render, gt, maps,
+                                                   lam, gray, bg)
+    for a, b in zip(flat_tensors([twice]), got):
+        assert_bits_equal(a, b, "backward run twice")
+    assert (modes.photometric_loss_forward_kernel.launches,
+            modes.photometric_loss_backward_kernel.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lam", [0.2, 0.0])
+@pytest.mark.parametrize("form", list(LOSS_FORMS))
+@pytest.mark.parametrize("case", PHOTO_CASES, ids=PHOTO_CASE_IDS)
+@pytest.mark.parametrize("size", PHOTO_SIZES, ids=lambda s: f"{s[1]}x{s[0]}")
+def test_photometric_kernels_match_plain_versions(size, case, form, lam):
+    """The forward and backward SSIM kernels against
+    ``photometric_loss_plain`` and ``photometric_loss_backward_plain``
+    (``check_photometric_kernels``) at the gradient 1 and a seeded one, in
+    rgb and gray mode (a three- and a one-channel GT), on each form of
+    their operands (the render as its image or its partials, composed over
+    the background in the kernels; the GT as its image or a frame of a
+    stack at a device index), at 1080p and at a size of ragged tiles, at
+    λ 0.2 and 0 (no SSIM work)."""
+    need_card()
+    mode, gt_channels = case
+    logt, frames = LOSS_FORMS[form]
+    render, gt, bg = photometric_operands(*size, 8, gt_channels, "cuda",
+                                          logt, frames)
+    for grad in (1.0, -0.37):
+        check_photometric_kernels(render, gt, lam, mode == "gray", bg,
+                                  torch.tensor(grad, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["images", "partials_frames"])
+@pytest.mark.parametrize("case", PHOTO_CASES, ids=PHOTO_CASE_IDS)
+def test_photometric_kernels_in_a_cuda_graph(case, form):
+    """``rgb_total_loss`` / ``gray_total_loss`` (``PhotometricLoss``: both
+    kernels) and the render's gradients captured once at 1080p, on images
+    or, as the graphed step gives them, on the render's partials and the
+    GT's frame, then replayed over other operands copied into the captured
+    inputs (the frame's index and the background among them): each replay
+    equals the plain versions on those operands (the gradients bit for
+    bit, the loss and l1 within rtol 1e-5), and the kernels launch in the
+    warm-up and the capture only."""
+    from event3dgs_tpu_torch.losses import modes
+
+    need_card()
+    mode, gt_channels = case
+    gray = mode == "gray"
+    total = modes.gray_total_loss if gray else modes.rgb_total_loss
+    h, w = PHOTO_SIZES[0]
+    logt, frames = LOSS_FORMS[form]
+    render, gt, bg = photometric_operands(h, w, 1, gt_channels, "cuda", logt,
+                                          frames)
+    leaf = cloned(render, grad=True)
+    live, background = cloned(gt), bg.clone()
+
+    def step():
+        loss, aux = total(leaf, live, 0.2, background=background)
+        return loss, aux["l1"], torch.autograd.grad(
+            loss, flat_tensors([leaf]))
+
+    launches = (modes.photometric_loss_forward_kernel.launches,
+                modes.photometric_loss_backward_kernel.launches)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loss, l1, grads = step()
+    for seed in (2, 3):
+        render, gt, bg = photometric_operands(h, w, seed, gt_channels,
+                                              "cuda", logt, frames)
+        with torch.no_grad():
+            for dst, src in zip(flat_tensors([leaf, live, background]),
+                                flat_tensors([render, gt, bg])):
+                dst.copy_(src)
+        graph.replay()
+        want_loss, want_l1, maps = modes.photometric_loss_plain(
+            render, gt, 0.2, gray, bg)
+        want = modes.photometric_loss_backward_plain(
+            torch.ones((), device="cuda"), render, gt, maps, 0.2, gray, bg)
+        assert_loss_close(loss, want_loss, "loss")
+        assert_loss_close(l1, want_l1, "l1")
+        for a, b in zip(grads, flat_tensors([want])):
+            assert_bits_equal(a, b)
+    assert (modes.photometric_loss_forward_kernel.launches,
+            modes.photometric_loss_backward_kernel.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+# a process that launches an SSIM kernel with a GT frame index past its
+# stack (argv: "forward" or "backward", the index) and prints "no trap" if
+# the launch ran to its end
+PHOTO_TRAP_SCRIPT = """
+import sys
+import torch
+from event3dgs_tpu_torch.losses import event as ev
+from event3dgs_tpu_torch.losses import modes
+which, index = sys.argv[1], int(sys.argv[2])
+stack = torch.rand(3, 16, 24, 3, device="cuda")
+frame = ev.Frame(stack, torch.tensor([index], device="cuda"))
+render = ev.Partials(torch.rand(16, 24, 3, device="cuda"),
+                     -torch.rand(16, 24, device="cuda"))
+bg = torch.rand(3, device="cuda")
+if which == "forward":
+    modes.photometric_loss_forward_kernel(render, frame, background=bg)
+else:
+    maps = torch.rand(3, 16, 24, 3, device="cuda")
+    modes.photometric_loss_backward_kernel(torch.ones((), device="cuda"),
+                                           render, frame, maps,
+                                           background=bg)
+torch.cuda.synchronize()
+print("no trap")
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["forward", "backward"])
+@pytest.mark.parametrize("index", [3, -1, 1 << 40])
+def test_photometric_kernels_trap_an_index_past_the_stack(which, index):
+    """A GT frame index outside its stack (the stack's frame count, -1, a
+    large one) makes the SSIM kernels trap instead of reading outside the
+    stack, in a process of its own, which does not get past its
+    synchronise."""
+    need_card()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", PHOTO_TRAP_SCRIPT, which,
+                          str(index)], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode != 0 and "no trap" not in run.stdout, (
+        run.returncode, run.stdout, run.stderr[-2000:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rgb", "gray"])
+def test_photometric_step_kernel_path_matches_the_plain_path(mode):
+    """On ``bench.py``'s scene (4,000 Gaussians, 8 views at 160×96), the
+    rgb and gray steps' loss through the kernel path against the all-plain
+    path (``plain=True``: the preprocess, K1-K6 and the SSIM loss in plain
+    PyTorch) within 1e-5 relative, their gradients within 2e-4 of each
+    field's max; the kernel path launches each SSIM kernel once."""
+    from event3dgs_tpu_torch.losses import modes
+    from event3dgs_tpu_torch.tools.kernel_timing import bench_state
+    from event3dgs_tpu_torch.train.step import make_loss_and_grads
+    from event3dgs_tpu_torch.utils.config import EventConfig
+
+    need_card()
+    state, data, cap = bench_state("cuda", 4000, 160, 96, views=8)
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    launches = (modes.photometric_loss_forward_kernel.launches,
+                modes.photometric_loss_backward_kernel.launches)
+    (lk, ak, gk), (lp, ap, gp) = (
+        make_loss_and_grads(mode, EventConfig(), 0.2, rasterizer="tiled",
+                            instance_cap=cap, plain=plain)(
+            state, data, 3, 3, 4, bg)
+        for plain in (False, True))
+    assert (modes.photometric_loss_forward_kernel.launches,
+            modes.photometric_loss_backward_kernel.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert torch.isfinite(lk) and abs(float(lk) - float(lp)) <= \
+        1e-5 * abs(float(lp)), (float(lk), float(lp))
+    assert_loss_close(ak["l1"], ap["l1"], "l1")
+    for name in gk["params"]:
+        a, b = gk["params"][name], gp["params"][name]
+        scale = b.abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(a / scale, b / scale, atol=2e-4, rtol=0,
+                                   msg=name)
