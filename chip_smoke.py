@@ -169,9 +169,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    (device ms, registers, spills, blocks per SM, K1's evaluated pairs, the
    tile imbalance from ``clock``); K1's stop statistics at both views; K1,
    K2 and K3 relaunched at the train view against their bounds; the
-   dynamic-grid kernel of ``csrc/probes.cu`` in a CUDA graph.  Checks:
-   ``base`` is the shipping K1 library and it and ``clock`` equal the
-   shipping K1 bit for bit; the graph's replays give 3·1024 and 7·1024
+   dynamic-grid kernel of ``csrc/probes.cu`` in a CUDA graph; each build
+   of the SSIM loss kernels (``kernel_probes.SSIM_VARIANTS``: ``base`` and
+   the timing-only ablations), forward and backward, in rgb and gray mode
+   on seeded 1080p partials and a GT frame (graph and event ms,
+   registers, shared bytes, blocks per SM: the split).  Checks: ``base``
+   is the shipping K1 library and it and ``clock`` equal the shipping K1
+   bit for bit; the SSIM ``base`` is the shipping library and equals the
+   shipping kernels bit for bit; the graph's replays give 3·1024 and 7·1024
    over ones, and over a seeded input whose sums depend on the block order
    (at 3, 7, 0, -1, past capacity and 3 again) each replay equals the
    plain version bit for bit; the stop statistics of K1's stop equal
@@ -221,8 +226,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal, the Adam
    kernel bit-equal, also in a CUDA graph, the event and SSIM loss
    kernels as in phase 7, in a CUDA graph) and its graph ms beside its
-   bound (the SSIM kernels' in rgb and gray mode), K3 in its orders as in
-   phase 8.  The depth offsets kernel over
+   bound (the SSIM kernels' in rgb and gray mode; the depth offsets
+   kernel also alone, after one ``argsort``, held to its call after the
+   ``argsort``), K3 in its orders as in phase 8.  The depth offsets kernel
+   over
    8,192 + 1 look-back blocks (16.8M ranks, twice, its state left cleared) and the
    counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
    bit-equal to their plain versions.  ``train --densify --fused_steps
@@ -857,7 +864,8 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
     ``calls`` {kernel: (its call, its plain version's)}, ``bounds``
     {kernel: (bytes, operations)} (``kernel_timing.path_bounds``), and the
     inputs the phases time: ``bk`` (the Binning), ``tk``, ``n_live``,
-    ``nt``, ``live``, ``pairs``, ``k2_args`` and ``rows_k``."""
+    ``nt``, ``live``, ``pairs``, ``k2_args``, ``rows_k`` and
+    ``depth_alone`` (the depth offsets kernel without its argsort)."""
     import types
 
     import torch
@@ -873,6 +881,20 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
                 HEIGHT)
     bin_kw = dict(opacities=opac, conic=proj.conic)
     tables, ranks, inst, errs = expansion_check(what, bin_args, bin_kw, cap)
+    # the depth offsets kernel alone, after one argsort of the keys (the
+    # plain version on the CPU); its segments' first ranks are written for
+    # the live segments only
+    order = torch.argsort(tables.key, stable=True)
+    depth_alone = ((lambda: binning.launch_depth_offsets(tables, order, cap))
+                   if order.is_cuda else
+                   (lambda: binning.depth_order_plain(tables, cap)))
+    alone = depth_alone()
+    segs = -(-min(int(ranks.offsets[-1]), cap) // sort_tiles.SEGMENT)
+    check(torch.equal(alone.order, ranks.order)
+          and torch.equal(alone.offsets, ranks.offsets)
+          and torch.equal(alone.seg_rank[:segs], ranks.seg_rank[:segs]),
+          f"{what}: the depth offsets kernel alone differs from its call "
+          "after the argsort")
     tk, gk, n_live = inst.tile, inst.gauss, ranks.offsets[-1:]
     errs.update(counting_sort_check(what, tk, gk, n_live, nt, n))
     counts = sort_tiles.tile_histogram_plain(tk, nt, n_live)
@@ -959,7 +981,8 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
         bounds=path_bounds(n, cap, ranks.offsets, live, pairs, nt, WIDTH,
                            HEIGHT),
         bk=bk, tk=tk, n_live=n_live, nt=nt, live=live, pairs=pairs,
-        k2_args=k2_args, rows_k=rows_k)
+        k2_args=k2_args, rows_k=rows_k,
+        depth_alone=depth_alone)
 
 
 def k3_in_order(what, bk, rows_k):
@@ -2740,6 +2763,8 @@ def probe_path(dev):
     builds = kp.variants()
     for v in builds:
         v.launches = 0
+    for v in kp.SSIM_VARIANTS.values():
+        v.launches = dict.fromkeys(v.launches, 0)
     kp.dyngrid_kernel.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2748,6 +2773,9 @@ def probe_path(dev):
     probe_s = time.perf_counter() - t0
     launches = {v.label: v.launches for v in builds}
     launches["dyngrid"] = kp.dyngrid_kernel.launches
+    for v in kp.SSIM_VARIANTS.values():
+        for kernel, n in v.launches.items():
+            launches[f"{v.label} {kernel}"] = n
     print(f"kernel_probes all: {probe_s:.1f} s; launches {launches}")
     for k, n in launches.items():
         check(n > 0, f"phase 12: {k} was not launched")
@@ -2764,6 +2792,16 @@ def probe_path(dev):
                                    out["shipping"]):
             check(torch.equal(got, want),
                   f"the probes' K1 {name}: {what} differs from the shipping K1")
+    # the SSIM builds' base is the shipping library and equals it
+    base = kp.SSIM_VARIANTS["base"]
+    check(kernels.library_path(base.source, base.defines)
+          == kernels.library_path("ssim"),
+          "the probes' SSIM base is not the shipping library")
+    for mode, out in probes.outputs["ssim"].items():
+        (fwd, grads), (fwd_b, grads_b) = out["shipping"], out["base"]
+        for got, want in zip([*fwd_b, *grads_b], [*fwd, *grads]):
+            check(bits_differ(got, want) == 0, f"the probes' SSIM base "
+                  f"({mode}) differs from the shipping SSIM kernels")
     # the dynamic grid in a CUDA graph
     dg = rec["dyngrid"]
     for n, want in dg["expected"].items():
@@ -2808,7 +2846,8 @@ def probe_path(dev):
         check(torch.equal(getattr(s7.params, f), getattr(st.params, f)),
               f"stage 7: {f} differs from train_step's")
     print("phase 12: K1 base (the shipping library) and clock bit-equal to the "
-          "shipping K1; dyngrid replays 3072 and 7168, and over the seeded "
+          "shipping K1; SSIM base bit-equal to the shipping SSIM kernels "
+          "in rgb and gray mode; dyngrid replays 3072 and 7168, and over the seeded "
           f"input at counts {list(dg['seeded_equal_to_plain'])}, bit-equal "
           "to the plain version; stop statistics equal on the plain K1's stop; stage 7's "
           f"parameters equal train_step's; {card()}")
@@ -2846,6 +2885,7 @@ def probe_path(dev):
                 "bound_by": bound[1], "library_ms": None,
                 "defines": row["defines"], "timing_only": v.timing_only,
             }
+    rows.update(ssim_probe_rows(rec["ssim"]["variants"]))
     rows["dyngrid probe"] = {
         "name": "dyngrid probe", "route": "cuda",
         "source": "event3dgs_tpu_torch/csrc/probes.cu",
@@ -2856,6 +2896,60 @@ def probe_path(dev):
         "bound_ms": dg["bound_ms"], "bound_by": "bytes",
         "library_ms": dg["library_ms"],
     }
+    return rows
+
+
+def ssim_probe_rows(table):
+    """Phase 12's JSON row per SSIM build and kernel (rgb mode, gray mode
+    under ``gray``): plain and bound are those of the shipping kernel at
+    the probe's 1080p operands."""
+    import torch
+
+    from event3dgs_tpu_torch.losses import modes
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+    from event3dgs_tpu_torch.tools.kernel_timing import (
+        bound_ms,
+        cuda_ms,
+        photometric_bound,
+    )
+
+    render, gt, bg = kp.ssim_operands(HEIGHT, WIDTH, DEVICE)
+    grad = torch.ones((), device=DEVICE)
+    plain, bounds = {}, {}
+    for gray in (False, True):
+        maps = modes.photometric_loss_plain(render, gt, 0.2, gray, bg)[2]
+        plain[gray] = {
+            "forward": cuda_ms(lambda: modes.photometric_loss_plain(
+                render, gt, 0.2, gray, bg), 2, warmup=1),
+            "backward": cuda_ms(lambda: modes.photometric_loss_backward_plain(
+                grad, render, gt, maps, 0.2, gray, bg), 2, warmup=1)}
+        for kernel in ("forward", "backward"):
+            bounds[gray, kernel] = bound_ms(*photometric_bound(
+                WIDTH * HEIGHT, 1 if gray else 3, kernel == "backward"))
+    rows = {}
+    for r in table:
+        if r["mode"] != "rgb":
+            continue
+        v, kernel = kp.SSIM_VARIANTS[r["variant"]], r["kernel"]
+        gray = next(g for g in table if g["mode"] == "gray" and
+                    (g["variant"], g["kernel"]) == (v.name, kernel))
+        name = f"SSIM probe {v.name} {kernel}"
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "event3dgs_tpu_torch/csrc/ssim.cu",
+            "replaces": PHOTO_REPLACES, "launches": v.launches[kernel],
+            "max_abs_err": max(r["max_abs_err_vs_shipping"],
+                               gray["max_abs_err_vs_shipping"]),
+            "ms": r["event_ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": plain[False][kernel],
+            "bound_ms": bounds[False, kernel][0],
+            "bound_by": bounds[False, kernel][1], "library_ms": None,
+            "defines": r["defines"], "timing_only": v.timing_only,
+            "gray": {"graph_ms": gray["graph_ms"],
+                     "plain_ms": plain[True][kernel],
+                     "bound_ms": bounds[True, kernel][0],
+                     "bound_by": bounds[True, kernel][1]},
+        }
     return rows
 
 
@@ -2890,6 +2984,16 @@ def print_probe_tables(rec):
         print(f"K1 stops, {view} view: {json.dumps(rec['stops'][view])}")
     print(f"stop_statistics at the render view: "
           f"{rec['stops']['statistics_ms']:.3f} ms (CUDA events)")
+    print("SSIM build  mode kernel    graph ms  event ms  regs  spill  "
+          "smem B  blocks/SM  vs base (graph)")
+    for r in rec["ssim"]["variants"]:
+        vs = (f"{r['vs_base_ms']:+.4f} ({100 * r['vs_base_share']:.1f}%)"
+              if "vs_base_ms" in r else "-")
+        print(f"{r['variant']:10s} {r['mode']:4s} {r['kernel']:8s} "
+              f"{r['graph_ms']:9.4f} {r['event_ms']:9.4f} "
+              f"{r['registers']:5d} {r['spill_stores']:6d} "
+              f"{r['shared_bytes']:7d} "
+              f"{r['blocks_per_sm']:9d}  {vs}")
     for r in rec["relaunch"]["kernels"]:
         print(f"relaunch {r['kernel']}: device {r['device_ms']:.4f} ms "
               f"({r['profiled_per_call']:.2f} launches seen per call), event "
@@ -3152,11 +3256,17 @@ def fused_path(root: str, dev):
 
 
 def photometric_rows(what, rows, gray):
-    """The SSIM loss kernels' JSON rows (rgb mode) get their registers,
-    spills and shared memory as ``-Xptxas -v`` reported them, and under
-    ``gray`` gray mode's graph ms, bound and plain ms (``gray``: the calls
-    and bounds of ``photometric_check`` in gray mode)."""
+    """The SSIM loss kernels' JSON rows (rgb mode) get their registers and
+    spills as ``-Xptxas -v`` reported them, their shared memory (static
+    and dynamic) and resident blocks per SM as the library reports them,
+    and under ``gray`` gray mode's graph ms, bound, plain ms, shared
+    memory and blocks per SM (``gray``: the calls and bounds of
+    ``photometric_check`` in gray mode)."""
     from event3dgs_tpu_torch.ops import kernels
+    from event3dgs_tpu_torch.tools.kernel_probes import (
+        ssim_shared_bytes,
+        ssim_template,
+    )
     from event3dgs_tpu_torch.tools.kernel_timing import (
         bound_ms,
         cuda_ms,
@@ -3167,14 +3277,28 @@ def photometric_rows(what, rows, gray):
     log = kernels.build(["ssim"])["ssim"]
     calls, bounds = gray
     for k in PHOTO:
-        rows[k].update(ptxas_report(log, f"{k}_kernel"))
+        rows[k].update(ptxas_report(log, f"{k}_kernel",
+                                    ssim_template(False)))
+        backward = k == PHOTO[1]
+        rows[k]["smem"] = ssim_shared_bytes(backward, False)
+        rows[k]["blocks_per_sm"] = kernels.occupancy(
+            "ssim", "e3d_photometric_occupancy", int(backward), 0)[1]
         bound, by = bound_ms(*bounds[k])
         rows[k]["gray"] = {"graph_ms": graph_ms(calls[k][0]),
                            "bound_ms": bound, "bound_by": by,
-                           "plain_ms": cuda_ms(calls[k][1], 5, warmup=1)}
+                           "plain_ms": cuda_ms(calls[k][1], 5, warmup=1),
+                           **ptxas_report(log, f"{k}_kernel",
+                                          ssim_template(True)),
+                           "smem": ssim_shared_bytes(backward, True),
+                           "blocks_per_sm": kernels.occupancy(
+                               "ssim", "e3d_photometric_occupancy",
+                               int(backward), 1)[1]}
         print(f"{what}: {k}: {rows[k]['registers']} registers, "
               f"{rows[k]['spill_stores']} bytes spilled, {rows[k]['smem']} "
-              f"bytes of shared memory; gray mode "
+              f"bytes of shared memory, {rows[k]['blocks_per_sm']} blocks "
+              f"an SM (gray {rows[k]['gray']['registers']}, "
+              f"{rows[k]['gray']['smem']}, "
+              f"{rows[k]['gray']['blocks_per_sm']}); gray mode "
               f"{rows[k]['gray']['graph_ms']:.4f} graph ms, bound "
               f"{bound:.4f} ms ({by}), plain "
               f"{rows[k]['gray']['plain_ms']:.4f} ms")
@@ -3307,6 +3431,12 @@ def scale_kernel_rows(state, data, icap, dev):
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
               f"({by}), {ms / bound:.2f}x{plain_txt}")
     out["K3 segment_sums"].update(k3_in_order(what, v.bk, v.rows_k))
+    row = out["K4 depth_offsets"]
+    row["graph_ms_alone"] = graph_ms(v.depth_alone)
+    print(f"{what}: K4 depth_offsets alone (without the argsort) "
+          f"{row['graph_ms_alone']:.4f} graph ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{row['graph_ms_alone'] / row['bound_ms']:.2f}x; {card()}")
     packed_cost(what, out["preprocess_forward"], pre)
     adam = adam_groups(state, data, (1, 1, 2),
                        torch.zeros(3, device=dev), icap, 1)
@@ -3503,11 +3633,14 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build: every source, and the probes' K1 and K4 builds -------------
-    from event3dgs_tpu_torch.tools.kernel_probes import variant_builds
+    from event3dgs_tpu_torch.tools.kernel_probes import (
+        ssim_builds,
+        variant_builds,
+    )
 
     t0 = time.perf_counter()
-    for name, log in kernels.build([*kernels.SIGNATURES,
-                                    *variant_builds()]).items():
+    for name, log in kernels.build([*kernels.SIGNATURES, *variant_builds(),
+                                    *ssim_builds()]).items():
         print(f"--- nvcc {name} (sm_90a) ---\n{log.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 

@@ -52,8 +52,6 @@ __all__ = ["rgb_total_loss", "gray_total_loss", "event_total_loss",
 
 # the SSIM window (`loss_utils.py:359-418`)
 WINDOW, SIGMA = 11, 1.5
-# the kernels' output tile: a block of TILE × TILE threads each
-TILE = 16
 
 
 def _compared(render, gt, gray: bool, background):
@@ -170,6 +168,46 @@ def _photometric_launch(render, gt, lambda_dssim, gray, background) -> tuple:
              int(gray), consts), (operands, sizes))
 
 
+def partials_rows(height: int, width: int, gray: bool = False,
+                  defines=()) -> int:
+    """The rows of the forward kernel's partials scratch at ``height`` ×
+    ``width`` in rgb (or ``gray``) mode: one a block of its grid, as the
+    library (built with ``defines``) tiles the image."""
+    rows = ctypes.c_int()
+    err = kernels.function("ssim", "e3d_photometric_partials_rows", defines)(
+        ctypes.byref(rows), height, width, int(gray))
+    if err != 0:
+        raise RuntimeError(f"e3d_photometric_partials_rows failed: "
+                           f"cudaError_t {err}")
+    return rows.value
+
+
+def launch_photometric_forward(render, gt, lambda_dssim: float = 0.2,
+                               gray: bool = False, background=None,
+                               maps: bool = True, defines=(), rows=None):
+    """Check the forward kernel's arguments and launch the build of
+    ``csrc/ssim.cu`` with the macros ``defines`` (none: the shipping
+    kernel) on CUDA tensors → (loss [], l1 [], the derivative maps or
+    None).  ``rows``: the partials scratch's rows (default: what the
+    library asks for).  The timing-only builds are launched through here by
+    ``tools/kernel_probes.py``."""
+    args, keep = _photometric_launch(render, gt, lambda_dssim, gray,
+                                     background)
+    h, w = args[2], args[3]
+    dev = (render.rgb if isinstance(render, Partials) else render).device
+    rows = partials_rows(h, w, gray, defines) if rows is None else rows
+    partials = torch.empty(max(rows, 1), 2, dtype=torch.float64, device=dev)
+    loss = torch.empty((), device=dev)
+    l1 = torch.empty((), device=dev)
+    out = (torch.empty(3, h, w, 1 if gray else 3, device=dev)
+           if maps and lambda_dssim > 0.0 else None)
+    kernels.launch("ssim", "e3d_photometric_loss_forward", *args,
+                   partials.data_ptr(), rows, loss.data_ptr(), l1.data_ptr(),
+                   None if out is None else out.data_ptr(), defines=defines)
+    del keep
+    return loss, l1, out
+
+
 def photometric_loss_forward_kernel(render, gt, lambda_dssim: float = 0.2,
                                     gray: bool = False, background=None,
                                     maps: bool = True):
@@ -177,34 +215,21 @@ def photometric_loss_forward_kernel(render, gt, lambda_dssim: float = 0.2,
     arguments of :func:`photometric_loss_plain`) → (loss [], l1 [], the
     derivative maps [3, H, W, C] or None), as the plain version gives
     them."""
-    args, keep = _photometric_launch(render, gt, lambda_dssim, gray,
-                                     background)
-    h, w = args[2], args[3]
-    dev = (render.rgb if isinstance(render, Partials) else render).device
-    rows = -(-h // TILE) * -(-w // TILE)
-    partials = torch.empty(rows, 2, dtype=torch.float64, device=dev)
-    loss = torch.empty((), device=dev)
-    l1 = torch.empty((), device=dev)
-    out = (torch.empty(3, h, w, 1 if gray else 3, device=dev)
-           if maps and lambda_dssim > 0.0 else None)
-    kernels.launch("ssim", "e3d_photometric_loss_forward", *args,
-                   partials.data_ptr(), rows, loss.data_ptr(), l1.data_ptr(),
-                   None if out is None else out.data_ptr())
-    del keep
+    out = launch_photometric_forward(render, gt, lambda_dssim, gray,
+                                     background, maps)
     photometric_loss_forward_kernel.launches += 1
-    return loss, l1, out
+    return out
 
 
 photometric_loss_forward_kernel.launches = 0
 
 
-def photometric_loss_backward_kernel(grad, render, gt, maps,
-                                     lambda_dssim: float = 0.2,
-                                     gray: bool = False, background=None):
-    """Launch the backward kernel (``csrc/ssim.cu``) on CUDA tensors (the
-    arguments of :func:`photometric_loss_backward_plain`, ``grad`` 0-d,
-    ``maps`` the forward's) → d image, or a :class:`Partials` of d rgb and
-    d log T, as the plain version gives them."""
+def launch_photometric_backward(grad, render, gt, maps,
+                                lambda_dssim: float = 0.2, gray: bool = False,
+                                background=None, defines=()):
+    """Check the backward kernel's arguments and launch the build of
+    ``csrc/ssim.cu`` with the macros ``defines`` on CUDA tensors → d image,
+    or a :class:`Partials` of d rgb and d log T."""
     args, keep = _photometric_launch(render, gt, lambda_dssim, gray,
                                      background)
     kernels.check(grad, torch.float32, "grad", ())
@@ -220,8 +245,21 @@ def photometric_loss_backward_kernel(grad, render, gt, maps,
         ptrs = (out.data_ptr(), None)
     kernels.launch("ssim", "e3d_photometric_loss_backward", *args,
                    grad.data_ptr(),
-                   maps.data_ptr() if lambda_dssim > 0.0 else None, *ptrs)
+                   maps.data_ptr() if lambda_dssim > 0.0 else None, *ptrs,
+                   defines=defines)
     del keep
+    return out
+
+
+def photometric_loss_backward_kernel(grad, render, gt, maps,
+                                     lambda_dssim: float = 0.2,
+                                     gray: bool = False, background=None):
+    """Launch the backward kernel (``csrc/ssim.cu``) on CUDA tensors (the
+    arguments of :func:`photometric_loss_backward_plain`, ``grad`` 0-d,
+    ``maps`` the forward's) → d image, or a :class:`Partials` of d rgb and
+    d log T, as the plain version gives them."""
+    out = launch_photometric_backward(grad, render, gt, maps, lambda_dssim,
+                                      gray, background)
     photometric_loss_backward_kernel.launches += 1
     return out
 

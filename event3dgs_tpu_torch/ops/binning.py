@@ -287,13 +287,28 @@ def depth_order_kernel(tables: GaussianTables,
     (``csrc/expand.cu``) for the order's cast, the counts' gather, their
     prefix and each segment's first rank, in one launch (that rank is
     written for the live segments only)."""
+    kernels.check(tables.key, torch.float32, "key", (tables.key.shape[0],))
+    out = launch_depth_offsets(tables, torch.argsort(tables.key, stable=True),
+                               instance_cap)
+    depth_order_kernel.launches += 1
+    return out
+
+
+depth_order_kernel.launches = 0
+
+
+def launch_depth_offsets(tables: GaussianTables, order: torch.Tensor,
+                         instance_cap: int) -> DepthOrder:
+    """Check the depth offsets kernel's arguments and launch it on CUDA
+    tensors over ``order`` (the keys' stable argsort, int64), uncounted:
+    :func:`depth_order_kernel` after its ``argsort``, and timing alone
+    (``chip_smoke.py``)."""
     n = tables.key.shape[0]
-    kernels.check(tables.key, torch.float32, "key", (n,))
     kernels.check(tables.rect, torch.int32, "rect", (n, 4))
     if tables.lookback is None:
         raise ValueError("tables: expected the table kernel's look-back state")
     kernels.check(tables.lookback, torch.int64, "lookback", (lookback_words(n),))
-    order = torch.argsort(tables.key, stable=True)
+    kernels.check(order, torch.int64, "order", (n,))
     if order.data_ptr() % 16:  # the kernel reads it with 16-byte loads
         raise ValueError("order: expected a 16-byte aligned tensor")
     n_seg = segments(instance_cap)
@@ -307,11 +322,7 @@ def depth_order_kernel(tables: GaussianTables,
         tables.lookback.data_ptr(), out.order.data_ptr(),
         out.offsets.data_ptr(), out.seg_rank.data_ptr(),
     )
-    depth_order_kernel.launches += 1
     return out
-
-
-depth_order_kernel.launches = 0
 
 
 def depth_order(tables: GaussianTables, instance_cap: int) -> DepthOrder:

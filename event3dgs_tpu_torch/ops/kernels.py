@@ -185,6 +185,13 @@ SIGNATURES = {
         # d image, d log T or null, stream
         "e3d_photometric_loss_backward": [_P, _P, _I, _I, _I, _P, _P, _P, _P,
                                           _P, _P],
+        # rows (out), H, W, gray: the forward's partials rows at H × W
+        "e3d_photometric_partials_rows": [_IP, _I, _I, _I],
+        # backward (0 or 1), gray (0 or 1)
+        "e3d_photometric_occupancy": [_IP, _IP, _I, _I],
+        # bytes (out), backward, gray: a block's static + dynamic shared
+        # memory with lambda > 0
+        "e3d_photometric_shared_bytes": [_IP, _I, _I],
     },
     "probes": {
         # x, capacity (blocks of 1,024 floats), n (a device int), partials

@@ -2,7 +2,7 @@
 of the JAX package's ``experiments/`` Pallas probes.
 
     python3 -m event3dgs_tpu_torch.tools.kernel_probes \\
-        {stages,k1,k4,stops,relaunch,dyngrid,all} [--device cpu] \\
+        {stages,k1,k4,stops,relaunch,dyngrid,ssim,all} [--device cpu] \\
         [--gaussians N --width W --height H]
 
 The scene is ``bench.py``'s (``kernel_timing.bench_scene``): by default
@@ -39,16 +39,23 @@ it.
   whose float32 sums depend on the block order, at those counts and out of
   range, bit for bit against the plain version.
 
+- ``ssim``: each timing-only build of the SSIM loss kernels
+  (``csrc/ssim.cu``, ``SSIM_VARIANTS``), forward and backward, in rgb and
+  gray mode on seeded 1080p partials and a GT frame
+  (:func:`ssim_operands`): graph ms, CUDA-event ms, registers, spills,
+  shared bytes and resident blocks per SM, against ``base``.
+
 Each mode prints one JSON line; the last line is the card's name and power
 limit (``nvidia-smi``).  ``--device cpu`` runs ``stages``, ``stops`` and
 ``dyngrid`` on the plain versions at a small size, with host times only;
-``k1``, ``k4`` and ``relaunch`` need the card.  A failed build or launch
-raises: nothing reruns on the plain versions.
+``k1``, ``k4``, ``relaunch`` and ``ssim`` need the card.  A failed build
+or launch raises: nothing reruns on the plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import time
@@ -61,8 +68,9 @@ from event3dgs_tpu_torch.ops import binning, expand, kernels
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 from event3dgs_tpu_torch.tools import kernel_timing as kt
 
-MODES = ("stages", "k1", "k4", "stops", "relaunch", "dyngrid")
-CARD_MODES = ("k1", "k4", "relaunch")  # timing-only builds or device times
+MODES = ("stages", "k1", "k4", "stops", "relaunch", "dyngrid", "ssim")
+# timing-only builds or device times
+CARD_MODES = ("k1", "k4", "relaunch", "ssim")
 CALLS = 20  # profiled calls per kernel
 STAGE_CALLS = 5  # profiled, event-timed and host-timed calls per stage
 TRAIN_IDX = (1, 1, 2)  # bench.py's views: main 1, event pair 1 → 2
@@ -137,6 +145,117 @@ K4_VARIANTS = {v.name: v for v in (
     Variant("K4", "nostore", ("E3D_K4_NOSTORE",),
             "no 16-byte output stores"),
 )}
+
+
+class SsimVariant:
+    """A build of the SSIM loss kernels (``csrc/ssim.cu``, forward and
+    backward) with some of its ablation macros, launched through the
+    shipping wrappers' checks (``losses/modes.launch_photometric_*``).
+    Every build but ``base`` (the shipping library) is timing only.
+    ``launches`` counts the calls of this build's forward and backward
+    kernel, a call captured into a CUDA graph included (its replays are
+    not)."""
+
+    source = "ssim"
+
+    def __init__(self, name: str, defines: tuple, what: str):
+        self.name, self.defines, self.what = name, defines, what
+        self.launches = dict.fromkeys(("forward", "backward"), 0)
+
+    @property
+    def label(self) -> str:
+        return f"SSIM {self.name}"
+
+    @property
+    def timing_only(self) -> bool:
+        return self.name != "base"
+
+    def forward(self, *args, **kw):
+        from event3dgs_tpu_torch.losses import modes
+
+        out = modes.launch_photometric_forward(*args, defines=self.defines,
+                                               **kw)
+        self.launches["forward"] += 1
+        return out
+
+    def backward(self, *args, **kw):
+        from event3dgs_tpu_torch.losses import modes
+
+        out = modes.launch_photometric_backward(*args, defines=self.defines,
+                                                **kw)
+        self.launches["backward"] += 1
+        return out
+
+
+SSIM_VARIANTS = {v.name: v for v in (
+    SsimVariant("base", (), "the shipping SSIM loss kernels"),
+    SsimVariant("nostage", ("E3D_SSIM_NOSTAGE",),
+                "zeros staged: no halo loaded or composed (forward: x and "
+                "y; backward: the maps)"),
+    SsimVariant("novert", ("E3D_SSIM_NOVERT",),
+                "the vertical pass's centre tap copied, no 11-tap sums"),
+    SsimVariant("nohoriz", ("E3D_SSIM_NOHORIZ",),
+                "the horizontal pass's centre tap copied, no 11-tap sums"),
+    SsimVariant("nostore", ("E3D_SSIM_NOSTORE",),
+                "the maps (forward) and the gradients (backward) computed, "
+                "never stored"),
+)}
+SSIM_SEED = 20  # of the SSIM probe's operands
+
+
+def ssim_builds():
+    """(source, macros) of every SSIM build of the probes, for
+    :func:`kernels.build`."""
+    return sorted({(v.source, v.defines) for v in SSIM_VARIANTS.values()})
+
+
+def ssim_template(gray: bool) -> str:
+    """The mangled template arguments of the SSIM kernels' instance for rgb
+    (3 channels) or gray mode (1), for ``kernel_timing.ptxas_report``."""
+    return f"ILi{1 if gray else 3}E"
+
+
+def ssim_shared_bytes(backward: bool, gray: bool, defines=()) -> int:
+    """The shared memory bytes (static and dynamic) a block of the SSIM
+    forward (or backward) kernel holds in rgb (or gray) mode with λ > 0,
+    as the build with ``defines`` reports it."""
+    shared = ctypes.c_int()
+    err = kernels.function("ssim", "e3d_photometric_shared_bytes", defines)(
+        ctypes.byref(shared), int(backward), int(gray))
+    if err != 0:
+        raise RuntimeError(f"e3d_photometric_shared_bytes failed: "
+                           f"cudaError_t {err}")
+    return shared.value
+
+
+def ssim_operands(height: int, width: int, device, seed: int = SSIM_SEED):
+    """Seeded operands of the SSIM probe, in the step's forms: the render
+    as ``Partials`` (rgb in [0, 1), log T in [-8, 0]) over a
+    background, the GT as a ``Frame`` of a stack of 2 at a device index."""
+    from event3dgs_tpu_torch.losses.event import Frame, Partials
+
+    rng = np.random.default_rng(seed)
+    f = lambda lo, hi, *shape: torch.tensor(
+        rng.uniform(lo, hi, shape).astype(np.float32), device=device)
+    render = Partials(f(0.0, 1.0, height, width, 3),
+                      f(-8.0, 0.0, height, width))
+    gt = Frame(f(0.0, 1.0, 2, height, width, 3),
+               torch.tensor([1], device=device))
+    return render, gt, f(0.0, 1.0, 3)
+
+
+FLOAT32_MAX = float(np.finfo(np.float32).max)
+
+
+def max_abs_err(got, want) -> float:
+    """The largest |got - want| over pairs of tensors, a NaN or an infinity
+    counted as float32's largest value (JSON has neither)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        d = (a.double() - b.double()).abs()
+        worst = max(worst, float(torch.nan_to_num(
+            d, nan=FLOAT32_MAX, posinf=FLOAT32_MAX).max()))
+    return min(worst, FLOAT32_MAX)
 
 
 def variants():
@@ -702,6 +821,68 @@ class Probes:
     def dyngrid(self) -> dict:
         return dyngrid(self.device)
 
+    def ssim(self) -> dict:
+        """Each SSIM build, forward and backward, in rgb and gray mode on
+        :func:`ssim_operands` at the probes' size (λ 0.2, the maps wanted):
+        graph ms, CUDA-event ms, registers, spills, shared bytes (static
+        and dynamic) and resident blocks per SM, against ``base`` in graph
+        ms; each build's outputs against the shipping kernels'."""
+        from event3dgs_tpu_torch.losses import modes
+
+        render, gt, bg = ssim_operands(self.height, self.width, self.device)
+        grad = torch.ones((), device=self.device)
+        rows, outputs = [], {}
+        for gray in (False, True):
+            mode = "gray" if gray else "rgb"
+            shipping = modes.photometric_loss_forward_kernel(
+                render, gt, 0.2, gray, bg)
+            shipping_d = modes.photometric_loss_backward_kernel(
+                grad, render, gt, shipping[2], 0.2, gray, bg)
+            base = {}
+            for v in SSIM_VARIANTS.values():
+                log = kernels.build([(v.source, v.defines)])[
+                    kernels.build_key(v.source, v.defines)]
+                fwd = lambda v=v: v.forward(render, gt, 0.2, gray, bg)
+                loss, l1, maps = fwd()
+                bwd = lambda v=v, maps=maps: v.backward(grad, render, gt, maps,
+                                                       0.2, gray, bg)
+                d = bwd()
+                if v.name == "base":
+                    outputs[mode] = {"shipping": (shipping, shipping_d),
+                                     "base": ((loss, l1, maps), d)}
+                errs = {
+                    "forward": max_abs_err((loss, l1, maps), shipping),
+                    "backward": max_abs_err(d, shipping_d)}
+                for which, call, fn in (
+                        ("forward", fwd, "photometric_loss_forward_kernel"),
+                        ("backward", bwd, "photometric_loss_backward_kernel")):
+                    flags = (int(which == "backward"), int(gray))
+                    occ = kernels.occupancy(
+                        "ssim", "e3d_photometric_occupancy", *flags,
+                        defines=v.defines)
+                    row = {"variant": v.name, "mode": mode, "kernel": which,
+                           "defines": list(v.defines), "what": v.what,
+                           "timing_only": v.timing_only,
+                           "library": kernels.library_path(
+                               v.source, v.defines).name,
+                           "event_ms": kt.cuda_ms(call, CALLS),
+                           "graph_ms": kt.graph_ms(call, CALLS),
+                           **kt.ptxas_report(log, fn, ssim_template(gray)),
+                           "shared_bytes": ssim_shared_bytes(*flags,
+                                                             v.defines),
+                           "blocks_per_sm": occ[1],
+                           "max_abs_err_vs_shipping": errs[which]}
+                    if which in base:
+                        row["vs_base_ms"] = (row["graph_ms"]
+                                             - base[which]["graph_ms"])
+                        row["vs_base_share"] = (row["graph_ms"]
+                                                / base[which]["graph_ms"])
+                    else:
+                        base[which] = row
+                    rows.append(row)
+        self.outputs["ssim"] = outputs
+        return {"mode": "ssim", "variants": rows}
+
     def run(self, mode: str) -> dict:
         if mode in CARD_MODES and not self.on_card:
             raise SystemExit(f"kernel_probes {mode}: needs a CUDA card (its "
@@ -747,6 +928,8 @@ def run_probes(modes, device, n=kt.N_GAUSSIANS, width=kt.WIDTH,
     probes = Probes(torch.device(device), n, width, height)
     if probes.on_card and any(m in ("k1", "k4") for m in modes):
         kernels.build(variant_builds())
+    if probes.on_card and "ssim" in modes:
+        kernels.build(ssim_builds())
     for mode in modes:
         print(json.dumps(probes.run(mode)), flush=True)
     return probes

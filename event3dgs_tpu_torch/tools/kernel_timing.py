@@ -355,13 +355,16 @@ def path_bounds(n: int, cap: int, offsets, live: int, pairs,
     }
 
 
-def ptxas_report(log: str, kernel: str) -> dict:
+def ptxas_report(log: str, kernel: str, template: str = "") -> dict:
     """What ``-Xptxas -v`` reported for ``kernel`` in a build's log:
-    registers, spill stores and loads (bytes), shared memory (bytes)."""
+    registers, spill stores and loads (bytes), shared memory (bytes).  A
+    kernel template's instance is named by its mangled arguments
+    (``template="ILi3E"``: ``kernel<3>``)."""
     lines = log.splitlines()
+    tail = re.escape(template) if template else "E"
     for k, line in enumerate(lines):
         if "Compiling entry function" in line and re.search(
-                rf"\d{kernel}E", line):
+                rf"\d{kernel}{tail}", line):
             text = " ".join(lines[k + 1:k + 4])
             num = lambda pat: int(m.group(1)) if (
                 m := re.search(pat, text)) else 0

@@ -2685,10 +2685,12 @@ def test_kernel_build_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     assert sorted(n for n in again if again[n] != last[n]) == ["loss", "ssim"]
 
 
-# the SSIM kernels (csrc/ssim.cu): sizes (1080p and one of ragged 16×16
-# tiles); (mode, GT channels); the operand forms of LOSS_FORMS, the render
-# as partials or its image, the GT as a frame or its image
-PHOTO_SIZES = ((1080, 1920), (37, 53))
+# the SSIM kernels (csrc/ssim.cu): sizes (1080p; 37×53, ragged; for the
+# kernels' 54×16 tiles: 7×5, smaller than the window's halo, one tile
+# exactly, and one tile and a pixel in each axis); (mode, GT channels); the
+# operand forms of LOSS_FORMS, the render as partials or its image, the GT
+# as a frame or its image
+PHOTO_SIZES = ((1080, 1920), (37, 53), (5, 7), (16, 54), (17, 55))
 PHOTO_CASES = (("rgb", 3), ("gray", 3), ("gray", 1))
 PHOTO_CASE_IDS = ("rgb", "gray-gt3", "gray-gt1")
 
@@ -2853,6 +2855,34 @@ def test_photometric_kernels_in_a_cuda_graph(case, form):
     assert (modes.photometric_loss_forward_kernel.launches,
             modes.photometric_loss_backward_kernel.launches) == (
         launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gray", [False, True], ids=["rgb", "gray"])
+@pytest.mark.parametrize("size", PHOTO_SIZES, ids=lambda s: f"{s[1]}x{s[0]}")
+def test_photometric_forward_refuses_a_partials_scratch_one_row_short(size,
+                                                                      gray):
+    """The forward kernel's launch refuses a partials scratch one row
+    shorter than the library asks for (``modes.partials_rows``: a row a
+    block of its grid, whose tiles differ by mode) and takes one of exactly
+    that size, equal to the wrapper's call; nothing is counted as a launch
+    of the wrapper."""
+    from event3dgs_tpu_torch.losses import modes
+
+    need_card()
+    render, gt, bg = photometric_operands(*size, 8, 3, "cuda")
+    rows = modes.partials_rows(*size, gray)
+    assert rows >= 1
+    launches = modes.photometric_loss_forward_kernel.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        modes.launch_photometric_forward(render, gt, 0.2, gray, bg,
+                                         rows=rows - 1)
+    got = modes.launch_photometric_forward(render, gt, 0.2, gray, bg,
+                                           rows=rows)
+    want = modes.photometric_loss_forward_kernel(render, gt, 0.2, gray, bg)
+    for a, b in zip(got, want):
+        assert_bits_equal(a, b, "a scratch of exactly the rows")
+    assert modes.photometric_loss_forward_kernel.launches == launches + 1
 
 
 # a process that launches an SSIM kernel with a GT frame index past its

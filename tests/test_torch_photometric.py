@@ -12,8 +12,9 @@ that composed and picked first; the wrappers' dispatch and checks; the
 kernels' bound.  The kernels themselves run on the card only
 (``tests/test_torch_kernels.py``).
 
-The inputs come from a numpy seed at 24×40 and 33×47 (tiles of 16×16 with
-ragged edges): rgb in [0.02, 0.9], log T in [-4, 0] with some exact zeros
+The inputs come from a numpy seed at 24×40 and 33×47 (ragged edges of the
+kernels' tiles) and 5×7 (smaller than the window's 5-pixel halo on each
+side): rgb in [0.02, 0.9], log T in [-4, 0] with some exact zeros
 (T = 1), a seeded background, GT images in [0.05, 1] of 3 channels (gray
 mode: also 1).
 """
@@ -34,8 +35,8 @@ from test_torch_kernels import assert_bits_equal, step_state
 
 torch.set_num_threads(1)
 
-SIZES = [(24, 40), (33, 47)]
-SIZE_IDS = ["24x40", "33x47"]
+SIZES = [(24, 40), (33, 47), (5, 7)]
+SIZE_IDS = ["24x40", "33x47", "5x7"]
 # (mode, GT channels)
 CASES = [("rgb", 3), ("gray", 3), ("gray", 1)]
 CASE_IDS = ["rgb", "gray-gt3", "gray-gt1"]

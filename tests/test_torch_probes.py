@@ -1,5 +1,5 @@
 """The port's kernel probes (``tools/kernel_probes.py``) on the CPU: the
-catalogue of K1 and K4 builds and how `ops/kernels.py` names and
+catalogue of K1, K4 and SSIM builds and how `ops/kernels.py` names and
 compiles them, K1's stop statistics against a loop over pixels, the event
 step's cumulative stages against the port's own functions, the plain
 dynamic-grid sum, the bound arithmetic of ``tools/kernel_timing.py``, the
@@ -103,6 +103,41 @@ def test_build_starts_one_nvcc_per_build_with_its_macros(tmp_path, monkeypatch):
     started.clear()
     kernels.build(kp.variant_builds())  # cached: nothing rebuilt
     assert started == []
+
+
+SSIM_NAMES = ["base", "nostage", "novert", "nohoriz", "nostore"]
+
+
+def test_ssim_variant_catalogue():
+    """The SSIM builds: base is the shipping library, every other build's
+    macros are ones ``csrc/ssim.cu`` tests, each build its own library; the
+    probe's launches count per kernel and refuse CPU tensors uncounted."""
+    assert list(kp.SSIM_VARIANTS) == SSIM_NAMES
+    base = kp.SSIM_VARIANTS["base"]
+    assert base.defines == () and not base.timing_only
+    assert kernels.library_path(base.source) == _shipping_path("ssim")
+    text = (kernels.CSRC / "ssim.cu").read_text()
+    for v in kp.SSIM_VARIANTS.values():
+        assert v.source == "ssim" and v.label == f"SSIM {v.name}"
+        assert v.timing_only == (v.name != "base")
+        for d in v.defines:
+            assert re.search(rf"#if(n?def| defined\()\s*{d}\b", text), (v.name, d)
+    assert kp.ssim_builds() == sorted(
+        ("ssim", v.defines) for v in kp.SSIM_VARIANTS.values())
+    assert len({kernels.library_path(s, d) for s, d in kp.ssim_builds()}) == \
+        len(SSIM_NAMES)
+    assert "ssim" in kp.MODES and "ssim" in kp.CARD_MODES
+    render, gt, bg = kp.ssim_operands(6, 9, "cpu")
+    v = kp.SSIM_VARIANTS["nostage"]
+    before = dict(v.launches)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        v.forward(render, gt, 0.2, False, bg)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        v.backward(torch.ones(()), render, gt, None, 0.2, False, bg)
+    assert v.launches == before == {"forward": 0, "backward": 0}
+    assert kp.max_abs_err([torch.tensor([1.0, float("nan")])],
+                          [torch.tensor([0.5, 0.0])]) == kp.FLOAT32_MAX
+    assert kp.max_abs_err([torch.tensor([1.0])], [torch.tensor([0.25])]) == 0.75
 
 
 def test_variant_functions_are_declared():
@@ -681,6 +716,31 @@ def test_ptxas_report():
         "registers": 54, "spill_stores": 0, "spill_loads": 0, "smem": 112}
     with pytest.raises(ValueError):
         kt.ptxas_report(PTXAS_LOG, "depth_offsets_kernel")
+
+
+# two instances of a kernel template, as the SSIM kernels' build reports
+# them (rgb's <3>, gray's <1>)
+PTXAS_TEMPLATE_LOG = """\
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__1c371d4d_7_ssim_cu_8c0bf7c431photometric_loss_forward_kernelILi1EEEvNS_8OperandsENS_6ConstsEPdPfS4_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__1c371d4d_7_ssim_cu_8c0bf7c431photometric_loss_forward_kernelILi1EEEvNS_8OperandsENS_6ConstsEPdPfS4_S4_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 80 bytes smem
+ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__1c371d4d_7_ssim_cu_8c0bf7c431photometric_loss_forward_kernelILi3EEEvNS_8OperandsENS_6ConstsEPdPfS4_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN39_GLOBAL__N__1c371d4d_7_ssim_cu_8c0bf7c431photometric_loss_forward_kernelILi3EEEvNS_8OperandsENS_6ConstsEPdPfS4_S4_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers, 80 bytes smem
+"""
+
+
+@pytest.mark.parametrize("gray,registers", [(False, 120), (True, 80)])
+def test_ptxas_report_of_a_template_instance(gray, registers):
+    got = kt.ptxas_report(PTXAS_TEMPLATE_LOG,
+                          "photometric_loss_forward_kernel",
+                          kp.ssim_template(gray))
+    assert got == {"registers": registers, "spill_stores": 0,
+                   "spill_loads": 0, "smem": 80}
+    with pytest.raises(ValueError):  # not the name of a plain function
+        kt.ptxas_report(PTXAS_TEMPLATE_LOG, "photometric_loss_forward_kernel")
 
 
 def test_clock_imbalance_of_hand_made_blocks(monkeypatch):
