@@ -15,21 +15,24 @@ Phases (any failed check exits non-zero; nothing is caught):
    four 1920×1080 views at ``bench.py``'s four camera poses.
 3. Render the train views through the entry point
    (``event3dgs_tpu_torch.cli.render.main``) and check that each kernel of
-   the path (the forward preprocess, the binning's table and depth offsets
-   kernels, K1, K4, K5, K6) launched once per view, that
+   the path (the forward preprocess, the binning's table kernel, radix
+   sort and depth offsets kernel, K1, K4, K5, K6) launched once per view, that
    ``pack_features`` was called nowhere (the preprocess forward writes the
    packed rows K1 reads) and that the PNGs exist.
 4. Hold each render kernel against its plain PyTorch version at the shapes
    of view 0 (the forward preprocess bit for bit: mean2d, depth, conic,
    radius, valid, colours and the packed rows, the rows also against
    ``pack_features`` of the kernel's own outputs; the table kernel, the
-   depth offsets kernel, K4 with its count rows, K5, K6, the fused counting sort with and without K4's rows and
+   radix sort and the depth offsets kernel (also alone, and against
+   ``radix_order_plain`` too), K4 with its count rows, K5, K6, the fused
+   counting sort with and without K4's rows and
    the whole ``Binning`` exactly, K1 within 1e-5), one full view of the
    kernel path against the all-plain path, and the kernel path against the
    oracle rasterizer on a small scene.  The fused counting sort (K5 and K6
    with the tile lists) must run as its three CUDA functions and nothing
    else, and the binning from the projection's outputs to the ``Binning``
-   in at most 16 device kernels (memsets and copies counted beside them).
+   in at most 10 device kernels (memsets and copies counted beside them),
+   none of them a library sort.
 5. Time each render kernel, its plain version and the PyTorch yardstick
    call with CUDA events (per call, the host's enqueue included) and the
    profiler's device time in the kernel's own CUDA functions (``device_ms``:
@@ -42,7 +45,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    (threshold 0, so both passes clone and split every Gaussian and the
    instance cap is re-measured), then ``cli.render`` on the saved PLY (the
    train and test sets).  Every kernel of a render (K1-K6 and the
-   binning's table and depth offsets kernels) must launch 3 times per
+   binning's table kernel, radix sort and depth offsets kernel) must
+   launch 3 times per
    step, the preprocess forward and backward once (one launch for the
    step's three views), the Adam kernel once (the six leaves and the
    contrast in one launch) and the loss kernels once each (forward and
@@ -64,7 +68,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    bit-identical run twice), with both kernels' registers and resident
    blocks per SM, K1's stop index, K2's rows (1e-5 of the max) and K3
    (bit-equal) against their plain versions on the main view, and K2 run
-   twice giving bit-identical rows; the table kernel, the depth offsets kernel, K4, K5,
+   twice giving bit-identical rows; the table kernel, the radix sort, the
+   depth offsets kernel, K4, K5,
    K6, the fused counting sort and the whole ``Binning`` there exactly (and
    the counting sort and the binning's device kernels timed); one step's
    gradients, kernel path against the
@@ -220,17 +225,18 @@ Phases (any failed check exits non-zero; nothing is caught):
    device ms per replay, capture ms, peak and reserved memory.  At that
    state's main view (camera 1) each kernel of the path against its plain
    version at phases 4 and 7's tolerances (the preprocess forward and
-   backward over the step's three views, the table and depth offsets
-   kernels, K4, K5, K6, the
+   backward over the step's three views, the table kernel, the radix sort,
+   the depth offsets kernel, K4, K5, K6, the
    counting sort and the ``Binning`` exactly, K1 within 1e-5 with its
    stop index equal, K2 within 1e-5 of the max, K3 bit-equal, the Adam
    kernel bit-equal, also in a CUDA graph, the event and SSIM loss
    kernels as in phase 7, in a CUDA graph) and its graph ms beside its
-   bound (the SSIM kernels' in rgb and gray mode; the depth offsets
-   kernel also alone, after one ``argsort``, held to its call after the
-   ``argsort``), K3 in its orders as in phase 8.  The depth offsets kernel
-   over
-   8,192 + 1 look-back blocks (16.8M ranks, twice, its state left cleared) and the
+   bound (the SSIM kernels' in rgb and gray mode; the whole depth order
+   against its bound, the argsort's bound and ``torch.argsort``, with its
+   scratch
+   bytes), K3 in its orders as in phase 8.  The depth order (the radix
+   sort and the offsets kernel) over 16.8M ranks (8,192 + 1 look-back
+   blocks of the offsets kernel; twice, its state left cleared) and the
    counting sort, K5 and K6 over 2^25 + 5 slots, on synthetic inputs,
    bit-equal to their plain versions.  ``train --densify --fused_steps
    10`` at 1,048,576 slots (12 1080p views of a 100k-point world), cut
@@ -540,7 +546,8 @@ def profile_view(fn, what: str = "one view", top: int = 12):
 
 # each kernel's own CUDA functions (csrc/), whose device time is its
 # device_ms; K5 and K6 share the count and scan of csrc/sort_tiles.cu; the
-# table and depth offsets kernels build K4's inputs (csrc/expand.cu)
+# table kernel (csrc/expand.cu), the radix sort and the depth offsets
+# kernel (csrc/depth_sort.cu) build K4's inputs
 KERNEL_FUNCTIONS = {
     "preprocess_forward": ("preprocess_forward_kernel",),
     "preprocess_backward": ("preprocess_backward_kernel",),
@@ -548,6 +555,7 @@ KERNEL_FUNCTIONS = {
     "K2 composite_backward": ("composite_backward_kernel",),
     "K3 segment_sums": ("segment_sums_kernel",),
     "K4 gaussian_tables": ("gaussian_table_kernel",),
+    "K4 depth_sort": ("radix_histogram_kernel", "radix_pass_kernel"),
     "K4 depth_offsets": ("depth_offsets_kernel",),
     "K4 expand_instances": ("expand_kernel",),
     "K5 tile_histogram": ("segment_count_kernel", "scan_kernel"),
@@ -559,15 +567,25 @@ KERNEL_FUNCTIONS = {
     "photometric_loss_backward": ("photometric_loss_backward_kernel",),
 }
 SORT_FUNCTIONS = KERNEL_FUNCTIONS["K6 stable_tile_rank"]
+# launches per call of a function of KERNEL_FUNCTIONS where not 1: the
+# radix sort's pass kernel runs once per digit (a pass that is a no-op
+# returns at once)
+LAUNCHES_PER_CALL = {"radix_pass_kernel": 4}
+# the device kernels of one binning from the projection's outputs: the
+# table kernel, the radix sort (5), the depth offsets kernel, K4 and the
+# counting sort's scan and rank kernels (K4 counts the tiles for it)
+BINNING_KERNELS = 10
 
 
 def expansion_check(what, args, kw, cap):
-    """The table kernel, the depth offsets kernel and K4 (tile, gauss and
-    the live segments' count rows) bit-equal to their plain versions on
-    the projection's outputs ``args``, ``kw``; the counting sort from K4's
-    rows equal to its plain version; the binning from the projection's
-    outputs to the ``Binning`` in at most 16 device kernels.  Returns (the
-    tables, the depth order, K4's output, the errors)."""
+    """The table kernel, the depth order (the radix sort and the depth
+    offsets kernel) and K4 (tile, gauss and the live segments' count rows)
+    bit-equal to their plain versions on the projection's outputs
+    ``args``, ``kw`` (the depth order also to ``radix_order_plain``); the
+    counting sort from K4's rows equal to its plain version; the binning
+    from the projection's outputs to the ``Binning`` in at most
+    BINNING_KERNELS device kernels, none of them a library sort.  Returns
+    (the tables, the depth order, K4's output, the errors)."""
     import torch
 
     from event3dgs_tpu_torch.ops import binning, expand, sort_tiles
@@ -583,20 +601,25 @@ def expansion_check(what, args, kw, cap):
     bits = lambda t: t.view(torch.int32)
     live = tp.rect[:, 3] > 0
     check(torch.equal(tk.rect, tp.rect) and torch.equal(bits(tk.key), bits(tp.key))
-          and torch.equal(bits(tk.cull[live]), bits(tp.cull[live])),
+          and torch.equal(bits(tk.cull[live]), bits(tp.cull[live]))
+          and torch.equal(tk.counts, tp.rect[:, 3]),
           f"{what}: the table kernel differs from its plain version")
     errs = {"K4 gaussian_tables": max(
         (tk.rect - tp.rect).abs().max().item(),
         (tk.cull[live] - tp.cull[live]).abs().max().item())}
     rk = binning.depth_order_kernel(tk, cap)
     rp = binning.depth_order_plain(tk, cap)
+    rr = binning.radix_order_plain(tk, cap)
     segments = -(-min(int(rk.offsets[-1]), cap) // sort_tiles.SEGMENT)
-    errs["K4 depth_offsets"] = max(
-        (rk.offsets - rp.offsets).abs().max().item(),
-        (rk.order - rp.order).abs().max().item(),
-        (rk.seg_rank[:segments] - rp.seg_rank[:segments]).abs().max().item())
-    check(errs["K4 depth_offsets"] == 0, f"{what}: the depth offsets kernel "
-          f"differs from its plain version by {errs['K4 depth_offsets']}")
+    errs["K4 depth_sort"] = max((rk.order - p.order).abs().max().item()
+                                for p in (rp, rr))
+    errs["K4 depth_offsets"] = max(max(
+        (rk.offsets - p.offsets).abs().max().item(),
+        (rk.seg_rank[:segments] - p.seg_rank[:segments]).abs().max().item())
+        for p in (rp, rr))
+    for k in ("K4 depth_sort", "K4 depth_offsets"):
+        check(errs[k] == 0, f"{what}: {k} differs from its plain versions "
+              f"by {errs[k]}")
     k4 = (tk.rect, tk.cull, *rk, cap, tiles_x, nt, True)
     ek, ep = expand.expand_instances_kernel(*k4), expand.expand_instances_plain(*k4)
     errs["K4 expand_instances"] = max(
@@ -616,11 +639,14 @@ def expansion_check(what, args, kw, cap):
     nodes = graph_kernels(call)
     n_other = sum(nodes.pop(k, 0) for k in ("memset", "memcpy", "other"))
     n_kernels = sum(nodes.values())
-    check(n_kernels <= 16, f"{what}: {n_kernels} device kernels from the "
-          f"projection's outputs to the Binning ({nodes})")
+    check(n_kernels <= BINNING_KERNELS, f"{what}: {n_kernels} device kernels "
+          f"from the projection's outputs to the Binning ({nodes})")
+    check(not any("sort" in k.lower() and "radix_" not in k for k in nodes),
+          f"{what}: a library sort in the binning ({nodes})")
     prof = device_profile(call)
     device_us = sum(v[0] for v in prof.values()) * 1e3
-    print(f"{what}: table kernel, depth offsets kernel and K4 (tile, gauss and "
+    print(f"{what}: table kernel, radix sort, depth offsets kernel and K4 "
+          f"(tile, gauss and "
           f"{segments} count rows) bit-equal to their plain versions; the "
           f"counting sort from K4's rows equal to its plain version; the "
           f"binning from the projection's outputs: {n_kernels} device "
@@ -864,8 +890,7 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
     ``calls`` {kernel: (its call, its plain version's)}, ``bounds``
     {kernel: (bytes, operations)} (``kernel_timing.path_bounds``), and the
     inputs the phases time: ``bk`` (the Binning), ``tk``, ``n_live``,
-    ``nt``, ``live``, ``pairs``, ``k2_args``, ``rows_k`` and
-    ``depth_alone`` (the depth offsets kernel without its argsort)."""
+    ``nt``, ``live``, ``pairs``, ``k2_args`` and ``rows_k``."""
     import types
 
     import torch
@@ -881,20 +906,18 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
                 HEIGHT)
     bin_kw = dict(opacities=opac, conic=proj.conic)
     tables, ranks, inst, errs = expansion_check(what, bin_args, bin_kw, cap)
-    # the depth offsets kernel alone, after one argsort of the keys (the
-    # plain version on the CPU); its segments' first ranks are written for
-    # the live segments only
-    order = torch.argsort(tables.key, stable=True)
-    depth_alone = ((lambda: binning.launch_depth_offsets(tables, order, cap))
-                   if order.is_cuda else
-                   (lambda: binning.depth_order_plain(tables, cap)))
-    alone = depth_alone()
+    # the sort and the offsets kernel alone, held to the call (the
+    # segments' first ranks are written for the live segments only)
+    order, depth_counts = binning.depth_sort_kernel(tables)
+    offsets, seg_rank = binning.depth_offsets_kernel(tables, depth_counts,
+                                                     cap)
     segs = -(-min(int(ranks.offsets[-1]), cap) // sort_tiles.SEGMENT)
-    check(torch.equal(alone.order, ranks.order)
-          and torch.equal(alone.offsets, ranks.offsets)
-          and torch.equal(alone.seg_rank[:segs], ranks.seg_rank[:segs]),
-          f"{what}: the depth offsets kernel alone differs from its call "
-          "after the argsort")
+    check(torch.equal(order, ranks.order)
+          and torch.equal(depth_counts, tables.rect[:, 3][order.long()])
+          and torch.equal(offsets, ranks.offsets)
+          and torch.equal(seg_rank[:segs], ranks.seg_rank[:segs]),
+          f"{what}: the radix sort or the depth offsets kernel alone differs "
+          "from the depth order's call")
     tk, gk, n_live = inst.tile, inst.gauss, ranks.offsets[-1:]
     errs.update(counting_sort_check(what, tk, gk, n_live, nt, n))
     counts = sort_tiles.tile_histogram_plain(tk, nt, n_live)
@@ -922,9 +945,11 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
         "K4 gaussian_tables": (
             lambda: binning.gaussian_tables_kernel(*bin_args, **bin_kw),
             lambda: binning.gaussian_tables_plain(*bin_args, **bin_kw)),
-        # the calls include the argsort before the kernel
-        "K4 depth_offsets": (lambda: binning.depth_order_kernel(tables, cap),
-                             lambda: binning.depth_order_plain(tables, cap)),
+        "K4 depth_sort": (lambda: binning.depth_sort_kernel(tables),
+                          lambda: binning.radix_order_plain(tables, cap)),
+        "K4 depth_offsets": (
+            lambda: binning.depth_offsets_kernel(tables, depth_counts, cap),
+            lambda: binning.offsets_plain(depth_counts, cap)),
         "K4 expand_instances": (
             lambda: expand.expand_instances_kernel(*k4_args),
             lambda: expand.expand_instances_plain(*k4_args)),
@@ -981,8 +1006,51 @@ def view_kernels(what, proj, colors, opac, cap, dev, backward=False):
         bounds=path_bounds(n, cap, ranks.offsets, live, pairs, nt, WIDTH,
                            HEIGHT),
         bk=bk, tk=tk, n_live=n_live, nt=nt, live=live, pairs=pairs,
-        k2_args=k2_args, rows_k=rows_k,
-        depth_alone=depth_alone)
+        k2_args=k2_args, rows_k=rows_k, tables=tables,
+        depth_counts=depth_counts)
+
+
+def depth_libraries(v):
+    """The PyTorch yardsticks of the depth order's kernels on the inputs
+    of ``view_kernels``' namespace ``v``: the stable ``torch.argsort`` of
+    the keys (the call the port made before its own sort) and
+    ``torch.cumsum`` of the counts in depth order."""
+    import torch
+
+    return {
+        "K4 depth_sort": lambda: torch.argsort(v.tables.key, stable=True),
+        "K4 depth_offsets": lambda: torch.cumsum(v.depth_counts, 0),
+    }
+
+
+def depth_order_timing(what, v, cap):
+    """The whole depth order's graph ms at a view (``view_kernels``'
+    namespace ``v``) against its bound, the yardstick of an order from an
+    ``argsort`` (``path_bounds``' "K4 depth_order, argsort's") and the
+    stable ``torch.argsort`` of the same keys; its scratch bytes per
+    Gaussian beside ``argsort``'s.  Returns the columns."""
+    from event3dgs_tpu_torch.ops import binning
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+    from event3dgs_tpu_torch.tools.kernel_timing import bound_ms, graph_ms
+
+    n = v.tables.key.shape[0]
+    call = lambda: binning.depth_order_kernel(v.tables, cap)
+    argsort = depth_libraries(v)["K4 depth_sort"]
+    row = {"graph_ms": graph_ms(call), "argsort_graph_ms": graph_ms(argsort),
+           "bound_ms": bound_ms(*v.bounds["K4 depth_order"])[0],
+           "bound_argsort_ms": bound_ms(
+               *v.bounds["K4 depth_order, argsort's"])[0],
+           "scratch_bytes_per_gaussian": kp.peak_bytes(call) / n,
+           "argsort_bytes_per_gaussian": kp.peak_bytes(argsort) / n}
+    print(f"{what}: the depth order (radix sort + offsets) "
+          f"{row['graph_ms']:.4f} graph ms, bound {row['bound_ms']:.4f} ms "
+          f"(bytes), {row['graph_ms'] / row['bound_ms']:.2f}x (the argsort's "
+          f"bound {row['bound_argsort_ms']:.4f}: "
+          f"{row['graph_ms'] / row['bound_argsort_ms']:.2f}x); torch.argsort of "
+          f"the keys alone {row['argsort_graph_ms']:.4f} graph ms; scratch "
+          f"{row['scratch_bytes_per_gaussian']:.1f} B a Gaussian, outputs "
+          f"included (argsort {row['argsort_bytes_per_gaussian']:.1f})")
+    return row
 
 
 def k3_in_order(what, bk, rows_k):
@@ -1442,7 +1510,8 @@ def wrappers():
         "K2 composite_backward": rt.composite_backward_kernel,
         "K3 segment_sums": segscan.segment_sums_kernel,
         "K4 gaussian_tables": binning.gaussian_tables_kernel,
-        "K4 depth_offsets": binning.depth_order_kernel,
+        "K4 depth_sort": binning.depth_sort_kernel,
+        "K4 depth_offsets": binning.depth_offsets_kernel,
         "K4 expand_instances": expand.expand_instances_kernel,
         "K5 tile_histogram": sort_tiles.tile_histogram_kernel,
         "K6 stable_tile_rank": sort_tiles.stable_tile_rank_kernel,
@@ -1691,11 +1760,12 @@ def render_path(root: str, dev):
         profile_view(lambda: render(*view, sh_degree=3, rasterizer="tiled"))
 
     ids_long = v.tk.long()
-    libraries = {
+    libraries = depth_libraries(v)
+    libraries.update({
         "K5 tile_histogram": lambda: torch.bincount(ids_long,
                                                     minlength=v.nt + 1),
         "K6 stable_tile_rank": lambda: torch.sort(v.tk, stable=True),
-    }
+    })
     timings = {name: (*v.calls[name], libraries.get(name),
                       20 if name.startswith("K1") else 50)
                for name in v.calls}
@@ -1707,12 +1777,17 @@ def render_path(root: str, dev):
         # the table and depth offsets kernels replace the XLA code that
         # feeds K4 in the JAX binning
         "K4 gaussian_tables": ("expand.cu", "event3dgs_tpu/ops/binning.py:273"),
-        "K4 depth_offsets": ("expand.cu", "event3dgs_tpu/ops/binning.py:321"),
+        # the sort and the scan that the JAX binning leaves to XLA
+        "K4 depth_sort": ("depth_sort.cu", "event3dgs_tpu/ops/binning.py:306"),
+        "K4 depth_offsets": ("depth_sort.cu",
+                             "event3dgs_tpu/ops/binning.py:326"),
         "K4 expand_instances": ("expand.cu", "event3dgs_tpu/ops/expand.py:65"),
         "K5 tile_histogram": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:62"),
         "K6 stable_tile_rank": ("sort_tiles.cu", "event3dgs_tpu/ops/sort_tiles.py:88"),
     }
     rows = kernel_rows(timings, v.bounds, meta, v.errs)
+    rows["K4 depth_sort"]["depth_order"] = depth_order_timing(
+        "view 0", v, rt.default_instance_cap(N_GAUSSIANS))
     occupancy_rows(rows, pre.occupancy)
     composite_report("K1 composite_forward", rows["K1 composite_forward"],
                      v.pairs, v.bounds["K1 composite_forward"][0],
@@ -1723,20 +1798,23 @@ def render_path(root: str, dev):
 def kernel_device_ms(name, fn) -> tuple[float, float]:
     """The profiler's self device time per call of ``fn`` in the CUDA
     functions of kernel ``name`` (KERNEL_FUNCTIONS, each launched once per
-    call), matched by exact name, each function's time taken over the
-    launches the profiler saw of it; and the fewest launches per call it
-    saw of one of them.  Fails if the profiler saw none of one of them in
+    call, or LAUNCHES_PER_CALL times), matched by exact name, each
+    function's time taken over the launches the profiler saw of it; and
+    the fewest calls' worth of launches it saw of one of them.  Fails if
+    the profiler saw none of one of them in
     ``kernel_timing.PROFILE_SESSIONS`` sessions."""
     from event3dgs_tpu_torch.tools.kernel_timing import (
         device_profile,
         per_launch_ms,
     )
 
-    prof = device_profile(fn, expect=KERNEL_FUNCTIONS[name])
-    missing = [f for f in KERNEL_FUNCTIONS[name] if f not in prof]
+    functions = KERNEL_FUNCTIONS[name]
+    prof = device_profile(fn, expect=functions)
+    missing = [f for f in functions if f not in prof]
     check(not missing, f"{name}: the profiler saw no device time in {missing}")
-    return (per_launch_ms(prof, KERNEL_FUNCTIONS[name]),
-            min(prof[f][1] for f in KERNEL_FUNCTIONS[name]))
+    per_call = {f: LAUNCHES_PER_CALL.get(f, 1) for f in functions}
+    return (sum(per_launch_ms(prof, (f,)) * per_call[f] for f in functions),
+            min(prof[f][1] / per_call[f] for f in functions))
 
 
 def kernel_rows(timings, bounds, meta, errs):
@@ -2766,6 +2844,8 @@ def probe_path(dev):
     for v in kp.SSIM_VARIANTS.values():
         v.launches = dict.fromkeys(v.launches, 0)
     kp.dyngrid_kernel.launches = 0
+    for name in kp.OFFSETS_LAUNCHES:
+        kp.OFFSETS_LAUNCHES[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probes = kp.run_probes(kp.MODES, dev, N_GAUSSIANS, WIDTH, HEIGHT)
@@ -2776,6 +2856,8 @@ def probe_path(dev):
     for v in kp.SSIM_VARIANTS.values():
         for kernel, n in v.launches.items():
             launches[f"{v.label} {kernel}"] = n
+    for name, n in kp.OFFSETS_LAUNCHES.items():
+        launches[f"depth order {name}"] = n
     print(f"kernel_probes all: {probe_s:.1f} s; launches {launches}")
     for k, n in launches.items():
         check(n > 0, f"phase 12: {k} was not launched")
@@ -2802,6 +2884,18 @@ def probe_path(dev):
         for got, want in zip([*fwd_b, *grads_b], [*fwd, *grads]):
             check(bits_differ(got, want) == 0, f"the probes' SSIM base "
                   f"({mode}) differs from the shipping SSIM kernels")
+    # the depth order's base build is the shipping library and equals the
+    # shipping call; the call equals its plain versions at both sizes
+    check(kernels.library_path("depth_sort", kp.OFFSETS_VARIANTS["base"][0])
+          == kernels.library_path("depth_sort"),
+          "the probes' depth order base is not the shipping library")
+    for r in rec["offsets"]["rows"]:
+        if r["call"] == "depth_order":
+            check(r["equal_to_plain"], f"phase 12: the depth order at "
+                  f"{r['gaussians']} Gaussians differs from its plain version")
+        if r["call"] == "build base":
+            check(r["equal_to_shipping"], f"phase 12: the depth order's base "
+                  f"build at {r['gaussians']} differs from the shipping call")
     # the dynamic grid in a CUDA graph
     dg = rec["dyngrid"]
     for n, want in dg["expected"].items():
@@ -2886,6 +2980,7 @@ def probe_path(dev):
                 "defines": row["defines"], "timing_only": v.timing_only,
             }
     rows.update(ssim_probe_rows(rec["ssim"]["variants"]))
+    rows.update(depth_probe_rows(probes))
     rows["dyngrid probe"] = {
         "name": "dyngrid probe", "route": "cuda",
         "source": "event3dgs_tpu_torch/csrc/probes.cu",
@@ -2896,6 +2991,46 @@ def probe_path(dev):
         "bound_ms": dg["bound_ms"], "bound_by": "bytes",
         "library_ms": dg["library_ms"],
     }
+    return rows
+
+
+def depth_probe_rows(probes):
+    """Phase 12's JSON row per depth order build at the render view (the
+    2M view's graph ms under ``large``): plain, bound and library are
+    those of the shipping depth order there (``radix_order_plain``, its
+    bytes, ``torch.argsort`` of the keys)."""
+    from event3dgs_tpu_torch.ops import binning
+    from event3dgs_tpu_torch.tools import kernel_probes as kp
+    from event3dgs_tpu_torch.tools.kernel_timing import cuda_ms
+
+    table = probes.records["offsets"]["rows"]
+    tables, cap, _ = probes.depth_tables(N_GAUSSIANS)
+    plain_ms = cuda_ms(lambda: binning.radix_order_plain(tables, cap), 2,
+                       warmup=1)
+    binning.depth_order(tables, cap)  # clear: the plain version ran none
+    rows = {}
+    for name, (defines, _) in kp.OFFSETS_VARIANTS.items():
+        r, large = (next(x for x in table if x["call"] == f"build {name}"
+                         and x["gaussians"] == n)
+                    for n in (N_GAUSSIANS, kp.OFFSETS_LARGE))
+        call, lib = (next(x for x in table if x["call"] == c
+                          and x["gaussians"] == N_GAUSSIANS)
+                     for c in ("depth_order", "argsort"))
+        rows[f"depth order probe {name}"] = {
+            "name": f"depth order probe {name}", "route": "cuda",
+            "source": "event3dgs_tpu_torch/csrc/depth_sort.cu",
+            "replaces": "event3dgs_tpu/ops/binning.py:306",
+            "launches": kp.OFFSETS_LAUNCHES[name],
+            # against the shipping call on the same keys (an ablated build
+            # has no plain version and differs by design)
+            "max_abs_err": r["max_abs_err_vs_shipping"],
+            "ms": r["event_ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": plain_ms, "bound_ms": call["bound_ms"],
+            "bound_by": "bytes", "library_ms": lib["graph_ms"],
+            "defines": list(defines), "timing_only": r["timing_only"],
+            "large": {"gaussians": large["gaussians"],
+                      "graph_ms": large["graph_ms"]},
+        }
     return rows
 
 
@@ -2994,6 +3129,17 @@ def print_probe_tables(rec):
               f"{r['registers']:5d} {r['spill_stores']:6d} "
               f"{r['shared_bytes']:7d} "
               f"{r['blocks_per_sm']:9d}  {vs}")
+    print("depth order call  gaussians  graph ms  event ms  bound ms  "
+          "x bound  vs base (graph)  passes")
+    for r in rec["offsets"]["rows"]:
+        bound = f"{r['bound_ms']:9.4f} {r['over_bound']:8.2f}" \
+            if "bound_ms" in r else f"{'-':>9s} {'-':>8s}"
+        vs = f"{r['vs_base_ms']:+.4f}" if "vs_base_ms" in r else "-"
+        print(f"{r['call']:20s} {r['gaussians']:9d} {r['graph_ms']:9.4f} "
+              f"{r.get('event_ms', float('nan')):9.4f} {bound}  {vs:15s} "
+              f"{r.get('passes', '')}")
+    print(f"depth order kernels (-Xptxas -v): "
+          f"{json.dumps(rec['offsets']['registers'])}")
     for r in rec["relaunch"]["kernels"]:
         print(f"relaunch {r['kernel']}: device {r['device_ms']:.4f} ms "
               f"({r['profiled_per_call']:.2f} launches seen per call), event "
@@ -3325,7 +3471,8 @@ def graphed_step(what, state, data, icap, mode="event"):
     ``pack_features``, ``ops/render.composed`` and ``F.conv2d`` called in
     none of them; the device work that one step enqueues, read from its
     CUDA graph (``graph_kernels``): its ``indexSelect`` nodes the table
-    row and each camera's 5 fields, no GT frame copied; the device ms of a
+    row and each camera's 5 fields, no GT frame copied; no library sort
+    (the radix sort's kernels once per render); the device ms of a
     replay (CUDA events around 10 replays, the median of 3 windows).
     Printed beside the card's name and power limit."""
     import torch
@@ -3353,9 +3500,20 @@ def graphed_step(what, state, data, icap, mode="event"):
     check(not composes and not convs, f"{what}: the graphed {mode} step "
           f"called ops.render.composed {len(composes)} and F.conv2d "
           f"{len(convs)} times")
+    # the depth order is the port's radix sort, once per render: no
+    # library sort in the step
+    cams = 3 if mode.startswith("event") else 1
+    sorts = {k: c for k, c in nodes.items()
+             if "sort" in k.lower() and not k.startswith("radix_")}
+    check(not sorts and nodes.get("radix_histogram_kernel") == cams
+          and nodes.get("radix_pass_kernel") == 4 * cams
+          and nodes.get("depth_offsets_kernel") == cams,
+          f"{what}: the graphed {mode} step's sort nodes: library {sorts}, "
+          f"radix histogram {nodes.get('radix_histogram_kernel')}, passes "
+          f"{nodes.get('radix_pass_kernel')}, offsets "
+          f"{nodes.get('depth_offsets_kernel')} for {cams} renders")
     # the picks left: the table row and each camera's 5 fields; the GT
     # frames are read by the loss kernels where they lie
-    cams = 3 if mode.startswith("event") else 1
     picks = sum(c for k, c in nodes.items() if k.startswith("indexSelect"))
     check(picks == 1 + cams * 5, f"{what}: {picks} indexSelect nodes in the "
           f"graphed {mode} step, not {1 + cams * 5} (the table row, "
@@ -3431,12 +3589,7 @@ def scale_kernel_rows(state, data, icap, dev):
         print(f"{what}: {name} {ms:.4f} graph ms, bound {bound:.4f} ms "
               f"({by}), {ms / bound:.2f}x{plain_txt}")
     out["K3 segment_sums"].update(k3_in_order(what, v.bk, v.rows_k))
-    row = out["K4 depth_offsets"]
-    row["graph_ms_alone"] = graph_ms(v.depth_alone)
-    print(f"{what}: K4 depth_offsets alone (without the argsort) "
-          f"{row['graph_ms_alone']:.4f} graph ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-          f"{row['graph_ms_alone'] / row['bound_ms']:.2f}x; {card()}")
+    out["K4 depth_sort"]["depth_order"] = depth_order_timing(what, v, icap)
     packed_cost(what, out["preprocess_forward"], pre)
     adam = adam_groups(state, data, (1, 1, 2),
                        torch.zeros(3, device=dev), icap, 1)
@@ -3531,7 +3684,7 @@ def scale_path(dev):
     del state, data
     scale.release(dev)
 
-    # 14c: the look-back and the counting sort at the ceiling's sizes
+    # 14c: the depth order and the counting sort at the ceiling's sizes
     n = CEILING_BLOCKS * binning.OFFSETS_TILE + 1000
     tables = scale.depth_offsets_case(n, device=dev)
     cap = 1 << 26
@@ -3542,11 +3695,12 @@ def scale_path(dev):
         check(torch.equal(got.order, want.order)
               and torch.equal(got.offsets, want.offsets)
               and torch.equal(got.seg_rank[:live], want.seg_rank[:live]),
-              f"phase 14: the depth offsets kernel over {n} ranks differs "
-              "from its plain version")
-    check(int(tables.lookback.abs().sum()) == 0, "phase 14: the look-back "
-          "state was left set")
+              f"phase 14: the depth order over {n} ranks differs from its "
+              "plain version")
+        check(not tables.lookback.any(), "phase 14: the depth order's "
+              "state was left set")
     offsets_ms = graph_ms(lambda: binning.depth_order_kernel(tables, cap))
+    argsort_ms = graph_ms(lambda: torch.argsort(tables.key, stable=True))
     del tables, want, got
     tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT)
     nt = tiles_x * tiles_y
@@ -3566,10 +3720,12 @@ def scale_path(dev):
         ids, gauss, n_live, nt, 1 << 24))
     del ids, gauss, want, got
     scale.release(dev)
-    print(f"phase 14: depth offsets kernel over {n} ranks "
-          f"({-(-n // binning.OFFSETS_TILE)} look-back blocks) bit-equal to "
-          f"its plain version twice, state left cleared, {offsets_ms:.4f} "
-          f"graph ms with the argsort; counting sort (K5 + K6) over {m} slots "
+    print(f"phase 14: the depth order (radix sort, "
+          f"{-(-n // binning.SORT_TILE)} tiles a pass, and the offsets over "
+          f"{-(-n // binning.OFFSETS_TILE)} look-back blocks) over {n} ranks bit-equal to its plain version "
+          f"twice, state left cleared, {offsets_ms:.4f} graph ms "
+          f"(torch.argsort of the keys {argsort_ms:.4f}); counting sort (K5 "
+          f"+ K6) over {m} slots "
           f"bit-equal, K5 and K6 alone too, {sort_ms:.4f} graph ms; {smi}")
 
     # 14d: scale.train --densify --fused_steps 10 at 1,048,576 slots
@@ -3634,13 +3790,15 @@ def main() -> int:
 
     # 1. build: every source, and the probes' K1 and K4 builds -------------
     from event3dgs_tpu_torch.tools.kernel_probes import (
+        offsets_builds,
         ssim_builds,
         variant_builds,
     )
 
     t0 = time.perf_counter()
     for name, log in kernels.build([*kernels.SIGNATURES, *variant_builds(),
-                                    *ssim_builds()]).items():
+                                    *ssim_builds(),
+                                    *offsets_builds()]).items():
         print(f"--- nvcc {name} (sm_90a) ---\n{log.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s")
 

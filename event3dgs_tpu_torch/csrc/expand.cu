@@ -1,31 +1,26 @@
-// Instance expansion for tile binning (kernel K4), and the two kernels
-// that build its inputs from the projection's outputs.
+// Instance expansion for tile binning (kernel K4), and the table kernel
+// that builds its inputs from the projection's outputs.
 //
 // Replaces the TPU kernel `_expand_kernel_factory` of
 // event3dgs_tpu/ops/expand.py (launched by `expand_instances` there) and,
-// in the table and offsets kernels, the XLA code of
-// event3dgs_tpu/ops/binning.py that builds its inputs (tile rects,
-// instance counts, ellipse-cull data, the depth sort key, the gather of
-// the counts into depth order and their scan, `bin_gaussians` there).  The
-// depth sort itself stays `torch.argsort` between the first two kernels,
-// as the JAX package leaves it to `jnp.argsort`.
+// in the table kernel, the XLA code of event3dgs_tpu/ops/binning.py that
+// builds its inputs (tile rects, instance counts, ellipse-cull data, the
+// depth sort key, `bin_gaussians` there).  The depth order between the
+// two (the sort, the counts' scan) is csrc/depth_sort.cu.
 //
 // 1. gaussian_table_kernel, one thread per Gaussian, in Gaussian order:
 //    the tile rect (the radius rect of ops/binning.py `_tile_rect`
 //    intersected with the alpha >= 1/255 box of `_alpha_bbox_half_extents`),
 //    its instance count, the cull row of `gaussian_tables_plain` and the
-//    sort key (the depth, +inf where the count is 0).  Every operation of
-//    the plain PyTorch version, in its order, rounded once each (the
-//    library is built with -fmad=false and without fast math: logf, sqrtf
-//    and `/` are the IEEE ones PyTorch's CUDA kernels use); torch.clamp
-//    passes NaN through, and so does `clamp_nan` here.  Bound: bytes, 33
-//    read and 52 written per Gaussian.
-// 2. depth_offsets_kernel, after the argsort: the order as int32, the
-//    running instance offsets in depth order and, for K4's blocks, the
-//    rank of each segment's first slot, in one pass (below).  Its
-//    look-back state is cleared by the table kernel.  Bound: bytes, 8 read
-//    per rank of the order and 4 of the counts, 8 written.
-// 3. expand_kernel (K4), one block per SEGMENT instance slots (the counting
+//    sort key (the depth, +inf where the count is 0); the count again as a
+//    column of its own, which the depth order reads through its order.
+//    Every operation of the plain PyTorch version, in its order, rounded
+//    once each (the library is built with -fmad=false and without fast
+//    math: logf, sqrtf and `/` are the IEEE ones PyTorch's CUDA kernels
+//    use); torch.clamp passes NaN through, and so does `clamp_nan` here.
+//    It also clears the depth order's state (csrc/depth_sort.cu), as it
+//    runs first.  Bound: bytes, 33 read and 56 written per Gaussian.
+// 2. expand_kernel (K4), one block per SEGMENT instance slots (the counting
 //    sort's segments, csrc/segment.cuh).  Every slot i < cap in depth order
 //    gets its source Gaussian (the depth rank k whose range
 //    [offsets[k], offsets[k+1]) holds i), its tile inside that Gaussian's
@@ -86,7 +81,6 @@ constexpr int ITEMS = SEGMENT / EXPAND_THREADS;  // consecutive slots a thread
 constexpr int RANK_ITEMS = 2;  // ranks a thread stages per pass
 static_assert(ITEMS == 4, "a thread stores its slots as one int4");
 constexpr int EXPAND_STATIC_LIMIT = 1024;  // static shared bytes, at most
-constexpr unsigned FULL = 0xffffffffu;
 // 2 * ln(255) rounded once to f32: `2.0 * np.log(255.0)` in
 // `_alpha_bbox_half_extents` when there are no opacities
 constexpr float T2_NO_OPACITY = 0x1.62a41p+3f;
@@ -117,17 +111,15 @@ gaussian_table_kernel(const float* __restrict__ mean2d,   // [n, 2]
                       int4* __restrict__ rect,    // [n] x0, y0, rw, count
                       float4* __restrict__ cull,  // [n, 2] mx my ca cb | cc nba nbc qthr
                       float* __restrict__ key,    // [n]
-                      unsigned long long* __restrict__ lookback,
-                      int lookback_blocks) {
+                      int* __restrict__ count_out,  // [n]
+                      unsigned* __restrict__ state, int state_words) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  // the depth offsets kernel's look-back state: a word per block and the
-  // count of finished blocks, cleared here because this kernel runs before
-  // it
-  if (lookback != nullptr) {
-    if (i < lookback_blocks) lookback[i] = 0;
-    if (i == 0) lookback[lookback_blocks] = 0;
+  // the depth order's state (csrc/depth_sort.cu), cleared here because
+  // this kernel runs before it, every thread a share
+  if (state != nullptr) {
+    for (int w = i; w < state_words; w += gridDim.x * blockDim.x) state[w] = 0;
   }
+  if (i >= n) return;
   const float mx = mean2d[2 * i], my = mean2d[2 * i + 1];
   const float r = radius[i];
   const float tw = (float)TILE_W, th = (float)TILE_H;
@@ -173,137 +165,11 @@ gaussian_table_kernel(const float* __restrict__ mean2d,   // [n, 2]
   const int rh = max(y1 - y0, 0);
   const int count = valid[i] ? rw * rh : 0;
   rect[i] = make_int4(x0, y0, rw, count);
+  count_out[i] = count;
   cull[2 * i] = make_float4(mx, my, ca, cb);
   cull[2 * i + 1] = make_float4(cc, nba, nbc, qthr);
   // zero-count Gaussians sort last
   key[i] = count > 0 ? depth[i] : __int_as_float(0x7f800000);
-}
-
-// The instance offsets in depth order: order_out[k] = order[k] (int64 ->
-// int32) and offsets = [0, inclusive prefix of count[order[k]]], one pass
-// of OFFSETS_TILE ranks a block (a decoupled look-back scan, as CUB's
-// single-pass scan: block b publishes its tile's sum and then its
-// inclusive prefix in lookback[b], and finds its prefix by reading the
-// earlier tiles' words, 32 at a time; blocks start in index order, so a
-// block waits only on blocks that have started).  Each word is written
-// whole, flag and value together, so a reader needs no fence.  The last
-// block to finish clears the state for the next call (the table kernel
-// clears it first); lookback[blocks] counts the finished blocks.  A wait
-// that outlasts SPIN_LIMIT reads traps, so a fault shows as a launch error
-// and not as a hang.
-constexpr int OFFSETS_THREADS = 256;
-constexpr int OFFSETS_ITEMS = 8;
-constexpr int OFFSETS_TILE = OFFSETS_THREADS * OFFSETS_ITEMS;
-constexpr unsigned long long HAS_SUM = 1ull << 32;     // low word: the tile's sum
-constexpr unsigned long long HAS_PREFIX = 2ull << 32;  // low word: inclusive prefix
-constexpr long long SPIN_LIMIT = 1ll << 22;
-
-using OffsetsScan =
-    cub::BlockScan<int, OFFSETS_THREADS, cub::BLOCK_SCAN_WARP_SCANS>;
-
-__device__ __forceinline__ void publish(unsigned long long* word,
-                                        unsigned long long value) {
-  *reinterpret_cast<volatile unsigned long long*>(word) = value;
-}
-
-__global__ void __launch_bounds__(OFFSETS_THREADS)
-depth_offsets_kernel(const long long* __restrict__ order,  // [n] argsort
-                     const int* __restrict__ rect,         // [n, 4]
-                     int n, int segments,
-                     unsigned long long* lookback,         // [blocks + 1]
-                     int* __restrict__ order_out,          // [n]
-                     int* __restrict__ offsets,            // [n + 1]
-                     int* __restrict__ seg_rank) {         // [segments]
-  __shared__ OffsetsScan::TempStorage scan;
-  __shared__ int s_prefix;
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const int first = tile * OFFSETS_TILE + tid * OFFSETS_ITEMS;
-  const bool whole = first + OFFSETS_ITEMS <= n;
-  long long g[OFFSETS_ITEMS];
-  int count[OFFSETS_ITEMS], excl[OFFSETS_ITEMS];
-  if (whole) {  // 16-byte loads: the argsort's output is 256-byte aligned
-    const longlong2* src = reinterpret_cast<const longlong2*>(order + first);
-#pragma unroll
-    for (int q = 0; q < OFFSETS_ITEMS / 2; ++q) {
-      const longlong2 v = src[q];
-      g[2 * q] = v.x;
-      g[2 * q + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < OFFSETS_ITEMS; ++q) {
-      g[q] = first + q < n ? order[first + q] : 0;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < OFFSETS_ITEMS; ++q) {
-    count[q] = first + q < n ? rect[4 * g[q] + 3] : 0;
-  }
-  if (whole) {
-    int4* dst = reinterpret_cast<int4*>(order_out + first);
-    dst[0] = make_int4((int)g[0], (int)g[1], (int)g[2], (int)g[3]);
-    dst[1] = make_int4((int)g[4], (int)g[5], (int)g[6], (int)g[7]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < OFFSETS_ITEMS; ++q) {
-      if (first + q < n) order_out[first + q] = (int)g[q];
-    }
-  }
-  int sum;
-  OffsetsScan(scan).ExclusiveSum(count, excl, sum);
-  if (tid < 32) {
-    const int lane = tid;
-    int prefix = 0;
-    if (tile > 0) {
-      if (lane == 0) publish(lookback + tile, HAS_SUM | (unsigned)sum);
-      for (int hi = tile - 1; hi >= 0; hi -= 32) {
-        const int k = hi - lane;  // lane 0: the nearest earlier tile
-        unsigned long long w = HAS_PREFIX;  // past tile 0: a prefix of 0
-        if (k >= 0) {
-          long long spins = 0;
-          while (((w = *reinterpret_cast<volatile unsigned long long*>(
-                       lookback + k)) >> 32) == 0) {
-            if (++spins > SPIN_LIMIT) __trap();
-          }
-        }
-        const unsigned has_prefix =
-            __ballot_sync(FULL, (w & HAS_PREFIX) != 0);
-        // the words of the tiles after the nearest prefix, and that prefix
-        const int stop = has_prefix ? __ffs(has_prefix) - 1 : 31;
-        int v = lane <= stop ? (int)(unsigned)w : 0;
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
-        prefix += v;
-        if (has_prefix) break;
-      }
-    }
-    if (lane == 0) {
-      publish(lookback + tile, HAS_PREFIX | (unsigned)(prefix + sum));
-      s_prefix = prefix;
-    }
-  }
-  __syncthreads();
-  const int prefix = s_prefix;
-  if (tile == 0 && tid == 0) offsets[0] = 0;
-#pragma unroll
-  for (int q = 0; q < OFFSETS_ITEMS; ++q) {
-    if (first + q >= n) continue;
-    const int e = prefix + excl[q];  // the rank's slots are [e, e + count)
-    offsets[first + q + 1] = e + count[q];
-    // the rank of each segment's first slot, for the expansion's blocks
-    for (int sg = (e + SEGMENT - 1) / SEGMENT;
-         sg < segments && sg * SEGMENT < e + count[q]; ++sg) {
-      seg_rank[sg] = first + q;
-    }
-  }
-  // this block is done with the state; the last one clears it
-  if (tid == 0) {
-    unsigned int* done = reinterpret_cast<unsigned int*>(lookback + gridDim.x);
-    if (atomicAdd(done, 1u) == gridDim.x - 1) {
-      for (unsigned b = 0; b <= gridDim.x; ++b) lookback[b] = 0;
-    }
-  }
 }
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -546,39 +412,22 @@ cudaError_t allow_shared_once() {
 
 }  // namespace
 
-// The per-Gaussian tables (conic and opacity may be null); lookback (or
-// null): the depth offsets kernel's state, ceil(n / OFFSETS_TILE) + 1
-// words, cleared.
+// The per-Gaussian tables (conic and opacity may be null); state (or
+// null): the depth order's state_words words, cleared.
 extern "C" int e3d_gaussian_tables(const float* mean2d, const float* conic,
                                    const float* radius, const bool* valid,
                                    const float* opacity, const float* depth,
                                    int n, int tiles_x, int tiles_y,
                                    void* rect_out, void* cull_out,
-                                   float* key_out, void* lookback,
+                                   float* key_out, void* state,
+                                   int* count_out, int state_words,
                                    cudaStream_t stream) {
   if (n <= 0) return 0;
   const int blocks = (n + TABLE_THREADS - 1) / TABLE_THREADS;
   gaussian_table_kernel<<<blocks, TABLE_THREADS, 0, stream>>>(
       mean2d, conic, radius, valid, opacity, depth, n, tiles_x, tiles_y, 1.0f,
       static_cast<int4*>(rect_out), static_cast<float4*>(cull_out), key_out,
-      static_cast<unsigned long long*>(lookback),
-      (n + OFFSETS_TILE - 1) / OFFSETS_TILE);
-  return (int)cudaGetLastError();
-}
-
-// The depth order as int32 and the instance offsets in it, from the
-// argsort of the keys and the tables' counts; lookback (max(ceil(n /
-// OFFSETS_TILE), 1) + 1 words) as cleared by e3d_gaussian_tables.
-extern "C" int e3d_depth_offsets(const long long* order, const void* rect,
-                                 int n, int segments, void* lookback,
-                                 int* order_out, int* offsets_out,
-                                 int* seg_rank_out, cudaStream_t stream) {
-  const int blocks = n > OFFSETS_TILE ? (n + OFFSETS_TILE - 1) / OFFSETS_TILE
-                                      : 1;
-  depth_offsets_kernel<<<blocks, OFFSETS_THREADS, 0, stream>>>(
-      order, static_cast<const int*>(rect), n, segments,
-      static_cast<unsigned long long*>(lookback), order_out, offsets_out,
-      seg_rank_out);
+      count_out, static_cast<unsigned*>(state), state_words);
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,9 @@ port's own layout: per-tile contiguous ranges (``tile_offsets``,
    α ≥ 1/255 bounding box — semantics, kept exactly (the oracle mirrors
    the radius rect) — its instance count, its ellipse-cull data and its
    depth sort key.
-2. Gaussians are depth-sorted once (stable ``argsort``; Gaussians with an
-   empty rect sort last) and their counts in that order give running
-   instance offsets.
+2. Gaussians are depth-sorted once (a stable radix sort, ``csrc/
+   depth_sort.cu``; Gaussians with an empty rect sort last) and their
+   counts in that order give running instance offsets.
 3. Expansion (kernel K4) gives every instance slot its (tile, gaussian),
    with the exact per-tile ellipse cull; at most ``instance_cap`` instances
    are kept, the first in depth order, and the rest are counted in
@@ -83,10 +83,13 @@ class GaussianTables(NamedTuple):
     rect: torch.Tensor  # [N, 4] int32 x0, y0, rect width (tiles), instance count
     cull: torch.Tensor  # [N, 8] float32 mx, my, ca, cb, cc, nba, nbc, qthr
     key: torch.Tensor  # [N] float32 depth sort key: +inf where the count is 0
-    # [lookback_words(N)] int64 state of the depth offsets kernel, cleared
-    # by the table kernel (and again by the offsets kernel as it ends);
-    # None from the plain version
+    # [lookback_words(N)] int32 state of the depth order's kernels, cleared
+    # by the table kernel (and left cleared by every depth order); None from
+    # the plain version
     lookback: torch.Tensor | None = None
+    # [N] int32 the instance counts again, contiguous (the depth order reads
+    # them through its order); None from the plain version
+    counts: torch.Tensor | None = None
 
 
 class DepthOrder(NamedTuple):
@@ -161,13 +164,31 @@ def suggest_instance_cap(total: int, margin: float = 1.3) -> int:
     return max(-(-int(int(total) * margin) // 1024) * 1024, 1024)
 
 
-OFFSETS_TILE = 2048  # ranks per block of the depth offsets kernel (csrc/expand.cu)
+# the depth order's kernels (csrc/depth_sort.cu)
+RADIX_BITS = 8  # bits of a digit of the radix sort
+RADIX = 1 << RADIX_BITS
+PASSES = 4  # digits of a 32-bit key
+SORT_TILE = 4096  # keys per block of a radix pass from SORT_LARGE keys on
+SORT_TILE_SMALL = 2048  # and below
+SORT_LARGE = 1 << 20
+OFFSETS_TILE = 2048  # ranks per block of the depth offsets kernel
+PASS_LOOKBACK = 5124  # state words before the passes' look-back words
+MAX_SORTED = (1 << 28) - 1  # keys a look-back word can count
 
 
 def lookback_words(n: int) -> int:
-    """Words of the depth offsets kernel's state: one per block and the
-    count of finished blocks."""
-    return max(-(-n // OFFSETS_TILE), 1) + 1
+    """Int32 words of the depth order's state: the histogram's four copies
+    of the digit counts, the digit starts, the plan, a word per tile and
+    digit of the radix passes, and a 64-bit word per block of the offsets
+    kernel."""
+    return (PASS_LOOKBACK + RADIX * cdiv(n, SORT_TILE_SMALL)
+            + 2 * max(cdiv(n, OFFSETS_TILE), 1))
+
+
+def depth_state(n: int, device) -> torch.Tensor:
+    """The depth order's state for ``n`` Gaussians, cleared (the table
+    kernel allocates and clears its own)."""
+    return torch.zeros(lookback_words(n), dtype=torch.int32, device=device)
 
 
 def gaussian_tables_plain(mean2d, depth, radius, valid, width: int,
@@ -233,14 +254,15 @@ def gaussian_tables_kernel(mean2d, depth, radius, valid, width: int,
         rect=torch.empty(n, 4, dtype=torch.int32, device=dev),
         cull=torch.empty(n, 8, dtype=torch.float32, device=dev),
         key=torch.empty(n, dtype=torch.float32, device=dev),
-        lookback=state(lookback_words(n), dtype=torch.int64, device=dev),
+        lookback=state(lookback_words(n), dtype=torch.int32, device=dev),
+        counts=torch.empty(n, dtype=torch.int32, device=dev),
     )
     ptr = lambda t: None if t is None else t.data_ptr()
     kernels.launch(
         "expand", "e3d_gaussian_tables",
         mean2d.data_ptr(), ptr(conic), radius.data_ptr(), valid.data_ptr(),
         ptr(opacities), depth.data_ptr(), n, tiles_x, tiles_y,
-        *(t.data_ptr() for t in out),
+        *(t.data_ptr() for t in out), out.lookback.shape[0],
     )
     gaussian_tables_kernel.launches += 1
     return out
@@ -261,6 +283,20 @@ def gaussian_tables(mean2d: torch.Tensor, depth: torch.Tensor,
               opacities=opacities, conic=conic)
 
 
+def offsets_plain(counts: torch.Tensor, instance_cap: int):
+    """The exclusive prefix of the instance counts in depth order, and the
+    rank holding each segment's first slot of ``[0, instance_cap)`` (for
+    segments past the live total: the last rank)."""
+    n = counts.shape[0]
+    offsets = torch.zeros(n + 1, dtype=torch.int32, device=counts.device)
+    torch.cumsum(counts, 0, dtype=torch.int32, out=offsets[1:])
+    starts = torch.arange(segments(instance_cap), dtype=torch.int32,
+                          device=counts.device) * SEGMENT
+    seg_rank = torch.clamp(torch.searchsorted(offsets, starts, right=True) - 1,
+                           0, max(n - 1, 0))
+    return offsets, seg_rank.to(torch.int32)
+
+
 def depth_order_plain(tables: GaussianTables, instance_cap: int) -> DepthOrder:
     """Plain PyTorch version of the depth order: the stable depth order
     (zero-count Gaussians last, ties in index order), the exclusive prefix
@@ -268,68 +304,149 @@ def depth_order_plain(tables: GaussianTables, instance_cap: int) -> DepthOrder:
     first slot of ``[0, instance_cap)`` (for segments past the live total:
     the last rank)."""
     order = torch.argsort(tables.key, stable=True)
-    n = order.shape[0]
-    offsets = torch.zeros(n + 1, dtype=torch.int32, device=order.device)
-    torch.cumsum(tables.rect[:, 3][order], 0, dtype=torch.int32,
-                 out=offsets[1:])
-    starts = torch.arange(segments(instance_cap), dtype=torch.int32,
-                          device=order.device) * SEGMENT
-    seg_rank = torch.clamp(torch.searchsorted(offsets, starts, right=True) - 1,
-                           0, max(n - 1, 0))
+    offsets, seg_rank = offsets_plain(tables.rect[:, 3][order], instance_cap)
     return DepthOrder(offsets=offsets, order=order.to(torch.int32),
-                      seg_rank=seg_rank.to(torch.int32))
+                      seg_rank=seg_rank)
 
 
-def depth_order_kernel(tables: GaussianTables,
-                       instance_cap: int) -> DepthOrder:
-    """The depth order on CUDA tensors: ``torch.argsort`` (as the JAX
-    package sorts outside its kernels), then the depth offsets kernel
-    (``csrc/expand.cu``) for the order's cast, the counts' gather, their
-    prefix and each segment's first rank, in one launch (that rank is
-    written for the live segments only)."""
-    kernels.check(tables.key, torch.float32, "key", (tables.key.shape[0],))
-    out = launch_depth_offsets(tables, torch.argsort(tables.key, stable=True),
-                               instance_cap)
+def ordered_keys(key: torch.Tensor) -> torch.Tensor:
+    """The sort keys as the radix sort's unsigned words (int64 holding
+    uint32), ordered as ``torch.argsort`` orders the floats on the CPU:
+    a positive float's bits with the sign bit set, a negative float's bits
+    flipped, -0.0 as +0.0, and every NaN, of either sign, as the largest
+    word (after +inf), ties in index order.  The card's ``torch.argsort``
+    agrees on every key but NaN: at 100,000 keys (CUB's radix sort) it
+    puts a NaN with the sign bit set before -inf (an H100 under PyTorch
+    2.11, ``tests/test_torch_kernels.py``).  The table kernel never writes
+    a NaN key (``tests/test_torch_binning.py``)."""
+    u = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return torch.where(torch.isnan(key), 0xFFFFFFFF, u)
+
+
+def radix_plan(words: torch.Tensor) -> list[int]:
+    """The radix passes that run on the keys' words: a pass whose 8-bit
+    digit is the same for every key leaves a stable order as it is and is
+    skipped; if every pass would be, the last runs alone."""
+    n = words.shape[0]
+    run = [p for p in range(PASSES) if n > 0 and int(torch.bincount(
+        (words >> (RADIX_BITS * p)) & (RADIX - 1), minlength=RADIX).max()) < n]
+    return run or [PASSES - 1]
+
+
+def radix_order_plain(tables: GaussianTables,
+                      instance_cap: int) -> DepthOrder:
+    """Plain PyTorch version of the depth order's kernels (its card tests'
+    and CPU tests' mirror of ``csrc/depth_sort.cu``): the keys' words
+    (:func:`ordered_keys`), one stable counting pass by each 8-bit digit of
+    :func:`radix_plan`, least significant first, the last of which writes
+    the order and the counts in it, then their offsets.  Equal to
+    :func:`depth_order_plain` wherever the keys hold no NaN, and with NaNs
+    where ``torch.argsort`` orders them as :func:`ordered_keys` does."""
+    words = ordered_keys(tables.key)
+    n = words.shape[0]
+    order = torch.arange(n, device=words.device)
+    index = torch.arange(n, device=words.device)
+    for p in radix_plan(words):
+        digit = (words[order] >> (RADIX_BITS * p)) & (RADIX - 1)
+        # a stable counting pass: by digit, then by position (unique keys,
+        # so any sort gives this permutation)
+        order = order[torch.sort(digit * max(n, 1) + index).indices]
+    counts = tables.rect[:, 3][order]
+    offsets, seg_rank = offsets_plain(counts, instance_cap)
+    return DepthOrder(offsets=offsets, order=order.to(torch.int32),
+                      seg_rank=seg_rank)
+
+
+def _check_depth_state(tables: GaussianTables) -> int:
+    n = tables.key.shape[0]
+    kernels.check(tables.key, torch.float32, "key", (n,))
+    if tables.lookback is None or tables.counts is None:
+        raise ValueError("tables: expected the table kernel's look-back state "
+                         "and count column")
+    kernels.check(tables.lookback, torch.int32, "lookback", (lookback_words(n),))
+    kernels.check(tables.counts, torch.int32, "counts", (n,))
+    if n > MAX_SORTED:
+        raise ValueError(f"{n} Gaussians: the depth sort takes at most "
+                         f"{MAX_SORTED}")
+    return n
+
+
+def depth_sort_kernel(tables: GaussianTables, defines=()):
+    """Launch the radix sort of ``csrc/depth_sort.cu`` (its histogram
+    kernel, then a pass per 8-bit digit; the passes whose digit is the same
+    for every key return at once) on CUDA tensors: (the Gaussians in depth
+    order, their instance counts in that order), both [N] int32.  The
+    state must be as the table kernel or a depth order left it.
+    ``defines``: a timing-only build's macros (``tools/kernel_probes.py``)."""
+    n = _check_depth_state(tables)
+    dev = tables.key.device
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(4, n, dtype=torch.int32, device=dev)
+    kernels.launch(
+        "depth_sort", "e3d_depth_sort",
+        tables.key.data_ptr(), tables.counts.data_ptr(), n,
+        tables.lookback.data_ptr(), scratch[:2].data_ptr(),
+        scratch[2:].data_ptr(), order.data_ptr(), counts.data_ptr(),
+        defines=defines,
+    )
+    depth_sort_kernel.launches += 1
+    return order, counts
+
+
+depth_sort_kernel.launches = 0
+
+
+def depth_offsets_kernel(tables: GaussianTables, counts: torch.Tensor,
+                         instance_cap: int, defines=()):
+    """Launch the depth offsets kernel of ``csrc/depth_sort.cu`` on CUDA
+    tensors after :func:`depth_sort_kernel`: (the offsets [N+1], the rank
+    holding each live segment's first slot [segments(instance_cap)]), both
+    int32, from ``counts``, the instance counts in depth order.  It clears
+    the state the sort used and its own."""
+    n = _check_depth_state(tables)
+    kernels.check(counts, torch.int32, "counts", (n,))
+    if counts.data_ptr() % 32:  # the kernel reads it with 16-byte loads
+        raise ValueError("counts: expected a 32-byte aligned tensor")
+    dev = counts.device
+    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    seg_rank = torch.empty(segments(instance_cap), dtype=torch.int32,
+                           device=dev)
+    kernels.launch(
+        "depth_sort", "e3d_depth_offsets",
+        counts.data_ptr(), n, seg_rank.shape[0], tables.lookback.data_ptr(),
+        offsets.data_ptr(), seg_rank.data_ptr(), defines=defines,
+    )
+    depth_offsets_kernel.launches += 1
+    return offsets, seg_rank
+
+
+depth_offsets_kernel.launches = 0
+
+
+def depth_order_kernel(tables: GaussianTables, instance_cap: int,
+                       defines=()) -> DepthOrder:
+    """The depth order on CUDA tensors: the radix sort and the depth
+    offsets kernel (``csrc/depth_sort.cu``), hand-written kernels only (no
+    library sort); the segments' first ranks are written for the live
+    segments only."""
+    order, counts = depth_sort_kernel(tables, defines)
+    offsets, seg_rank = depth_offsets_kernel(tables, counts, instance_cap,
+                                             defines)
     depth_order_kernel.launches += 1
-    return out
+    return DepthOrder(offsets=offsets, order=order, seg_rank=seg_rank)
 
 
 depth_order_kernel.launches = 0
 
 
-def launch_depth_offsets(tables: GaussianTables, order: torch.Tensor,
-                         instance_cap: int) -> DepthOrder:
-    """Check the depth offsets kernel's arguments and launch it on CUDA
-    tensors over ``order`` (the keys' stable argsort, int64), uncounted:
-    :func:`depth_order_kernel` after its ``argsort``, and timing alone
-    (``chip_smoke.py``)."""
-    n = tables.key.shape[0]
-    kernels.check(tables.rect, torch.int32, "rect", (n, 4))
-    if tables.lookback is None:
-        raise ValueError("tables: expected the table kernel's look-back state")
-    kernels.check(tables.lookback, torch.int64, "lookback", (lookback_words(n),))
-    kernels.check(order, torch.int64, "order", (n,))
-    if order.data_ptr() % 16:  # the kernel reads it with 16-byte loads
-        raise ValueError("order: expected a 16-byte aligned tensor")
-    n_seg = segments(instance_cap)
-    empty = lambda size: torch.empty(size, dtype=torch.int32,
-                                     device=order.device)
-    out = DepthOrder(offsets=empty(n + 1), order=empty(n),
-                     seg_rank=empty(n_seg))
-    kernels.launch(
-        "expand", "e3d_depth_offsets",
-        order.data_ptr(), tables.rect.data_ptr(), n, n_seg,
-        tables.lookback.data_ptr(), out.order.data_ptr(),
-        out.offsets.data_ptr(), out.seg_rank.data_ptr(),
-    )
-    return out
-
-
 def depth_order(tables: GaussianTables, instance_cap: int) -> DepthOrder:
-    """The depth order and the instance offsets in it (the depth offsets
-    kernel after ``argsort``; plain version on the CPU).  On the card the
-    tables must come from the table kernel, which clears the offsets
-    kernel's look-back state (the kernel leaves it cleared again)."""
+    """The depth order and the instance offsets in it (the radix sort and
+    the depth offsets kernel; plain version on the CPU).  On the card the
+    tables must come from the table kernel, which clears the kernels'
+    state (every call leaves it cleared again)."""
     fn = depth_order_plain if tables.key.device.type == "cpu" else \
         depth_order_kernel
     return fn(tables, instance_cap)

@@ -83,19 +83,25 @@ SIGNATURES = {
     },
     "expand": {
         # mean2d, conic (or null), radius, valid, opacity (or null), depth,
-        # n, tiles_x, tiles_y, rect_out, cull_out, key_out, lookback state
-        # to clear (or null), stream
+        # n, tiles_x, tiles_y, rect_out, cull_out, key_out, the depth
+        # order's state to clear (or null), count_out, the state's words,
+        # stream
         "e3d_gaussian_tables": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                                _P, _P, _P],
-        # order (int64 argsort), rect, n, segments, lookback state,
-        # order_out, offsets_out, seg_rank_out, stream
-        "e3d_depth_offsets": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+                                _P, _P, _P, _I, _P],
         # rect, cull, offsets, order, seg_rank, n, cap, tiles_x, num_tiles,
         # tile_out, gauss_out, count rows out (or null), stream
         "e3d_expand_instances": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                                  _P, _P],
         # registers, blocks per SM, num_tiles (0: no count rows)
         "e3d_expand_occupancy": [_IP, _IP, _I],
+    },
+    "depth_sort": {
+        # key, count, n, state, [2, n] key scratch, [2, n] index scratch,
+        # order_out, counts_out, stream
+        "e3d_depth_sort": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
+        # counts (in depth order), n, segments, state, offsets_out,
+        # seg_rank_out, stream
+        "e3d_depth_offsets": [_P, _I, _I, _P, _P, _P, _P],
     },
     "sort_tiles": {
         # ids, n_ids, n_live, n_bins, segment_base scratch, counts_out,

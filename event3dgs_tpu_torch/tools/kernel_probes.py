@@ -2,7 +2,8 @@
 of the JAX package's ``experiments/`` Pallas probes.
 
     python3 -m event3dgs_tpu_torch.tools.kernel_probes \\
-        {stages,k1,k4,stops,relaunch,dyngrid,ssim,all} [--device cpu] \\
+        {stages,k1,k4,stops,relaunch,dyngrid,ssim,offsets,all} \\
+        [--device cpu] \\
         [--gaussians N --width W --height H]
 
 The scene is ``bench.py``'s (``kernel_timing.bench_scene``): by default
@@ -39,6 +40,15 @@ it.
   whose float32 sums depend on the block order, at those counts and out of
   range, bit for bit against the plain version.
 
+- ``offsets``: the depth order (``csrc/depth_sort.cu``: the radix sort and
+  the depth offsets kernel) at the render view and at 2,097,152 Gaussians
+  of the same recipe (``OFFSETS_LARGE``): graph ms of the call, of the
+  sort and of the offsets kernel alone against their bounds, of each
+  timing-only build (``OFFSETS_VARIANTS``), of ``torch.argsort`` and
+  ``torch.sort`` of the same keys and of the table kernel; the sort on
+  keys whose digits vary in 1-4 passes (the rest skipped); scratch bytes
+  per Gaussian of the call and of ``torch.argsort``; registers and spills.
+
 - ``ssim``: each timing-only build of the SSIM loss kernels
   (``csrc/ssim.cu``, ``SSIM_VARIANTS``), forward and backward, in rgb and
   gray mode on seeded 1080p partials and a GT frame
@@ -48,8 +58,8 @@ it.
 Each mode prints one JSON line; the last line is the card's name and power
 limit (``nvidia-smi``).  ``--device cpu`` runs ``stages``, ``stops`` and
 ``dyngrid`` on the plain versions at a small size, with host times only;
-``k1``, ``k4``, ``relaunch`` and ``ssim`` need the card.  A failed build
-or launch raises: nothing reruns on the plain versions.
+``k1``, ``k4``, ``relaunch``, ``ssim`` and ``offsets`` need the card.  A
+failed build or launch raises: nothing reruns on the plain versions.
 """
 
 from __future__ import annotations
@@ -68,9 +78,10 @@ from event3dgs_tpu_torch.ops import binning, expand, kernels
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 from event3dgs_tpu_torch.tools import kernel_timing as kt
 
-MODES = ("stages", "k1", "k4", "stops", "relaunch", "dyngrid", "ssim")
+MODES = ("stages", "k1", "k4", "stops", "relaunch", "dyngrid", "ssim",
+         "offsets")
 # timing-only builds or device times
-CARD_MODES = ("k1", "k4", "relaunch", "ssim")
+CARD_MODES = ("k1", "k4", "relaunch", "ssim", "offsets")
 CALLS = 20  # profiled calls per kernel
 STAGE_CALLS = 5  # profiled, event-timed and host-timed calls per stage
 TRAIN_IDX = (1, 1, 2)  # bench.py's views: main 1, event pair 1 → 2
@@ -201,6 +212,34 @@ SSIM_VARIANTS = {v.name: v for v in (
                 "never stored"),
 )}
 SSIM_SEED = 20  # of the SSIM probe's operands
+# the depth order's timing-only builds (csrc/depth_sort.cu): (macros, what)
+OFFSETS_VARIANTS = {
+    "base": ((), "the shipping radix sort and depth offsets kernel"),
+    "nogather": (("E3D_OFFSETS_NOGATHER",),
+                 "the last pass reads the count at the rank, not through "
+                 "the order"),
+    "nolookback": (("E3D_OFFSETS_NOLOOKBACK",),
+                   "every tile's prefix of a digit and every block's prefix "
+                   "of the counts taken as 0"),
+    "noclear": (("E3D_OFFSETS_NOCLEAR",),
+                "the offsets kernel leaves the sort's state words"),
+}
+# (kernel, template arguments as mangled): the pass kernel's instances
+# with 16 and 8 keys a thread
+DEPTH_FUNCTIONS = (("radix_histogram_kernel", ""),
+                   ("radix_pass_kernel", "ILi16E"),
+                   ("radix_pass_kernel", "ILi8E"),
+                   ("depth_offsets_kernel", ""))
+# calls of each build by the offsets probe, a call captured into a CUDA
+# graph included (its replays are not)
+OFFSETS_LAUNCHES = dict.fromkeys(OFFSETS_VARIANTS, 0)
+
+
+def offsets_builds():
+    """(source, macros) of every depth order build of the probes, for
+    :func:`kernels.build`."""
+    return [("depth_sort", d) for d, _ in OFFSETS_VARIANTS.values()]
+OFFSETS_LARGE = 2_097_152  # Gaussians of the probe's second view
 
 
 def ssim_builds():
@@ -883,6 +922,129 @@ class Probes:
         self.outputs["ssim"] = outputs
         return {"mode": "ssim", "variants": rows}
 
+    def depth_tables(self, n: int):
+        """The table kernel's outputs for ``n`` Gaussians of ``bench.py``'s
+        scene recipe at camera 0, and the default instance cap."""
+        from event3dgs_tpu_torch.ops.projection import project_gaussians
+
+        means, scales, rots, opac, _ = kt.bench_scene(
+            np.random.default_rng(0), n)
+        f = lambda a: torch.tensor(a, dtype=torch.float32, device=self.device)
+        cam = kt.bench_camera(0, self.width, self.height, self.device)
+        opacities = f(opac)
+        proj = project_gaussians(f(means), f(scales), f(rots), cam,
+                                 opacities=opacities)
+        args = (proj.mean2d, proj.depth, proj.radius, proj.valid, self.width,
+                self.height)
+        kw = dict(opacities=opacities, conic=proj.conic)
+        table = lambda: binning.gaussian_tables(*args, **kw)
+        return table(), rt.default_instance_cap(n), table
+
+    def offsets(self) -> dict:
+        """The depth order at the render view (the probes' size) and at
+        ``OFFSETS_LARGE`` Gaussians of the same recipe: graph ms of the
+        shipping call, of the sort and the offsets kernel alone, of each
+        timing-only build (both kernels), of ``torch.argsort`` and
+        ``torch.sort`` of the keys (stable) and of the table kernel; the
+        sort alone on keys whose digits vary in 1-4 of its passes (the
+        others skipped); the scratch bytes per Gaussian of the depth order
+        and of ``torch.argsort`` (peak allocated over the call, its outputs
+        included); registers and spills of each kernel."""
+        from event3dgs_tpu_torch.ops.sort_tiles import SEGMENT, segments
+
+        log = kernels.build(["depth_sort"])["depth_sort"]
+        registers = {f + t: kt.ptxas_report(log, f, t)
+                     for f, t in DEPTH_FUNCTIONS}
+        rows = []
+        for n in (self.n, OFFSETS_LARGE):
+            tables, cap, table = self.depth_tables(n)
+            key = tables.key
+            want = binning.depth_order(tables, cap)
+            # the plain version on the card; the same order on these keys
+            # (no NaN) as torch.argsort's
+            plain = binning.radix_order_plain(tables, cap)
+            live_segments = -(-min(int(want.offsets[-1]), cap) // SEGMENT)
+            equal = (torch.equal(want.order, plain.order)
+                     and torch.equal(want.offsets, plain.offsets)
+                     and torch.equal(want.seg_rank[:live_segments],
+                                     plain.seg_rank[:live_segments]))
+            order, counts = binning.depth_sort_kernel(tables)
+            common = {"gaussians": n,
+                      "live": int((tables.rect[:, 3] > 0).sum()), "cap": cap,
+                      "instances": int(want.offsets[-1]),
+                      "segments": segments(cap)}
+            bound = {
+                "depth_order": kt.depth_order_bytes(n, cap),
+                "depth_sort": (n * 16, (0, 0)),
+                "depth_offsets": (n * 8 + 4 + segments(cap) * 4, (0, 0)),
+            }
+            calls = {
+                "depth_order": lambda: binning.depth_order(tables, cap),
+                "depth_sort": lambda: binning.depth_sort_kernel(tables),
+                "depth_offsets": lambda: binning.depth_offsets_kernel(
+                    tables, counts, cap),
+                "argsort": lambda: torch.argsort(key, stable=True),
+                "sort": lambda: torch.sort(key, stable=True),
+                "table_kernel": table,
+            }
+            for name, call in calls.items():
+                row = {**common, "call": name,
+                       "graph_ms": kt.graph_ms(call, CALLS),
+                       "event_ms": kt.cuda_ms(call, CALLS)}
+                if name in bound:
+                    row["bound_ms"] = kt.bound_ms(*bound[name])[0]
+                    row["over_bound"] = row["graph_ms"] / row["bound_ms"]
+                if name == "depth_order":
+                    row["equal_to_plain"] = equal
+                    row["bound_argsort_ms"] = kt.bound_ms(
+                        n * 20 + 4 + segments(cap) * 4, (0, 0))[0]
+                if name in ("depth_order", "argsort"):
+                    row["scratch_bytes_per_gaussian"] = peak_bytes(call) / n
+                rows.append(row)
+            base = None
+            for name, (defines, what) in OFFSETS_VARIANTS.items():
+                def call(name=name, defines=defines):
+                    OFFSETS_LAUNCHES[name] += 1
+                    return binning.depth_order_kernel(tables, cap,
+                                                      defines=defines)
+
+                got = call()
+                row = {**common, "call": f"build {name}", "what": what,
+                       "timing_only": name != "base",
+                       "graph_ms": kt.graph_ms(call, CALLS),
+                       "event_ms": kt.cuda_ms(call, CALLS),
+                       "equal_to_shipping": bool(
+                           torch.equal(got.order, want.order)
+                           and torch.equal(got.offsets, want.offsets)),
+                       "max_abs_err_vs_shipping": max_abs_err(
+                           (got.order, got.offsets),
+                           (want.order, want.offsets))}
+                if base is None:
+                    base = row
+                else:
+                    row["vs_base_ms"] = row["graph_ms"] - base["graph_ms"]
+                rows.append(row)
+            # the sort on keys whose words vary in the low 8, 16 or 24 bits
+            # (floats in [2, 4)) and on the view's own keys: a pass a digit
+            g = torch.Generator(device=self.device).manual_seed(n)
+            bits = torch.randint(0, 1 << 24, (n,), generator=g,
+                                 device=self.device, dtype=torch.int32)
+            for passes in range(1, binning.PASSES + 1):
+                if passes < binning.PASSES:
+                    mask = (1 << (binning.RADIX_BITS * passes)) - 1
+                    k = (bits & mask | 0x40000000).view(torch.float32)
+                    t = tables._replace(key=k)
+                else:
+                    t = tables
+                plan = binning.radix_plan(binning.ordered_keys(t.key))
+                rows.append({**common, "call": "depth_sort by passes",
+                             "passes": len(plan),
+                             "graph_ms": kt.graph_ms(
+                                 lambda t=t: binning.depth_sort_kernel(t),
+                                 CALLS)})
+            binning.depth_order(tables, cap)  # the state left cleared
+        return {"mode": "offsets", "registers": registers, "rows": rows}
+
     def run(self, mode: str) -> dict:
         if mode in CARD_MODES and not self.on_card:
             raise SystemExit(f"kernel_probes {mode}: needs a CUDA card (its "
@@ -892,6 +1054,19 @@ class Probes:
                    width=self.width, height=self.height)
         self.records[mode] = rec
         return rec
+
+
+def peak_bytes(call) -> int:
+    """The device bytes one call of ``call`` allocates at its peak, its
+    outputs included (the caching allocator's peak over the call)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
 
 
 def clock_imbalance(clock, blocks_per_sm: int) -> dict:
@@ -930,6 +1105,8 @@ def run_probes(modes, device, n=kt.N_GAUSSIANS, width=kt.WIDTH,
         kernels.build(variant_builds())
     if probes.on_card and "ssim" in modes:
         kernels.build(ssim_builds())
+    if probes.on_card and "offsets" in modes:
+        kernels.build(offsets_builds())
     for mode in modes:
         print(json.dumps(probes.run(mode)), flush=True)
     return probes

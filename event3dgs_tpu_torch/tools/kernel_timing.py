@@ -80,10 +80,15 @@ PEAK_SFU_PER_S = PEAK_FP32_PER_S / 8
 K1_PAIR_OPS = ((10, 0), (12, 1), (23, 3))
 K2_PAIR_OPS = ((10, 0), (12, 1), (38, 4))
 COMPOSITED = 2  # index of the composited pairs in the tables and counts
-# the kernels whose -Xptxas -v report the tree comparison prints
+# the kernels whose -Xptxas -v report the tree comparison prints (a
+# template's instance by its mangled arguments)
 PTXAS_KERNELS = (("rasterize_fwd", "composite_forward_kernel"),
                  ("rasterize_bwd", "composite_backward_kernel"),
-                 ("expand", "expand_kernel"))
+                 ("expand", "expand_kernel"),
+                 ("depth_sort", "radix_histogram_kernel"),
+                 ("depth_sort", "radix_pass_kernel", "ILi16E"),
+                 ("depth_sort", "radix_pass_kernel", "ILi8E"),
+                 ("depth_sort", "depth_offsets_kernel"))
 # K3's timing-only build with one owner per segment in rank order and warps
 # balanced by instances, and the segments + instances of one of its warps
 # (csrc/segsum.cu)
@@ -312,6 +317,16 @@ def fused_adam_call(groups, b1: float = 0.9, b2: float = 0.999,
     return call
 
 
+def depth_order_bytes(n: int, cap: int):
+    """(bytes, operations) the depth order of ``n`` Gaussians at the
+    instance cap ``cap`` must at least move and do: per Gaussian its key
+    and count read, its order entry and offset written (16 bytes), the
+    last offset, and a rank per segment."""
+    from event3dgs_tpu_torch.ops.sort_tiles import segments
+
+    return n * 16 + 4 + segments(cap) * 4, (0, 0)
+
+
 def path_bounds(n: int, cap: int, offsets, live: int, pairs,
                 num_tiles: int, width: int, height: int, coeffs: int = 16,
                 sh_degree: int = 3) -> dict:
@@ -331,13 +346,22 @@ def path_bounds(n: int, cap: int, offsets, live: int, pairs,
         "preprocess_backward": (
             preprocess_bytes(n, coeffs, sh_degree, backward=True),
             preprocess_ops(n, sh_degree, backward=True)),
-        # per Gaussian 33 bytes read, 52 written; at least 60 FP32 and 7
-        # SFU operations (a log, two square roots, four divisions)
-        "K4 gaussian_tables": (n * (33 + 52), (60 * n, 7 * n)),
-        # per rank the argsort's int64 and its count read, the int32 order
-        # and its offset written; a rank per segment
-        "K4 depth_offsets": (n * (8 + 4 + 4 + 4) + 4 + segments(cap) * 4,
-                             (0, 0)),
+        # per Gaussian 33 bytes read, 56 written (the count column too); at
+        # least 60 FP32 and 7 SFU operations (a log, two square roots, four
+        # divisions)
+        "K4 gaussian_tables": (n * (33 + 56), (60 * n, 7 * n)),
+        # the depth order, whatever computes it (depth_order_bytes), and
+        # the yardstick of an order that an argsort computes, whose int64
+        # order is read too: 20 bytes a Gaussian
+        "K4 depth_order": depth_order_bytes(n, cap),
+        "K4 depth_order, argsort's": (
+            n * (8 + 4 + 4 + 4) + 4 + segments(cap) * 4, (0, 0)),
+        # the sort: per Gaussian its key and count read, its order entry
+        # and count in depth order written
+        "K4 depth_sort": (n * 16, (0, 0)),
+        # the offsets: per rank its count read and offset written; a rank
+        # per segment
+        "K4 depth_offsets": (n * 8 + 4 + segments(cap) * 4, (0, 0)),
         # per live rank its 48-byte table row, order entry and offset; 8
         # bytes per slot; each live segment's count row
         "K4 expand_instances": (expansion_bytes(offsets, cap, num_tiles),
@@ -874,8 +898,11 @@ def worker(tree: str) -> None:
 
     logs = kernels.build()
     print(json.dumps({"tree": tree, "ptxas": {
-        f"{name}:{kernel}": ptxas_report(logs[name], kernel)
-        for name, kernel in PTXAS_KERNELS}}), flush=True)
+        f"{name}:{kernel}{template}": ptxas_report(logs[name], kernel,
+                                                  template)
+        for name, kernel, template in (
+            (k + ("",))[:3] for k in PTXAS_KERNELS) if name in logs}}),
+        flush=True)
     dev = torch.device("cuda")
     n = N_GAUSSIANS
     means, scales, rots, opac, _ = bench_scene(np.random.default_rng(0), n)

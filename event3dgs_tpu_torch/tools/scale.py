@@ -274,10 +274,10 @@ def train_scene(capacity=TRAIN_CAPACITY, densify=False,
 
 
 def depth_offsets_case(n, seed=0, device="cuda"):
-    """The depth offsets kernel's inputs for ``n`` Gaussians with no render
-    behind them (its ceiling-size check): instance counts 0-4 (a zero
-    count's key is +inf, as the table kernel writes it), keys with ties,
-    and the cleared look-back state."""
+    """The depth order's inputs for ``n`` Gaussians with no render behind
+    them (its ceiling-size check): instance counts 0-4 (a zero count's key
+    is +inf, as the table kernel writes it), keys with ties, and the
+    cleared state of its kernels."""
     from event3dgs_tpu_torch.ops import binning
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -290,8 +290,7 @@ def depth_offsets_case(n, seed=0, device="cuda"):
     rect[:, 3] = counts
     return binning.GaussianTables(
         rect=rect, cull=torch.empty(0, 8, device=device), key=key,
-        lookback=torch.zeros(binning.lookback_words(n), dtype=torch.int64,
-                             device=device))
+        lookback=binning.depth_state(n, device), counts=counts)
 
 
 def counting_sort_case(m, n_bins, seed=1, device="cuda"):

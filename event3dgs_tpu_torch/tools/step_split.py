@@ -9,7 +9,10 @@ render the main view alone) (``train/step.GraphTrainStep`` in
 Gaussians, 1080p, 4 cameras) and at ``tools/scale.py``'s 2,097,152-slot
 maxcap state, profiles one replay of each (``torch.profiler``) and adds up
 the device time of its kernels by group (:func:`split_group`): K1, K2, K3,
-the binning's kernels, its ``argsort``, the preprocess kernels (projection
+the binning's kernels (since its depth order is a radix sort of
+``csrc/depth_sort.cu``, its ``argsort`` group reads 0: a library sort
+kernel in the rasterizer's forward would land there, as the ``argsort`` of
+an older tree does), the preprocess kernels (projection
 and SH colours, ``csrc/preprocess.cu``) forward and backward, the
 rasterizer's other work, the loss (its two kernels, ``csrc/loss.cu`` in
 the event modes, ``csrc/ssim.cu`` in rgb and gray mode),
@@ -74,7 +77,8 @@ SPLIT_FUNCTIONS = {
     "loss": ("event_loss_forward_kernel", "event_loss_backward_kernel",
              "photometric_loss_forward_kernel",
              "photometric_loss_backward_kernel"),
-    "binning kernels": ("gaussian_table_kernel", "depth_offsets_kernel",
+    "binning kernels": ("gaussian_table_kernel", "radix_histogram_kernel",
+                        "radix_pass_kernel", "depth_offsets_kernel",
                         "expand_kernel", "segment_count_kernel",
                         "scan_kernel", "rank_kernel"),
 }

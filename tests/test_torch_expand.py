@@ -151,9 +151,9 @@ def test_expand_plan_mirrors_the_source():
     (``csrc/segment.cuh``, shared with the counting sort), a 48-byte row
     and a 4-byte mark per slot beside at most EXPAND_STATIC_LIMIT static
     bytes, and one int per tile where the block counts tiles; so do the
-    depth offsets kernel's blocks and state."""
+    depth order's tiles, blocks and state (``csrc/depth_sort.cu``)."""
     src = "\n".join((kernels.CSRC / f).read_text()
-                    for f in ("segment.cuh", "expand.cu"))
+                    for f in ("segment.cuh", "expand.cu", "depth_sort.cu"))
 
     def const(name):  # a constant's value, the constants it names resolved
         expr = re.search(rf"constexpr int {name} = ([\w *]+);", src).group(1)
@@ -163,8 +163,17 @@ def test_expand_plan_mirrors_the_source():
     assert const("SEGMENT") == tst.SEGMENT == tex.SEGMENT
     assert const("EXPAND_STATIC_LIMIT") == tex.EXPAND_STATIC_LIMIT
     assert const("OFFSETS_TILE") == tb.OFFSETS_TILE
+    assert const("SORT_TILE") == tb.SORT_TILE
+    assert const("SORT_TILE_SMALL") == tb.SORT_TILE_SMALL
+    assert const("SORT_LARGE") == tb.SORT_LARGE
+    assert const("RADIX") == tb.RADIX == 1 << const("RADIX_BITS")
+    assert const("PASSES") == tb.PASSES
+    assert const("PASS_LOOKBACK") == tb.PASS_LOOKBACK
+    # the control words, then a word per tile and digit, then a 64-bit
+    # word per offsets block
     assert [tb.lookback_words(n) for n in (0, 1, 2048, 2049, 100_000)] == [
-        2, 2, 2, 3, 50]
+        5124 + 2, 5124 + 256 + 2, 5124 + 256 + 2, 5124 + 2 * 256 + 4,
+        5124 + 49 * 256 + 49 * 2]
     assert tex.SEGMENT_SHARED == const("SEGMENT") * (const("ROW_BYTES")
                                                     + const("MARK_BYTES"))
     assert "#include \"segment.cuh\"" in (kernels.CSRC / "sort_tiles.cu").read_text()

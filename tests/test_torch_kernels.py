@@ -354,8 +354,10 @@ TABLE_VARIANTS = ("plain", "degenerate", "opacity_edges", "no_conic",
 
 def assert_tables_equal(tk, tp):
     """Rects, counts and keys of every Gaussian, and the cull rows of every
-    Gaussian with instances, bit for bit."""
+    Gaussian with instances, bit for bit; the kernel's count column equal
+    to the rects' counts."""
     assert torch.equal(tk.rect, tp.rect)
+    assert torch.equal(tk.counts, tp.rect[:, 3])
     assert torch.equal(tk.key.view(torch.int32), tp.key.view(torch.int32))
     live = tp.rect[:, 3] > 0
     assert torch.equal(tk.cull[live].view(torch.int32),
@@ -376,43 +378,176 @@ def test_table_kernel_matches_plain_version(name, variant):
     torch.cuda.synchronize()
 
 
-def depth_tables(n, seed, device):
-    """Random sort keys (ties among them, +inf where the count is 0) and
-    instance counts, as the table kernel leaves them (its look-back state
-    cleared)."""
+def depth_tables(n, seed, device, key=None):
+    """Random sort keys (ties among them, +inf where the count is 0), or
+    ``key``, and instance counts, as the table kernel leaves them (the
+    depth order's state cleared)."""
     g = torch.Generator().manual_seed(seed)
     count = torch.randint(0, 12, (n,), generator=g, dtype=torch.int32)
     count[torch.rand(n, generator=g) < 0.3] = 0
-    key = torch.randint(0, max(n // 4, 1), (n,), generator=g).float()
-    key[count == 0] = float("inf")
+    if key is None:
+        key = torch.randint(0, max(n // 4, 1), (n,), generator=g).float()
+        key[count == 0] = float("inf")
     rect = torch.zeros(n, 4, dtype=torch.int32)
     rect[:, 3] = count
     return binning.GaussianTables(
         rect=rect.to(device), cull=torch.zeros(n, 8, device=device),
-        key=key.to(device),
-        lookback=torch.zeros(binning.lookback_words(n), dtype=torch.int64,
-                             device=device))
+        key=key.to(device), lookback=binning.depth_state(n, device),
+        counts=count.to(device))
+
+
+DEPTH_WRAPPERS = (binning.depth_order_kernel, binning.depth_sort_kernel,
+                  binning.depth_offsets_kernel)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 100_000, 400_000])
-def test_depth_offsets_kernel_matches_plain_version(n):
-    """The depth offsets kernel (order cast, counts gathered in depth order,
-    their prefix by a decoupled look-back over blocks of 2,048 ranks) equal
-    to its plain version, on one block, on a block boundary and on 49 and
-    196 blocks, twice on the same state."""
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 100_000, 400_000,
+                               binning.SORT_LARGE])
+def test_depth_order_kernels_match_plain_version(n):
+    """The radix sort and the depth offsets kernel (``csrc/depth_sort.cu``)
+    equal to both plain versions, on one tile, on tile and block
+    boundaries, on 49 and 196 tiles a pass of 2,048 keys (and offsets
+    blocks) and on 256 of 4,096 keys (from ``SORT_LARGE`` keys on), twice
+    on the same state, which each call leaves cleared."""
     need_card()
     tables = depth_tables(n, n, "cuda")
     cap = suggest_cap(int(tables.rect[:, 3].sum()))
-    before = binning.depth_order_kernel.launches
-    k = binning.depth_order(tables, cap)
-    assert binning.depth_order_kernel.launches == before + 1
     p = binning.depth_order_plain(tables, cap)
-    assert_depth_order_equal(k, p, cap)
-    # the kernel leaves its state cleared: a second call repeats the first
+    assert_depth_order_equal(binning.radix_order_plain(tables, cap), p, cap)
+    for _ in range(2):
+        before = [w.launches for w in DEPTH_WRAPPERS]
+        k = binning.depth_order(tables, cap)
+        assert [w.launches - b for w, b in zip(DEPTH_WRAPPERS, before)] == \
+            [1, 1, 1]
+        assert_depth_order_equal(k, p, cap)
+        torch.cuda.synchronize()
+        # the kernels leave every word of their state cleared
+        assert not tables.lookback.any()
+
+
+def adversarial_keys(name, n, seed):
+    """Sort keys of one adversarial set, from numpy's seeded generator:
+    ties, all equal, all dead (+inf), all live, digits constant in some
+    radix passes, ±0.0, denormals of both signs, negatives and -inf, NaNs
+    of both signs and several payloads among them."""
+    rng = np.random.default_rng(seed)
+    pick = lambda pool: np.asarray(pool, np.float32)[rng.integers(0, len(pool), n)]
+    nans = np.array([0x7FC00000, 0xFFC00000, 0x7F800001, 0xFFFFFFFF,
+                     0x7FFFFFFF], np.uint32).view(np.float32)
+    keys = {
+        "ties": lambda: pick([0.5, 1.0, 1.0, 2.0, 7.25]),
+        "all_equal": lambda: np.full(n, 3.5, np.float32),
+        "all_dead": lambda: np.full(n, np.inf, np.float32),
+        "all_live": lambda: rng.uniform(0.2, 80.0, n).astype(np.float32),
+        # words vary in the low 8 bits only (three passes skipped), and in
+        # bits 8-15 only (the lowest and the two highest skipped)
+        "skip_low": lambda: (rng.integers(0, 256, n).astype(np.uint32)
+                             | 0x40000000).view(np.float32),
+        "skip_mid": lambda: ((rng.integers(0, 256, n).astype(np.uint32) << 8)
+                             | 0x40000000).view(np.float32),
+        "signed_zeros": lambda: pick([0.0, -0.0, 1.0, -1.0, np.inf]),
+        "denormals": lambda: pick([1e-45, -1e-45, 1e-40, -1e-40, 0.0, -0.0,
+                                   1.2e-38, -1.2e-38]),
+        "negatives": lambda: np.where(
+            rng.random(n) < 0.1, -np.inf,
+            rng.uniform(-50.0, 50.0, n)).astype(np.float32),
+        "nans": lambda: np.where(rng.random(n) < 0.3, nans[rng.integers(
+            0, len(nans), n)], pick([-np.inf, -2.0, -0.0, 0.0, 3.0,
+                                     np.inf])).astype(np.float32),
+    }
+    return torch.from_numpy(keys[name]())
+
+
+ADVERSARIAL_KEYS = ("ties", "all_equal", "all_dead", "all_live", "skip_low",
+                    "skip_mid", "signed_zeros", "denormals", "negatives",
+                    "nans")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2049, 100_000])
+@pytest.mark.parametrize("name", ADVERSARIAL_KEYS)
+def test_depth_order_kernels_on_adversarial_keys(name, n):
+    """The radix sort's order bit-equal to ``torch.argsort(key,
+    stable=True)`` on the card on every adversarial key set but the NaNs,
+    and to the CPU's order (every NaN last, in index order) on the NaNs,
+    where the card's own ``argsort`` differs at 100,000 keys; the
+    offsets and the live segments' first ranks equal to the plain
+    versions; the passes the plan skips are those of ``radix_plan``."""
+    need_card()
+    key = adversarial_keys(name, n, ADVERSARIAL_KEYS.index(name))
+    tables = depth_tables(n, n, "cuda", key=key)
+    cap = suggest_cap(int(tables.rect[:, 3].sum()))
+    got = binning.depth_order(tables, cap)
+    plain = binning.radix_order_plain(tables, cap)
+    assert_depth_order_equal(got, plain, cap)
+    want = torch.argsort(key, stable=True).to(torch.int32)  # the CPU's
+    card = torch.argsort(tables.key, stable=True).to(torch.int32).cpu()
+    assert torch.equal(got.order.cpu(), want)
+    if name != "nans":
+        assert torch.equal(card, want)
+    elif n >= 4096:
+        assert not torch.equal(card, want)  # a NaN with its sign bit first
     assert not tables.lookback.any()
-    assert_depth_order_equal(binning.depth_order(tables, cap), p, cap)
+    plan = binning.radix_plan(binning.ordered_keys(key))
+    if name in ("all_equal", "all_dead") or n == 1:
+        assert plan == [binning.PASSES - 1]
+    elif name in ("skip_low", "skip_mid"):
+        assert plan == [0 if name == "skip_low" else 1]
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_depth_order_kernels_in_a_cuda_graph():
+    """The depth order captured in a CUDA graph and replayed twice gives
+    the eager call's outputs (the state cleared by each replay), also after
+    the keys change between replays."""
+    need_card()
+    n = 100_000
+    tables = depth_tables(n, 3, "cuda")
+    cap = suggest_cap(int(tables.rect[:, 3].sum()))
+    eager = binning.depth_order(tables, cap)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = binning.depth_order(tables, cap)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_depth_order_equal(captured, eager, cap)
+        assert not tables.lookback.any()
+    tables.key.copy_(depth_tables(n, 4, "cuda").key)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_depth_order_equal(captured, binning.depth_order_plain(tables, cap),
+                             cap)
+
+
+@pytest.mark.gpu
+def test_graphed_event_step_runs_no_library_sort():
+    """One event step as ``--fused_steps`` captures it holds no library
+    sort node (no CUB radix sort: the depth order is the port's radix
+    sort) and the port's sort once per render: a histogram, four passes
+    and an offsets kernel each of the step's three renders."""
+    need_card()
+    from event3dgs_tpu_torch.tools.kernel_timing import graph_kernels
+    from event3dgs_tpu_torch.train.fused import FusedSteps
+    from event3dgs_tpu_torch.train.step import GraphTrainStep
+    from event3dgs_tpu_torch.utils.config import TrainConfig
+
+    state, data, extent = graph_scene()
+    cfg = TrainConfig()
+    step = GraphTrainStep("event", cfg.optimization, cfg.event,
+                          spatial_lr_scale=extent, rasterizer="tiled",
+                          instance_cap=4096)
+    runner = FusedSteps(step, state, data, 2)
+    runner.table.copy_(torch.from_numpy(np.stack([
+        step.row(int(state.step) + 1 + j, (1, 1, 2), np.zeros(3))
+        for j in range(2)])))
+    nodes = graph_kernels(lambda: (runner.cursor.zero_(), runner._call()))
+    assert not [k for k in nodes if "sort" in k.lower()
+                and not k.startswith("radix_")], nodes
+    assert (nodes.get("radix_histogram_kernel"), nodes.get("radix_pass_kernel"),
+            nodes.get("depth_offsets_kernel")) == (3, 12, 3), nodes
 
 
 def suggest_cap(total):
@@ -1183,7 +1318,8 @@ def wrappers_by_name():
         "K2": rt.composite_backward_kernel,
         "K3": segscan.segment_sums_kernel,
         "table": binning.gaussian_tables_kernel,
-        "depth_offsets": binning.depth_order_kernel,
+        "depth_sort": binning.depth_sort_kernel,
+        "depth_offsets": binning.depth_offsets_kernel,
         "K4": expand.expand_instances_kernel,
         "K5": sort_tiles.tile_histogram_kernel,
         "K6": sort_tiles.stable_tile_rank_kernel,
@@ -2383,12 +2519,12 @@ def test_kernel_steps_chained_match_the_plain_steps(monkeypatch, capsys):
 
 
 @pytest.mark.gpu
-def test_depth_offsets_kernel_at_ceiling_size():
-    """The depth offsets kernel's decoupled look-back over 8,192 + 1
-    blocks of 2,048 ranks (16.8M Gaussians, far more blocks than the card
-    holds at once), twice (the kernel clears its state for the next call):
-    order, offsets and every live segment's first rank bit-equal to the
-    plain version."""
+def test_depth_order_kernels_at_ceiling_size():
+    """The depth order of 16.8M Gaussians: the radix sort's look-back over
+    4,097 tiles a pass and the offsets kernel's over 8,192 + 1 blocks of
+    2,048 ranks (far more blocks than the card holds at once), twice (the
+    kernels clear their state for the next call): order, offsets and every
+    live segment's first rank bit-equal to the plain version."""
     need_card()
     from event3dgs_tpu_torch.tools.scale import depth_offsets_case
 
@@ -2404,7 +2540,7 @@ def test_depth_offsets_kernel_at_ceiling_size():
         assert torch.equal(got.order, want.order)
         assert torch.equal(got.offsets, want.offsets)
         assert torch.equal(got.seg_rank[:live], want.seg_rank[:live])
-    assert int(tables.lookback.abs().sum()) == 0  # left cleared
+        assert not tables.lookback.any()  # left cleared
 
 
 class _MemProp(ctypes.Structure):  # CUmemAllocationProp
@@ -2575,6 +2711,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: binning.gaussian_tables_kernel(*targs, opacities=opac,
                                                conic=proj.conic),
         lambda: binning.depth_order_kernel(tables, 1024),
+        lambda: binning.depth_sort_kernel(tables),
+        lambda: binning.depth_offsets_kernel(tables, ranks.order, 1024),
         lambda: expand.expand_instances_kernel(tables.rect, tables.cull,
                                                *ranks, 1024, 2, 4),
         lambda: sort_tiles.tile_histogram_kernel(ids, 4, live),
@@ -2605,6 +2743,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
               lambda: opt.adam_update_kernel(
                   groups, out=[(g.params, g.state) for g in groups])]
     wrappers = [binning.gaussian_tables_kernel, binning.depth_order_kernel,
+                binning.depth_sort_kernel, binning.depth_offsets_kernel,
                 expand.expand_instances_kernel, sort_tiles.tile_histogram_kernel,
                 sort_tiles.stable_tile_rank_kernel, rt.composite_forward_kernel,
                 rt.composite_backward_kernel, segscan.segment_sums_kernel,
@@ -2672,12 +2811,13 @@ def test_kernel_build_is_lazy_and_keyed_by_source(tmp_path, monkeypatch):
     after = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
     changed = sorted(n for n in before if before[n] != after[n])
     assert changed == ["rasterize_bwd", "rasterize_fwd"]
-    # the expansion and the counting sort share csrc/segment.cuh
+    # the expansion, the counting sort and the depth order's segment ranks
+    # share csrc/segment.cuh
     header = tmp_path / "segment.cuh"
     header.write_text(header.read_text() + "\n// changed\n")
     again = {n: kernels.library_path(n) for n in kernels.SIGNATURES}
     assert sorted(n for n in after if after[n] != again[n]) == [
-        "expand", "sort_tiles"]
+        "depth_sort", "expand", "sort_tiles"]
     # the two losses share csrc/block_sums.cuh
     header = tmp_path / "block_sums.cuh"
     header.write_text(header.read_text() + "\n// changed\n")

@@ -49,6 +49,35 @@ def test_variant_catalogue():
     assert ("rasterize_fwd", ()) in kp.variant_builds()
 
 
+def test_depth_order_builds_catalogue():
+    """The depth order's timing-only builds: ``base`` the shipping library,
+    every other macro one that ``csrc/depth_sort.cu`` tests; the kernels
+    whose registers the probe reads are in that source; the probe needs
+    the card; the replay split counts the sort's kernels in the binning."""
+    assert list(kp.OFFSETS_VARIANTS) == ["base", "nogather", "nolookback",
+                                         "noclear"]
+    assert kp.OFFSETS_VARIANTS["base"][0] == ()
+    text = (kernels.CSRC / "depth_sort.cu").read_text()
+    for defines, _ in kp.OFFSETS_VARIANTS.values():
+        for d in defines:
+            assert re.search(rf"#if(n?def| defined\()\s*{d}\b", text), d
+    assert kp.offsets_builds() == [
+        ("depth_sort", d) for d, _ in kp.OFFSETS_VARIANTS.values()]
+    assert kernels.library_path(*kp.offsets_builds()[0]) == \
+        kernels.library_path("depth_sort")
+    # the pass kernel's two instances: SORT_ITEMS and SORT_ITEMS_SMALL keys
+    # a thread
+    for function, _ in kp.DEPTH_FUNCTIONS:
+        assert f"{function}(" in text
+    assert [t for _, t in kp.DEPTH_FUNCTIONS if t] == ["ILi16E", "ILi8E"]
+    assert "constexpr int SORT_ITEMS = 16;" in text
+    assert "constexpr int SORT_ITEMS_SMALL = 8;" in text
+    assert "offsets" in kp.MODES and "offsets" in kp.CARD_MODES
+    for name in ("radix_histogram_kernel", "radix_pass_kernel",
+                 "depth_offsets_kernel"):
+        assert ss.split_group(name, "rasterizer fwd") == "binning kernels"
+
+
 def _shipping_path(name):
     """The library path as `ops/kernels.py` computed it before builds took
     macros."""
@@ -409,7 +438,8 @@ def test_path_bounds_of_one_view():
     b = kt.path_bounds(4, 10, offsets, 6, pairs, 2, 8, 2)
     assert set(b) == {"K1 composite_forward", "K2 composite_backward",
                       "K3 segment_sums", "K4 gaussian_tables",
-                      "K4 depth_offsets", "K4 expand_instances",
+                      "K4 depth_sort", "K4 depth_offsets", "K4 depth_order",
+                      "K4 depth_order, argsort's", "K4 expand_instances",
                       "K5 tile_histogram", "K6 stable_tile_rank",
                       "preprocess_forward", "preprocess_backward"}
     # SH degree 3 over 16 coefficients: 236 bytes read and 41 written a
@@ -430,8 +460,15 @@ def test_path_bounds_of_one_view():
         4 * (232 + 3 * 33 + 232))
     assert kt.preprocess_ops(4, 3, backward=True, views=3) == (
         3 * 4 * 532, 3 * 4 * 12)
-    assert b["K4 gaussian_tables"] == (4 * 85, (240, 28))
-    assert b["K4 depth_offsets"] == (4 * 20 + 4 + segments(10) * 4, (0, 0))
+    assert b["K4 gaussian_tables"] == (4 * 89, (240, 28))
+    # the depth order: key and count read, order and offset written, a rank
+    # per segment; the sort and the offsets kernel; the yardstick of an
+    # order from an argsort, its int64 order read too
+    assert b["K4 depth_order"] == (4 * 16 + 4 + segments(10) * 4, (0, 0))
+    assert b["K4 depth_sort"] == (4 * 16, (0, 0))
+    assert b["K4 depth_offsets"] == (4 * 8 + 4 + segments(10) * 4, (0, 0))
+    assert b["K4 depth_order, argsort's"] == (4 * 20 + 4 + segments(10) * 4,
+                                            (0, 0))
     # ranks 0 and 2 start under the cap (rank 1 is empty, rank 3 at it)
     assert b["K4 expand_instances"] == (2 * 56 + 80 + -(-10 // SEGMENT) * 8,
                                         (0, 0))
