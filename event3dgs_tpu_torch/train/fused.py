@@ -22,7 +22,6 @@ or replay raises; nothing falls back to eager steps.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -34,6 +33,7 @@ from event3dgs_tpu_torch.train.state import (
     map_tensors,
 )
 from event3dgs_tpu_torch.train.step import GraphTrainStep, StepSlots
+from event3dgs_tpu_torch.utils import trace
 
 # eager steps on a side stream before a capture: they load every kernel
 # library and module (a launch may not load one during capture) and make
@@ -74,23 +74,24 @@ class FusedSteps:
 
     def _capture(self, state: TrainState) -> None:
         """Warm up on a side stream, capture one step, then load ``state``
-        again (the warm-up steps changed the buffers)."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.table.device)
-        side.wait_stream(torch.cuda.current_stream(self.table.device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self.cursor.zero_()
+        again (the warm-up steps changed the buffers).  ``capture_ms`` is
+        the ``fused.capture`` span's duration."""
+        with trace.synced("fused.capture") as capture:
+            side = torch.cuda.Stream(self.table.device)
+            side.wait_stream(torch.cuda.current_stream(self.table.device))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    self.cursor.zero_()
+                    self._call()
+            torch.cuda.current_stream(self.table.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            self.cursor.zero_()
+            with torch.cuda.graph(graph):
                 self._call()
-        torch.cuda.current_stream(self.table.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        self.cursor.zero_()
-        with torch.cuda.graph(graph):
-            self._call()
-        self.graph = graph
-        self.load(state)
-        torch.cuda.synchronize(self.table.device)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.graph = graph
+            self.load(state)
+            torch.cuda.synchronize(self.table.device)
+        self.capture_ms = capture.ms
 
     def load(self, state: TrainState) -> None:
         """Make ``state`` (same capacity) the live state: copied in."""
@@ -103,20 +104,25 @@ class FusedSteps:
         """Run the steps of the table rows ``rows`` ([k, columns] float32
         on the CPU, :meth:`GraphTrainStep.row`) in order: one copy to the
         device, k graph replays (eager steps on the CPU), one read of the k
-        losses, which it returns.  Advances ``state.step`` by k."""
+        losses, which it returns: the spans ``fused.upload``,
+        ``fused.launch`` and ``fused.readback``, the first and the last a
+        host wait.  Advances ``state.step`` by k."""
         k = rows.shape[0]
         if not 0 < k <= self.table.shape[0]:
             raise ValueError(f"{k} rows for a table of {self.table.shape[0]}")
-        self.table[:k].copy_(rows)
-        self.cursor.zero_()
-        for _ in range(k):
-            if self.graph is None:
-                self._call()
-            else:
-                self.graph.replay()
-                self.replays += 1
+        with trace.synced("fused.upload"):  # a pageable copy waits
+            self.table[:k].copy_(rows)
+            self.cursor.zero_()
+        with trace.span("fused.launch", n=k):
+            for _ in range(k):
+                if self.graph is None:
+                    self._call()
+                else:
+                    self.graph.replay()
+                    self.replays += 1
         self.state.step = self.state.step + k
-        return self.slots.history[:k].tolist()
+        with trace.synced("fused.readback"):
+            return self.slots.history[:k].tolist()
 
     def release(self) -> None:
         """Free the graph and its memory pool."""
@@ -138,17 +144,18 @@ class GraphCache:
             rows: int) -> FusedSteps:
         """Steps for ``step`` on ``data`` with ``state`` loaded: the cached
         ones where they fit (no capture), else new ones, after the old
-        graph is freed."""
-        e = self.entry
-        if (e is not None and e.step is step and e.data is data
-                and e.capacity == state.params.capacity
-                and e.table.shape[0] == rows):
-            e.load(state)
-            return e
-        self.clear()
-        self.entry = FusedSteps(step, state, data, rows)
-        self.captures += self.entry.graph is not None
-        return self.entry
+        graph is freed: the ``fused.get`` span."""
+        with trace.span("fused.get"):
+            e = self.entry
+            if (e is not None and e.step is step and e.data is data
+                    and e.capacity == state.params.capacity
+                    and e.table.shape[0] == rows):
+                e.load(state)
+                return e
+            self.clear()
+            self.entry = FusedSteps(step, state, data, rows)
+            self.captures += self.entry.graph is not None
+            return self.entry
 
     def clear(self) -> None:
         if self.entry is not None:

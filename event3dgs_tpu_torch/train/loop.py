@@ -57,6 +57,7 @@ from event3dgs_tpu_torch.train.step import (
     make_train_step,
     opacity_reset_step,
 )
+from event3dgs_tpu_torch.utils import trace
 from event3dgs_tpu_torch.utils.config import TrainConfig
 
 # Views held out for evaluation in gray/event modes (`train.py:126-131`).
@@ -91,14 +92,16 @@ def probe_instance_count(params, camera) -> int:
     projection is the render's (the forward kernel on the card), so the
     cap is sized from the radii the render bins.  Each call adds one to
     ``probe_instance_count.calls``, read beside the kernels' launch counts:
-    a probe launches the forward preprocess once."""
+    a probe launches the forward preprocess once.  Its ``int`` waits for
+    the device: a ``train.probe`` span, counted in ``trace.host_syncs``."""
     probe_instance_count.calls += 1
-    act = activated(params)
-    proj, _ = preprocess(act.means3d, act.scales, act.rotations, camera,
-                         opacities=act.opacities)
-    return int(count_instances(proj.mean2d, proj.radius, proj.valid,
-                               camera.width, camera.height, conic=proj.conic,
-                               opacities=act.opacities))
+    with trace.synced("train.probe"):
+        act = activated(params)
+        proj, _ = preprocess(act.means3d, act.scales, act.rotations, camera,
+                             opacities=act.opacities)
+        return int(count_instances(proj.mean2d, proj.radius, proj.valid,
+                                   camera.width, camera.height,
+                                   conic=proj.conic, opacities=act.opacities))
 
 
 probe_instance_count.calls = 0
@@ -110,8 +113,9 @@ def measure_instance_cap(params, cameras, probe_views=8,
     headroom for densification growth between re-measurements."""
     n_views = cameras.camera_center.shape[0]
     step = max(1, n_views // probe_views)
-    worst = max(probe_instance_count(params, cameras[v])
-                for v in range(0, n_views, step))
+    with trace.span("train.instance_cap"):
+        worst = max(probe_instance_count(params, cameras[v])
+                    for v in range(0, n_views, step))
     return suggest_instance_cap(worst, margin)
 
 
@@ -196,54 +200,58 @@ def train_loop(
         extent: nerf++ scene radius (densification scale reference).
         iterations: override cfg.optimization.iterations.
     """
-    opt = cfg.optimization
-    ev = cfg.event
-    iters = iterations or opt.iterations
-    callbacks = callbacks or TrainCallbacks()
-    dev = state.params.device
+    with trace.span("train.prologue"):
+        opt = cfg.optimization
+        ev = cfg.event
+        iters = iterations or opt.iterations
+        callbacks = callbacks or TrainCallbacks()
+        dev = state.params.device
 
-    reset_interval = opacity_reset_interval(cfg, mode)
-    holdout = mode != "rgb"  # gray/event hold out the manual test views
-    fused = max(int(cfg.pipeline.fused_steps), 1)
-    graphs = GraphCache() if fused > 1 else None
+        reset_interval = opacity_reset_interval(cfg, mode)
+        holdout = mode != "rgb"  # gray/event hold out the manual test views
+        fused = max(int(cfg.pipeline.fused_steps), 1)
+        graphs = GraphCache() if fused > 1 else None
 
-    use_tiled = cfg.pipeline.rasterizer == "tiled"
-    instance_cap = (measure_instance_cap(state.params, data.cameras)
-                    if use_tiled else None)
+        use_tiled = cfg.pipeline.rasterizer == "tiled"
+        instance_cap = (measure_instance_cap(state.params, data.cameras)
+                        if use_tiled else None)
 
-    def build_step():
-        return (make_train_step if graphs is None else GraphTrainStep)(
-            mode, opt, ev, max_sh_degree=state.max_sh_degree,
-            spatial_lr_scale=state.spatial_lr_scale,
-            rasterizer=cfg.pipeline.rasterizer, instance_cap=instance_cap,
-        )
+        def build_step():
+            with trace.span("train.build_step"):
+                return (make_train_step if graphs is None else GraphTrainStep)(
+                    mode, opt, ev, max_sh_degree=state.max_sh_degree,
+                    spatial_lr_scale=state.spatial_lr_scale,
+                    rasterizer=cfg.pipeline.rasterizer,
+                    instance_cap=instance_cap,
+                )
 
-    def remeasure(it):
-        nonlocal instance_cap, step_fn
-        needed = measure_instance_cap(state.params, data.cameras)
-        if needed > instance_cap:
-            instance_cap = needed
-            step_fn = build_step()
-            if callbacks.on_metrics:
-                callbacks.on_metrics(it, {"instance_cap": instance_cap})
+        def remeasure(it):
+            nonlocal instance_cap, step_fn
+            with trace.span("train.remeasure"):
+                needed = measure_instance_cap(state.params, data.cameras)
+                if needed > instance_cap:
+                    instance_cap = needed
+                    step_fn = build_step()
+                    if callbacks.on_metrics:
+                        callbacks.on_metrics(it, {"instance_cap": instance_cap})
 
-    step_fn = build_step()
-    densify_fn = make_densify_step(opt, extent)
-    bg = (torch.ones if cfg.model.white_background else torch.zeros)(
-        3, device=dev)
+        step_fn = build_step()
+        densify_fn = make_densify_step(opt, extent)
+        bg = (torch.ones if cfg.model.white_background else torch.zeros)(
+            3, device=dev)
 
-    view_rng = pyrandom.Random(cfg.seed)
-    np_rng = np.random.default_rng(cfg.seed)
-    split_rng = torch.Generator().manual_seed(cfg.seed)
+        view_rng = pyrandom.Random(cfg.seed)
+        np_rng = np.random.default_rng(cfg.seed)
+        split_rng = torch.Generator().manual_seed(cfg.seed)
 
-    def split_normals(capacity):
-        return torch.randn((2, capacity, 3), generator=split_rng).to(dev)
+        def split_normals(capacity):
+            return torch.randn((2, capacity, 3), generator=split_rng).to(dev)
 
-    # callbacks keep what they are given: the fused steps' live state is
-    # handed out as a copy
-    public = (lambda st: st) if graphs is None else \
-        (lambda st: map_tensors(torch.clone, st))
-    base_bg = [1.0 if cfg.model.white_background else 0.0] * 3
+        # callbacks keep what they are given: the fused steps' live state is
+        # handed out as a copy
+        public = (lambda st: st) if graphs is None else \
+            (lambda st: map_tensors(torch.clone, st))
+        base_bg = [1.0 if cfg.model.white_background else 0.0] * 3
     history = []
     t0 = time.perf_counter()
     it = 0
@@ -257,35 +265,45 @@ def train_loop(
                            if opt.random_background else bg)
                 state, metrics = step_fn(state, data, idx, idx, idx + 1,
                                          iter_bg)
-                history.append(float(metrics["loss"]))
+                with trace.synced("train.loss"):
+                    history.append(float(metrics["loss"]))
             else:
                 # the steps up to the next host event, at most `fused`
-                k = min(fused, next_event(it + 1, iters, cfg, mode,
-                                          callbacks.log_every) - it)
-                captures = graphs.captures
-                runner = graphs.get(step_fn, state, data, fused)
-                if graphs.captures > captures and callbacks.on_metrics:
-                    callbacks.on_metrics(
-                        it, {"graph_capture_ms": runner.capture_ms})
-                step0 = int(runner.state.step)
-                rows = []
-                for j in range(k):
-                    idx = pick_view_index(view_rng, data.num_views, mode,
-                                          holdout)
-                    iter_bg = (np_rng.uniform(size=3)
-                               if opt.random_background else base_bg)
-                    rows.append(step_fn.row(step0 + 1 + j,
-                                            (idx, idx, idx + 1), iter_bg))
-                history.extend(runner.run(torch.from_numpy(np.stack(rows))))
-                state, metrics = runner.state, runner.slots.metrics
-                it += k
+                with trace.span("train.chunk") as chunk:
+                    with trace.span("train.rows"):
+                        k = min(fused, next_event(it + 1, iters, cfg, mode,
+                                                  callbacks.log_every) - it)
+                        step0 = int(state.step)  # on the host
+                        rows = []
+                        for j in range(k):
+                            idx = pick_view_index(view_rng, data.num_views,
+                                                  mode, holdout)
+                            iter_bg = (np_rng.uniform(size=3)
+                                       if opt.random_background else base_bg)
+                            rows.append(step_fn.row(step0 + 1 + j,
+                                                    (idx, idx, idx + 1),
+                                                    iter_bg))
+                        rows = torch.from_numpy(np.stack(rows))
+                    chunk.n = k
+                    captures = graphs.captures
+                    runner = graphs.get(step_fn, state, data, fused)
+                    if graphs.captures > captures and callbacks.on_metrics:
+                        callbacks.on_metrics(
+                            it, {"graph_capture_ms": runner.capture_ms})
+                    history.extend(runner.run(rows))
+                    state, metrics = runner.state, runner.slots.metrics
+                    it += k
 
             if it % callbacks.log_every == 0:
-                if callbacks.on_metrics:
-                    callbacks.on_metrics(
-                        it, {name: float(v) for name, v in metrics.items()})
-                if callbacks.on_tick:
-                    callbacks.on_tick(it, public(state))
+                with trace.span("train.log"):
+                    if callbacks.on_metrics:
+                        values = {}
+                        for name, v in metrics.items():
+                            with trace.synced("train.metric"):
+                                values[name] = float(v)
+                        callbacks.on_metrics(it, values)
+                    if callbacks.on_tick:
+                        callbacks.on_tick(it, public(state))
 
             # densification (`train.py:316-327`), growing capacity as needed
             if it < opt.densify_until_iter:
@@ -327,6 +345,7 @@ def train_loop(
             graphs.clear()  # its graph; the live state stays as the result
 
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        with trace.synced("train.sync"):
+            torch.cuda.synchronize(dev)
     return TrainResult(state=state, history=history,
                        wall_time=time.perf_counter() - t0)

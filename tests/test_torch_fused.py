@@ -50,13 +50,16 @@ from event3dgs_tpu_torch.ops.rasterize_reference import (
 from event3dgs_tpu_torch.ops.projection import ProjectedGaussians
 from event3dgs_tpu_torch.train import make_train_step, train_loop
 from event3dgs_tpu_torch.train.fused import FusedSteps
+from event3dgs_tpu_torch.train import loop as tloop
 from event3dgs_tpu_torch.train.loop import (
     INSTANCE_RECHECK_INTERVAL,
     TrainCallbacks,
     next_event,
     opacity_reset_interval,
+    probe_instance_count,
 )
 from event3dgs_tpu_torch.train.step import GraphTrainStep
+from event3dgs_tpu_torch.utils import trace
 from event3dgs_tpu_torch.utils.config import OptimizationConfig, TrainConfig
 from test_torch_train import PARAM_FIELDS, scene, scene_data, states  # noqa: F401
 
@@ -172,6 +175,87 @@ def test_graph_step_matches_train_step_across_sh_degree_step(scene,
     assert losses[-1] == float(metrics["loss"])
     assert_trees_equal(chunk.state, state, "chunk")
     assert int(ts.step) == 998  # the caller's state
+
+
+def children(records, parent):
+    """The spans whose parent is ``parent`` (-1: the top), by start."""
+    return sorted((r for r in records if r[1] == parent), key=lambda r: r[3])
+
+
+class Bare:
+    """A span that records and counts nothing: the loop as it runs without
+    its spans."""
+
+    n, ms = -1, 0.0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_fused_loop_spans_and_host_syncs(scene, monkeypatch):
+    """The fused loop (8 steps a chunk, the tiled rasterizer, a log tick and
+    an instance-cap re-measure every 10 iterations) records a span at each
+    layer boundary, counts each host wait once, and computes the same bits
+    as with its spans replaced by ones that do nothing."""
+    monkeypatch.setattr(tloop, "INSTANCE_RECHECK_INTERVAL", 10)
+    _, ts = states(scene, seed=25)
+    _, td = scene_data(scene)
+    runs = {}
+    for bare in (False, True):
+        cfg = TrainConfig(optimization=OptimizationConfig(densify_until_iter=0))
+        cfg.pipeline.rasterizer = "tiled"
+        cfg.pipeline.fused_steps = 8
+        ticks = []
+        cb = TrainCallbacks(
+            on_metrics=lambda it, m: ticks.append((it, len(m))) if "loss" in m else None,
+            log_every=10)
+        trace.clear()
+        syncs, probes = trace.host_syncs, probe_instance_count.calls
+        with monkeypatch.context() as m:
+            if bare:
+                m.setattr(trace, "span", lambda name, n=None: Bare())
+                m.setattr(trace, "synced", lambda what: Bare())
+            result = train_loop(ts, td, cfg, "event", scene.extent,
+                                iterations=20, callbacks=cb)
+        runs[bare] = (result, trace.spans(), trace.host_syncs - syncs,
+                      probe_instance_count.calls - probes, ticks)
+        trace.clear()
+
+    (r_on, recs, syncs, probes, ticks), (r_bare, bare_recs, _, _, _) = \
+        runs[False], runs[True]
+    assert bare_recs == []
+    assert r_on.history == r_bare.history and len(r_on.history) == 20
+    assert_trees_equal(r_on.state, r_bare.state, "state")
+
+    top = children(recs, -1)
+    assert [r[2] for r in top] == ["train.prologue"] + 2 * [
+        "train.chunk", "train.chunk", "train.log", "train.remeasure"]
+    n_views = td.cameras.camera_center.shape[0]
+    per_cap = len(range(0, n_views, max(1, n_views // 8)))
+    assert probes == 3 * per_cap  # the prologue's and two re-measures
+    for r in (top[0], top[4], top[8]):  # the prologue and the re-measures
+        caps = [c for c in children(recs, r[0]) if c[2] == "train.instance_cap"]
+        assert len(caps) == 1
+        assert [c[2] for c in children(recs, caps[0][0])] == ["train.probe"] * per_cap
+    assert "train.build_step" in [c[2] for c in children(recs, top[0][0])]
+    chunks = [r for r in top if r[2] == "train.chunk"]
+    assert [c[5] for c in chunks] == [8, 2, 8, 2]
+    for c in chunks:
+        inner = children(recs, c[0])
+        assert [r[2] for r in inner] == ["train.rows", "fused.get", "fused.upload",
+                                         "fused.launch", "fused.readback"]
+        assert inner[3][5] == c[5]  # the launch's replays
+        assert all(c[3] <= r[3] <= r[4] <= c[4] for r in inner)
+    logs = [r for r in top if r[2] == "train.log"]
+    assert [it for it, _ in ticks] == [10, 20]
+    for log, (_, n_metrics) in zip(logs, ticks):
+        assert [r[2] for r in children(recs, log[0])] == ["train.metric"] * n_metrics
+    # every host wait once: the probes, an upload and a readback a chunk, a
+    # read a metric
+    assert syncs == probes + 2 * len(chunks) + sum(n for _, n in ticks)
 
 
 def jax_next_event(iters, cfg, mode, log_every):
