@@ -2874,6 +2874,22 @@ def probe_path(dev):
                                    out["shipping"]):
             check(torch.equal(got, want),
                   f"the probes' K1 {name}: {what} differs from the shipping K1")
+    # K2's base is the shipping library and equals it; it and the
+    # log-space build match the plain version at both views, bit for bit
+    # from run to run
+    base = kp.K2_VARIANTS["base"]
+    check(kernels.library_path(base.source, base.defines)
+          == kernels.library_path("rasterize_bwd"),
+          "the probes' K2 base is not the shipping library")
+    for r in rec["k2"]["variants"]:
+        if r["variant"] == "base":
+            check(r["max_err_vs_shipping"] == 0.0, f"the probes' K2 base "
+                  f"differs from the shipping K2 at the {r['view']} view")
+        if "max_err_vs_plain" in r:
+            check(r["max_err_vs_plain"] <= 1e-5 and r["rerun_equal"],
+                  f"the probes' K2 {r['variant']} at the {r['view']} view: "
+                  f"{r['max_err_vs_plain']:.3g} of the plain rows' max, "
+                  f"rerun equal {r['rerun_equal']}")
     # the SSIM builds' base is the shipping library and equals it
     base = kp.SSIM_VARIANTS["base"]
     check(kernels.library_path(base.source, base.defines)
@@ -3115,6 +3131,19 @@ def print_probe_tables(rec):
                   f"{r.get('evaluated_pairs', '-')}")
             if "imbalance" in r:
                 print(f"  clock: {json.dumps(r['imbalance'])}")
+    print("K2 build  view   graph ms  event ms  regs  spill st/ld  blocks/SM  "
+          "vs base (graph)   of the plain rows' max")
+    for r in rec["k2"]["variants"]:
+        vs = (f"{r['vs_base_ms']:+.4f} ({100 * r['vs_base_share']:.1f}%)"
+              if "vs_base_ms" in r else "-")
+        print(f"{r['variant']:9s} {r['view']:5s} {r['graph_ms']:9.4f} "
+              f"{r['event_ms']:9.4f} {r['registers']:5d} "
+              f"{r['spill_stores']:5d}/{r['spill_loads']:<5d} "
+              f"{r['blocks_per_sm']:9d}  {vs:18s} "
+              f"{r.get('max_err_vs_plain', '-')}")
+    print("K2 in turns: " + ", ".join(f"{t['view']} {t['variant']} "
+                                      f"{t['graph_ms']:.4f}"
+                                      for t in rec["k2"]["turns"]))
     for view in ("render", "train"):
         print(f"K1 stops, {view} view: {json.dumps(rec['stops'][view])}")
     print(f"stop_statistics at the render view: "
@@ -3788,7 +3817,7 @@ def main() -> int:
     print(f"device: {kind} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 1. build: every source, and the probes' K1 and K4 builds -------------
+    # 1. build: every source, and the probes' K1, K2 and K4 builds ---------
     from event3dgs_tpu_torch.tools.kernel_probes import (
         offsets_builds,
         ssim_builds,

@@ -7,15 +7,25 @@
 // a 16x8 sub-block: the layout of the forward kernel K1 (rasterize_fwd.cu;
 // layout, cull and staging in composite.cuh).  Each pixel walks its tile's
 // depth-ordered instances back to front, starting just below its stop index
-// from K1, and rebuilds the transmittance in log space by subtraction from
-// K1's final log T, as the TPU kernel does:
+// from K1, and rebuilds the transmittance in linear space from K1's final
+// log T, one reciprocal a composited instance:
 //
-//   logT_i = logT_{i+1} - log1p(-alpha_i),   T_i = exp(logT_i)
-//   dL/dalpha_i = (g·c_i)·T_i - S_i/(1 - alpha_i)
+//   T_last = exp(logT_final),  r_i = 1/(1 - alpha_i),  T_i = T_{i+1}·r_i
+//   dL/dalpha_i = (g·c_i)·T_i - S_i·r_i
 //   S_{i-1} = S_i + alpha_i·T_i·(g·c_i),     S_last = dL/dlogT (the carry
 //                                            starts from the log T cotangent)
 //
-// with g the pixel's rgb cotangent.  alpha <= 0.99, so 1 - alpha >= 0.01.
+// with g the pixel's rgb cotangent.  alpha <= 0.99, so 1 - alpha >= 0.01
+// and r <= 100.  K1 stops a pixel once log T < -13.8 and the last alpha is
+// at most 0.99, so T_last >= e^-18.4 (~1e-8), a normal float, and T only
+// grows back to front: the walk neither underflows nor overflows.  The TPU
+// kernel and the plain version rebuild log T instead (logT_i = logT_{i+1} -
+// log1p(-alpha_i), T_i = exp(logT_i)): the same T in exact arithmetic, a
+// log1pf, an expf and a division a pair where this walk takes a reciprocal
+// and a product.  Over stacks of up to 2,000 layers the linear walk's error
+// stays within twice the log walk's plus a few ulps, and is several times
+// smaller on the long ones, where log T's rounding grows with |log T|
+// (tests/test_torch_transmittance.py).
 // The skips are K1's: the same arithmetic (means relative to the tile
 // origin, the pre-scaled conic, expf, -fmad=false) decides power > 0 and
 // raw < 1/255, and instances at or past the pixel's stop index are never
@@ -41,14 +51,40 @@
 // tile, so there are no atomics and the rows repeat bit for bit; kernel K3
 // (segsum.cu) sums the slot rows of each Gaussian.
 //
-// Numerics: the skip decisions and log T round like K1 and the plain
-// version (-fmad=false); the gradient products and sums (g·c, dL/dalpha,
-// the carry, the nine terms) are explicit __fmaf_rn, which -fmad=false
-// leaves alone, so they round once per fused product and sum.
+// Numerics: the skip decisions round like K1 and the plain version
+// (-fmad=false); T_last is one expf a pixel, r one IEEE reciprocal rounded
+// to nearest (__frcp_rn) and T one product a composited pair, so the rows
+// agree with the plain version's to rounding; the gradient products and
+// sums (g·c, dL/dalpha, the carry, the nine terms) are explicit __fmaf_rn,
+// which -fmad=false leaves alone, so they round once per fused product and
+// sum.  No fast-math intrinsic.
 //
-// Bound: operations, ~38 FP32 instructions and four exponentials,
-// logarithms or divisions per composited (pixel, instance) pair; each tile
-// reads its instance list and its pixels once and writes its slot rows.
+// Bound: operations.  The yardstick (kernel_timing.K2_PAIR_OPS) charges
+// ~38 FP32 instructions and four exponentials, logarithms or divisions per
+// composited (pixel, instance) pair, the log-space walk's count, and is
+// kept: this walk spends two there (expf(power) and the reciprocal).  Each
+// tile reads its instance list and its pixels once and writes its slot
+// rows.
+//
+// Timing-only builds.  tools/kernel_probes.py (``K2_VARIANTS``) builds this
+// file with one of the macros below to see what each cost term of the
+// kernel costs, as K1's E3D_* builds do.  Without a macro each expands to
+// the shipping code.  Every build visits the same (pixel, instance) pairs
+// (the skip decisions and their expf(power) are never touched).  The
+// ablated ones write other rows and have no plain version.
+//   E3D_K2_LOGSPACE  the log-space walk above (the TPU kernel's and the
+//                    plain version's), kept to time the linear walk
+//                    against it in turns; its rows are the plain
+//                    version's to rounding too
+//   E3D_K2_NOLOG     log1pf(-alpha) becomes -alpha (with E3D_K2_LOGSPACE)
+//   E3D_K2_NOEXP     expf(log T) becomes (1 + x/8)^8 (0 below x = -8):
+//                    four FP32 operations, no special function unit (with
+//                    E3D_K2_LOGSPACE)
+//   E3D_K2_NOREDUCE  no butterfly: each lane sums its own nine terms, and
+//                    lanes 0-8 write theirs as the warp's
+//   E3D_K2_NOSTORE   the rows computed, never stored (neither the batch
+//                    rows nor the zeros of unreached instances)
+// Each stand-in still feeds the outputs, so the compiler keeps the loop.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +93,41 @@
 namespace {
 
 using namespace composite;
+
+#if (defined(E3D_K2_NOLOG) || defined(E3D_K2_NOEXP)) && \
+    !defined(E3D_K2_LOGSPACE)
+#error "E3D_K2_NOLOG and E3D_K2_NOEXP ablate the E3D_K2_LOGSPACE walk"
+#endif
+
+#ifdef E3D_K2_NOLOG
+#define E3D_K2_LOG1M(a) (-(a))
+#else
+#define E3D_K2_LOG1M(a) log1pf(-(a))
+#endif
+
+#ifdef E3D_K2_NOEXP
+// (1 + x/8)^8 for x >= -8, else 0
+__device__ __forceinline__ float exp_stand_in(float x) {
+  float y = fmaxf(1.0f + 0.125f * x, 0.0f);
+  y = y * y;
+  y = y * y;
+  return y * y;
+}
+#define E3D_K2_EXP(x) exp_stand_in(x)
+#else
+#define E3D_K2_EXP(x) expf(x)
+#endif
+
+// E3D_K2_NOSTORE stores only a value with one NaN's bits, which no row has
+#ifdef E3D_K2_NOSTORE
+#define E3D_K2_STORE(dst, v)                                          \
+  do {                                                                \
+    const float v_ = (v);                                             \
+    if (__float_as_uint(v_) == 0x7fc00001u) (dst) = v_;               \
+  } while (0)
+#else
+#define E3D_K2_STORE(dst, v) ((dst) = (v))
+#endif
 
 constexpr int NGRAD = 9;  // gradient floats per instance slot
 constexpr int BATCH = 64;  // instances staged per round, a multiple of 32
@@ -125,7 +196,8 @@ composite_backward_kernel(const int* __restrict__ inst_gauss,
   const int* ids = inst_gauss + start;
   const int count = tile_counts[tile];
 
-  float lt[ROWS], carry[ROWS], gr[ROWS], gg[ROWS], gb[ROWS];
+  // T (log T in the E3D_K2_LOGSPACE build) before the instances walked
+  float tk[ROWS], carry[ROWS], gr[ROWS], gg[ROWS], gb[ROWS];
   int stop[ROWS];
   int my_max = 0;
 #pragma unroll
@@ -133,7 +205,11 @@ composite_backward_kernel(const int* __restrict__ inst_gauss,
     const int x = ox + lx, y = oy + ly0 + 2 * k;
     const bool inside = x < width && y < height;
     const size_t p = inside ? (size_t)y * width + x : 0;
-    lt[k] = inside ? logt_final[p] : 0.0f;
+#ifdef E3D_K2_LOGSPACE
+    tk[k] = inside ? logt_final[p] : 0.0f;
+#else
+    tk[k] = inside ? expf(logt_final[p]) : 1.0f;
+#endif
     carry[k] = inside ? g_logt[p] : 0.0f;
     gr[k] = inside ? g_rgb[3 * p] : 0.0f;
     gg[k] = inside ? g_rgb[3 * p + 1] : 0.0f;
@@ -150,7 +226,7 @@ composite_backward_kernel(const int* __restrict__ inst_gauss,
 
   // instances no pixel of the tile reached have zero gradient
   for (int t = max_stop * NGRAD + (int)threadIdx.x; t < count * NGRAD; t += THREADS)
-    rows_out[(size_t)start * NGRAD + t] = 0.0f;
+    E3D_K2_STORE(rows_out[(size_t)start * NGRAD + t], 0.0f);
   if (max_stop == 0) return;
 
   // batches back to front; only the last one (the first walked) is partial
@@ -206,13 +282,20 @@ composite_backward_kernel(const int* __restrict__ inst_gauss,
           const float raw = op * e;
           if (raw < ALPHA_MIN) continue;
           const float alpha = fminf(ALPHA_MAX, raw);
-          const float lt_in = lt[k] - log1pf(-alpha);
-          const float t = expf(lt_in);
-          const float w = alpha * t;
           const float gc = __fmaf_rn(gb[k], cbl, __fmaf_rn(gg[k], cgc, gr[k] * cr));
+#ifdef E3D_K2_LOGSPACE
+          const float lt_in = tk[k] - E3D_K2_LOG1M(alpha);
+          const float t = E3D_K2_EXP(lt_in);
           const float dalpha = __fmaf_rn(gc, t, -(carry[k] / (1.0f - alpha)));
+          tk[k] = lt_in;
+#else
+          const float r = __frcp_rn(1.0f - alpha);
+          const float t = tk[k] * r;  // T before this instance
+          const float dalpha = __fmaf_rn(gc, t, -(carry[k] * r));
+          tk[k] = t;
+#endif
+          const float w = alpha * t;
           carry[k] = __fmaf_rn(w, gc, carry[k]);
-          lt[k] = lt_in;
           any = true;
           if (raw < ALPHA_MAX) {
             const float dpw = dalpha * alpha;
@@ -228,8 +311,15 @@ composite_backward_kernel(const int* __restrict__ inst_gauss,
           v[8] = __fmaf_rn(gb[k], w, v[8]);
         }
         if (__any_sync(FULL, any)) {
+#ifdef E3D_K2_NOREDUCE
+          float s = v[0];
+#pragma unroll
+          for (int q = 1; q < NGRAD; ++q) s += v[q];
+          const int r = lane < NGRAD ? lane : -1;
+#else
           int r;
           const float s = warp_sums9(v, lane, r);
+#endif
           if (r >= 0) s_part[warp][jj][r] = s;
           wrote |= 1u << (jj % 32);
         }
@@ -245,7 +335,7 @@ composite_backward_kernel(const int* __restrict__ inst_gauss,
 #pragma unroll
       for (int w = 0; w < WARPS; ++w)
         if ((s_wrote[w][jj / 32] >> (jj % 32)) & 1) s += s_part[w][jj][r];
-      rows_out[(size_t)(start + b0) * NGRAD + t] = s;
+      E3D_K2_STORE(rows_out[(size_t)(start + b0) * NGRAD + t], s);
     }
   }
   cp_async_wait_all();

@@ -304,8 +304,10 @@ def composite_backward_plain(inst_gauss, tile_offsets, tile_counts, feat,
     Walks ``DEPTH_CHUNK`` instances at a time from the deepest chunk up,
     vectorised over tiles and pixels, with K2's per-pixel carries; the
     per-instance sums over a tile's pixels are ``torch.sum`` (another order
-    than K2's butterfly, and K2 fuses its gradient products and sums into
-    FMAs, so the two agree to rounding)."""
+    than K2's butterfly), K2 fuses its gradient products and sums into
+    FMAs, and it rebuilds T in linear space, one reciprocal a pair, where
+    this walk (the TPU kernel's) rebuilds log T: the two agree to
+    rounding."""
     dev = feat.device
     num_tiles = tile_counts.shape[0]
     tiles_y = num_tiles // tiles_x
@@ -359,10 +361,13 @@ def composite_backward_plain(inst_gauss, tile_offsets, tile_counts, feat,
     return rows
 
 
-def composite_backward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
+def launch_composite_backward(inst_gauss, tile_offsets, tile_counts, feat,
                               tiles_x: int, width: int, height: int, g_rgb,
-                              g_logt, logt, stop, n_slots: int):
-    """Launch K2 (``csrc/rasterize_bwd.cu``) on CUDA tensors."""
+                              g_logt, logt, stop, n_slots: int, defines=()):
+    """Check K2's arguments and launch the build of ``csrc/rasterize_bwd.cu``
+    with the macros ``defines`` (none: the shipping K2) on CUDA tensors.
+    The timing-only builds are launched through here by
+    ``tools/kernel_probes.py``."""
     num_tiles = tile_counts.shape[0]
     kernels.check(inst_gauss, torch.int32, "inst_gauss")
     kernels.check(tile_offsets, torch.int32, "tile_offsets", (num_tiles,))
@@ -382,7 +387,18 @@ def composite_backward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
         inst_gauss.data_ptr(), tile_offsets.data_ptr(), tile_counts.data_ptr(),
         feat.data_ptr(), num_tiles, tiles_x, width, height, g_rgb.data_ptr(),
         g_logt.data_ptr(), logt.data_ptr(), stop.data_ptr(), rows.data_ptr(),
+        defines=defines,
     )
+    return rows
+
+
+def composite_backward_kernel(inst_gauss, tile_offsets, tile_counts, feat,
+                              tiles_x: int, width: int, height: int, g_rgb,
+                              g_logt, logt, stop, n_slots: int):
+    """Launch K2 (``csrc/rasterize_bwd.cu``) on CUDA tensors."""
+    rows = launch_composite_backward(inst_gauss, tile_offsets, tile_counts,
+                                     feat, tiles_x, width, height, g_rgb,
+                                     g_logt, logt, stop, n_slots)
     composite_backward_kernel.launches += 1
     return rows
 

@@ -28,6 +28,14 @@ it.
   graph, replayed: no host enqueue), registers, spill bytes and resident
   blocks per SM, against ``base`` in graph ms; K1's evaluated pairs (the
   sum of its stop index), and from ``clock`` the tile imbalance.
+- ``k2``: each timing-only build of K2 (``K2_VARIANTS``) at the train
+  view and at ``kernel_timing.scale_view``'s 2,097,152-slot view (camera
+  1, its measured instance cap; the 2M column of ``PERF.md``'s kernel
+  table): graph ms, CUDA-event ms, registers, spill bytes and resident
+  blocks per SM against ``base``; each build's rows against the shipping
+  K2's (as a share of their largest magnitude), the shipping rows against
+  the plain version's and against a second launch (bit for bit); then the
+  builds of ``K2_TURNS`` timed in turns (P . . P).
 - ``stops`` (``tools_exp_skiprate.py``): :func:`stop_statistics` of K1's
   stop index at both views.
 - ``relaunch`` (``tools_profile_bwd.py``, ``tools_profile_scalar.py``):
@@ -78,10 +86,10 @@ from event3dgs_tpu_torch.ops import binning, expand, kernels
 from event3dgs_tpu_torch.ops import rasterize_tiled as rt
 from event3dgs_tpu_torch.tools import kernel_timing as kt
 
-MODES = ("stages", "k1", "k4", "stops", "relaunch", "dyngrid", "ssim",
+MODES = ("stages", "k1", "k2", "k4", "stops", "relaunch", "dyngrid", "ssim",
          "offsets")
 # timing-only builds or device times
-CARD_MODES = ("k1", "k4", "relaunch", "ssim", "offsets")
+CARD_MODES = ("k1", "k2", "k4", "relaunch", "ssim", "offsets")
 CALLS = 20  # profiled calls per kernel
 STAGE_CALLS = 5  # profiled, event-timed and host-timed calls per stage
 TRAIN_IDX = (1, 1, 2)  # bench.py's views: main 1, event pair 1 → 2
@@ -93,19 +101,24 @@ DYNGRID_SEEDED_COUNTS = (3, 7, 0, -1, DYNGRID_CAPACITY + 5, 3)
 BLOCK = 8 * 128
 
 
+SOURCES = {"K1": "rasterize_fwd", "K2": "rasterize_bwd", "K4": "expand"}
+
+
 class Variant:
-    """A build of K1 or K4 with some of its source's ablation macros,
+    """A build of K1, K2 or K4 with some of its source's ablation macros,
     launched through the shipping wrapper's checks.  Every build but
     ``base`` (the shipping library) and K1's ``clock`` (the shipping
-    arithmetic) is timing only: it composites or expands something else and
-    has no plain version.  ``launches`` counts the calls of this build, a
-    call captured into a CUDA graph included (its replays are not)."""
+    arithmetic) is timing only: it composites, differentiates or expands
+    something else and has no plain version (K2's ``logspace`` keeps the
+    plain version's walk, for timing against the shipping one).
+    ``launches`` counts the calls of this build, a call captured into a
+    CUDA graph included (its replays are not)."""
 
     def __init__(self, kernel: str, name: str, defines: tuple, what: str,
                  count_rows: bool = True):
         self.kernel, self.name, self.defines = kernel, name, defines
         self.what, self.count_rows = what, count_rows
-        self.source = "rasterize_fwd" if kernel == "K1" else "expand"
+        self.source = SOURCES[kernel]
         self.launches = 0
 
     @property
@@ -120,6 +133,8 @@ class Variant:
         if self.kernel == "K1":
             out = rt.launch_composite_forward(*args, defines=self.defines,
                                               clock=clock)
+        elif self.kernel == "K2":
+            out = rt.launch_composite_backward(*args, defines=self.defines)
         else:
             out = expand.launch_expand_instances(
                 *args, count_rows=self.count_rows, defines=self.defines)
@@ -143,6 +158,22 @@ K1_VARIANTS = {v.name: v for v in (
     Variant("K1", "clock", ("E3D_CLOCK",),
             "the shipping arithmetic with each block's entry and exit time"),
 )}
+K2_VARIANTS = {v.name: v for v in (
+    Variant("K2", "base", (), "the shipping K2 (T in linear space)"),
+    Variant("K2", "logspace", ("E3D_K2_LOGSPACE",),
+            "log T rebuilt by log1pf, T by expf, a division a pair"),
+    Variant("K2", "nolog", ("E3D_K2_LOGSPACE", "E3D_K2_NOLOG"),
+            "logspace, and log1pf(-alpha) as -alpha"),
+    Variant("K2", "noexp", ("E3D_K2_LOGSPACE", "E3D_K2_NOEXP"),
+            "logspace, and expf(log T) as (1 + x/8)^8"),
+    Variant("K2", "noreduce", ("E3D_K2_NOREDUCE",),
+            "no butterfly: lanes 0-8 write their own terms' sum"),
+    Variant("K2", "nostore", ("E3D_K2_NOSTORE",), "no row stores"),
+)}
+K2_LARGE = kt.SCALE_SLOTS  # slots of the k2 probe's second view
+# timed in turns after the builds (P . . P): the log-space walk against
+# the shipping one
+K2_TURNS = ("logspace", "base", "base", "logspace")
 K4_VARIANTS = {v.name: v for v in (
     Variant("K4", "base", (), "the shipping K4 with the count rows"),
     Variant("K4", "nochain", ("E3D_K4_NOCHAIN",),
@@ -298,8 +329,9 @@ def max_abs_err(got, want) -> float:
 
 
 def variants():
-    """Every K1 and K4 build of the probes."""
-    return [*K1_VARIANTS.values(), *K4_VARIANTS.values()]
+    """Every K1, K2 and K4 build of the probes."""
+    return [*K1_VARIANTS.values(), *K2_VARIANTS.values(),
+            *K4_VARIANTS.values()]
 
 
 def variant_builds():
@@ -615,6 +647,36 @@ class TrainView:
     stop: torch.Tensor | None = None  # K1's stop index
     rows: torch.Tensor | None = None  # K2's rows
 
+    def hold(self, width: int, height: int, device) -> None:
+        """Render the main view through the kernels and hold its outputs:
+        K1's inputs, K2's (with upstream gradients from seed 7) and K2's
+        rows."""
+        from event3dgs_tpu_torch.models import activated
+        from event3dgs_tpu_torch.ops.projection import project_gaussians
+        from event3dgs_tpu_torch.ops.render import gaussian_colors
+
+        cam = self.data.cameras[TRAIN_IDX[0]]
+        with torch.no_grad():
+            act = activated(self.state.params)
+            proj = project_gaussians(act.means3d, act.scales, act.rotations,
+                                     cam, opacities=act.opacities)
+            colors = gaussian_colors(3, act.features, act.means3d,
+                                     cam.camera_center)
+            b = binning.bin_gaussians(
+                proj.mean2d, proj.depth, proj.radius, proj.valid, width,
+                height, self.cap, opacities=act.opacities, conic=proj.conic)
+            feat = rt.pack_features(proj.mean2d, proj.conic, colors,
+                                    act.opacities)
+        self.k1_args = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat,
+                        b.num_tiles_x, width, height)
+        _, logt, stop = rt.composite_forward(*self.k1_args)
+        g = torch.Generator().manual_seed(7)
+        g_rgb = (torch.rand(height, width, 3, generator=g) - 0.5).to(device)
+        g_logt = (torch.rand(height, width, generator=g) - 0.5).to(device)
+        self.k2_args = self.k1_args + (g_rgb, g_logt, logt, stop, self.cap)
+        self.binning, self.stop = b, stop
+        self.rows = rt.composite_backward(*self.k2_args)
+
 
 @dataclass
 class Probes:
@@ -630,6 +692,7 @@ class Probes:
     outputs: dict = field(default_factory=dict)
     _render: RenderView | None = None
     _train: TrainView | None = None
+    _large: TrainView | None = None
 
     @property
     def on_card(self) -> bool:
@@ -674,40 +737,20 @@ class Probes:
 
     def held_render(self) -> TrainView:
         """The train view's main render through the kernels, its outputs
-        held: K1's inputs, K2's (with upstream gradients from seed 7) and
-        K2's rows."""
+        held (:meth:`TrainView.hold`)."""
         tv = self.train_view()
         if tv.binning is None:
-            from event3dgs_tpu_torch.models import activated
-            from event3dgs_tpu_torch.ops.projection import project_gaussians
-            from event3dgs_tpu_torch.ops.render import gaussian_colors
-
-            cam = tv.data.cameras[TRAIN_IDX[0]]
-            with torch.no_grad():
-                act = activated(tv.state.params)
-                proj = project_gaussians(act.means3d, act.scales,
-                                         act.rotations, cam,
-                                         opacities=act.opacities)
-                colors = gaussian_colors(3, act.features, act.means3d,
-                                         cam.camera_center)
-                b = binning.bin_gaussians(
-                    proj.mean2d, proj.depth, proj.radius, proj.valid,
-                    self.width, self.height, tv.cap,
-                    opacities=act.opacities, conic=proj.conic)
-                feat = rt.pack_features(proj.mean2d, proj.conic, colors,
-                                        act.opacities)
-            tv.k1_args = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat,
-                          b.num_tiles_x, self.width, self.height)
-            _, logt, stop = rt.composite_forward(*tv.k1_args)
-            g = torch.Generator().manual_seed(7)
-            g_rgb = (torch.rand(self.height, self.width, 3, generator=g)
-                     - 0.5).to(self.device)
-            g_logt = (torch.rand(self.height, self.width, generator=g)
-                      - 0.5).to(self.device)
-            tv.k2_args = tv.k1_args + (g_rgb, g_logt, logt, stop, tv.cap)
-            tv.binning, tv.stop = b, stop
-            tv.rows = rt.composite_backward(*tv.k2_args)
+            tv.hold(self.width, self.height, self.device)
         return tv
+
+    def held_large(self) -> TrainView:
+        """``kernel_timing.scale_view``'s state at ``K2_LARGE`` slots, its
+        main view rendered and held as :meth:`held_render`'s."""
+        if self._large is None:
+            tv = TrainView(*kt.scale_view(self.device, K2_LARGE))
+            tv.hold(kt.WIDTH, kt.HEIGHT, self.device)
+            self._large = tv
+        return self._large
 
     # -------------------------------------------------------------- modes
 
@@ -758,6 +801,46 @@ class Probes:
         self.outputs["k1"] = outputs
         return {"mode": "k1", "live_instances": rv.live, "variants": rows}
 
+    def k2(self) -> dict:
+        """Each K2 build at the train view and at the 2M view, timed by
+        graph and CUDA events only (late in a long process the profiler may
+        see none of a launch at 2M); then ``K2_TURNS`` in turns."""
+        rows, turns = [], []
+        for view, tv in (("train", self.held_render()),
+                         ("2M", self.held_large())):
+            live = int(tv.binning.tile_counts.sum())
+            shipping = tv.rows[:live]
+            plain = rt.composite_backward_plain(*tv.k2_args)[:live]
+            top = float(plain.abs().max())
+            common = {"view": view, "gaussians": tv.k1_args[3].shape[0],
+                      "instance_cap": tv.cap, "live_instances": live,
+                      "evaluated_pairs": int(tv.stop.long().sum()),
+                      # skipped at power > 0, at raw < 1/255, composited,
+                      # culled (rasterize_tiled._composite_plain)
+                      "pairs": rt._composite_plain(*tv.k1_args)[3].tolist()}
+            base = None
+            for v in K2_VARIANTS.values():
+                call = lambda v=v: v(*tv.k2_args)
+                out = call()[:live]
+                row = {**common, **self._variant_row(
+                    v, call, "composite_backward_kernel", base,
+                    profiled=False)}
+                # as a share of the plain rows' largest magnitude
+                row["max_err_vs_shipping"] = max_abs_err((out,),
+                                                         (shipping,)) / top
+                if v.name in ("base", "logspace"):
+                    row["max_err_vs_plain"] = max_abs_err((out,),
+                                                          (plain,)) / top
+                    row["rerun_equal"] = bool(torch.equal(out, call()[:live]))
+                base = row if base is None else base
+                rows.append(row)
+            for name in K2_TURNS:
+                v = K2_VARIANTS[name]
+                turns.append({"view": view, "variant": name,
+                              "graph_ms": kt.graph_ms(
+                                  lambda v=v: v(*tv.k2_args), CALLS)})
+        return {"mode": "k2", "variants": rows, "turns": turns}
+
     def k4(self) -> dict:
         rv = self.render_view()
         shipping = expand.expand_instances(*rv.k4_args, True)
@@ -773,30 +856,37 @@ class Probes:
             rows.append(row)
         return {"mode": "k4", "cap": rv.k4_args[5], "variants": rows}
 
-    def _variant_row(self, v: Variant, call, function: str, base) -> dict:
-        """A build's device and event ms per call, its -Xptxas -v report
-        and its resident blocks per SM, against ``base``'s row."""
+    def _variant_row(self, v: Variant, call, function: str, base,
+                     profiled: bool = True) -> dict:
+        """A build's device (``profiled``) and event ms per call, its
+        -Xptxas -v report and its resident blocks per SM, against
+        ``base``'s row."""
         log = kernels.build([(v.source, v.defines)])[
             kernels.build_key(v.source, v.defines)]
         report = kt.ptxas_report(log, function)
         if v.kernel == "K1":
             occ = kernels.occupancy(v.source, "e3d_composite_forward_occupancy",
                                     defines=v.defines)
+        elif v.kernel == "K2":
+            occ = kernels.occupancy(v.source,
+                                    "e3d_composite_backward_occupancy",
+                                    defines=v.defines)
         else:
             nt = self.render_view().k4_args[-1] if v.count_rows else 0
             occ = kernels.occupancy(v.source, "e3d_expand_occupancy", nt,
                                     defines=v.defines)
-        prof = kt.device_profile(call, CALLS, expect=(function,))
-        if function not in prof:
-            raise RuntimeError(f"{v.label}: the profiler saw no {function}")
         row = {"variant": v.name, "defines": list(v.defines), "what": v.what,
                "timing_only": v.timing_only,
-               "library": kernels.library_path(v.source, v.defines).name,
-               "device_ms": kt.per_launch_ms(prof, (function,)),
-               "profiled_per_call": prof[function][1],
-               "event_ms": kt.cuda_ms(call, CALLS),
-               "graph_ms": kt.graph_ms(call, CALLS),
-               **report, "blocks_per_sm": occ[1]}
+               "library": kernels.library_path(v.source, v.defines).name}
+        if profiled:
+            prof = kt.device_profile(call, CALLS, expect=(function,))
+            if function not in prof:
+                raise RuntimeError(f"{v.label}: the profiler saw no {function}")
+            row.update(device_ms=kt.per_launch_ms(prof, (function,)),
+                       profiled_per_call=prof[function][1])
+        row.update(event_ms=kt.cuda_ms(call, CALLS),
+                   graph_ms=kt.graph_ms(call, CALLS), **report,
+                   blocks_per_sm=occ[1])
         if base is not None:  # in graph time, which no host work enters
             row["vs_base_ms"] = row["graph_ms"] - base["graph_ms"]
             row["vs_base_share"] = row["graph_ms"] / base["graph_ms"]
@@ -1101,7 +1191,7 @@ def run_probes(modes, device, n=kt.N_GAUSSIANS, width=kt.WIDTH,
     """Run ``modes`` in order, printing one JSON line each; returns the
     :class:`Probes` with their records and outputs."""
     probes = Probes(torch.device(device), n, width, height)
-    if probes.on_card and any(m in ("k1", "k4") for m in modes):
+    if probes.on_card and any(m in ("k1", "k2", "k4") for m in modes):
         kernels.build(variant_builds())
     if probes.on_card and "ssim" in modes:
         kernels.build(ssim_builds())

@@ -829,26 +829,30 @@ def test_k1_probe_builds_with_the_shipping_arithmetic_equal_k1(name, variant):
 
 @pytest.mark.gpu
 def test_every_probe_build_compiles_and_launches():
-    """Each timing-only build of K1 and K4 compiles, reports its kernel to
-    ``-Xptxas -v`` and launches on a small scene."""
+    """Each timing-only build of K1, K2 and K4 compiles, reports its kernel
+    to ``-Xptxas -v`` and launches on a small scene."""
     from event3dgs_tpu_torch.tools import kernel_probes as kp
     from event3dgs_tpu_torch.tools import kernel_timing as kt
 
     need_card()
     logs = kernels.build(kp.variant_builds())
     k1_args, k4_args = _composite_inputs("binning_seed0", "cuda")
+    _, k2_args = _backward_inputs("binning_seed0", None, "cuda")
+    function = {"K1": "composite_forward_kernel",
+                "K2": "composite_backward_kernel", "K4": "expand_kernel"}
     for v in kp.variants():
-        kernel = ("composite_forward_kernel" if v.kernel == "K1"
-                  else "expand_kernel")
         assert kt.ptxas_report(logs[kernels.build_key(v.source, v.defines)],
-                               kernel)["registers"] > 0
+                               function[v.kernel])["registers"] > 0
         clock = None
         if v.name == "clock":
             clock = torch.zeros(k1_args[2].shape[0], 2, dtype=torch.int64,
                                 device="cuda")
-        out = v(*k1_args, clock=clock) if v.kernel == "K1" else v(*k4_args)
+        if v.kernel == "K1":
+            out = v(*k1_args, clock=clock)[0]
+        else:
+            out = v(*k2_args) if v.kernel == "K2" else v(*k4_args)[0]
         torch.cuda.synchronize()
-        assert out[0].shape[0] > 0, v.label
+        assert out.shape[0] > 0, v.label
 
 
 @pytest.mark.gpu

@@ -169,6 +169,57 @@ def test_ssim_variant_catalogue():
     assert kp.max_abs_err([torch.tensor([1.0])], [torch.tensor([0.25])]) == 0.75
 
 
+K2_NAMES = ["base", "logspace", "nolog", "noexp", "noreduce", "nostore"]
+
+
+def test_k2_variant_catalogue():
+    """K2's builds: base is the shipping library, every other build's
+    macros are ones ``csrc/rasterize_bwd.cu`` tests, each build its own
+    library; the log-space ablations carry the log-space walk (the source
+    refuses them without it); the probe times the log-space walk against
+    the shipping one in turns, needs the card, and counts no launch that
+    its checks refuse."""
+    assert list(kp.K2_VARIANTS) == K2_NAMES
+    base = kp.K2_VARIANTS["base"]
+    assert base.defines == () and not base.timing_only
+    assert kernels.library_path(base.source) == _shipping_path("rasterize_bwd")
+    text = (kernels.CSRC / "rasterize_bwd.cu").read_text()
+    want = {"logspace": ("E3D_K2_LOGSPACE",),
+            "nolog": ("E3D_K2_LOGSPACE", "E3D_K2_NOLOG"),
+            "noexp": ("E3D_K2_LOGSPACE", "E3D_K2_NOEXP"),
+            "noreduce": ("E3D_K2_NOREDUCE",),
+            "nostore": ("E3D_K2_NOSTORE",)}
+    for v in kp.K2_VARIANTS.values():
+        assert v.kernel == "K2" and v.source == "rasterize_bwd"
+        assert v.label == f"K2 {v.name}"
+        assert v.timing_only == (v.name != "base")
+        assert v.defines == want.get(v.name, ())
+        for d in v.defines:
+            assert re.search(rf"#if(n?def| defined\()\s*{d}\b", text), (v.name, d)
+    assert re.search(r"#if \(defined\(E3D_K2_NOLOG\) \|\| defined\(E3D_K2_NOEXP\)\)"
+                     r" && \\\s*!defined\(E3D_K2_LOGSPACE\)\s*#error", text)
+    builds = {(v.source, v.defines) for v in kp.K2_VARIANTS.values()}
+    assert builds <= set(kp.variant_builds())
+    assert len({kernels.library_path(s, d) for s, d in builds}) == len(K2_NAMES)
+    assert kp.K2_TURNS == ("logspace", "base", "base", "logspace")
+    assert kp.K2_LARGE == kt.SCALE_SLOTS == 2_097_152
+    assert "k2" in kp.MODES and "k2" in kp.CARD_MODES
+    proj, colors, opac, w, h = scene(n=30, seed=0, w=64, h=32)
+    b = binning.bin_gaussians(proj.mean2d, proj.depth, proj.radius,
+                              proj.valid, w, h, 256, opacities=opac,
+                              conic=proj.conic)
+    feat = rt.pack_features(proj.mean2d, proj.conic, colors, opac)
+    fwd = (b.inst_gauss, b.tile_offsets, b.tile_counts, feat, b.num_tiles_x,
+           w, h)
+    _, logt, stop = rt.composite_forward(*fwd)
+    args = fwd + (torch.zeros(h, w, 3), torch.zeros(h, w), logt, stop, 256)
+    v = kp.K2_VARIANTS["logspace"]
+    before = v.launches
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        v(*args)
+    assert v.launches == before
+
+
 def test_variant_functions_are_declared():
     # the clock function exists only in the E3D_CLOCK build of K1; the
     # shipping library is never asked for it
